@@ -1,0 +1,50 @@
+"""The port stands alone: no module under ``src/repro_torch/`` and not
+``chip_smoke.py`` imports ``jax`` or the reference package ``repro`` (the
+card's machine has no JAX), checked on the source's syntax tree."""
+import ast
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parent.parent
+SOURCES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def imported_roots(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom):
+            if node.level == 0 and node.module:
+                yield node.module.split(".")[0]
+        elif (isinstance(node, ast.Call) and getattr(node.func, "id", None)
+              in ("__import__",) and node.args
+              and isinstance(node.args[0], ast.Constant)):
+            yield str(node.args[0].value).split(".")[0]
+
+
+def test_port_sources_exist():
+    names = {p.relative_to(ROOT).as_posix() for p in SOURCES}
+    for must in ("src/repro_torch/core/partitioner.py",
+                 "src/repro_torch/kernels/ops.py", "chip_smoke.py"):
+        assert must in names
+
+
+@pytest.mark.parametrize("path", SOURCES,
+                         ids=[p.relative_to(ROOT).as_posix() for p in SOURCES])
+def test_no_jax_or_reference_imports(path):
+    bad = sorted(set(imported_roots(path)) & set(FORBIDDEN))
+    assert not bad, f"{path.name} imports {bad}"
+
+
+def test_checker_sees_every_import_form(tmp_path):
+    src = tmp_path / "m.py"
+    src.write_text("import jax.numpy as jnp\nfrom repro.core import x\n"
+                   "def f():\n    import jaxlib\n    __import__('repro')\n"
+                   "from . import sibling\nimport repro_torch\n")
+    assert sorted(set(imported_roots(src))) == ["jax", "jaxlib", "repro",
+                                                "repro_torch"]
