@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port of the partitioner on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port on one NVIDIA GPU: the partitioner and the
+two-tower retrieval serving path over a partition-sharded item table.
 
     python3 chip_smoke.py
 
@@ -11,7 +12,9 @@ non-zero:
            parallel), with each kernel's -Xptxas -v register / shared
            memory / spill lines;
   kernels  every kernel against its plain PyTorch version on the card, at
-           the main path's shapes and at a ragged one, with the device time
+           the main path's shapes (for the bag kernels every shape the
+           recsys path gives them: 512, 262,144 and 1 bags) and at a
+           ragged one, with the device time
            of the kernel, of the plain version and of one PyTorch call
            computing the same function where there is one (L2 flushed
            before each call; ``warm_ms`` without the flush), the time per
@@ -30,17 +33,45 @@ non-zero:
            0 just before it: the path-walking oracle (``verify``) must pass
            for both, the device backend must be within 1.05x of the host
            backend, and all four kernels (``partition_gain`` because every
-           level is dense at k = 8) must have launched in the device run.
+           level is dense at k = 8) must have launched in the device run;
+  recsys   the two-tower model at its full width (``configs/
+           two_tower_retrieval.py:FULL``: 1M x 256 item table, towers
+           1024-512-256, history 50), launch counts set to 0 just before
+           it. Plan: ``RowAccessStats(1_000_000)`` records the ``user_hist``
+           bags of ``recsys_batches(..., 512, 50, 16, seed=0)``
+           (``RECSYS_PLAN_BATCHES`` batches) and ``plan_shards(stats,
+           machine="gpu-superpod")`` places the rows on k = 64 leaves; the
+           plan must pass ``check()`` and its makespan must be below a
+           seeded random balanced assignment's. Table: ``TwoTower(FULL)``
+           from a seed on the card, its item table permuted into a
+           ``ShardedEmbeddingTable`` by the plan. Serve: ``score`` with
+           ``row_perm`` at ``serve_p99`` (512) and ``serve_bulk``
+           (262,144), cold and warm; one traced request of each gives the
+           device idle share. Lookup: the table's fused ``lookup_bags`` of
+           the same histories and of one retrieve query, cold and warm,
+           with its own launch counts (``score`` does not call it).
+           Retrieve: ``item_embed`` over all 1M items once, then
+           ``retrieve(top_k=1024)`` per query, warm. Then, outside the
+           counted run: ``score`` and ``user_embed`` equal the unpermuted
+           model's bitwise, the 512-bag ``lookup_bags`` equals
+           ``embedding_bag`` on the original table bitwise, ``bag_combine``
+           on the path's gathered histories and ``lookup_bags``' output
+           agree with the plain bag sum at all three shapes, and the top-k
+           values equal a full sort's.
+           ``bag_combine``, ``gather_combine`` and (in the plan step)
+           ``quotient_link_loads`` must have launched.
 
 Then one line ``{"kernels": [...]}``: each kernel's launches on the path
-that drives it (``full`` for all but ``partition_gain``, ``small`` for it),
-its launches on both paths, and the kernels phase's numbers at the main
-path's shape. Last, the result line ``{"ok": true, "device": {...}}``.
+that drives it (``full`` for the partitioner's kernels but
+``partition_gain``, ``small`` for it, ``recsys`` for the bag kernels), its
+launches on every path, and the kernels phase's numbers at the main path's
+shape. Last, the result line ``{"ok": true, "device": {...}}``.
 Without a CUDA device it exits 2 and prints no result; it never runs on the
 CPU.
 """
 from __future__ import annotations
 
+import functools
 import json
 import subprocess
 import sys
@@ -67,19 +98,32 @@ QUALITY_BAND = 1.05
 H100_BYTES_PER_S = 3.35e12
 H100_F32_PER_S = 67e12
 
-# name: (source, the TPU kernel it replaces, the driven path that runs it;
-# partition_gain needs dense levels, n*k <= 200,000, which the full cell
-# never reaches at k = 64)
+# Batches of 512 recorded histories behind the recsys phase's shard plan
+RECSYS_PLAN_BATCHES = 100
+RECSYS_TOP_K = 1024
+RECSYS_QUERIES = 8
+
+# name: (source, the TPU kernel it replaces, the driven paths that must
+# launch it, the first being the one the kernels line reports; the small
+# path's device V-cycle runs every partitioner kernel; partition_gain needs
+# dense levels, n*k <= 200,000, which the full cell never reaches at k = 64;
+# the recsys plan's host V-cycle scores through quotient_link_loads only)
 KERNEL_INFO = {
     "match_keys": ("src/repro_torch/csrc/match_keys.cu",
-                   "src/repro/kernels/match_keys.py:60", "full"),
+                   "src/repro/kernels/match_keys.py:60", ("full", "small")),
     "bucket_assign": ("src/repro_torch/csrc/bucket_assign.cu",
-                      "src/repro/kernels/bucket_assign.py:69", "full"),
+                      "src/repro/kernels/bucket_assign.py:69",
+                      ("full", "small")),
     "quotient_link_loads": ("src/repro_torch/csrc/quotient_link_loads.cu",
                             "src/repro/kernels/quotient_link_loads.py:99",
-                            "full"),
+                            ("full", "small", "recsys")),
     "partition_gain": ("src/repro_torch/csrc/partition_gain.cu",
-                       "src/repro/kernels/partition_gain.py:67", "small"),
+                       "src/repro/kernels/partition_gain.py:67", ("small",)),
+    "bag_combine": ("src/repro_torch/csrc/bag_combine.cu",
+                    "src/repro/kernels/bag_combine.py:59", ("recsys",)),
+    "gather_combine": ("src/repro_torch/csrc/gather_combine.cu",
+                       "src/repro/kernels/gather_combine.py:85",
+                       ("recsys",)),
 }
 
 
@@ -198,24 +242,39 @@ def phase_build(state):
          ptxas=rep["ptxas"])
 
 
+def _flush_buffer(state):
+    """256 MB, read before each timed call to evict the 50 MB L2."""
+    import torch
+    if "flush" not in state:
+        state["flush"] = torch.ones(64 << 20, dtype=torch.int32,
+                                    device="cuda")
+    return state["flush"]
+
+
 def _check_kernel(state, name, shape, kern, plain, exact, rtol=0.0, atol=0.0,
-                  iters=30, library=None, bytes_moved=0.0, flops=0.0):
+                  tolerance=None, iters=30, library=None, bytes_moved=0.0,
+                  flops=0.0, extra=None):
+    """Hold ``kern()`` against ``plain()``: equal where ``exact``, else
+    ``|got - want| <= atol + rtol * |want|`` elementwise (``atol`` a number
+    or a tensor, ``tolerance`` its description), then time both."""
     import torch
     got = kern()
     want = plain()
     torch.cuda.synchronize()
+    err_t = (got.double() - want.double()).abs()
     if exact:
-        ok = torch.equal(got, want)
+        ok, tolerance = torch.equal(got, want), "exact"
     else:
-        ok = torch.allclose(got, want, rtol=rtol, atol=atol)
-    err = float((got.double() - want.double()).abs().max()) \
-        if got.numel() else 0.0
-    row = dict(kernel=name, shape=shape, max_abs_err=err,
-               tolerance="exact" if exact else f"rtol {rtol}, atol {atol}",
-               ms=device_ms(kern, iters, flush=state["flush"]),
-               plain_ms=device_ms(plain, iters, flush=state["flush"]),
+        ok = bool((err_t <= atol + rtol * want.double().abs()).all())
+        tolerance = tolerance or f"rtol {rtol}, atol {atol}"
+    err = float(err_t.max()) if got.numel() else 0.0
+    flush = _flush_buffer(state)
+    row = dict(kernel=name, shape=shape, max_abs_err=err, tolerance=tolerance,
+               **(extra or {}),
+               ms=device_ms(kern, iters, flush=flush),
+               plain_ms=device_ms(plain, iters, flush=flush),
                library_ms=(None if library is None
-                           else device_ms(library, iters, flush=state["flush"])),
+                           else device_ms(library, iters, flush=flush)),
                warm_ms=device_ms(kern, iters),
                plain_warm_ms=device_ms(plain, iters),
                call_ms=cuda_ms(kern, iters),
@@ -241,8 +300,6 @@ def phase_kernels(state):
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
-    # 256 MB, read before each timed call to evict the 50 MB L2
-    state["flush"] = torch.ones(64 << 20, dtype=torch.int32, device=dev)
 
     # match_keys: level 0 of the full phase (1,548,288 arcs), and ragged
     for m in (1_548_288, 10_001):
@@ -314,6 +371,104 @@ def phase_kernels(state):
             bytes_moved=8.0 * gs.n_nodes * d + 4.0 * gs.n_nodes
             + 4.0 * gs.n_nodes * k,
             flops=float(gs.n_arcs))
+
+
+@functools.lru_cache(maxsize=None)
+def recsys_request(n_items, n_cats, batch, seed=1):
+    """One batch of the recsys stream (``repro_torch.data.pipeline``) on
+    the card, with the mean-combine weights of its histories (made once per
+    argument tuple; nothing writes to it)."""
+    import torch
+
+    from repro_torch.data.pipeline import recsys_batches
+    b = next(recsys_batches(n_items, n_cats, batch, 50, 16, seed=seed))
+    out = {k: torch.as_tensor(v, device="cuda") for k, v in b.items()}
+    valid = (out["user_hist"] >= 0).float()
+    out["w"] = valid / valid.sum(-1, keepdim=True).clamp_min(1)
+    return out
+
+
+def bag_plain(rows_of, w, chunk=1 << 14):
+    """(plain bag sums, order tolerance), both ``[B, F]``, of the gathered
+    rows ``rows_of(i, j)`` (``[j - i, D, F]``, bags i..j-1) and weights
+    ``w [B, D]``, chunk by chunk of bags so that no temporary outgrows one
+    chunk's. The tolerance bounds two float32 sums of the same D products
+    taken in different orders (``bag_combine.order_tolerance``)."""
+    import torch
+
+    from repro_torch.kernels import bag_combine
+    want, tol = [], []
+    for i in range(0, w.shape[0], chunk):
+        rows, wc = rows_of(i, i + chunk), w[i:i + chunk]
+        want.append(bag_combine.plain(rows, wc))
+        tol.append(bag_combine.order_tolerance(rows, wc))
+    return torch.cat(want), torch.cat(tol)
+
+
+BAG_TOLERANCE = ("rtol 1e-6 + 2*D*2^-24*sum_d|w*row| (two float32 sums in "
+                 "different orders)")
+
+
+def phase_kernels_recsys(state):
+    """bag_combine and gather_combine at the recsys path's shapes (its
+    stream's histories on a 1M x 256 table): serve_p99 (512 bags, the main
+    shape), serve_bulk (262,144 bags; bag_combine reads a 13.4 GB
+    [262144, 50, 256] tensor) and one retrieve query (1 bag), and at a
+    ragged shape."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs.two_tower_retrieval import FULL, SHAPES
+    from repro_torch.kernels import bag_combine, gather_combine
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    table = torch.randn(FULL.n_items, FULL.embed_dim, generator=gen,
+                        device=dev) * 0.01
+    table_r = torch.randn(5000, 96, generator=gen, device=dev)
+    p99 = recsys_request(FULL.n_items, FULL.n_cats,
+                         SHAPES["serve_p99"].meta["batch"])
+    bulk = recsys_request(FULL.n_items, FULL.n_cats,
+                          SHAPES["serve_bulk"].meta["batch"])
+    cases = [
+        ("serve_p99", table, p99["user_hist"].clamp_min(0), p99["w"]),
+        ("ragged", table_r,
+         torch.randint(0, 5000, (37, 7), generator=gen, device=dev,
+                       dtype=torch.int32),
+         torch.rand(37, 7, generator=gen, device=dev)),
+        ("retrieve_query", table, p99["user_hist"][:1].clamp_min(0),
+         p99["w"][:1]),
+        ("serve_bulk", table, bulk["user_hist"].clamp_min(0), bulk["w"]),
+    ]
+    for label, tbl, idx, w in cases:
+        (b, d), f = idx.shape, tbl.shape[1]
+        rows = tbl[idx]
+        unique = int(torch.unique(idx).numel())
+        tol = bag_plain(lambda i, j, rows=rows: rows[i:j], w)[1]
+        iters = 5 if label == "serve_bulk" else 30
+        flops = 2.0 * b * d * f
+        # the rows the bags name, each read once (a Zipf stream repeats hot
+        # rows; the bound counts them once), ids, weights, output
+        per_slot = 4.0 * b * d * f + 8.0 * b * d + 4.0 * b * f
+        once = 4.0 * unique * f + 8.0 * b * d + 4.0 * b * f
+        _check_kernel(
+            state, "gather_combine", [b, d, f, tbl.shape[0], label],
+            lambda: gather_combine.gather_combine(tbl, idx, w),
+            lambda: gather_combine.plain(tbl, idx, w), exact=False,
+            rtol=1e-6, atol=tol, tolerance=BAG_TOLERANCE, iters=iters,
+            library=lambda: F.embedding_bag(idx, tbl, per_sample_weights=w,
+                                            mode="sum"),
+            bytes_moved=once, flops=flops,
+            extra=dict(unique_rows=unique,
+                       bound_ms_every_slot=bound(per_slot, flops)[0]))
+        _check_kernel(
+            state, "bag_combine", [b, d, f, label],
+            lambda: bag_combine.bag_combine(rows, w),
+            lambda: bag_combine.plain(rows, w), exact=False, rtol=1e-6,
+            atol=tol, tolerance=BAG_TOLERANCE, iters=iters,
+            library=lambda: torch.bmm(w[:, None, :], rows),
+            bytes_moved=4.0 * b * d * f + 4.0 * b * d + 4.0 * b * f,
+            flops=flops)
 
 
 def host_makespan(g, topo, part):
@@ -403,9 +558,9 @@ def phase_full(state):
 
 
 def _require_launched(counts, path):
-    """The full path must launch its kernels; the small path all four."""
-    for name, (_, _, kernel_path) in KERNEL_INFO.items():
-        if (path == "small" or kernel_path == path) and counts[name] <= 0:
+    """Every kernel that lists ``path`` must have launched on it."""
+    for name, (_, _, paths) in KERNEL_INFO.items():
+        if path in paths and counts[name] <= 0:
             raise AssertionError(f"{name} never launched on the {path} path")
 
 
@@ -441,15 +596,237 @@ def phase_small(state):
     _require_launched(counts, "small")
 
 
-PHASES = (phase_env, phase_build, phase_kernels, phase_full, phase_small)
+def _wall(fn, reps=1):
+    """(result of the last call, mean wall ms per call), synchronised."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3 / reps
+
+
+def _traced(fn):
+    """One run of ``fn`` under torch.profiler: wall s, device busy s and
+    idle share (busy over that run's wall, profiler overhead included)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy, _ = device_busy_and_span(prof)
+    dev_rows = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+    top = sorted(dev_rows, key=lambda e: -e.self_device_time_total)[:6]
+    return dict(wall_s=wall, device_busy_s=busy,
+                device_idle_share=1.0 - busy / wall,
+                top_device=[[e.key, e.self_device_time_total / 1e6, e.count]
+                            for e in top])
+
+
+def _since(c0):
+    """Launches per kernel since the counts ``c0`` were read."""
+    from repro_torch.kernels import ops
+    return {k: n - c0[k] for k, n in ops.launch_counts().items()}
+
+
+def phase_recsys(state):
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.two_tower_retrieval import FULL, SHAPES
+    from repro_torch.core import baselines
+    from repro_torch.core.initial import random_partition
+    from repro_torch.core.machine import MachineSpec
+    from repro_torch.data.pipeline import item_categories, recsys_batches
+    from repro_torch.embed import (RowAccessStats, ShardedEmbeddingTable,
+                                   plan_shards)
+    from repro_torch.graph.graph import from_edges
+    from repro_torch.kernels import bag_combine, ops
+    from repro_torch.models.recsys import TwoTower
+    dev = torch.device("cuda")
+    n_items, hist = FULL.n_items, FULL.hist_len
+    ops.reset_launch_counts()
+
+    # -- plan: co-access statistics of the stream -> partition() over k=64
+    stream = recsys_batches(n_items, FULL.n_cats, 512, hist, FULL.d_dense,
+                            seed=0)
+    t0 = time.perf_counter()
+    bags = [next(stream)["user_hist"] for _ in range(RECSYS_PLAN_BATCHES)]
+    gen_s = time.perf_counter() - t0
+    stats = RowAccessStats(n_items)
+    t0 = time.perf_counter()
+    for ids in bags:
+        stats.record(ids)
+    n_pairs = stats.n_pairs
+    record_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    plan = plan_shards(stats, machine="gpu-superpod")
+    torch.cuda.synchronize()
+    plan_s = time.perf_counter() - t0
+    plan_counts = ops.launch_counts()
+    plan.check()
+    topo = MachineSpec.preset("gpu-superpod").tree()
+    nw = np.maximum(stats.counts, max(float(stats.counts.max()), 1.0) * 1e-3)
+    u, v, w = stats.pair_arrays()
+    g = from_edges(n_items, u, v, w.astype(np.float32), nw.astype(np.float32))
+    rand = baselines.score_all(g, topo, random_partition(
+        n_items, topo.k, g.node_weight, seed=0))
+    ops.reset_launch_counts()     # the random baseline is not the path
+    sizes = plan.shard_sizes
+    emit("recsys", step="plan", batches=RECSYS_PLAN_BATCHES,
+         bags=RECSYS_PLAN_BATCHES * 512, rows=n_items,
+         rows_touched=int((stats.counts > 0).sum()), pairs=n_pairs,
+         arcs=g.n_arcs, machine="gpu-superpod", k=topo.k,
+         stream_gen_s=gen_s, record_s=record_s, plan_shards_s=plan_s,
+         makespan=plan.makespan, random_makespan=rand["makespan"],
+         rows_per_device=[int(sizes.min()), int(sizes.max())],
+         launches=plan_counts)
+    if not plan.makespan < rand["makespan"]:
+        raise AssertionError(f"plan makespan {plan.makespan} not below a "
+                             f"random assignment's {rand['makespan']}")
+    if plan_counts["quotient_link_loads"] <= 0:
+        raise AssertionError("quotient_link_loads never launched in the "
+                             "plan step")
+
+    # -- table: the full-width model from a seed, its item table permuted
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    model = TwoTower(FULL, generator=gen, device=dev)
+    st = ShardedEmbeddingTable(model.item_table, plan)
+    served = TwoTower(FULL, device="meta")
+    served.load_state_dict({**model.state_dict(), "item_table": st.data},
+                           assign=True)
+    row_perm = torch.as_tensor(plan.perm, device=dev)
+
+    # -- serve: one request is score() through the permuted table
+    out, requests = {}, {}
+    for shape, reps in (("serve_p99", 20), ("serve_bulk", 3)):
+        b = SHAPES[shape].meta["batch"]
+        req = recsys_request(n_items, FULL.n_cats, b)
+        requests[shape] = req
+
+        def serve(req=req):
+            return served.score(req, row_perm=row_perm)
+        torch.cuda.reset_peak_memory_stats()
+        c0 = ops.launch_counts()
+        _, cold = _wall(serve)
+        out[shape], warm = _wall(serve, reps)
+        trace = _traced(serve)
+        emit("recsys", step="serve", shape=shape, batch=b, cold_ms=cold,
+             warm_ms=warm, warm_reps=reps,
+             max_memory_allocated=torch.cuda.max_memory_allocated(),
+             launches=_since(c0), traced=trace)
+
+    # -- lookup: the sharded table's fused lookup of the same histories
+    # (and of one retrieve query's), which score() does not call
+    p99 = requests["serve_p99"]
+    requests["retrieve_query"] = {"user_hist": p99["user_hist"][:1],
+                                  "w": p99["w"][:1]}
+    fused = {}
+    for shape, reps in (("serve_p99", 20), ("serve_bulk", 3),
+                        ("retrieve_query", 20)):
+        req = requests[shape]
+
+        def lookup(req=req):
+            return st.lookup_bags(req["user_hist"], req["w"])
+        c0 = ops.launch_counts()
+        _, cold = _wall(lookup)
+        fused[shape], warm = _wall(lookup, reps)
+        emit("recsys", step="lookup", shape=shape,
+             batch=int(req["w"].shape[0]), cold_ms=cold, warm_ms=warm,
+             warm_reps=reps, launches=_since(c0))
+
+    # -- retrieve: every item embedded once, then one query at a time
+    t0 = time.perf_counter()
+    cats = item_categories(n_items, FULL.n_cats, seed=1)
+    cand = served.item_embed({"item_id": torch.arange(n_items, device=dev),
+                              "item_cat": torch.as_tensor(cats, device=dev)},
+                             row_perm=row_perm)
+    torch.cuda.synchronize()
+    cand_s = time.perf_counter() - t0
+    queries = [{"user_hist": p99["user_hist"][i:i + 1],
+                "user_dense": p99["user_dense"][i:i + 1], "cand_emb": cand}
+               for i in range(RECSYS_QUERIES)]
+    served.retrieve(queries[0], top_k=RECSYS_TOP_K, row_perm=row_perm)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    found = [served.retrieve(q, top_k=RECSYS_TOP_K, row_perm=row_perm)
+             for q in queries]
+    torch.cuda.synchronize()
+    query_ms = (time.perf_counter() - t0) * 1e3 / RECSYS_QUERIES
+    counts = {k: n + plan_counts[k] for k, n in ops.launch_counts().items()}
+    state["launches"]["recsys"] = counts
+    emit("recsys", step="retrieve", candidates=n_items, top_k=RECSYS_TOP_K,
+         queries=RECSYS_QUERIES, cand_embed_s=cand_s, warm_ms_per_query=query_ms,
+         cand_finite=bool(torch.isfinite(cand).all()), launches=counts)
+
+    # -- checks, outside the counted run
+    checks, errors = {}, {}
+    for shape, score in out.items():
+        req = requests[shape]
+        checks[f"{shape}_score_bitwise"] = torch.equal(score,
+                                                       model.score(req))
+        checks[f"{shape}_user_embed_bitwise"] = torch.equal(
+            served.user_embed(req, row_perm=row_perm), model.user_embed(req))
+        checks[f"{shape}_finite"] = bool(torch.isfinite(score).all())
+    table = model.item_table.detach()
+    checks["lookup_bags_equals_embedding_bag"] = torch.equal(
+        fused["serve_p99"], ops.embedding_bag(
+            table, p99["user_hist"].clamp_min(0), p99["w"]))
+    # both kernels against their plain versions on the path's own inputs
+    # at each shape it gives them: the user-history bag of user_embed
+    # (bag_combine over item_table[ids]) and lookup_bags' output
+    for shape, req in requests.items():
+        safe, w = req["user_hist"].clamp_min(0), req["w"]
+        want, tol = bag_plain(lambda i, j, safe=safe: table[safe[i:j]], w)
+        rows = table[safe]
+        got = {"bag_combine": bag_combine.bag_combine(rows, w),
+               "lookup_bags": fused[shape]}
+        del rows
+        for name, g in got.items():
+            err = (g.double() - want.double()).abs()
+            checks[f"{shape}_{name}_vs_plain"] = bool(
+                (err <= 1e-6 * want.double().abs() + tol).all())
+            errors[f"{shape}_{name}"] = float(err.max())
+        del want, tol, got
+    checks["topk_values_equal_full_sort"] = True
+    checks["topk_indices_equal_full_sort_outside_ties"] = True
+    for q, (vals, idx) in zip(queries, found):
+        scores = cand @ model.user_embed(q)[0]
+        ranked, order = torch.sort(scores, descending=True)
+        ranked, order = ranked[:RECSYS_TOP_K], order[:RECSYS_TOP_K]
+        checks["topk_values_equal_full_sort"] &= torch.equal(vals, ranked)
+        # values held once in the top k and above its last (a tie may
+        # straddle the cut) must name the same items in both
+        keep = (((vals[:, None] == vals[None, :]).sum(1) == 1)
+                & (vals > vals[-1]))
+        checks["topk_indices_equal_full_sort_outside_ties"] &= torch.equal(
+            torch.sort(idx[keep]).values, torch.sort(order[keep]).values)
+    emit("recsys", step="checks", tolerance=BAG_TOLERANCE,
+         max_abs_err=errors, **checks)
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"recsys checks failed: {failed}")
+    _require_launched(counts, "recsys")
+
+
+PHASES = (phase_env, phase_build, phase_kernels, phase_kernels_recsys,
+          phase_full, phase_small, phase_recsys)
 
 
 def kernels_line(state):
     """The per-kernel summary: launches on the path that drives the kernel
     (and on each path), and the numbers of its first (main-path) shape."""
     out = []
-    for name, (source, replaces, path) in KERNEL_INFO.items():
+    for name, (source, replaces, paths) in KERNEL_INFO.items():
         rows = state["kernel_rows"][name]
+        path = paths[0]
         out.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             path=path, launches=state["launches"][path][name],
@@ -473,6 +850,7 @@ def main() -> int:
     state = {"launches": {}}
     for phase in PHASES:
         phase(state)
+        torch.cuda.empty_cache()    # a phase's tensors go with it
     print(json.dumps(kernels_line(state)), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -28,6 +28,34 @@ from repro_torch.graph.graph import Graph
 from repro_torch.kernels import ops
 
 
+class _Unreached:
+    """The vertices of ``avail & ~region`` in index order, shrinking as the
+    region grows. The reference rescans all n vertices at every restart
+    of a disconnected region (O(n) each, O(n^2) on a graph of many
+    isolated vertices such as a sparsely sampled embedding table); here
+    per-block counts find the r-th vertex in O(n / B + B)."""
+    B = 1024
+
+    def __init__(self, avail: np.ndarray):
+        self.free = avail.copy()
+        pad = np.zeros(-(-avail.size // self.B) * self.B, dtype=bool)
+        pad[:avail.size] = avail
+        self.count = pad.reshape(-1, self.B).sum(1)
+        self.size = int(self.count.sum())
+
+    def take(self, v: int) -> None:
+        self.free[v] = False
+        self.count[v // self.B] -= 1
+        self.size -= 1
+
+    def nth(self, r: int) -> int:
+        cum = np.cumsum(self.count)
+        blk = int(np.searchsorted(cum, r, side="right"))
+        lo = blk * self.B
+        inside = np.nonzero(self.free[lo:lo + self.B])[0]
+        return lo + int(inside[r - int(cum[blk] - self.count[blk])])
+
+
 def _greedy_grow(g: Graph, avail: np.ndarray, target_w: float,
                  rng: np.random.Generator) -> np.ndarray:
     """Grow one region of ~target_w node weight inside ``avail`` (bool mask).
@@ -40,8 +68,7 @@ def _greedy_grow(g: Graph, avail: np.ndarray, target_w: float,
     degs = g.offsets[cand + 1] - g.offsets[cand]
     seed = int(cand[int(np.argmax(degs + rng.random(cand.size)))])
     heap = [(-0.0, seed)]
-    in_heap = np.zeros(g.n_nodes, dtype=bool)
-    in_heap[seed] = True
+    unreached = _Unreached(avail)
     got = 0.0
     while heap and got < target_w:
         negc, v = heapq.heappop(heap)
@@ -51,6 +78,7 @@ def _greedy_grow(g: Graph, avail: np.ndarray, target_w: float,
             heapq.heappush(heap, (-conn[v], v))
             continue
         region[v] = True
+        unreached.take(v)
         got += float(g.node_weight[v])
         lo, hi = g.offsets[v], g.offsets[v + 1]
         for u, w in zip(g.receivers[lo:hi], g.edge_weight[lo:hi]):
@@ -59,9 +87,8 @@ def _greedy_grow(g: Graph, avail: np.ndarray, target_w: float,
                 conn[u] += float(w)
                 heapq.heappush(heap, (-conn[u], u))
         if not heap:  # disconnected: restart from a new seed
-            rest = np.nonzero(avail & ~region)[0]
-            if rest.size and got < target_w:
-                s2 = int(rest[int(rng.integers(rest.size))])
+            if unreached.size and got < target_w:
+                s2 = unreached.nth(int(rng.integers(unreached.size)))
                 heapq.heappush(heap, (-0.0, s2))
     return region
 

@@ -12,7 +12,8 @@ indicator ``S``:
 (``kernels.ops.link_loads``) called with ``F_l = ones``, so the breakdown
 keeps the raw per-link volume that ``PartitionResult.comm`` and ``verify()``
 need. ``soft_cost`` / ``load_gradients`` are the temperature-annealed
-potential the refinement prices moves with.
+potential the refinement prices moves with; ``total_cut`` and
+``comm_volumes`` are the classic metrics ``baselines.score_all`` reports.
 """
 from __future__ import annotations
 
@@ -113,6 +114,27 @@ def makespan_tree_with_quotient(part, senders, receivers, edge_weight,
 def total_cut(W: torch.Tensor) -> torch.Tensor:
     """Classic objective: sum of inter-bin edge weights (undirected)."""
     return 0.5 * (W.sum() - torch.trace(W))
+
+
+def comm_volumes(part: torch.Tensor, senders: torch.Tensor,
+                 receivers: torch.Tensor, node_weight: torch.Tensor,
+                 k: int) -> torch.Tensor:
+    """cvol(V_i) = sum over v in V_i of c(v) * D(v), with D(v) the number
+    of foreign blocks adjacent to v (Hendrickson-Kolda). [k]
+
+    ``adj[v, j]`` is the ``segment_max`` of ones over v's arcs into block
+    j; empty segments hold -inf and clamp to 0. Entries are 0 or 1, so
+    dropping the own block by subtraction is exact."""
+    n = node_weight.shape[0]
+    part = part.long()
+    hits = segment_max(
+        torch.ones(senders.shape[0], dtype=torch.float32,
+                   device=node_weight.device),
+        senders.long() * k + part[receivers.long()], n * k)
+    adj = hits.clamp_min(0.0).view(n, k)
+    d = adj.sum(1) - adj.gather(1, part[:, None])[:, 0]
+    cvol = torch.zeros(k, dtype=node_weight.dtype, device=node_weight.device)
+    return cvol.index_add_(0, part, node_weight * d)
 
 
 def soft_cost(comp: torch.Tensor, comm: torch.Tensor, F_l: torch.Tensor,

@@ -1,0 +1,144 @@
+// The weighted bag reduction shared by bag_combine.cu and gather_combine.cu:
+//
+//     out[b, f] = sum over slots d of w[b, d] * row(b, d)[f]
+//
+// where row(b, d) is table[idx[b, d]] (gather_combine: the gather fused) or
+// g[b, d] (bag_combine: rows gathered beforehand). Both are streaming
+// reductions of ~0.5 flop per byte, bound by device-memory bytes.
+//
+// One block row (threadIdx.y) per bag, threads across F in 16-byte float4
+// loads where F % 4 == 0 (else one float each), so a warp reads 512
+// consecutive bytes of a row. The block first stages a chunk of its bags'
+// ids and weights in shared memory (coalesced), then each thread walks the
+// chunk's slots in order and accumulates in registers. A grid too small to
+// fill the card (serve_p99: 512 bags of F = 256 are 32k threads) is set by
+// how many rounds of device-memory latency each thread waits through, so
+// there the rows of kBagDepth slots are loaded into registers before any
+// of them is summed (1 + ceil(D / kBagDepth) rounds). That costs registers
+// and so resident threads, which a grid that fills the card needs more
+// (serve_bulk's gather): there each slot's row is loaded and summed in
+// turn, the loop unrolled 8 times. Every product and sum is rounded on its
+// own (__fmul_rn, __fadd_rn: nvcc cannot contract them into an FMA) and
+// the slots are added in order starting from 0 on either path, so both
+// kernels give bitwise the same result for the same rows and weights, and
+// the result matches the TPU kernels' mul-then-add. Slots of weight 0 are
+// read like any other.
+#pragma once
+
+#include <algorithm>
+
+#include "common.cuh"
+
+constexpr int kBagChunk = 64;    // slots staged per pass
+constexpr int kBagMaxRows = 8;   // bags per block at most
+constexpr int kBagDepth = 16;    // rows loaded ahead of the sum per thread
+// grids of at most this many threads load kBagDepth rows ahead
+constexpr long long kBagDeepMaxThreads = 1 << 16;
+
+__device__ __forceinline__ float bag_zero(float*) { return 0.0f; }
+__device__ __forceinline__ float4 bag_zero(float4*) {
+  return make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+}
+
+__device__ __forceinline__ float bag_acc(float acc, float w, float t) {
+  return __fadd_rn(acc, __fmul_rn(w, t));
+}
+__device__ __forceinline__ float4 bag_acc(float4 acc, float w, float4 t) {
+  acc.x = bag_acc(acc.x, w, t.x);
+  acc.y = bag_acc(acc.y, w, t.y);
+  acc.z = bag_acc(acc.z, w, t.z);
+  acc.w = bag_acc(acc.w, w, t.w);
+  return acc;
+}
+
+// V is float4 or float; cols = F / (sizeof(V) / 4) columns of V per row;
+// kDepth rows are loaded before they are summed (kBagDepth or 1).
+template <typename V, bool kGather, int kDepth>
+__global__ void bag_reduce_kernel(const float* __restrict__ src,
+                                  const int* __restrict__ idx,
+                                  const float* __restrict__ w,
+                                  float* __restrict__ out, long long n_bags,
+                                  int d, int cols) {
+  __shared__ int s_idx[kBagMaxRows][kBagChunk];
+  __shared__ float s_w[kBagMaxRows][kBagChunk];
+  const int by = threadIdx.y;
+  const long long b = static_cast<long long>(blockIdx.x) * blockDim.y + by;
+  const int col = blockIdx.y * blockDim.x + threadIdx.x;
+  const bool live = b < n_bags;
+  const bool active = live && col < cols;
+  const V* rows = reinterpret_cast<const V*>(src);
+  V acc = bag_zero(static_cast<V*>(nullptr));
+  for (int d0 = 0; d0 < d; d0 += kBagChunk) {
+    const int nd = min(kBagChunk, d - d0);
+    if (live) {
+      for (int j = threadIdx.x; j < nd; j += blockDim.x) {
+        const long long slot = b * d + d0 + j;
+        s_w[by][j] = w[slot];
+        if (kGather) s_idx[by][j] = idx[slot];
+      }
+    }
+    __syncthreads();
+    if (active) {
+#pragma unroll (kDepth == 1 ? 8 : 1)
+      for (int j0 = 0; j0 < nd; j0 += kDepth) {
+        V t[kDepth];
+#pragma unroll
+        for (int u = 0; u < kDepth; ++u) {
+          const int j = j0 + u;
+          if (j < nd) {
+            const long long row = kGather ? static_cast<long long>(s_idx[by][j])
+                                          : b * d + d0 + j;
+            t[u] = rows[row * cols + col];
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < kDepth; ++u) {
+          if (j0 + u < nd) acc = bag_acc(acc, s_w[by][j0 + u], t[u]);
+        }
+      }
+    }
+    __syncthreads();
+  }
+  if (active) reinterpret_cast<V*>(out)[b * cols + col] = acc;
+}
+
+template <typename V, bool kGather>
+static void bag_reduce_run(dim3 grid, dim3 block, cudaStream_t s, bool deep,
+                           const float* src, const int* idx, const float* w,
+                           float* out, long long n_bags, int d, int cols) {
+  if (deep) {
+    bag_reduce_kernel<V, kGather, kBagDepth><<<grid, block, 0, s>>>(
+        src, idx, w, out, n_bags, d, cols);
+  } else {
+    bag_reduce_kernel<V, kGather, 1><<<grid, block, 0, s>>>(
+        src, idx, w, out, n_bags, d, cols);
+  }
+}
+
+// Launch over n_bags bags of d slots and f floats; vec is 4 (float4 rows,
+// f % 4 == 0 and 16-byte aligned pointers, checked by the wrapper) or 1.
+template <bool kGather>
+static int bag_reduce_launch(const void* src, const void* idx, const void* w,
+                             void* out, long long n_bags, int d, int f,
+                             int vec, void* stream) {
+  const int cols = f / vec;
+  const int tx = std::min((cols + 31) / 32 * 32, 256);
+  const int ty = std::max(1, std::min(kBagMaxRows, 128 / tx));
+  const dim3 block(tx, ty);
+  const dim3 grid(static_cast<unsigned>((n_bags + ty - 1) / ty),
+                  (cols + tx - 1) / tx);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool deep = n_bags * cols <= kBagDeepMaxThreads;
+  const float* src_f = static_cast<const float*>(src);
+  const int* idx_i = static_cast<const int*>(idx);
+  const float* w_f = static_cast<const float*>(w);
+  float* out_f = static_cast<float*>(out);
+  if (vec == 4) {
+    bag_reduce_run<float4, kGather>(grid, block, s, deep, src_f, idx_i, w_f,
+                                    out_f, n_bags, d, cols);
+  } else {
+    bag_reduce_run<float, kGather>(grid, block, s, deep, src_f, idx_i, w_f,
+                                   out_f, n_bags, d, cols);
+  }
+  return static_cast<int>(cudaGetLastError());
+}

@@ -2,20 +2,24 @@
 
 The port never imports the JAX package. These helpers read the numpy
 fields of the reference's ``Graph``, ``TreeTopology`` / ``RoutingTopology``,
-``MachineSpec``, ``PartitionConfig`` and ``RefineConfig`` by name (duck
-typing) and build the port's own objects, so a test can give both packages
-the same inputs.
+``MachineSpec``, ``PartitionConfig``, ``RefineConfig`` and ``ShardPlan`` by
+name (duck typing), or the two-tower parameter dict as numpy arrays, and
+build the port's own objects, so a test can give both packages the same
+inputs.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Dict
 
 import numpy as np
+import torch
 
 from repro_torch.core.machine import Level, MachineSpec
 from repro_torch.core.partitioner import PartitionConfig
 from repro_torch.core.refine import RefineConfig
 from repro_torch.core.topology import RoutingTopology, TreeTopology
+from repro_torch.embed.sharded_table import ShardPlan
 from repro_torch.graph.graph import Graph
 
 
@@ -67,3 +71,27 @@ def partition_config_from(obj):
         return PartitionConfig(**fields)
     return RefineConfig(**{f.name: getattr(obj, f.name)
                            for f in dataclasses.fields(RefineConfig)})
+
+
+def shard_plan_from(obj) -> ShardPlan:
+    """Port ``ShardPlan`` with the same arrays as a reference one."""
+    return ShardPlan(row_to_device=_copy(obj.row_to_device),
+                     n_devices=int(obj.n_devices), order=_copy(obj.order),
+                     perm=_copy(obj.perm), offsets=_copy(obj.offsets),
+                     makespan=float(obj.makespan), machine=obj.machine)
+
+
+def recsys_params_from(params) -> Dict[str, torch.Tensor]:
+    """``TwoTower`` state dict (CPU tensors, for ``load_state_dict``) from
+    the reference's two-tower param dict: ``item_table``, ``cat_table`` and
+    the towers' ``{"w": [...], "b": [...], "ln"?}`` lists."""
+    state = {name: torch.from_numpy(_copy(params[name]))
+             for name in ("item_table", "cat_table")}
+    for tower in ("user_tower", "item_tower"):
+        p = params[tower]
+        for field in ("w", "b"):
+            for i, x in enumerate(p[field]):
+                state[f"{tower}.{field}.{i}"] = torch.from_numpy(_copy(x))
+        if "ln" in p:
+            state[f"{tower}.ln"] = torch.from_numpy(_copy(p["ln"]))
+    return state

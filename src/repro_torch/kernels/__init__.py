@@ -14,4 +14,10 @@ Kernels (the partitioner's main path):
     communication load.
   * ``partition_gain`` — the dense refinement round's ``[n, k]``
     connectivity rows (ELL).
+
+Kernels (the two-tower serving path):
+  * ``bag_combine`` — the weighted bag reduction of ``embedding_bag`` over
+    pre-gathered rows (``TwoTower`` user tower input).
+  * ``gather_combine`` — the same reduction with the row gather fused
+    (``ShardedEmbeddingTable.lookup_bags``).
 """

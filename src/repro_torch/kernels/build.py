@@ -1,8 +1,9 @@
 """Build and load the CUDA kernels of ``repro_torch/csrc``.
 
-All ``csrc/*.cu`` sources are compiled by one ``nvcc`` command into one
-shared library with a plain C interface, loaded with ``ctypes`` (no PyTorch
-headers, so a build takes seconds), at the first use of any kernel. The
+Every ``csrc/*.cu`` source is compiled by its own ``nvcc`` process, all
+started together, and the objects are linked into one shared library with a
+plain C interface, loaded with ``ctypes`` (no PyTorch headers, so a build
+takes seconds), at the first use of any kernel. The
 library goes to ``repro_torch/_build/`` (listed in ``.gitignore``) under a
 name that carries a hash of the sources and flags, so an edited source is
 rebuilt and an unchanged tree is loaded as it is. Nothing here runs at
@@ -26,7 +27,7 @@ PACKAGE = Path(__file__).resolve().parent.parent
 CSRC = PACKAGE / "csrc"
 BUILD_DIR = PACKAGE / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lib: Optional[ctypes.CDLL] = None
 
@@ -63,7 +64,11 @@ def _ptxas_lines(log: str) -> Dict[str, List[str]]:
     for ln in log.splitlines():
         entry = re.search(r"entry function '_Z(\d+)(\w+)'", ln)
         if entry:
-            name = entry.group(2)[:int(entry.group(1))]
+            rest = entry.group(2)
+            name = rest[:int(entry.group(1))]
+            targs = re.match(r"I(\w+?)Ev", rest[len(name):])
+            if targs:   # a template instance: keep its mangled arguments
+                name += f"[{targs.group(1)}]"
         elif name and ("Used" in ln or "spill" in ln):
             out.setdefault(name, []).append(ln.strip())
     return out
@@ -79,17 +84,29 @@ def build_all() -> Dict[str, object]:
     built = not out.exists()
     if built:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        proc = subprocess.run(
-            [nvcc_path(), *NVCC_FLAGS, "-o", tmp, *map(str, sources())],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        log_path.write_text(proc.stdout)
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(f"CUDA kernel build failed (nvcc exit "
-                               f"{proc.returncode}):\n{proc.stdout}")
-        os.replace(tmp, out)
+        nvcc = nvcc_path()
+        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+            objs = [Path(tmp) / f"{src.stem}.o" for src in sources()]
+            procs = [subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                for src, obj in zip(sources(), objs)]
+            logs = [p.communicate()[0] for p in procs]
+            log = "".join(logs)
+            failed = [p.returncode for p in procs if p.returncode != 0]
+            if not failed:
+                link = subprocess.run(
+                    [nvcc, "-shared", "-o", str(Path(tmp) / out.name),
+                     *map(str, objs)],
+                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                    text=True)
+                log += link.stdout
+                failed = [link.returncode] if link.returncode else []
+            log_path.write_text(log)
+            if failed:
+                raise RuntimeError(f"CUDA kernel build failed (nvcc exit "
+                                   f"{failed[0]}):\n{log}")
+            os.replace(Path(tmp) / out.name, out)
     return {"seconds": time.perf_counter() - t0, "built": built,
             "ptxas": _ptxas_lines(log_path.read_text())}
 

@@ -16,13 +16,16 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.kernels import bag_combine as _bag
 from repro_torch.kernels import bucket_assign as _ba
+from repro_torch.kernels import gather_combine as _gc
 from repro_torch.kernels import match_keys as _mk
 from repro_torch.kernels import partition_gain as _pg
 from repro_torch.kernels import quotient_link_loads as _qll
 
 KERNEL_MODULES = {"match_keys": _mk, "bucket_assign": _ba,
-                  "quotient_link_loads": _qll, "partition_gain": _pg}
+                  "quotient_link_loads": _qll, "partition_gain": _pg,
+                  "bag_combine": _bag, "gather_combine": _gc}
 
 
 def launch_counts() -> Dict[str, int]:
@@ -73,6 +76,22 @@ def link_loads_and_quotient(part: torch.Tensor, senders: torch.Tensor,
     summed from."""
     return _qll.loads_and_quotient(part, senders, receivers, edge_weight,
                                    subtree, F_l, k)
+
+
+def embedding_bag(table: torch.Tensor, idx: torch.Tensor,
+                  weights: torch.Tensor) -> torch.Tensor:
+    """[V, F] table, [B, D] row ids (pad slots point at any row with
+    w = 0), [B, D] per-slot weights -> [B, F]: the gather as plain
+    indexing (the reference leaves it to XLA), then ``bag_combine``."""
+    gathered = table[idx]                  # [B, D, F]
+    return _bag.bag_combine(gathered, weights.to(gathered.dtype))
+
+
+def gather_combine(table: torch.Tensor, idx: torch.Tensor,
+                   weights: torch.Tensor) -> torch.Tensor:
+    """:func:`embedding_bag` with the gather fused into the kernel: no
+    ``[B, D, F]`` tensor is materialised. ``idx`` int32."""
+    return _gc.gather_combine(table, idx, weights)
 
 
 def to_ell(n_nodes: int, senders: np.ndarray, receivers: np.ndarray,

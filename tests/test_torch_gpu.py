@@ -16,8 +16,13 @@ from repro_torch.core.reference import total_cut_ref
 from repro_torch.core.topology import balanced_tree, production_tree
 from repro_torch.graph.generators import rmat
 from repro_torch.graph.graph import from_edges
-from repro_torch.kernels import (bucket_assign, match_keys, ops,
-                                 partition_gain, quotient_link_loads)
+from repro_torch.configs.two_tower_retrieval import SMOKE, smoke_batch
+from repro_torch.embed import ShardedEmbeddingTable, identity_plan
+from repro_torch.embed.sharded_table import ShardPlan
+from repro_torch.kernels import (bag_combine, bucket_assign, gather_combine,
+                                 match_keys, ops, partition_gain,
+                                 quotient_link_loads)
+from repro_torch.models.recsys import TwoTower
 
 torch.set_num_threads(1)
 pytestmark = pytest.mark.gpu
@@ -137,3 +142,131 @@ def test_small_partition_on_the_card_passes_the_oracle(cuda, backend):
     assert counts["quotient_link_loads"] > 0 and counts["partition_gain"] > 0
     if backend == "device":
         assert counts["match_keys"] > 0 and counts["bucket_assign"] == 1
+
+
+def _bag_inputs(cuda, b, d, f, v, seed=0):
+    gen = _gen(cuda, seed)
+    table = torch.randn(v, f, generator=gen, device=cuda)
+    idx = torch.randint(0, v, (b, d), generator=gen, device=cuda,
+                        dtype=torch.int32)
+    w = torch.rand(b, d, generator=gen, device=cuda)
+    return table, idx, w
+
+
+def _assert_bag_close(got, want, rows, w):
+    """rtol 1e-6 plus the rounding bound of two D-term float32 sums taken
+    in different orders (the kernel's slot order, einsum's blocked one)."""
+    bound = bag_combine.order_tolerance(rows, w)
+    err = (got.double() - want.double()).abs()
+    assert bool((err <= 1e-6 * want.double().abs() + bound).all()), \
+        float(err.max())
+
+
+# the main path's shape, the ragged one, D = 1, F not a multiple of 4, more
+# slots than one staged chunk (64), and more columns than one block (256)
+BAG_SHAPES = [(512, 50, 256, 1_000_000), (37, 7, 96, 5000), (64, 1, 256, 99),
+              (33, 9, 33, 700), (5, 3, 2, 10), (16, 130, 64, 2000),
+              (9, 4, 1100, 300), (1, 0, 8, 4), (1, 50, 256, 1000),
+              (7, 17, 64, 500), (3, 33, 128, 400),
+              # grids of more than 65,536 threads: the shallow loop
+              (1100, 20, 256, 3000), (2048, 13, 130, 4000)]
+
+
+@pytest.mark.parametrize("b,d,f,v", BAG_SHAPES)
+def test_bag_kernels_match_plain(cuda, b, d, f, v):
+    table, idx, w = _bag_inputs(cuda, b, d, f, v, seed=b + d + f)
+    rows = table[idx]
+    before = ops.launch_counts()
+    fused = gather_combine.gather_combine(table, idx, w)
+    pre = bag_combine.bag_combine(rows, w)
+    after = ops.launch_counts()
+    assert after["gather_combine"] == before["gather_combine"] + 1
+    assert after["bag_combine"] == before["bag_combine"] + 1
+    torch.cuda.synchronize()
+    assert fused.shape == pre.shape == (b, f)
+    _assert_bag_close(fused, gather_combine.plain(table, idx, w), rows, w)
+    _assert_bag_close(pre, bag_combine.plain(rows, w), rows, w)
+    # one accumulation order for both kernels: bitwise equal
+    assert torch.equal(fused, pre)
+
+
+def test_bag_kernels_on_unaligned_rows(cuda):
+    """A table starting 4 bytes into its storage takes the one-float path
+    (no 16-byte loads) and still matches."""
+    gen = _gen(cuda, 3)
+    base = torch.randn(300 * 64 + 1, generator=gen, device=cuda)
+    table = base[1:].view(300, 64)
+    assert table.data_ptr() % 16 != 0
+    idx = torch.randint(0, 300, (40, 6), generator=gen, device=cuda,
+                        dtype=torch.int32)
+    w = torch.rand(40, 6, generator=gen, device=cuda)
+    got = gather_combine.gather_combine(table, idx, w)
+    assert torch.equal(got, bag_combine.bag_combine(table[idx], w))
+    _assert_bag_close(got, gather_combine.plain(table, idx, w), table[idx], w)
+
+
+def test_bag_wrappers_check_their_arguments(cuda):
+    table, idx, w = _bag_inputs(cuda, 4, 3, 8, 10)
+    with pytest.raises(TypeError, match="dtype"):
+        gather_combine.gather_combine(table.double(), idx, w)
+    with pytest.raises(TypeError, match="dtype"):
+        gather_combine.gather_combine(table, idx.long(), w)
+    with pytest.raises(TypeError, match="dtype"):
+        bag_combine.bag_combine(table[idx].half(), w)
+    with pytest.raises(ValueError, match="on cpu"):
+        gather_combine.gather_combine(table, idx, w.cpu())
+    with pytest.raises(ValueError, match="shape"):
+        gather_combine.gather_combine(table, idx, w[:, :2].contiguous())
+    with pytest.raises(ValueError, match="shape"):
+        bag_combine.bag_combine(table[idx], w[:3])
+    with pytest.raises(ValueError, match=r"\[B, D, F\]"):
+        bag_combine.bag_combine(table, w)
+    with pytest.raises(ValueError, match="contiguous"):
+        bag_combine.bag_combine(table[idx].transpose(0, 1), w.t())
+
+
+def _shuffled_plan(n, seed=0):
+    order = np.random.default_rng(seed).permutation(n)
+    perm = np.empty(n, dtype=np.int64)
+    perm[order] = np.arange(n)
+    base = identity_plan(n, 1)
+    return ShardPlan(row_to_device=base.row_to_device, n_devices=1,
+                     order=order, perm=perm, offsets=base.offsets,
+                     makespan=0.0)
+
+
+def test_lookup_bags_equals_embedding_bag_bitwise(cuda):
+    table, idx, w = _bag_inputs(cuda, 512, 50, 256, 100_000, seed=7)
+    ids = torch.where(w < 0.2, torch.full_like(idx, -1), idx)
+    valid = (ids >= 0).float()
+    w = valid / valid.sum(-1, keepdim=True).clamp_min(1)
+    st = ShardedEmbeddingTable(table, _shuffled_plan(100_000))
+    got = st.lookup_bags(ids, w)
+    want = ops.embedding_bag(table, ids.clamp_min(0), w)
+    assert torch.equal(got, want)
+    assert torch.equal(st.replicated(), table)
+
+
+def test_two_tower_serving_on_the_card(cuda):
+    """Row-perm transparency bitwise on the card, and the card's scores
+    against the CPU's plain path on the same parameters."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(0)
+    model = TwoTower(SMOKE, generator=gen, device=cuda)
+    st = ShardedEmbeddingTable(model.item_table,
+                               _shuffled_plan(model.item_table.shape[0]))
+    permuted = TwoTower(SMOKE, device="meta")
+    permuted.load_state_dict({**model.state_dict(), "item_table": st.data},
+                             assign=True)
+    row_perm = torch.as_tensor(st.plan.perm, device=cuda)
+    batch = smoke_batch()
+    ops.reset_launch_counts()
+    for fn in ("user_embed", "item_embed", "score"):
+        a = getattr(model, fn)(batch)
+        assert torch.equal(a, getattr(permuted, fn)(batch, row_perm=row_perm))
+    assert ops.launch_counts()["bag_combine"] == 4
+    cpu = TwoTower(SMOKE, device="meta")
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()},
+                        assign=True)
+    torch.testing.assert_close(model.score(batch).cpu(), cpu.score(batch),
+                               rtol=1e-5, atol=1e-6)

@@ -3,7 +3,9 @@
 (``pallas=False``) and its Pallas kernel in interpret mode, on the same
 numpy inputs; the vectorised ``to_ell`` against the reference loop; and
 the device dispatch rules (CPU -> plain version, no launch counted;
-another device -> error)."""
+another device -> error). The bag reductions are held at rtol 1e-6 plus
+the rounding bound of two D-term sums taken in different orders
+(``bag_combine.order_tolerance``)."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -12,8 +14,11 @@ import torch
 from repro.core.topology import balanced_tree as jbalanced_tree
 from repro.core.topology import production_tree as jproduction_tree
 from repro.graph.generators import rmat as jrmat
+from repro.kernels import bag_combine as jbag_combine
 from repro.kernels import ops as jops
-from repro_torch.kernels import bucket_assign, match_keys, ops
+from repro.kernels import ref as jref
+from repro_torch.kernels import (bag_combine, bucket_assign, gather_combine,
+                                 match_keys, ops)
 from repro_torch.kernels import partition_gain, quotient_link_loads
 
 torch.set_num_threads(1)
@@ -108,6 +113,59 @@ def test_quotient_link_loads_plain_matches_reference(topo_fn):
     np.testing.assert_allclose(got, pal, rtol=1e-4, atol=1e-3)
 
 
+BAG_SHAPES = [(4, 5, 96, 128), (6, 7, 48, 64), (37, 7, 96, 300),
+              (3, 1, 5, 11), (8, 50, 256, 1000)]
+
+
+def _bag_inputs(b, d, f, v):
+    rng = np.random.default_rng(b * d + f)
+    table = rng.normal(0, 1, (v, f)).astype(np.float32)
+    idx = rng.integers(0, v, (b, d)).astype(np.int32)
+    w = rng.random((b, d)).astype(np.float32)
+    return table, idx, w
+
+
+def _assert_bag_close(got, want, rows, w):
+    bound = bag_combine.order_tolerance(torch.from_numpy(rows),
+                                        torch.from_numpy(w)).numpy()
+    err = np.abs(got - np.asarray(want))
+    assert (err <= 1e-6 * np.abs(np.asarray(want)) + bound).all(), err.max()
+
+
+@pytest.mark.parametrize("b,d,f,v", BAG_SHAPES)
+def test_bag_reductions_plain_match_reference(b, d, f, v):
+    table, idx, w = _bag_inputs(b, d, f, v)
+    rows = table[idx]
+    t, i, ww = map(torch.from_numpy, (table, idx, w))
+    jt, ji, jw = map(jnp.asarray, (table, idx, w))
+    got = ops.embedding_bag(t, i, ww).numpy()
+    for want in (jops.embedding_bag(jt, ji, jw, interpret=True),
+                 jops.embedding_bag(jt, ji, jw, pallas=False),
+                 jref.embedding_bag_ref(jt, ji, jw)):
+        _assert_bag_close(got, want, rows, w)
+    fused = ops.gather_combine(t, i, ww).numpy()
+    _assert_bag_close(fused, jops.gather_combine(jt, ji, jw, interpret=True),
+                      rows, w)
+    assert np.array_equal(fused, got)   # the same plain einsum
+    pre = bag_combine.bag_combine(torch.from_numpy(rows), ww).numpy()
+    _assert_bag_close(pre, jbag_combine.bag_combine(
+        jnp.asarray(rows), jw, interpret=True), rows, w)
+
+
+def test_order_tolerance_bounds_a_reordered_sum():
+    """The tolerance covers summing the same slots in reverse order."""
+    table, idx, w = _bag_inputs(64, 50, 256, 1000)
+    rows = torch.from_numpy(table[idx])
+    ww = torch.from_numpy(w)
+    fwd = torch.zeros(64, 256)
+    rev = torch.zeros(64, 256)
+    for j in range(50):
+        fwd = fwd + ww[:, j, None] * rows[:, j]
+        rev = rev + ww[:, 49 - j, None] * rows[:, 49 - j]
+    assert not torch.equal(fwd, rev)
+    assert ((fwd - rev).abs() <= bag_combine.order_tolerance(rows, ww)).all()
+
+
 @pytest.mark.parametrize("case", ["csr", "shuffled", "capped", "isolated"])
 def test_to_ell_matches_reference_loop(case):
     g = jrmat(80, 300, seed=3)
@@ -140,6 +198,12 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     ops.link_loads(part, torch.zeros(3, dtype=torch.int32),
                    torch.zeros(3, dtype=torch.int32), torch.ones(3),
                    torch.ones(2, 2), torch.ones(2), 2)
+    bags = torch.zeros(4, 3, dtype=torch.int32)
+    ops.embedding_bag(x.view(16, 4), bags, torch.ones(4, 3))
+    ops.gather_combine(x.view(16, 4), bags, torch.ones(4, 3))
+    assert set(ops.KERNEL_MODULES) == {
+        "match_keys", "bucket_assign", "quotient_link_loads",
+        "partition_gain", "bag_combine", "gather_combine"}
     assert ops.launch_counts() == {name: 0 for name in ops.KERNEL_MODULES}
 
 
@@ -150,8 +214,11 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
                                             t[:, None], 2),
     lambda t: quotient_link_loads.quotient_link_loads(
         t.int(), t.int(), t.int(), t, t[None, :], t[:1], 4),
+    lambda t: bag_combine.bag_combine(t.view(1, 2, 2), t.view(2, 2)[:1]),
+    lambda t: gather_combine.gather_combine(t.view(2, 2), t.int().view(2, 2),
+                                            t.view(2, 2)),
 ], ids=["match_keys", "bucket_assign", "partition_gain",
-        "quotient_link_loads"])
+        "quotient_link_loads", "bag_combine", "gather_combine"])
 def test_wrappers_refuse_devices_without_a_kernel(call):
     """Dispatch is by the tensor's device: no silent plain path on a
     device other than the CPU (here ``meta``)."""

@@ -156,3 +156,48 @@ def test_segment_max_fills_empty_segments_like_jax(dtype):
         assert np.isneginf(want[1])
     else:
         assert want[1] == np.iinfo(np.int32).min
+
+
+SCORE_TOL = dict(rtol=1e-6)
+
+
+@pytest.mark.parametrize("branching,seed,speed", CASES)
+def test_comm_volumes_and_quotient_match_reference(branching, seed, speed):
+    topo, g, w, nw, part = _case(branching, seed, speed)
+    k = topo.k
+    cvol = tobj.comm_volumes(_t(part), _t(g.senders), _t(g.receivers), _t(nw),
+                             k)
+    jcvol = jobj.comm_volumes(jnp.asarray(part), jnp.asarray(g.senders),
+                              jnp.asarray(g.receivers), jnp.asarray(nw), k)
+    np.testing.assert_allclose(cvol.numpy(), np.asarray(jcvol), **SCORE_TOL)
+    W = tobj.quotient_matrix(_t(part), _t(g.senders), _t(g.receivers), _t(w),
+                             k)
+    jW = jobj.quotient_matrix(jnp.asarray(part), jnp.asarray(g.senders),
+                              jnp.asarray(g.receivers), jnp.asarray(w), k)
+    np.testing.assert_allclose(W.numpy(), np.asarray(jW), **SCORE_TOL)
+
+
+def test_comm_volumes_counts_foreign_blocks_once():
+    # path 0-1-2-3 with 0,1 in block 0 and 2,3 in block 1; an isolated 4
+    s = np.array([0, 1, 1, 2, 2, 3], np.int32)
+    r = np.array([1, 0, 2, 1, 3, 2], np.int32)
+    part = np.array([0, 0, 1, 1, 2], np.int32)
+    nw = np.array([1, 2, 3, 4, 5], np.float32)
+    got = tobj.comm_volumes(_t(part), _t(s), _t(r), _t(nw), 3)
+    np.testing.assert_array_equal(got.numpy(), [2.0, 3.0, 0.0])
+
+
+@pytest.mark.parametrize("branching,seed,speed", CASES)
+def test_score_all_matches_reference(branching, seed, speed):
+    from repro.core import baselines as jbaselines
+    from repro_torch.core import baselines as tbaselines
+    topo, g, w, nw, part = _case(branching, seed, speed)
+    g = g.__class__(g.n_nodes, g.senders, g.receivers, w, nw, g.offsets)
+    want = jbaselines.score_all(g, topo, part)
+    got = tbaselines.score_all(interop.graph_from_arrays(g),
+                               interop.topology_from_arrays(topo), part,
+                               device="cpu")
+    assert got.keys() == want.keys()
+    for key in want:
+        np.testing.assert_allclose(got[key], want[key], err_msg=key,
+                                   **SCORE_TOL)

@@ -15,6 +15,7 @@ from test_torch_vcycle import CASES, run_band
 from repro.core import initial as jinitial
 from repro.core.topology import balanced_tree, with_bin_speed
 from repro.graph.generators import grid2d
+from repro.graph.graph import from_edges as jfrom_edges
 from repro_torch import interop
 from repro_torch.core import initial as tinitial
 from repro_torch.core import partitioner as tpart
@@ -37,6 +38,24 @@ def test_host_initial_partition_is_the_reference_exactly(seed, speed):
     np.testing.assert_array_equal(
         tinitial.random_partition(400, 8, g.node_weight, seed=seed),
         jinitial.random_partition(400, 8, g.node_weight, seed=seed))
+
+
+@pytest.mark.parametrize("n", [3000, 5000])
+def test_host_initial_partition_is_exact_on_mostly_isolated_vertices(n):
+    """An embedding table's co-access graph: most rows never sampled, so
+    the greedy grow restarts once per isolated vertex (the port finds the
+    restart vertex by per-block counts instead of a rescan)."""
+    rng = np.random.default_rng(n)
+    u = rng.integers(0, 400, 900)
+    v = rng.integers(0, 400, 900)
+    nw = rng.random(n).astype(np.float32) + 0.1
+    g = jfrom_edges(n, u, v, rng.random(900).astype(np.float32) + 0.1, nw)
+    topo = balanced_tree((2, 4))
+    ref = jinitial.initial_partition(g, topo, seed=1)
+    got = tinitial.initial_partition(interop.graph_from_arrays(g),
+                                     interop.topology_from_arrays(topo),
+                                     seed=1)
+    np.testing.assert_array_equal(got, ref)
 
 
 @pytest.mark.parametrize("branching", [(2, 4), (4, 4, 4)])
