@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port on one NVIDIA GPU: the partitioner and the
-two-tower retrieval serving path over a partition-sharded item table.
+"""Drive the PyTorch/CUDA port on one NVIDIA GPU: the partitioner, the
+two-tower retrieval serving path over a partition-sharded item table, and
+GIN-TU graph classification through the BSR aggregation kernel.
 
     python3 chip_smoke.py
 
@@ -46,8 +47,9 @@ non-zero:
            from a seed on the card, its item table permuted into a
            ``ShardedEmbeddingTable`` by the plan. Serve: ``score`` with
            ``row_perm`` at ``serve_p99`` (512) and ``serve_bulk``
-           (262,144), cold and warm; one traced request of each gives the
-           device idle share. Lookup: the table's fused ``lookup_bags`` of
+           (262,144), cold and warm; one traced request of each (after
+           one warm-up under the profiler; its bag-kernel events must
+           equal the launch counts) gives the device idle share. Lookup: the table's fused ``lookup_bags`` of
            the same histories and of one retrieve query, cold and warm,
            with its own launch counts (``score`` does not call it).
            Retrieve: ``item_embed`` over all 1M items once, then
@@ -60,12 +62,38 @@ non-zero:
            values equal a full sort's.
            ``bag_combine``, ``gather_combine`` and (in the plan step)
            ``quotient_link_loads`` must have launched.
+  gnn      GIN-TU at its full width (``configs/gin_tu.py``, ``molecule``
+           shape: 5 layers, width 64, d_in 16, 2 classes, graph-level) from
+           seed 0 on the card, every layer aggregating through
+           ``bsr_spmm``. The kernels phase first checks and times
+           ``bsr_spmm`` on the bulk batch's layout (3,840 block rows,
+           11,008 blocks, F = 64), on the request's, and at a ragged shape
+           (R = 32, F = 96, an empty block row). Launch counts set to 0
+           just before the counted run, which drives: request, one
+           ``molecule_batches(128, 30, 64, 16, 2, seed=0)`` batch
+           (``prepare_bsr`` timed on its own), cold, warm, one traced
+           request, and end to end from the host's arrays (upload, host
+           ``to_bsr``, forward); bulk, 16,384 molecules (491,520 nodes,
+           1,947,010 arcs), the same and peak bytes; placed, the
+           reference's ``bsr_locality`` graph (``rmat(4096, 32768,
+           seed=3)`` on ``balanced_tree((4, 8))``, ``partition()`` seed 0,
+           ``block_placement`` / ``apply_placement``): node-level
+           ``gin_tu.BASE`` on ``gnn_features(g, 16, 2, seed=0)`` in both
+           vertex orders, with the block counts and the kernel's time on
+           each layout. ``bsr_spmm`` must have launched 5 times per
+           forward, and each traced run (after a warm-up under the
+           profiler) must hold as many of its events as it launched. Then, outside the counted run: the kernel against its
+           plain version on the path's own layouts and layer inputs, the
+           forward against the same forward aggregated by ``gnn_aggregate``
+           (the reference's ``segment_sum``), both at both batch sizes, and
+           the placed logits, un-permuted, against the unplaced ones.
 
 Then one line ``{"kernels": [...]}``: each kernel's launches on the path
 that drives it (``full`` for the partitioner's kernels but
-``partition_gain``, ``small`` for it, ``recsys`` for the bag kernels), its
-launches on every path, and the kernels phase's numbers at the main path's
-shape. Last, the result line ``{"ok": true, "device": {...}}``.
+``partition_gain``, ``small`` for it, ``recsys`` for the bag kernels,
+``gnn`` for ``bsr_spmm``), its launches on every path, and the kernels
+phase's numbers at the main path's shape. Last, the result line
+``{"ok": true, "device": {...}}``.
 Without a CUDA device it exits 2 and prints no result; it never runs on the
 CPU.
 """
@@ -103,6 +131,18 @@ RECSYS_PLAN_BATCHES = 100
 RECSYS_TOP_K = 1024
 RECSYS_QUERIES = 8
 
+# GIN-TU's molecule cell: 128 molecules of 30 atoms / 64 bonds per request
+# (configs/common.py GNN_SHAPE_META["molecule"]); the bulk batch is 128
+# requests in one
+GNN_REQUEST_GRAPHS = 128
+GNN_BULK_GRAPHS = 16_384
+# logits through the kernel against another float32 sum order (segment_sum,
+# the placed layout): |diff| <= GNN_RTOL * (max|logit| + |logit|); the CPU
+# parity tests measure 2.8e-7 of the largest logit against the reference
+GNN_RTOL = 1e-5
+BSR_TOLERANCE = ("rtol 1e-6 + 2*K*2^-24*(|A| @ |x|), K = R x most blocks in "
+                 "a block row (two float32 sums in different orders)")
+
 # name: (source, the TPU kernel it replaces, the driven paths that must
 # launch it, the first being the one the kernels line reports; the small
 # path's device V-cycle runs every partitioner kernel; partition_gain needs
@@ -124,6 +164,8 @@ KERNEL_INFO = {
     "gather_combine": ("src/repro_torch/csrc/gather_combine.cu",
                        "src/repro/kernels/gather_combine.py:85",
                        ("recsys",)),
+    "bsr_spmm": ("src/repro_torch/csrc/bsr_spmm.cu",
+                 "src/repro/kernels/bsr_spmm.py:94", ("gnn",)),
 }
 
 
@@ -183,13 +225,22 @@ def device_ms(fn, iters: int, flush=None) -> float:
     return sum(a.elapsed_time(b) for a, b in pairs) / iters
 
 
+def _device_work(e) -> bool:
+    """A profiler event of work on the card (a kernel, copy or memset),
+    not a user annotation's range such as a schedule's ProfilerStep."""
+    import torch
+    name = getattr(e, "name", None) or e.key    # an event or an average
+    return (e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)
+            and not name.startswith("ProfilerStep"))
+
+
 def device_busy_and_span(prof):
     """(busy, span) seconds of the device events (kernels, copies,
     memsets) of one torch.profiler run: the union of their intervals, and
     the time from the first one's start to the last one's end."""
-    import torch
     iv = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                if e.device_type == torch.autograd.DeviceType.CUDA)
+                if _device_work(e))
     busy, end = 0.0, float("-inf")
     for a, b in iv:
         if b > end:
@@ -521,8 +572,7 @@ def phase_full(state):
         torch.cuda.synchronize()
         profiled = time.perf_counter() - t0
     busy, span = device_busy_and_span(prof)
-    dev_rows = [e for e in prof.key_averages()
-                if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_rows = [e for e in prof.key_averages() if _device_work(e)]
     top = sorted(dev_rows, key=lambda e: -e.self_device_time_total)[:8]
     # device seconds of the port's own kernels in the traced run
     own = {name: sum(e.self_device_time_total for e in dev_rows
@@ -607,26 +657,48 @@ def _wall(fn, reps=1):
     return out, (time.perf_counter() - t0) * 1e3 / reps
 
 
-def _traced(fn):
-    """One run of ``fn`` under torch.profiler: wall s, device busy s and
-    idle share (busy over that run's wall, profiler overhead included)."""
+def _traced(fn, kernel_events):
+    """One run of ``fn`` under torch.profiler, after one warm-up run under
+    its schedule that is not recorded: wall s, device busy s and idle share
+    (busy over that run's wall, profiler overhead included) and the top
+    device operations. ``kernel_events`` maps a substring of a port
+    kernel's device-event name to the launch counters it stands for; the
+    trace must hold as many such events as those counters counted in the
+    recorded run, or its times miss work and this raises."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    from repro_torch.kernels import ops
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        fn()
+        torch.cuda.synchronize()
+        prof.step()
+        c0 = ops.launch_counts()
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        counted = _since(c0)
     busy, _ = device_busy_and_span(prof)
-    dev_rows = [e for e in prof.key_averages()
-                if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_events = [e for e in prof.events() if _device_work(e)]
+    launches = {sub: dict(counted=sum(counted[k] for k in names),
+                          traced=sum(sub in e.name for e in dev_events))
+                for sub, names in kernel_events.items()}
+    dev_rows = [e for e in prof.key_averages() if _device_work(e)]
     top = sorted(dev_rows, key=lambda e: -e.self_device_time_total)[:6]
-    return dict(wall_s=wall, device_busy_s=busy,
-                device_idle_share=1.0 - busy / wall,
-                top_device=[[e.key, e.self_device_time_total / 1e6, e.count]
-                            for e in top])
+    out = dict(wall_s=wall, device_busy_s=busy,
+               device_idle_share=1.0 - busy / wall, port_launches=launches,
+               top_device=[[e.key, e.self_device_time_total / 1e6, e.count]
+                           for e in top])
+    missing = {k: v for k, v in launches.items()
+               if v["counted"] != v["traced"]}
+    if missing:
+        raise AssertionError(f"the trace misses port kernel launches "
+                             f"{missing}: {out}")
+    return out
 
 
 def _since(c0):
@@ -717,7 +789,8 @@ def phase_recsys(state):
         c0 = ops.launch_counts()
         _, cold = _wall(serve)
         out[shape], warm = _wall(serve, reps)
-        trace = _traced(serve)
+        trace = _traced(serve, {"bag_reduce_kernel": ("bag_combine",
+                                                      "gather_combine")})
         emit("recsys", step="serve", shape=shape, batch=b, cold_ms=cold,
              warm_ms=warm, warm_reps=reps,
              max_memory_allocated=torch.cuda.max_memory_allocated(),
@@ -816,8 +889,353 @@ def phase_recsys(state):
     _require_launched(counts, "recsys")
 
 
+# ---------------------------------------------------------------------------
+# gnn: GIN-TU through bsr_spmm
+# ---------------------------------------------------------------------------
+
+def gnn_inputs(state, n_graphs):
+    """One ``molecule_batches(n_graphs, 30, 64, 16, 2, seed=0)`` batch (on
+    the host), its BSR layout on the card (``gin_layout``: host ``to_bsr``
+    and the upload, timed) and the request the model reads (``x``,
+    ``graph_id``, ``labels`` on the card, as the recsys requests are), made
+    once per size and kept in ``state`` until the gnn phase ends."""
+    import torch
+
+    from repro_torch.data.pipeline import molecule_batches
+    from repro_torch.models.gnn import gin_layout
+    key = f"gnn_{n_graphs}"
+    if key not in state:
+        t0 = time.perf_counter()
+        batch = next(molecule_batches(n_graphs, 30, 64, 16, 2, seed=0))
+        gen_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        layout = gin_layout(batch, device="cuda")
+        torch.cuda.synchronize()
+        prepare_s = time.perf_counter() - t0
+        request = {k: torch.as_tensor(batch[k], device="cuda")
+                   for k in ("x", "graph_id", "labels")}
+        state[key] = dict(batch=batch, layout=layout, request=request,
+                          gen_s=gen_s, prepare_s=prepare_s)
+    return state[key]
+
+
+def gnn_placement(state):
+    """The reference's ``bsr_locality`` set-up on the port: ``rmat(4096,
+    32768, seed=3)``, ``partition()`` on ``balanced_tree((4, 8))`` with seed
+    0, ``block_placement`` / ``apply_placement``; node features
+    ``gnn_features(g, 16, 2, seed=0)`` in both vertex orders (padding rows
+    zero), each with its BSR layout on the card. Made once, kept in
+    ``state`` until the gnn phase ends."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.mapping import apply_placement, block_placement
+    from repro_torch.core.partitioner import PartitionConfig, partition
+    from repro_torch.core.topology import balanced_tree
+    from repro_torch.data.pipeline import gnn_features
+    from repro_torch.graph.generators import rmat
+    from repro_torch.models.gnn import gin_layout
+    if "gnn_placement" not in state:
+        g = rmat(4096, 32768, seed=3)
+        topo = balanced_tree((4, 8))
+        t0 = time.perf_counter()
+        res = partition(g, topo, PartitionConfig(seed=0))
+        torch.cuda.synchronize()
+        partition_s = time.perf_counter() - t0
+        pl = block_placement(res.part, topo.k)
+        gp = apply_placement(g, pl)
+        feats = gnn_features(g, 16, 2, seed=0)
+        x_placed = np.zeros((pl.n_pad, 16), np.float32)
+        x_placed[pl.perm] = feats["x"]
+        orders = {}
+        for name, graph, x in (("unplaced", g, feats["x"]),
+                               ("placed", gp, x_placed)):
+            b = {"x": torch.as_tensor(x, device="cuda"),
+                 "senders": graph.senders, "receivers": graph.receivers}
+            b["layout"] = gin_layout(b, device="cuda")
+            orders[name] = b
+        state["gnn_placement"] = dict(topo=topo, res=res, pl=pl,
+                                      partition_s=partition_s, orders=orders)
+    return state["gnn_placement"]
+
+
+def bsr_work(layout, f):
+    """(bytes, operations) of one ``bsr_spmm`` call: blocks, ``x`` and
+    ``out`` each moved once, and one multiply-add per nonzero of the
+    blocks and feature, what this layout's product needs (the kernel's
+    dense loop does ``R^2 * F`` per block; ``bsr_dense_ops``)."""
+    import torch
+    nnzb, r, _ = layout.blocks.shape
+    nbr = layout.n_block_rows
+    bytes_moved = 4.0 * nnzb * r * r + 8.0 * nbr * r * f + 4.0 * (nbr + 1
+                                                                + nnzb)
+    return bytes_moved, 2.0 * int(torch.count_nonzero(layout.blocks)) * f
+
+
+def bsr_dense_ops(layout, f):
+    """The multiply-adds (x2) of every stored block's dense product."""
+    nnzb, r, _ = layout.blocks.shape
+    return 2.0 * nnzb * r * r * f
+
+
+def bsr_args(layout, x):
+    return (layout.row_ptr, layout.block_cols, layout.blocks, x)
+
+
+def bsr_library(layout, x):
+    """One PyTorch call computing ``A @ x``: ``torch.sparse.mm`` on a
+    ``sparse_bsr_tensor`` of the same blocks (cuSPARSE; timed here, never
+    called by the port)."""
+    import torch
+    n = layout.n_block_rows * layout.block
+    a = torch.sparse_bsr_tensor(layout.row_ptr, layout.block_cols,
+                                layout.blocks, size=(n, n))
+    return lambda: torch.sparse.mm(a, x)
+
+
+def gapped_graph(n, m, gap, seed=0):
+    """Random multigraph without arcs at the vertices in ``gap``: its block
+    rows there are empty, and to_bsr fills each with one zero block."""
+    import numpy as np
+
+    from repro_torch.graph.graph import from_edges
+    rng = np.random.default_rng(seed)
+    keep = np.setdiff1d(np.arange(n), np.arange(*gap))
+    return from_edges(n, rng.choice(keep, m), rng.choice(keep, m),
+                      rng.random(m).astype(np.float32) + 0.1)
+
+
+def phase_kernels_gnn(state):
+    """bsr_spmm at the gnn path's shapes: the bulk batch's layout (the main
+    shape), the request's and the bsr_locality graph's in both vertex
+    orders at F = 64, and a ragged R = 32, F = 96 layout with an empty
+    block row."""
+    import torch
+
+    from repro_torch.kernels import bsr_spmm, ops
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+    cases = [(label, gnn_inputs(state, n)["layout"], 64)
+             for label, n in (("bulk", GNN_BULK_GRAPHS),
+                              ("request", GNN_REQUEST_GRAPHS))]
+    cases += [(f"{label}_rmat4096", b["layout"], 64)
+              for label, b in gnn_placement(state)["orders"].items()]
+    g = gapped_graph(1000, 4000, (96, 160))
+    lay = ops.prepare_bsr(g.n_nodes, g.senders, g.receivers, g.edge_weight,
+                          32, device=dev)
+    empty = lay.n_block_rows - len(set((g.senders // 32).tolist()))
+    cases.append(("ragged_R32_F96", lay, 96))
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for label, layout, f in cases:
+        x = torch.randn(layout.n_block_rows * layout.block, f, generator=gen,
+                        device=dev)
+        args = bsr_args(layout, x)
+        bytes_moved, flops = bsr_work(layout, f)
+        extra = dict(
+            nonzero=int(flops // (2 * f)),
+            wide_tile=bsr_spmm.wide_tile(layout.n_block_rows, layout.block,
+                                         f, sms),
+            # the kernel's dense loop over every block at the f32 peak
+            dense_ops_ms=bsr_dense_ops(layout, f) / H100_F32_PER_S * 1e3)
+        if label.startswith("ragged"):
+            extra["empty_block_rows_filled"] = empty
+        _check_kernel(
+            state, "bsr_spmm",
+            [layout.n_block_rows, int(layout.blocks.shape[0]),
+             layout.block, f, label],
+            lambda: bsr_spmm.bsr_spmm(*args), lambda: bsr_spmm.plain(*args),
+            exact=False, rtol=1e-6, atol=bsr_spmm.order_tolerance(*args),
+            tolerance=BSR_TOLERANCE, iters=10 if label == "bulk" else 30,
+            library=bsr_library(layout, x), bytes_moved=bytes_moved,
+            flops=flops, extra=extra)
+
+
+def _end_to_end(model, batch, reps):
+    """A request from the host's batch to logits, ``reps`` times: the
+    inputs uploaded and the BSR layout built (host ``to_bsr``, block-row
+    pointers, upload; ``gin_layout``), then the forward. Mean wall ms of
+    the whole, of the upload and layout, of ``to_bsr`` alone on the host
+    (timed apart, once per rep) and of the forward."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import bsr_spmm
+    from repro_torch.models.gnn import gin_layout
+    senders = np.asarray(batch["senders"])
+    ones = np.ones(senders.shape[0], np.float32)
+    total = prep = host = fwd = 0.0
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        bsr_spmm.to_bsr(int(batch["x"].shape[0]), senders,
+                        np.asarray(batch["receivers"]), ones)
+        host += time.perf_counter() - t0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        req = {k: torch.as_tensor(batch[k], device="cuda")
+               for k in ("x", "graph_id", "labels")}
+        layout = gin_layout(batch, device="cuda")
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        model(req, layout)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        total += t2 - t0
+        prep += t1 - t0
+        fwd += t2 - t1
+    return {k: v * 1e3 / reps for k, v in (
+        ("ms", total), ("upload_and_layout_ms", prep),
+        ("host_to_bsr_ms", host), ("forward_ms", fwd))} | {"reps": reps}
+
+
+def _logits_close(got, want):
+    """(ok, max abs err, scale): |got - want| <= GNN_RTOL * (max|want| +
+    |want|) elementwise."""
+    scale = max(float(want.abs().max()), 1.0)
+    err = (got.double() - want.double()).abs()
+    ok = bool((err <= GNN_RTOL * (scale + want.double().abs())).all())
+    return ok, float(err.max()), scale
+
+
+def phase_gnn(state):
+    import torch
+
+    from repro_torch.configs import gin_tu
+    from repro_torch.kernels import bsr_spmm, ops
+    from repro_torch.models.gnn import GIN
+    dev = torch.device("cuda")
+    cfg = gin_tu.ARCH.make_config("molecule")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    model = GIN(cfg, generator=gen, device=dev)
+    n_layers = cfg.n_layers
+    inputs = {"request": gnn_inputs(state, GNN_REQUEST_GRAPHS),
+              "bulk": gnn_inputs(state, GNN_BULK_GRAPHS)}
+
+    place_in = gnn_placement(state)
+    placed = place_in["orders"]
+    gen.manual_seed(0)
+    node_model = GIN(gin_tu.BASE, generator=gen, device=dev)
+
+    # -- the counted run: request, bulk, placed
+    ops.reset_launch_counts()
+    forwards, logits = 0, {}
+    for step, reps, e2e_reps in (("request", 20, 20), ("bulk", 3, 2)):
+        inp = inputs[step]
+        batch, layout = inp["batch"], inp["layout"]
+
+        def serve(req=inp["request"], layout=layout):
+            return model(req, layout)
+        torch.cuda.reset_peak_memory_stats()
+        c0 = ops.launch_counts()
+        _, cold = _wall(serve)
+        logits[step], warm = _wall(serve, reps)
+        trace = _traced(serve, {"bsr_spmm_kernel": ("bsr_spmm",)})
+        peak = torch.cuda.max_memory_allocated()
+        e2e = _end_to_end(model, batch, e2e_reps)
+        n_fwd = 1 + reps + 2 + e2e_reps
+        forwards += n_fwd
+        got = _since(c0)
+        emit("gnn", step=step, graphs=int(batch["labels"].shape[0]),
+             nodes=int(batch["x"].shape[0]), arcs=len(batch["senders"]),
+             block_rows=layout.n_block_rows,
+             blocks=int(layout.blocks.shape[0]),
+             block_bytes=layout.blocks.numel() * 4,
+             data_gen_s=inp["gen_s"], prepare_bsr_s=inp["prepare_s"],
+             cold_ms=cold, warm_ms=warm, warm_reps=reps, end_to_end=e2e,
+             max_memory_allocated=peak,
+             forwards=n_fwd, launches=got,
+             bsr_spmm_per_forward=got["bsr_spmm"] / n_fwd, traced=trace)
+    for name, b in placed.items():
+        logits[name] = node_model(b, b["layout"])
+        forwards += 1
+    counts = ops.launch_counts()
+    state["launches"]["gnn"] = counts
+
+    # -- placement: block counts and the kernel on each layout
+    gen.manual_seed(3)
+    place = {}
+    for name, b in placed.items():
+        lay = b["layout"]
+        x = torch.randn(lay.n_block_rows * lay.block, 64, generator=gen,
+                        device=dev)
+        bound_ms, bound_by = bound(*bsr_work(lay, 64))
+        place[name] = dict(
+            nodes=lay.n_nodes, block_rows=lay.n_block_rows,
+            blocks=int(lay.blocks.shape[0]),
+            density=bsr_spmm.bsr_density(lay.block_cols, lay.n_block_rows,
+                                         lay.n_block_rows),
+            bsr_spmm_ms=device_ms(
+                lambda x=x, lay=lay: bsr_spmm.bsr_spmm(*bsr_args(lay, x)),
+                30, flush=_flush_buffer(state)),
+            bound_ms=bound_ms, bound_by=bound_by,
+            dense_ops_ms=bsr_dense_ops(lay, 64) / H100_F32_PER_S * 1e3)
+    pl, res = place_in["pl"], place_in["res"]
+    emit("gnn", step="placed", graph="rmat(4096,32768,seed=3)",
+         machine="balanced_tree((4,8))", k=place_in["topo"].k,
+         partition_s=place_in["partition_s"], makespan=res.makespan,
+         bin_fill=[int(pl.fill.min()), int(pl.fill.max())], n_pad=pl.n_pad,
+         layouts=place, forwards=2)
+
+    # -- checks, outside the counted run
+    checks, errors = {}, {}
+    checks["bsr_spmm_5_launches_per_forward"] = (
+        counts["bsr_spmm"] == n_layers * forwards)
+    for step, inp in inputs.items():
+        batch, layout = inp["batch"], inp["layout"]
+        states = []
+
+        def record(x, layout=layout):
+            states.append(x)
+            return ops.gnn_aggregate_bsr(layout, x)
+        model.forward_with(inp["request"], record)
+        worst = 0.0
+        ok = True
+        for x in states:
+            pad = layout.n_block_rows * layout.block - x.shape[0]
+            xp = torch.nn.functional.pad(x, (0, 0, 0, pad)).contiguous()
+            args = bsr_args(layout, xp)
+            got, want = bsr_spmm.bsr_spmm(*args), bsr_spmm.plain(*args)
+            err = (got - want).abs()
+            ok &= bool((err <= bsr_spmm.order_tolerance(*args)
+                        + 1e-6 * want.abs()).all())
+            worst = max(worst, float(err.max()))
+        checks[f"{step}_bsr_spmm_vs_plain_on_layer_inputs"] = ok
+        errors[f"{step}_bsr_spmm"] = worst
+        del states
+        s = torch.as_tensor(batch["senders"], device=dev)
+        r = torch.as_tensor(batch["receivers"], device=dev)
+        ones = torch.ones(s.shape[0], device=dev)
+        seg = model.forward_with(
+            inp["request"],
+            lambda x: ops.gnn_aggregate(s, r, ones, x, x.shape[0]))
+        ok, err, scale = _logits_close(logits[step], seg)
+        checks[f"{step}_forward_vs_segment_sum"] = ok
+        errors[f"{step}_forward_vs_segment_sum"] = err
+        errors[f"{step}_logit_scale"] = scale
+        checks[f"{step}_logits_finite_and_shaped"] = bool(
+            torch.isfinite(logits[step]).all()) and tuple(
+                logits[step].shape) == (int(batch["labels"].shape[0]),
+                                        cfg.n_classes)
+    perm = torch.as_tensor(pl.perm, device=dev)
+    ok, err, scale = _logits_close(logits["placed"][perm], logits["unplaced"])
+    checks["placed_logits_equal_unplaced"] = ok
+    errors["placed_vs_unplaced"] = err
+    errors["placed_logit_scale"] = scale
+    emit("gnn", step="checks", tolerance_logits=f"{GNN_RTOL} x (max|logit| "
+         f"+ |logit|)", tolerance_bsr_spmm=BSR_TOLERANCE, forwards=forwards,
+         launches=counts, max_abs_err=errors, **checks)
+    for key in [k for k in state if k.startswith("gnn_")]:
+        del state[key]     # the batches, layouts and placement go
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"gnn checks failed: {failed}")
+    _require_launched(counts, "gnn")
+
+
 PHASES = (phase_env, phase_build, phase_kernels, phase_kernels_recsys,
-          phase_full, phase_small, phase_recsys)
+          phase_full, phase_small, phase_recsys, phase_kernels_gnn,
+          phase_gnn)
 
 
 def kernels_line(state):

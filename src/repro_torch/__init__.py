@@ -2,9 +2,14 @@
 
 Subpackages mirror the JAX package: ``graph`` (arc-list graphs and
 generators), ``core`` (machine trees, the makespan objective, coarsening,
-initial partition, refinement and the ``partition()`` entry point) and
-``kernels`` (hand-written CUDA kernels for Hopper, each beside its plain
-PyTorch version). The package imports ``torch`` and ``numpy`` only.
+initial partition, refinement, the ``partition()`` entry point and block
+placement), ``configs`` (two-tower and GIN-TU configurations and shape
+grids), ``data`` (seeded recsys, GNN-feature and molecule batches),
+``models`` (MLP, two-tower serving, the GIN forward), ``embed`` (the
+partition-sharded embedding table) and ``kernels`` (hand-written CUDA
+kernels for Hopper, each beside its plain PyTorch version: the four
+partitioner kernels, ``bag_combine``, ``gather_combine`` and
+``bsr_spmm``). The package imports ``torch`` and ``numpy`` only.
 
 Entry points take ``device=None``, meaning ``torch.device("cuda")``; they
 raise when no CUDA device is present unless the caller passes

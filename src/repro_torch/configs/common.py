@@ -1,13 +1,16 @@
-"""Shape-grid records shared by the port's model configs.
+"""Architecture registry records shared by the port's model configs.
 
-The part of ``repro/configs/common.py`` the recsys serving slice needs:
-``ShapeSpec`` and the recsys shape grid (the JAX ``ShapeDtypeStruct`` input
-specs of the dry-run are not ported).
+The part of ``repro/configs/common.py`` the ported slices need:
+``ShapeSpec``, ``ArchDef``, the recsys and GNN shape grids and the GNN
+smoke batch (the JAX ``ShapeDtypeStruct`` input specs of the dry-run are
+not ported).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict
+from typing import Any, Callable, Dict, Tuple
+
+import numpy as np
 
 
 @dataclasses.dataclass(frozen=True)
@@ -18,6 +21,19 @@ class ShapeSpec:
     skip_reason: str = ""
 
 
+@dataclasses.dataclass(frozen=True)
+class ArchDef:
+    name: str
+    family: str                    # lm | gnn | recsys
+    make_config: Callable[[str], Any]          # shape name -> model config
+    shapes: Dict[str, ShapeSpec]
+    smoke_config: Callable[[], Any]
+    smoke_batch: Callable[[], Dict[str, np.ndarray]]
+    model_flops: Callable[[str], float]        # useful fwd+bwd (or fwd) FLOPs
+    notes: str = ""
+    profiles: Tuple[str, ...] = ("2d",)
+
+
 def recsys_shape_grid() -> Dict[str, ShapeSpec]:
     return {
         "train_batch": ShapeSpec("train_batch", "train", {"batch": 65536}),
@@ -26,3 +42,47 @@ def recsys_shape_grid() -> Dict[str, ShapeSpec]:
         "retrieval_cand": ShapeSpec("retrieval_cand", "retrieve",
                                     {"batch": 1, "n_cand": 1_000_000}),
     }
+
+
+GNN_SHAPE_META = {
+    "full_graph_sm": {"n": 2708, "arcs": 10556, "d_feat": 1433,
+                      "classes": 7},
+    "minibatch_lg": {"n": 169984, "arcs": 337920, "d_feat": 602,
+                     "classes": 41, "sampled": True,
+                     "full_n": 232965, "full_arcs": 114615892,
+                     "batch_nodes": 1024, "fanout": (15, 10)},
+    "ogb_products": {"n": 2449029, "arcs": 61859140, "d_feat": 100,
+                     "classes": 47},
+    "molecule": {"n": 3840, "arcs": 16384, "d_feat": 16, "classes": 2,
+                 "graphs": 128, "graph_level": True},
+}
+
+
+def gnn_shape_grid() -> Dict[str, ShapeSpec]:
+    return {k: ShapeSpec(k, "train", dict(v))
+            for k, v in GNN_SHAPE_META.items()}
+
+
+def smoke_gnn_batch(n: int = 64, deg: int = 4, d_feat: int = 8,
+                    n_classes: int = 4, with_pos: bool = False,
+                    graphs: int = 0, seed: int = 0) -> Dict[str, np.ndarray]:
+    from repro_torch.graph.generators import random_regular
+    rng = np.random.default_rng(seed)
+    g = random_regular(n, deg, seed=seed)
+    batch = {
+        "x": rng.normal(0, 1, (n, d_feat)).astype(np.float32),
+        "senders": g.senders, "receivers": g.receivers,
+        "edge_weight": g.edge_weight,
+        "degrees": g.degrees().astype(np.float32),
+    }
+    if graphs:
+        per = n // graphs
+        batch["graph_id"] = np.repeat(np.arange(graphs), per).astype(np.int32)
+        batch["labels"] = rng.integers(0, n_classes, graphs).astype(np.int32)
+        batch["label_mask"] = np.ones(graphs, np.float32)
+    else:
+        batch["labels"] = rng.integers(0, n_classes, n).astype(np.int32)
+        batch["label_mask"] = np.ones(n, np.float32)
+    if with_pos:
+        batch["pos"] = rng.normal(0, 1, (n, 3)).astype(np.float32)
+    return batch

@@ -1,14 +1,78 @@
-"""Synthetic recsys batches, seeded and host-side.
+"""Synthetic data pipelines, seeded and host-side.
 
-Copy of ``recsys_batches`` in ``repro/data/pipeline.py``: numpy only and
-exact for the same seed. Item ids follow a power law so the logQ correction
-has something to correct; histories are -1 padded bags.
+Copies of ``gnn_features``, ``molecule_batches`` and ``recsys_batches`` in
+``repro/data/pipeline.py``: numpy only and exact for the same seed. GNN
+features and labels correlate with the graph's structure so a model can
+learn; recsys item ids follow a power law so the logQ correction has
+something to correct, and histories are -1 padded bags.
 """
 from __future__ import annotations
 
 from typing import Dict, Iterator
 
 import numpy as np
+
+from repro_torch.graph.generators import molecule_batch
+from repro_torch.graph.graph import Graph
+
+
+def gnn_features(g: Graph, d_feat: int, n_classes: int, seed: int = 0,
+                 with_pos: bool = False) -> Dict[str, np.ndarray]:
+    """Node features/labels correlated with graph structure (community-ish:
+    labels from a random partition smoothed one hop, features = noisy
+    one-hot blocks) so GNNs can learn."""
+    rng = np.random.default_rng(seed)
+    n = g.n_nodes
+    raw = rng.integers(0, n_classes, n)
+    # one smoothing hop: adopt the majority label of neighbors
+    lab = raw.copy()
+    nbr_lab = raw[g.receivers]
+    for c in range(n_classes):
+        cnt = np.zeros(n, dtype=np.int32)
+        np.add.at(cnt, g.senders, (nbr_lab == c).astype(np.int32))
+        better = cnt > np.where(lab == c, -1, 0)
+        lab = np.where(better, c, lab)
+    feats = rng.normal(0, 1, (n, d_feat)).astype(np.float32)
+    block = max(d_feat // n_classes, 1)
+    for c in range(n_classes):
+        sel = lab == c
+        lo = (c * block) % d_feat
+        feats[sel, lo:lo + block] += 2.0
+    out = {"x": feats, "labels": lab.astype(np.int32),
+           "label_mask": np.ones(n, np.float32),
+           "degrees": g.degrees().astype(np.float32),
+           "senders": g.senders, "receivers": g.receivers,
+           "edge_weight": g.edge_weight}
+    if with_pos:
+        out["pos"] = rng.normal(0, 1, (n, 3)).astype(np.float32)
+    return out
+
+
+def molecule_batches(n_graphs: int, nodes_per: int, edges_per: int,
+                     d_feat: int, n_classes: int, seed: int = 0
+                     ) -> Iterator[Dict[str, np.ndarray]]:
+    """Batches of ``n_graphs`` disjoint random molecules (block-diagonal
+    adjacency) with a graph-level label: whether the molecule's degree sum
+    is above the batch's median."""
+    rng = np.random.default_rng(seed)
+    i = 0
+    while True:
+        g = molecule_batch(n_graphs, nodes_per, edges_per, seed=seed + i)
+        i += 1
+        n = g.n_nodes
+        x = rng.normal(0, 1, (n, d_feat)).astype(np.float32)
+        gid = np.repeat(np.arange(n_graphs), nodes_per).astype(np.int32)
+        # label = parity of a structural statistic (learnable from topology)
+        deg = g.degrees().astype(np.float32)
+        per_g = np.zeros(n_graphs)
+        np.add.at(per_g, gid, deg)
+        lab = (per_g > np.median(per_g)).astype(np.int32)
+        x[:, 0] += deg * 0.5
+        yield {"x": x, "pos": rng.normal(0, 1, (n, 3)).astype(np.float32),
+               "senders": g.senders, "receivers": g.receivers,
+               "edge_weight": g.edge_weight, "degrees": deg,
+               "graph_id": gid, "labels": lab,
+               "label_mask": np.ones(n_graphs, np.float32)}
 
 
 def item_categories(n_items: int, n_cats: int,

@@ -3,9 +3,9 @@
 The port never imports the JAX package. These helpers read the numpy
 fields of the reference's ``Graph``, ``TreeTopology`` / ``RoutingTopology``,
 ``MachineSpec``, ``PartitionConfig``, ``RefineConfig`` and ``ShardPlan`` by
-name (duck typing), or the two-tower parameter dict as numpy arrays, and
-build the port's own objects, so a test can give both packages the same
-inputs.
+name (duck typing), or the two-tower and GNN parameter dicts as numpy
+arrays, and build the port's own objects, so a test can give both packages
+the same inputs.
 """
 from __future__ import annotations
 
@@ -94,4 +94,25 @@ def recsys_params_from(params) -> Dict[str, torch.Tensor]:
                 state[f"{tower}.{field}.{i}"] = torch.from_numpy(_copy(x))
         if "ln" in p:
             state[f"{tower}.ln"] = torch.from_numpy(_copy(p["ln"]))
+    return state
+
+
+def gnn_params_from(params) -> Dict[str, torch.Tensor]:
+    """``GIN`` state dict (CPU tensors, for ``load_state_dict``) from the
+    reference's GIN param dict: ``encode`` / ``decode`` MLPs and the scanned
+    ``layers`` (``mlp.w[i]`` ``[L, h, h]``, ``mlp.b[i]`` ``[L, h]``, ``eps``
+    ``[L]``), unstacked into one entry per layer."""
+    state = {}
+    for head in ("encode", "decode"):
+        for field in ("w", "b"):
+            for i, x in enumerate(params[head][field]):
+                state[f"{head}.{field}.{i}"] = torch.from_numpy(_copy(x))
+    layers = params["layers"]
+    eps = _copy(layers["eps"])
+    for li in range(eps.shape[0]):
+        for field in ("w", "b"):
+            for i, x in enumerate(layers["mlp"][field]):
+                state[f"layers.{li}.mlp.{field}.{i}"] = torch.from_numpy(
+                    _copy(np.asarray(x)[li]))
+        state[f"layers.{li}.eps"] = torch.from_numpy(_copy(eps[li]))
     return state

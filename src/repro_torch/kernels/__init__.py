@@ -20,4 +20,10 @@ Kernels (the two-tower serving path):
     pre-gathered rows (``TwoTower`` user tower input).
   * ``gather_combine`` — the same reduction with the row gather fused
     (``ShardedEmbeddingTable.lookup_bags``).
+
+Kernel (the GIN path):
+  * ``bsr_spmm`` — block-sparse ``A @ X`` over a BSR layout's 128 x 128
+    blocks, one CUDA block per (block row, row tile, feature tile) walking
+    the block-row pointers (GIN's sum aggregation,
+    ``ops.gnn_aggregate_bsr``).
 """

@@ -6,8 +6,9 @@ PyTorch version of the same function. A CPU tensor goes to the plain
 version; a CUDA tensor goes to the kernel, or the call raises. There is no
 capability probe and no fallback: the device of the data decides.
 
-The ELL layout is built once per graph level on the host (the structure is
-static), only the partition labels change per refinement round.
+The ELL and BSR layouts are built once per graph (level) on the host (the
+structure is static); only the partition labels or the features change
+between calls.
 """
 from __future__ import annotations
 
@@ -16,7 +17,9 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import DeviceLike, resolve_device
 from repro_torch.kernels import bag_combine as _bag
+from repro_torch.kernels import bsr_spmm as _bsr
 from repro_torch.kernels import bucket_assign as _ba
 from repro_torch.kernels import gather_combine as _gc
 from repro_torch.kernels import match_keys as _mk
@@ -25,7 +28,8 @@ from repro_torch.kernels import quotient_link_loads as _qll
 
 KERNEL_MODULES = {"match_keys": _mk, "bucket_assign": _ba,
                   "quotient_link_loads": _qll, "partition_gain": _pg,
-                  "bag_combine": _bag, "gather_combine": _gc}
+                  "bag_combine": _bag, "gather_combine": _gc,
+                  "bsr_spmm": _bsr}
 
 
 def launch_counts() -> Dict[str, int]:
@@ -92,6 +96,49 @@ def gather_combine(table: torch.Tensor, idx: torch.Tensor,
     """:func:`embedding_bag` with the gather fused into the kernel: no
     ``[B, D, F]`` tensor is materialised. ``idx`` int32."""
     return _gc.gather_combine(table, idx, weights)
+
+
+def gnn_aggregate(senders: torch.Tensor, receivers: torch.Tensor,
+                  edge_weight: torch.Tensor, x: torch.Tensor,
+                  n_nodes: int) -> torch.Tensor:
+    """out[v] = sum over arcs (v <- u) of w_vu * x[u]: the plain gather and
+    ``index_add_`` (the reference's XLA path, ``segment_sum``). [n, F]"""
+    msg = x[receivers.long()] * edge_weight[:, None].to(x.dtype)
+    return torch.zeros((n_nodes,) + tuple(x.shape[1:]), dtype=x.dtype,
+                       device=x.device).index_add_(0, senders.long(), msg)
+
+
+def prepare_bsr(n_nodes: int, senders: np.ndarray, receivers: np.ndarray,
+                edge_weight: np.ndarray, block: int = 128,
+                device: DeviceLike = None) -> _bsr.BsrLayout:
+    """The graph's BSR layout, built once on the host (``to_bsr``) with its
+    block-row pointers, then moved to ``device`` (``None`` = CUDA)."""
+    dev = resolve_device(device)
+    senders, receivers = np.asarray(senders), np.asarray(receivers)
+    for name, ids in (("senders", senders), ("receivers", receivers)):
+        # the kernel reads x rows by block column unchecked
+        if ids.size and (int(ids.min()) < 0 or int(ids.max()) >= n_nodes):
+            raise ValueError(f"prepare_bsr: {name} outside [0, {n_nodes})")
+    rows, cols, blocks, nb = _bsr.to_bsr(n_nodes, senders, receivers,
+                                         np.asarray(edge_weight), block)
+    return _bsr.BsrLayout(
+        row_ptr=torch.as_tensor(_bsr.row_pointers(rows, nb), device=dev),
+        block_cols=torch.as_tensor(cols, device=dev),
+        blocks=torch.as_tensor(blocks, device=dev), n_block_rows=nb,
+        n_nodes=n_nodes)
+
+
+def gnn_aggregate_bsr(layout: _bsr.BsrLayout,
+                      x: torch.Tensor) -> torch.Tensor:
+    """:func:`gnn_aggregate` through the ``bsr_spmm`` kernel on the layout
+    of :func:`prepare_bsr`: ``x [n, F]`` padded with zero rows to the
+    layout's ``n_block_rows * R``, the product sliced back to ``[n, F]``."""
+    pad = layout.n_block_rows * layout.block - x.shape[0]
+    if pad:
+        x = torch.nn.functional.pad(x, (0, 0, 0, pad))
+    out = _bsr.bsr_spmm(layout.row_ptr, layout.block_cols, layout.blocks,
+                        x.contiguous())
+    return out[:layout.n_nodes]
 
 
 def to_ell(n_nodes: int, senders: np.ndarray, receivers: np.ndarray,

@@ -1,2 +1,3 @@
-"""Models of the port: the dense MLP block (``mlp``) and the two-tower
-retrieval model's serving path (``recsys``)."""
+"""Models of the port: the dense MLP block (``mlp``), the two-tower
+retrieval model's serving path (``recsys``) and the GIN forward on a BSR
+adjacency (``gnn``), with ``common.cross_entropy``."""

@@ -6,6 +6,9 @@ without one. Imports no JAX (the card's machine has none). Run with
 
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py
 """
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -16,13 +19,20 @@ from repro_torch.core.reference import total_cut_ref
 from repro_torch.core.topology import balanced_tree, production_tree
 from repro_torch.graph.generators import rmat
 from repro_torch.graph.graph import from_edges
+from repro_torch.configs import gin_tu
 from repro_torch.configs.two_tower_retrieval import SMOKE, smoke_batch
+from repro_torch.data.pipeline import molecule_batches
 from repro_torch.embed import ShardedEmbeddingTable, identity_plan
 from repro_torch.embed.sharded_table import ShardPlan
-from repro_torch.kernels import (bag_combine, bucket_assign, gather_combine,
-                                 match_keys, ops, partition_gain,
-                                 quotient_link_loads)
+from repro_torch.graph.generators import molecule_batch
+from repro_torch.kernels import (bag_combine, bsr_spmm, bucket_assign,
+                                 gather_combine, match_keys, ops,
+                                 partition_gain, quotient_link_loads)
+from repro_torch.models.gnn import GIN, gin_layout
 from repro_torch.models.recsys import TwoTower
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+from chip_smoke import gapped_graph  # noqa: E402  (the smoke run's graph)
 
 torch.set_num_threads(1)
 pytestmark = pytest.mark.gpu
@@ -270,3 +280,92 @@ def test_two_tower_serving_on_the_card(cuda):
                         assign=True)
     torch.testing.assert_close(model.score(batch).cpu(), cpu.score(batch),
                                rtol=1e-5, atol=1e-6)
+
+
+def _bsr_case(cuda, graph, block, f, seed=0):
+    """A graph's BSR layout on the card and a random ``x`` for it."""
+    lay = ops.prepare_bsr(graph.n_nodes, graph.senders, graph.receivers,
+                          graph.edge_weight, block, device=cuda)
+    x = torch.randn(lay.n_block_rows * block, f, generator=_gen(cuda, seed),
+                    device=cuda)
+    return (lay.row_ptr, lay.block_cols, lay.blocks, x)
+
+
+# (graph, R, F): one molecule request (the narrow tile), 1,024 molecules
+# (240 block rows: the wide tile), ragged F with an empty block row at
+# R = 32, R = 16, one block row, F = 1, several feature tiles with a ragged
+# last one, and a power-law graph
+BSR_CASES = {
+    "request_128mol": (lambda: molecule_batch(128, 30, 64, seed=0), 128, 64),
+    "wide_1024mol": (lambda: molecule_batch(1024, 30, 64, seed=1), 128, 64),
+    "ragged_R32_F96": (lambda: gapped_graph(400, 1500, (64, 128)), 32, 96),
+    "R16_F8": (lambda: gapped_graph(300, 900, (0, 40), seed=2), 16, 8),
+    "R32_F64": (lambda: rmat(700, 3000, seed=4), 32, 64),
+    "one_block_row": (lambda: rmat(100, 400, seed=5), 128, 64),
+    "F1": (lambda: rmat(500, 2000, seed=6), 128, 1),
+    "F200_wide": (lambda: molecule_batch(1100, 30, 64, seed=7), 128, 200),
+    "rmat_R128_F128": (lambda: rmat(3000, 20000, seed=8), 128, 128),
+}
+
+
+@pytest.mark.parametrize("name", sorted(BSR_CASES))
+def test_bsr_spmm_kernel_matches_plain(cuda, name):
+    make, block, f = BSR_CASES[name]
+    args = _bsr_case(cuda, make(), block, f, seed=block + f)
+    before = bsr_spmm.launches
+    got = bsr_spmm.bsr_spmm(*args)
+    assert bsr_spmm.launches == before + 1
+    want = bsr_spmm.plain(*args)
+    tol = bsr_spmm.order_tolerance(*args)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape
+    err = (got - want).abs()
+    assert bool((err <= tol + 1e-6 * want.abs()).all()), float(err.max())
+
+
+def test_bsr_spmm_tiles_on_both_sides_of_the_switch(cuda):
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert not bsr_spmm.wide_tile(30, 128, 64, sms)
+    assert bsr_spmm.wide_tile(240, 128, 64, sms)
+
+
+def test_bsr_spmm_is_deterministic(cuda):
+    args = _bsr_case(cuda, molecule_batch(1024, 30, 64, seed=3), 128, 64)
+    a = bsr_spmm.bsr_spmm(*args)
+    b = bsr_spmm.bsr_spmm(*args)
+    assert torch.equal(a, b)
+
+
+def test_bsr_spmm_checks_its_arguments(cuda):
+    row_ptr, cols, blocks, x = _bsr_case(cuda, rmat(300, 1000, seed=1), 32,
+                                         16)
+    with pytest.raises(TypeError, match="dtype"):
+        bsr_spmm.bsr_spmm(row_ptr.long(), cols, blocks, x)
+    with pytest.raises(TypeError, match="dtype"):
+        bsr_spmm.bsr_spmm(row_ptr, cols, blocks, x.double())
+    with pytest.raises(ValueError, match="on cpu"):
+        bsr_spmm.bsr_spmm(row_ptr, cols.cpu(), blocks, x)
+    with pytest.raises(ValueError, match=r"\[nnzb, R, R\]"):
+        bsr_spmm.bsr_spmm(row_ptr, cols, blocks[:, :, :16], x)
+    with pytest.raises(ValueError, match="n_block_cols"):
+        bsr_spmm.bsr_spmm(row_ptr, cols, blocks, x[:-1])
+    with pytest.raises(ValueError, match="contiguous"):
+        bsr_spmm.bsr_spmm(row_ptr, cols, blocks, x.t().contiguous().t())
+
+
+def test_gin_on_the_card_matches_its_cpu_plain_path(cuda):
+    """GIN-TU at full width on 32 molecules: 5 launches per forward, and the
+    card's logits against the CPU's plain path on the same parameters."""
+    cfg = gin_tu.ARCH.make_config("molecule")
+    model = GIN(cfg, generator=_gen(cuda, 0), device=cuda)
+    batch = next(molecule_batches(32, 30, 64, 16, 2, seed=0))
+    ops.reset_launch_counts()
+    got = model(batch, gin_layout(batch, device=cuda))
+    assert ops.launch_counts()["bsr_spmm"] == cfg.n_layers
+    cpu = GIN(cfg, device="meta")
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()},
+                        assign=True)
+    want = cpu(batch, gin_layout(batch, device="cpu"))
+    scale = float(want.abs().max())
+    err = (got.cpu() - want).abs()
+    assert bool((err <= 1e-5 * (scale + want.abs())).all()), float(err.max())

@@ -17,8 +17,8 @@ from repro.graph.generators import rmat as jrmat
 from repro.kernels import bag_combine as jbag_combine
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
-from repro_torch.kernels import (bag_combine, bucket_assign, gather_combine,
-                                 match_keys, ops)
+from repro_torch.kernels import (bag_combine, bsr_spmm, bucket_assign,
+                                 gather_combine, match_keys, ops)
 from repro_torch.kernels import partition_gain, quotient_link_loads
 
 torch.set_num_threads(1)
@@ -201,9 +201,12 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     bags = torch.zeros(4, 3, dtype=torch.int32)
     ops.embedding_bag(x.view(16, 4), bags, torch.ones(4, 3))
     ops.gather_combine(x.view(16, 4), bags, torch.ones(4, 3))
+    lay = ops.prepare_bsr(64, np.arange(63), np.arange(1, 64),
+                          np.ones(63, np.float32), 16, device="cpu")
+    ops.gnn_aggregate_bsr(lay, x.view(64, 1))
     assert set(ops.KERNEL_MODULES) == {
         "match_keys", "bucket_assign", "quotient_link_loads",
-        "partition_gain", "bag_combine", "gather_combine"}
+        "partition_gain", "bag_combine", "gather_combine", "bsr_spmm"}
     assert ops.launch_counts() == {name: 0 for name in ops.KERNEL_MODULES}
 
 
@@ -217,8 +220,10 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     lambda t: bag_combine.bag_combine(t.view(1, 2, 2), t.view(2, 2)[:1]),
     lambda t: gather_combine.gather_combine(t.view(2, 2), t.int().view(2, 2),
                                             t.view(2, 2)),
+    lambda t: bsr_spmm.bsr_spmm(t.int()[:2], t.int()[:1], t.view(1, 2, 2),
+                                t.view(2, 2)),
 ], ids=["match_keys", "bucket_assign", "partition_gain",
-        "quotient_link_loads", "bag_combine", "gather_combine"])
+        "quotient_link_loads", "bag_combine", "gather_combine", "bsr_spmm"])
 def test_wrappers_refuse_devices_without_a_kernel(call):
     """Dispatch is by the tensor's device: no silent plain path on a
     device other than the CPU (here ``meta``)."""

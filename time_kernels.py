@@ -1,15 +1,16 @@
 #!/usr/bin/env python3
-"""Time the port's bag kernels (``bag_combine``, ``gather_combine``) on one
-NVIDIA GPU at the recsys path's shapes, with the checks and measurements of
-``chip_smoke.py``'s kernels phase:
+"""Time the port's workload kernels on one NVIDIA GPU at their paths'
+shapes, with the checks and measurements of ``chip_smoke.py``'s kernels
+phase: the bag kernels (``bag_combine``, ``gather_combine``) at the recsys
+path's shapes, and ``bsr_spmm`` at the gnn path's:
 
     python3 time_kernels.py [SRC]
 
 ``SRC`` (default: this checkout's ``src``) is the directory holding the
 ``repro_torch`` package to time, so that two trees can be compared on one
 card, one process each, in the order A, B, B, A. Prints the card's
-``nvidia-smi`` line and one JSON line per kernel and shape; exits 2 without
-a CUDA device.
+``nvidia-smi`` line and one JSON line per kernel and shape; exits 2
+without a CUDA device.
 """
 from __future__ import annotations
 
@@ -30,6 +31,7 @@ def main() -> int:
     chip_smoke.phase_env(state)
     chip_smoke.phase_build(state)
     chip_smoke.phase_kernels_recsys(state)
+    chip_smoke.phase_kernels_gnn(state)
     return 0
 
 
