@@ -3,13 +3,17 @@
 Subpackages mirror the JAX package: ``graph`` (arc-list graphs and
 generators), ``core`` (machine trees, the makespan objective, coarsening,
 initial partition, refinement, the ``partition()`` entry point and block
-placement), ``configs`` (two-tower and GIN-TU configurations and shape
-grids), ``data`` (seeded recsys, GNN-feature and molecule batches),
-``models`` (MLP, two-tower serving, the GIN forward), ``embed`` (the
-partition-sharded embedding table) and ``kernels`` (hand-written CUDA
-kernels for Hopper, each beside its plain PyTorch version: the four
-partitioner kernels, ``bag_combine``, ``gather_combine`` and
-``bsr_spmm``). The package imports ``torch`` and ``numpy`` only.
+placement), ``configs`` (two-tower, GIN-TU and dense-LM configurations and
+shape grids), ``data`` (seeded recsys, GNN-feature and molecule batches),
+``models`` (MLP, two-tower serving, the GIN forward, the dense-GQA
+transformer), ``embed`` (the partition-sharded embedding table),
+``serving`` (paged KV cache, scheduler, paged decode, the
+continuous-batching engine), ``launch`` (the serving CLI and the page
+mapper), ``analysis`` (the traffic-matrix lint) and ``kernels``
+(hand-written CUDA kernels for Hopper, each beside its plain PyTorch
+version: the four partitioner kernels, ``bag_combine``,
+``gather_combine``, ``bsr_spmm`` and ``flash_attention``). The package
+imports ``torch`` and ``numpy`` only.
 
 Entry points take ``device=None``, meaning ``torch.device("cuda")``; they
 raise when no CUDA device is present unless the caller passes

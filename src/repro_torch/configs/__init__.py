@@ -1,3 +1,18 @@
 """Model configurations the port runs: the two-tower retrieval config and
-its shape grid (``two_tower_retrieval``) and GIN-TU over the GNN shape grid
-(``gin_tu`` on ``gnn_common``), on ``common.ShapeSpec`` / ``ArchDef``."""
+its shape grid (``two_tower_retrieval``), GIN-TU over the GNN shape grid
+(``gin_tu`` on ``gnn_common``) and the dense GQA LMs ``qwen2-1.5b`` and
+``chatglm3-6b`` (on ``lm_common``), on ``common.ShapeSpec`` / ``ArchDef``.
+
+``REGISTRY`` / :func:`get` resolve the LM names the serving CLI's
+``--arch`` takes (twin of ``repro/configs/__init__.py``'s registry, for the
+archs that are ported)."""
+from repro_torch.configs import chatglm3_6b, gin_tu, qwen2_1_5b
+
+REGISTRY = {a.ARCH.name: a.ARCH for a in (chatglm3_6b, qwen2_1_5b, gin_tu)}
+
+
+def get(name: str):
+    if name not in REGISTRY:
+        raise KeyError(f"unknown arch {name!r}; available: "
+                       f"{sorted(REGISTRY)}")
+    return REGISTRY[name]

@@ -1,9 +1,9 @@
 """Architecture registry records shared by the port's model configs.
 
 The part of ``repro/configs/common.py`` the ported slices need:
-``ShapeSpec``, ``ArchDef``, the recsys and GNN shape grids and the GNN
-smoke batch (the JAX ``ShapeDtypeStruct`` input specs of the dry-run are
-not ported).
+``ShapeSpec``, ``ArchDef``, the LM, recsys and GNN shape grids, the GNN
+smoke batch and the LM model-FLOPs count (the JAX ``ShapeDtypeStruct``
+input specs of the dry-run are not ported).
 """
 from __future__ import annotations
 
@@ -32,6 +32,27 @@ class ArchDef:
     model_flops: Callable[[str], float]        # useful fwd+bwd (or fwd) FLOPs
     notes: str = ""
     profiles: Tuple[str, ...] = ("2d",)
+
+
+def lm_shape_grid(full_attention: bool = True) -> Dict[str, ShapeSpec]:
+    shapes = {
+        "train_4k": ShapeSpec("train_4k", "train",
+                              {"batch": 256, "seq": 4096}),
+        "prefill_32k": ShapeSpec("prefill_32k", "prefill",
+                                 {"batch": 32, "seq": 32768}),
+        "decode_32k": ShapeSpec("decode_32k", "decode",
+                                {"batch": 128, "seq": 32768}),
+    }
+    if full_attention:
+        shapes["long_500k"] = ShapeSpec(
+            "long_500k", "skip", {"batch": 1, "seq": 524288},
+            skip_reason=("pure full-attention architecture; long_500k is "
+                         "assigned only to SSM/hybrid/linear-attention "
+                         "families (DESIGN.md §Arch-applicability)"))
+    else:
+        shapes["long_500k"] = ShapeSpec("long_500k", "decode",
+                                        {"batch": 1, "seq": 524288})
+    return shapes
 
 
 def recsys_shape_grid() -> Dict[str, ShapeSpec]:
@@ -86,3 +107,17 @@ def smoke_gnn_batch(n: int = 64, deg: int = 4, d_feat: int = 8,
     if with_pos:
         batch["pos"] = rng.normal(0, 1, (n, 3)).astype(np.float32)
     return batch
+
+
+# LM model-FLOPs: the assignment's accounting — 6 * N(_active) * D tokens.
+def lm_model_flops(n_params_active: int, shape: ShapeSpec) -> float:
+    if shape.kind == "train":
+        d = shape.meta["batch"] * shape.meta["seq"]
+        return 6.0 * n_params_active * d
+    if shape.kind == "prefill":
+        d = shape.meta["batch"] * shape.meta["seq"]
+        return 2.0 * n_params_active * d          # forward only
+    if shape.kind == "decode":
+        d = shape.meta["batch"]                    # one token per sequence
+        return 2.0 * n_params_active * d
+    return 0.0

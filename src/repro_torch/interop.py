@@ -3,8 +3,8 @@
 The port never imports the JAX package. These helpers read the numpy
 fields of the reference's ``Graph``, ``TreeTopology`` / ``RoutingTopology``,
 ``MachineSpec``, ``PartitionConfig``, ``RefineConfig`` and ``ShardPlan`` by
-name (duck typing), or the two-tower and GNN parameter dicts as numpy
-arrays, and build the port's own objects, so a test can give both packages
+name (duck typing), or the two-tower, GNN and transformer parameter dicts
+as numpy arrays, and build the port's own objects, so a test can give both packages
 the same inputs.
 """
 from __future__ import annotations
@@ -116,3 +116,26 @@ def gnn_params_from(params) -> Dict[str, torch.Tensor]:
                     _copy(np.asarray(x)[li]))
         state[f"layers.{li}.eps"] = torch.from_numpy(_copy(eps[li]))
     return state
+
+
+def transformer_params_from(params) -> Dict:
+    """The port's transformer params (``models.transformer``: CPU tensors)
+    from the reference's dense-GQA param dict: ``embed``, ``unembed``,
+    ``ln_f`` and the layers stacked on axis 0 under ``dense_layers``
+    (``attn`` / ``ffn`` dicts, ``ln1``, ``ln2``), unstacked into one dict
+    per layer under ``layers``. MoE layers (``moe_layers``) are refused."""
+    if "moe_layers" in params:
+        raise NotImplementedError("MoE layers wait for a later slice")
+
+    def t(x):
+        return torch.from_numpy(_copy(np.asarray(x)))
+
+    stacked = params["dense_layers"]
+    n = np.asarray(stacked["ln1"]).shape[0]
+    layers = [{
+        "attn": {k: t(np.asarray(x)[li]) for k, x in stacked["attn"].items()},
+        "ffn": {k: t(np.asarray(x)[li]) for k, x in stacked["ffn"].items()},
+        "ln1": t(np.asarray(stacked["ln1"])[li]),
+        "ln2": t(np.asarray(stacked["ln2"])[li])} for li in range(n)]
+    return {"embed": t(params["embed"]), "unembed": t(params["unembed"]),
+            "ln_f": t(params["ln_f"]), "layers": layers}

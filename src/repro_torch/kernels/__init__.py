@@ -26,4 +26,9 @@ Kernel (the GIN path):
     blocks, one CUDA block per (block row, row tile, feature tile) walking
     the block-row pointers (GIN's sum aggregation,
     ``ops.gnn_aggregate_bsr``).
+
+Kernel (the LM path):
+  * ``flash_attention`` — the online-softmax attention forward with GQA,
+    one CUDA block per (batch, head, 64-row q tile) walking the kv tiles
+    (every layer of the transformer's ``forward`` / ``prefill``).
 """

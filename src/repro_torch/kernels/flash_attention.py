@@ -1,0 +1,94 @@
+"""Online-softmax attention forward with GQA (``ops.flash_attention``).
+
+Replaces the Pallas kernel
+``repro/kernels/flash_attention.py:flash_attention_fwd`` with
+``csrc/flash_attention.cu``. On the model path it stands where the
+reference's pure-JAX ``_flash`` forward runs (``models/common.py``), which
+computes the same function: every layer of the LM's ``forward`` /
+``prefill`` (``models/transformer.gqa_attention``).
+
+q ``[B, Sq, H, D]``, k/v ``[B, Sk, KH, D]`` in float32 or bf16 with
+``D <= 128``; causal masking is top-left aligned (``k_pos <= q_pos``) as in
+the TPU kernel. One CUDA block per (batch, head, 64-row q tile) walks the
+kv tiles with the running max, sum and accumulator in float32 and writes
+its output once: deterministic, no atomics. At the LM's prefill shape the
+call is bound by operations at the bf16 tensor-core peak. bf16 with
+``D`` of 64 or 128 (the LM path) multiplies on the tensor cores
+(``mma.sync``); float32 and other head dims run a SIMT float32 kernel
+(``PERF.md`` has both against the bound).
+
+The plain version is the chunked twin of ``_flash``
+(``models.common.flash_attention``); CPU tensors run it. The wrapper's
+``q_chunk`` / ``kv_chunk`` are its chunk sizes and do not change the
+kernel's own tiling.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.models.common import flash_attention as plain
+
+# launches of the CUDA kernel (plain CPU calls do not count)
+launches = 0
+
+MAX_HEAD_DIM = 128
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True, q_chunk: int = 512,
+                    kv_chunk: int = 512) -> torch.Tensor:
+    """``[B, Sq, H, D]`` x ``[B, Sk, KH, D]`` x ``[B, Sk, KH, D]`` ->
+    ``[B, Sq, H, D]`` in q's dtype: the plain version for CPU tensors, the
+    CUDA kernel for CUDA tensors."""
+    global launches
+    dev = q.device
+    if dev.type == "cpu":
+        return plain(q, k, v, causal=causal, q_chunk=q_chunk,
+                     kv_chunk=kv_chunk)
+    if dev.type != "cuda":
+        raise ValueError(f"flash_attention: no kernel for device {dev}")
+    if q.dim() != 4 or k.dim() != 4:
+        raise ValueError(f"flash_attention: q and k must be 4-d, got "
+                         f"{tuple(q.shape)} and {tuple(k.shape)}")
+    b, sq, h, d = q.shape
+    _, sk, kh, _ = k.shape
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"flash_attention: dtype {q.dtype} (float32 or "
+                        f"bfloat16)")
+    if not 1 <= d <= MAX_HEAD_DIM:
+        raise ValueError(f"flash_attention: head dim {d} outside [1, "
+                         f"{MAX_HEAD_DIM}]")
+    if kh < 1 or h % kh:
+        raise ValueError(f"flash_attention: {h} query heads on {kh} KV "
+                         f"heads")
+    build.require(q, "flash_attention q", q.dtype, dev, (b, sq, h, d))
+    build.require(k, "flash_attention k", q.dtype, dev, (b, sk, kh, d))
+    build.require(v, "flash_attention v", q.dtype, dev, (b, sk, kh, d))
+    out = torch.empty_like(q)
+    if b == 0 or sq == 0:
+        return out
+    fn = build.entry("flash_attention", [ctypes.c_void_p] * 4
+                     + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p])
+    build.check("flash_attention", fn(
+        build.ptr(q), build.ptr(k), build.ptr(v), build.ptr(out), b, sq, sk,
+        h, kh, d, _DTYPES[q.dtype], int(bool(causal)),
+        float(1.0 / np.sqrt(d)), build.stream_of(dev)))
+    launches += 1
+    return out
+
+
+def work(b: int, sq: int, sk: int, h: int, kh: int, d: int, causal: bool,
+         itemsize: int):
+    """(bytes, flops) the call needs: q, k, v read once and o written once;
+    two multiply-adds per visible (query, key, dim) (QK^T and PV), counting
+    only the keys the top-left causal mask leaves visible."""
+    rows = np.arange(sq, dtype=np.int64)
+    visible = int(np.minimum(rows + 1, sk).sum()) if causal else sq * sk
+    flops = 4.0 * b * h * d * visible
+    bytes_moved = itemsize * (2 * b * sq * h * d + 2 * b * sk * kh * d)
+    return float(bytes_moved), flops

@@ -21,6 +21,7 @@ from repro_torch import DeviceLike, resolve_device
 from repro_torch.kernels import bag_combine as _bag
 from repro_torch.kernels import bsr_spmm as _bsr
 from repro_torch.kernels import bucket_assign as _ba
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import gather_combine as _gc
 from repro_torch.kernels import match_keys as _mk
 from repro_torch.kernels import partition_gain as _pg
@@ -29,7 +30,7 @@ from repro_torch.kernels import quotient_link_loads as _qll
 KERNEL_MODULES = {"match_keys": _mk, "bucket_assign": _ba,
                   "quotient_link_loads": _qll, "partition_gain": _pg,
                   "bag_combine": _bag, "gather_combine": _gc,
-                  "bsr_spmm": _bsr}
+                  "bsr_spmm": _bsr, "flash_attention": _fa}
 
 
 def launch_counts() -> Dict[str, int]:
@@ -139,6 +140,17 @@ def gnn_aggregate_bsr(layout: _bsr.BsrLayout,
     out = _bsr.bsr_spmm(layout.row_ptr, layout.block_cols, layout.blocks,
                         x.contiguous())
     return out[:layout.n_nodes]
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, q_chunk: int = 512,
+                    kv_chunk: int = 512) -> torch.Tensor:
+    """Online-softmax attention forward, GQA through ``h // (H / KH)``,
+    top-left causal: q ``[B, Sq, H, D]``, k/v ``[B, Sk, KH, D]`` ->
+    ``[B, Sq, H, D]``. ``q_chunk`` / ``kv_chunk`` tile the plain version
+    (CPU tensors); the kernel has its own tiles."""
+    return _fa.flash_attention(q, k, v, causal=causal, q_chunk=q_chunk,
+                               kv_chunk=kv_chunk)
 
 
 def to_ell(n_nodes: int, senders: np.ndarray, receivers: np.ndarray,

@@ -1,6 +1,8 @@
 """Card tests: every CUDA kernel of the port against its plain PyTorch
-version over a sweep of shapes, the wrappers' argument checks, and one
-small ``partition()`` per backend through the oracle. Marked ``gpu``; each
+version over a sweep of shapes, the wrappers' argument checks, one small
+``partition()`` per backend through the oracle, and the smoke-width LM
+(prefill through ``flash_attention``, the serving engine) against its CPU
+run. Marked ``gpu``; each
 test decides in the ``cuda`` fixture whether a card is present and skips
 without one. Imports no JAX (the card's machine has none). Run with
 
@@ -26,9 +28,13 @@ from repro_torch.embed import ShardedEmbeddingTable, identity_plan
 from repro_torch.embed.sharded_table import ShardPlan
 from repro_torch.graph.generators import molecule_batch
 from repro_torch.kernels import (bag_combine, bsr_spmm, bucket_assign,
-                                 gather_combine, match_keys, ops,
-                                 partition_gain, quotient_link_loads)
+                                 flash_attention, gather_combine, match_keys,
+                                 ops, partition_gain, quotient_link_loads)
+from repro_torch.configs import qwen2_1_5b
+from repro_torch.models import common as mcommon
+from repro_torch.models import transformer as tr
 from repro_torch.models.gnn import GIN, gin_layout
+from repro_torch.serving import EngineConfig, ServingEngine
 from repro_torch.models.recsys import TwoTower
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
@@ -369,3 +375,122 @@ def test_gin_on_the_card_matches_its_cpu_plain_path(cuda):
     scale = float(want.abs().max())
     err = (got.cpu() - want).abs()
     assert bool((err <= 1e-5 * (scale + want.abs())).all()), float(err.max())
+
+
+# tests/test_flash_kernel.py's CASES (b, sq, sk, h, kh, d, causal), the LM's
+# head shape, the smoke configs' head dims (12, 16), ragged lengths on both
+# sides of the 64-row tiles, one row, and Sq != Sk (top-left causal)
+FLASH_CASES = [
+    (2, 64, 64, 4, 2, 32, True), (1, 100, 100, 4, 1, 16, True),
+    (2, 64, 64, 8, 8, 32, False), (1, 128, 128, 4, 2, 64, True),
+    (2, 300, 300, 12, 2, 128, True), (1, 65, 65, 4, 2, 12, True),
+    (3, 1, 1, 2, 1, 16, True), (1, 127, 127, 6, 3, 128, False),
+    (1, 40, 200, 4, 2, 64, True), (1, 200, 40, 4, 2, 64, True),
+]
+# float32: the reference's band for its kernel (tests/test_flash_kernel.py)
+FLASH_F32 = dict(rtol=2e-5, atol=2e-5)
+# bf16: the reference's band for its bf16 kernel (same file)
+FLASH_BF16_ATOL = 3e-2
+
+
+def _flash_inputs(cuda, case, dtype):
+    b, sq, sk, h, kh, d, _ = case
+    gen = _gen(cuda, sum(case[:6]))
+    return [torch.randn(shape, generator=gen, device=cuda).to(dtype)
+            for shape in ((b, sq, h, d), (b, sk, kh, d), (b, sk, kh, d))]
+
+
+@pytest.mark.parametrize("case", FLASH_CASES, ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_flash_attention_kernel_matches_plain(cuda, case, dtype):
+    q, k, v = _flash_inputs(cuda, case, dtype)
+    causal = case[-1]
+    before = flash_attention.launches
+    got = flash_attention.flash_attention(q, k, v, causal=causal)
+    assert flash_attention.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    want = mcommon.flash_attention(q, k, v, causal=causal, q_chunk=64,
+                                   kv_chunk=64)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, **FLASH_F32)
+    else:
+        torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                                   atol=FLASH_BF16_ATOL)
+    assert torch.equal(flash_attention.flash_attention(q, k, v,
+                                                       causal=causal), got)
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.float32, 16),
+                                     (torch.bfloat16, 128)],
+                         ids=["simt_f32", "tensor_core_bf16"])
+def test_flash_attention_with_no_keys_gives_zeros(cuda, dtype, d):
+    """Every key masked (Sk = 0): m stays -inf, the isfinite guards keep
+    NaN out, and the output is acc / max(l, 1e-20) = 0."""
+    q = torch.randn(1, 5, 2, d, device=cuda).to(dtype)
+    k = torch.zeros(1, 0, 1, d, device=cuda, dtype=dtype)
+    got = flash_attention.flash_attention(q, k, k, causal=False)
+    assert torch.equal(got, torch.zeros_like(q))
+
+
+def test_flash_attention_checks_its_arguments(cuda):
+    q = torch.randn(1, 8, 4, 16, device=cuda)
+    k = torch.randn(1, 8, 2, 16, device=cuda)
+    with pytest.raises(TypeError, match="dtype"):
+        flash_attention.flash_attention(q.double(), k.double(), k.double())
+    with pytest.raises(TypeError, match="dtype"):
+        flash_attention.flash_attention(q, k.bfloat16(), k)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention.flash_attention(
+            torch.randn(1, 8, 2, 256, device=cuda),
+            torch.randn(1, 8, 1, 256, device=cuda),
+            torch.randn(1, 8, 1, 256, device=cuda))
+    with pytest.raises(ValueError, match="query heads"):
+        flash_attention.flash_attention(q[:, :, :3].contiguous(), k, k)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention.flash_attention(q.transpose(1, 2), k, k)
+    with pytest.raises(ValueError, match="on cpu"):
+        flash_attention.flash_attention(q, k.cpu(), k)
+
+
+def _smoke_lm(cuda):
+    cfg = qwen2_1_5b.SMOKE
+    params = tr.init(cfg, torch.Generator().manual_seed(0), device="cpu")
+    on_card = {"embed": params["embed"].to(cuda),
+               "unembed": params["unembed"].to(cuda),
+               "ln_f": params["ln_f"].to(cuda),
+               "layers": [{k: ({kk: vv.to(cuda) for kk, vv in v.items()}
+                               if isinstance(v, dict) else v.to(cuda))
+                           for k, v in layer.items()}
+                          for layer in params["layers"]]}
+    return cfg, params, on_card
+
+
+def test_smoke_prefill_on_the_card_matches_its_cpu_plain_path(cuda):
+    cfg, params, on_card = _smoke_lm(cuda)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, 150)))
+    ops.reset_launch_counts()
+    got = tr.prefill(on_card, toks.to(cuda), cfg)
+    assert ops.launch_counts()["flash_attention"] == cfg.n_layers
+    want = tr.prefill(params, toks, cfg)
+    scale = float(want.abs().max())
+    err = (got.cpu() - want).abs()
+    assert bool((err <= 2e-5 * (scale + want.abs())).all()), float(err.max())
+
+
+def test_smoke_engine_on_the_card_gives_the_cpu_greedy_tokens(cuda):
+    cfg, params, on_card = _smoke_lm(cuda)
+    rng = np.random.default_rng(11)
+    work = [(rng.integers(0, cfg.vocab, int(rng.integers(2, 12))),
+             int(rng.integers(1, 9))) for _ in range(8)]
+    out = []
+    for p, dev in ((params, "cpu"), (on_card, cuda)):
+        eng = ServingEngine(p, cfg, EngineConfig(
+            n_slots=3, page_size=4, n_pages=32, max_pages_per_req=6,
+            temperature=0.0, replace_every=5, place_devices=4), device=dev)
+        for prompt, gen in work:
+            eng.submit(prompt, gen)
+        rep = eng.run()
+        out.append({r["rid"]: r["generated"] for r in rep.requests})
+    assert out[0] == out[1]

@@ -19,7 +19,8 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.kernels import (bag_combine, bsr_spmm, bucket_assign,
                                  gather_combine, match_keys, ops)
-from repro_torch.kernels import partition_gain, quotient_link_loads
+from repro_torch.kernels import (flash_attention, partition_gain,
+                                 quotient_link_loads)
 
 torch.set_num_threads(1)
 
@@ -204,9 +205,12 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     lay = ops.prepare_bsr(64, np.arange(63), np.arange(1, 64),
                           np.ones(63, np.float32), 16, device="cpu")
     ops.gnn_aggregate_bsr(lay, x.view(64, 1))
+    ops.flash_attention(x.view(1, 16, 2, 2), x.view(1, 16, 2, 2)[:, :, :1],
+                        x.view(1, 16, 2, 2)[:, :, 1:])
     assert set(ops.KERNEL_MODULES) == {
         "match_keys", "bucket_assign", "quotient_link_loads",
-        "partition_gain", "bag_combine", "gather_combine", "bsr_spmm"}
+        "partition_gain", "bag_combine", "gather_combine", "bsr_spmm",
+        "flash_attention"}
     assert ops.launch_counts() == {name: 0 for name in ops.KERNEL_MODULES}
 
 
@@ -222,8 +226,11 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
                                             t.view(2, 2)),
     lambda t: bsr_spmm.bsr_spmm(t.int()[:2], t.int()[:1], t.view(1, 2, 2),
                                 t.view(2, 2)),
+    lambda t: flash_attention.flash_attention(
+        t.view(1, 2, 1, 2), t.view(1, 2, 1, 2), t.view(1, 2, 1, 2)),
 ], ids=["match_keys", "bucket_assign", "partition_gain",
-        "quotient_link_loads", "bag_combine", "gather_combine", "bsr_spmm"])
+        "quotient_link_loads", "bag_combine", "gather_combine", "bsr_spmm",
+        "flash_attention"])
 def test_wrappers_refuse_devices_without_a_kernel(call):
     """Dispatch is by the tensor's device: no silent plain path on a
     device other than the CPU (here ``meta``)."""

@@ -2,7 +2,8 @@
 """Time the port's workload kernels on one NVIDIA GPU at their paths'
 shapes, with the checks and measurements of ``chip_smoke.py``'s kernels
 phase: the bag kernels (``bag_combine``, ``gather_combine``) at the recsys
-path's shapes, and ``bsr_spmm`` at the gnn path's:
+path's shapes, ``bsr_spmm`` at the gnn path's and ``flash_attention`` at
+the lm path's (one 4 x 4,096 prefill call and one of 32,768 tokens):
 
     python3 time_kernels.py [SRC]
 
@@ -32,6 +33,7 @@ def main() -> int:
     chip_smoke.phase_build(state)
     chip_smoke.phase_kernels_recsys(state)
     chip_smoke.phase_kernels_gnn(state)
+    chip_smoke.phase_kernels_lm(state)
     return 0
 
 
