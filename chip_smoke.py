@@ -13,7 +13,8 @@ non-zero:
   env      torch/CUDA versions and the card's name and power limit;
   build    nvcc over ``src/repro_torch/csrc/*.cu`` (all sources in
            parallel), with each kernel's -Xptxas -v register / shared
-           memory / spill lines;
+           memory / spill lines and nvcc's warnings and performance notes
+           (a serialised wgmma); fails if any kernel spills registers;
   kernels  every kernel against its plain PyTorch version on the card, at
            the main path's shapes (for the bag kernels every shape the
            recsys path gives them: 512, 262,144 and 1 bags) and at a
@@ -23,7 +24,9 @@ non-zero:
            before each call; ``warm_ms`` without the flush), the time per
            back-to-back call with the host's launch cost (``call_ms``), and
            the least time the H100 could take for the same bytes and
-           operations;
+           operations; ``bucket_assign`` and ``torch.searchsorted`` are
+           also timed in alternation (one call each per round, 201
+           rounds) for a median and quartiles each;
   full     ``partition(grid3d(64, 64, 64), gpu-superpod, backend="device")``
            cold, warm, and once more under torch.profiler (device busy
            time, idle share and top kernels, all from that one traced
@@ -199,6 +202,13 @@ LM_WIDE = dict(num_requests=64, prompt_len=256, gen_len=64, slots=32,
                page_size=16, n_pages=0, seed=0)
 LM_WIDE_POLICY = dict(replace_every=64, place_devices=4)
 LM_TEMPERATURE = 0.8
+# bucket_assign against torch.searchsorted: rounds of one call each
+BUCKET_RANKING_ROUNDS = 201
+# Idle seconds between the profiler's switch to its recorded cycle and the
+# run it records: a run launched at once sometimes loses its first device
+# events from the trace, or all of them (trace_gap.py counts how often,
+# with and without this gap).
+TRACE_GAP_S = 0.05
 # flash_attention against its plain version: the reference's float32 band
 # for its kernel (tests/test_flash_kernel.py: rtol = atol = 2e-5 at its
 # CASES). In bf16 an absolute band says little at long sequences (the
@@ -315,6 +325,40 @@ def device_ms(fn, iters: int, flush=None, warmup: int = 3) -> float:
     return sum(a.elapsed_time(b) for a, b in pairs) / iters
 
 
+def alternating_device_ms(fns, rounds: int, flush=None, warmup: int = 3):
+    """Device milliseconds of each of ``fns``, timed in alternation: every
+    round times one call of each, in order, as ``device_ms`` times one
+    call (stream stalled while the host queues it, ``flush`` read first).
+    Returns, per function, the median and the quartiles over the rounds,
+    so that two close times are compared with their spread."""
+    import numpy as np
+    import torch
+    for fn in fns:
+        for _ in range(warmup):
+            fn()
+    torch.cuda.synchronize()
+    pairs = [[] for _ in fns]
+    for _ in range(rounds):
+        for fn, out in zip(fns, pairs):
+            torch.cuda._sleep(2_000_000)
+            if flush is not None:
+                flush.sum()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            out.append((start, end))
+    torch.cuda.synchronize()
+    stats = []
+    for out in pairs:
+        ms = np.array([a.elapsed_time(b) for a, b in out])
+        q25, q50, q75 = np.percentile(ms, [25, 50, 75])
+        stats.append(dict(median_ms=float(q50), q25_ms=float(q25),
+                          q75_ms=float(q75), rounds=rounds))
+    return stats
+
+
 def _device_work(e) -> bool:
     """A profiler event of work on the card (a kernel, copy or memset),
     not a user annotation's range such as a schedule's ProfilerStep."""
@@ -376,11 +420,16 @@ def phase_env(state):
 
 
 def phase_build(state):
+    """Build the kernel library; fails if ptxas spilled any kernel's
+    registers."""
     from repro_torch.kernels import build
     t0 = time.perf_counter()
     rep = build.build_all()
+    spilled = build.spilled(rep["ptxas"])
     emit("build", seconds=time.perf_counter() - t0, built=rep["built"],
-         ptxas=rep["ptxas"])
+         spilled=spilled, notes=rep["notes"], ptxas=rep["ptxas"])
+    if spilled:
+        raise AssertionError(f"ptxas spilled registers in {spilled}")
 
 
 def _flush_buffer(state):
@@ -475,6 +524,27 @@ def phase_kernels(state):
                                                          right=True),
                       bytes_moved=8.0 * n + 4.0 * (k - 1),
                       flops=float(n) * (k - 1))
+
+    # bucket_assign against torch.searchsorted(right=True) at the main
+    # shape, one call of each per round: the two are within a few percent,
+    # so each gets a median and quartiles, and the verdict is "slower" or
+    # "faster" only where the two interquartile ranges do not overlap
+    n, k = 12_400, 64
+    nw = torch.rand(n, generator=gen, device=dev) + 0.1
+    cum = torch.cumsum(nw, 0) - 0.5 * nw
+    bounds = (torch.arange(1, k, device=dev, dtype=torch.float64) / k
+              * float(nw.sum())).float()
+    kern, lib = alternating_device_ms(
+        [lambda: bucket_assign.bucket_assign(cum, bounds, k),
+         lambda: torch.searchsorted(bounds, cum, right=True)],
+        rounds=BUCKET_RANKING_ROUNDS, flush=_flush_buffer(state))
+    slower = kern["q25_ms"] > lib["q75_ms"]
+    faster = kern["q75_ms"] < lib["q25_ms"]
+    state["bucket_ranking"] = dict(
+        shape=[n, k], bucket_assign=kern, searchsorted=lib,
+        verdict="slower" if slower else "faster" if faster else "tied")
+    emit("kernels", kernel="bucket_assign", step="ranking",
+         **state["bucket_ranking"])
 
     # quotient_link_loads: the full phase's level-0 arcs on gpu-superpod
     # (k = 64, L = 72), and on production_tree(2, 16, 16) (k = 512)
@@ -756,14 +826,15 @@ def _wall(fn, reps=1):
     return out, (time.perf_counter() - t0) * 1e3 / reps
 
 
-def _traced(fn, kernel_events):
+def _traced(fn, kernel_events, gap_s=TRACE_GAP_S):
     """One run of ``fn`` under torch.profiler, after one warm-up run under
-    its schedule that is not recorded: wall s, device busy s and idle share
-    (busy over that run's wall, profiler overhead included) and the top
-    device operations. ``kernel_events`` maps a substring of a port
-    kernel's device-event name to the launch counters it stands for; the
-    trace must hold as many such events as those counters counted in the
-    recorded run, or its times miss work and this raises."""
+    its schedule that is not recorded and ``gap_s`` idle seconds: wall s,
+    device busy s and idle share (busy over that run's wall, profiler
+    overhead included) and the top device operations. ``kernel_events``
+    maps a substring of a port kernel's device-event name to the launch
+    counters it stands for; the trace must hold as many such events as
+    those counters counted in the recorded run, or its times miss work and
+    this raises."""
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
 
@@ -775,6 +846,7 @@ def _traced(fn, kernel_events):
         fn()
         torch.cuda.synchronize()
         prof.step()
+        time.sleep(gap_s)
         c0 = ops.launch_counts()
         t0 = time.perf_counter()
         fn()
@@ -1799,6 +1871,8 @@ def kernels_line(state):
             ms=rows[0]["ms"], plain_ms=rows[0]["plain_ms"],
             bound_ms=rows[0]["bound_ms"], bound_by=rows[0]["bound_by"],
             library_ms=rows[0]["library_ms"], call_ms=rows[0]["call_ms"]))
+        if name == "bucket_assign":        # timed against its library call
+            out[-1]["ranking"] = state["bucket_ranking"]
         if name == "flash_attention":      # and at the 32k prefill
             out[-1]["long"] = {k: rows[1][k] for k in (
                 "shape", "ms", "call_ms", "plain_ms", "library_ms",

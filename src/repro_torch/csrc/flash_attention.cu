@@ -11,42 +11,53 @@
 // flash_attention_fwd (and, on the model path, the pure-JAX _flash forward
 // of repro/models/common.py, which computes the same function). The TPU
 // kernel carries (acc, m, l) in VMEM scratch across a sequential kv-block
-// grid axis; here one CUDA block owns one (batch, head, 64-row q tile) and
-// walks the kv tiles in a loop, so nothing crosses blocks: no atomics, each
-// output written once, two calls bitwise equal.
+// grid axis; here each (batch, head, q tile) is owned by one CUDA block,
+// which walks its kv tiles in a loop, so nothing crosses blocks: no
+// atomics, each output written once, two calls bitwise equal.
 //
 // Numerics follow the reference exactly in kind: scores are float32 sums
-// of the products of the working type, multiplied by the scale after the
-// sum; the running max, sum and accumulator are float32; P is rounded to
-// v's type before the PV product (the running sum takes the unrounded P);
-// rows whose keys are all masked keep m = -inf, and both exp factors are
-// guarded by isfinite as in the reference, so no NaN appears; the output is
+// of the products of the working type, scaled after the sum; the running
+// max, sum and accumulator are float32; P is rounded to v's type before
+// the PV product (the running sum takes the unrounded P); rows whose keys
+// are all masked keep m = -inf, and both exp factors are guarded by
+// isfinite as in the reference, so no NaN appears; the output is
 // acc / max(l, 1e-20) rounded to q's type.
 //
 // Bound: at the LM's prefill shape (4 x 4,096 tokens, 12 heads on 2, D =
 // 128, causal) one call is ~206 GFLOP against ~117 MB of q, k, v and o, so
-// it is bound by operations (~0.21 ms at the bf16 dense tensor-core peak).
+// it is bound by operations: ~0.21 ms at the bf16 dense tensor-core peak.
 //
-// Two kernels. bf16 with D = 64 or 128 (the LM path) runs on the tensor
-// cores (flash_fwd_mma_kernel, below): mma.sync bf16 products summed in
-// float32, Q in registers, K/V tiles double-buffered with cp.async, P kept
-// in registers. Every other case (float32, other head dims) runs the SIMT
-// float32 kernel (flash_fwd_kernel): 256 threads per block; the q tile is
-// staged transposed in shared memory once, each kv tile's K (transposed)
-// and then V share one buffer; S = Q K^T is a 4 x 4 register tile per
-// thread read with float4 loads; the scaled, masked scores go to shared
-// memory transposed ([key][row]), the online-softmax update runs four
-// threads per row, and O = P V is a 4 x (D / 16) register tile per thread;
-// it cannot go below ~3.1 ms at the prefill shape (the float32 vector
-// peak). wgmma with TMA staging and warp specialisation is later speed
-// work. In both, causal blocks stop at their last visible kv tile, and the
-// grid issues the longest (last) q tiles first. Ragged Sq and Sk need no
-// padded copies: rows at or beyond Sq load zeros and are not stored, keys
-// at or beyond Sk load zeros and are masked.
+// Two kernels. bf16 with D = 64 or 128 (the LM path) runs
+// flash_fwd_wgmma_kernel (below), built for Hopper's tensor cores:
+// persistent CTAs of three warpgroups, one per SM, each walking 128-row q
+// tiles. One producer warp, its registers given up with setmaxnreg, issues
+// TMA loads: Q once per q tile, then K and V tiles of 128 keys into a ring
+// of stages, each buffer with a "full" mbarrier armed with the bytes to
+// expect and an "empty" one the consumers release. Two consumer warpgroups
+// own 64 q rows each and take turns on the tensor cores: S = Q K^T by
+// wgmma with both operands in shared memory, the online softmax in
+// registers (exp2 with the scale folded into one FMA, the mask applied
+// only on tiles that cross the diagonal or Sk) while the previous tile's
+// O += P V runs, P packed to bf16 in registers as that product's A operand
+// and V read MN-major from shared memory. Every other case (float32,
+// other head dims) runs the SIMT float32 kernel
+// (flash_fwd_kernel): 256 threads per block over a 64-row q tile; the q
+// tile is staged transposed in shared memory once, each kv tile's K
+// (transposed) and then V share one buffer; S = Q K^T is a 4 x 4 register
+// tile per thread read with float4 loads; the scaled, masked scores go to
+// shared memory transposed ([key][row]), the online-softmax update runs
+// four threads per row, and O = P V is a 4 x (D / 16) register tile per
+// thread; it cannot go below ~3.1 ms at the prefill shape (the float32
+// vector peak). In both, causal blocks stop at their last visible kv tile,
+// and the grid issues the longest (last) q tiles first. Ragged Sq and Sk
+// need no padded copies: rows at or beyond Sq load zeros and are not
+// stored, keys at or beyond Sk load zeros and are masked.
 #include "common.cuh"
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <math.h>
+#include <stdint.h>
 
 // Internal linkage without an anonymous namespace, so the kernel keeps a
 // plain mangled name in nvcc's -Xptxas -v report.
@@ -306,271 +317,720 @@ static int launch_d(const void* q, const void* k, const void* v, void* o,
 }
 
 // ---------------------------------------------------------------------------
-// bf16 on the tensor cores (D = 64 or 128): the same function, with QK^T
-// and PV as mma.sync.m16n8k16 bf16 products summed in float32. Four warps
-// own 16 q rows each of a 64-row tile; Q stays in registers as A fragments,
-// K and V tiles of 64 keys stream through two shared-memory buffers
-// (cp.async, the next tile in flight while this one is multiplied, rows
-// padded by 16 bytes so ldmatrix reads no bank twice). The scores come out
-// of the products in registers in the layout the PV product takes as its
-// A operand, so P never touches shared memory: it is rounded to bf16 there
-// (the reference's P.astype(v.dtype)), while the running sum takes the
-// unrounded P. Each thread keeps the running max of its two rows (reduced
-// over its quad every tile) and a partial sum, reduced once at the end.
+// bf16 with D = 64 or 128 on Hopper: flash_fwd_wgmma_kernel.
+//
+// Persistent CTAs, one per SM, each walking work tiles (a 128-row q tile of
+// one (batch, head)) longest first, in rounds of the grid taken forwards
+// and backwards in turn (snake_tile), so the next tile's loads overlap the
+// last one's tail and no CTA is left with much more work than another.
+//
+// A CTA is 384 threads. Warpgroup 0 is the producer: it drops to 40
+// registers (setmaxnreg) and one lane issues every TMA load, Q once per
+// work tile and K and V per kv tile into a ring of stages; every buffer
+// has a "full" mbarrier, armed with the bytes to expect, and an "empty"
+// one that the consumers' eight warps arrive on when they are done with
+// it (K after S = Q K^T, V after O += P V, Q after its tile's last S).
+// Warpgroups 1 and 2 are the consumers, 64 q rows each (wgmma's M), at
+// 232 registers. Shared memory, every tile 1024-byte aligned and 128-byte
+// swizzled by TMA exactly as wgmma's SWIZZLE_128B descriptors read it: Q
+// [128 rows][D] as D / 64 panels of 128 rows x 128 bytes (32 KB at D =
+// 128), then STAGES K tiles and STAGES V tiles of 128 keys in the same
+// panel form, then the barriers: 160 KB at D = 128 (two stages), 144 KB at
+// D = 64 (four stages).
+//
+// The products, per consumer warpgroup and kv tile:
+//   S = Q K^T   wgmma m64n128k16, both operands K-major in shared memory:
+//               a k-step of 16 dims advances 32 bytes inside a 64-dim
+//               panel and jumps a panel at 64 (SBO = 1024: eight rows);
+//   O += P V    wgmma m64nDk16 with P from registers (the score
+//               accumulator's layout is the A fragment's, so P never
+//               touches shared memory) and V MN-major (the transpose bit):
+//               a k-step of 16 keys advances 2,048 bytes, LBO is the
+//               stride to the next 64-dim panel, SBO eight keys.
+// The two consumer groups take turns on the tensor cores (named barriers
+// 1 and 2): in its turn a group issues kv tile t's S and kv tile t-1's
+// O += P V and hands the turn over; it then runs tile t's softmax while
+// its own P V and the other group's products run.
 // ---------------------------------------------------------------------------
 
-static __device__ __forceinline__ unsigned smem_u32(const void* ptr) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(ptr));
+constexpr int WG_BQ = 128;          // q rows per CTA
+constexpr int WG_BK = 128;          // keys per kv tile
+constexpr int WG_THREADS = 384;     // producer + two consumer warpgroups
+constexpr int PRODUCER_REGS = 40;
+constexpr int CONSUMER_REGS = 232;  // 40 + 2 x 232 = 3 x 168 (launch bound)
+constexpr float LOG2E = 1.4426950408889634f;
+
+template <int D> struct WgTile {
+  static constexpr int PANELS = D / 64;          // 128-byte panels per row
+  static constexpr int STAGES = D == 64 ? 4 : 2;
+  static constexpr int Q_PANEL = WG_BQ * 128;    // bytes of one Q panel
+  static constexpr int KV_PANEL = WG_BK * 128;   // bytes of one K/V panel
+  static constexpr int Q_BYTES = PANELS * Q_PANEL;
+  static constexpr int KV_BYTES = PANELS * KV_PANEL;
+  static constexpr int OFF_K = Q_BYTES;
+  static constexpr int OFF_V = OFF_K + STAGES * KV_BYTES;
+  static constexpr int OFF_BAR = OFF_V + STAGES * KV_BYTES;
+  // full and empty barriers for Q, then for K and for V per stage; 1 KB
+  // of slack to align the dynamic shared memory's base to 1,024 bytes
+  static constexpr int SMEM = OFF_BAR + 8 * (2 + 4 * STAGES) + 1024;
+};
+
+static __device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
 }
 
-static __device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4],
-                                                   const void* ptr) {
+static __device__ __forceinline__ void mbar_init(uint32_t bar,
+                                                 uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(bar), "r"(count) : "memory");
+}
+
+static __device__ __forceinline__ void mbar_expect_tx(uint32_t bar,
+                                                      uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+static __device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(bar) : "memory");
+}
+
+// Wait until the barrier's phase of parity `parity` has completed. (No
+// trap on a long wait: a __trap anywhere in the kernel keeps ptxas from
+// giving the consumers the registers setmaxnreg asks for.)
+static __device__ __forceinline__ void mbar_wait(uint32_t bar,
+                                                 uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// One TMA box of a 4-D tensor map into shared memory, completing on `bar`
+static __device__ __forceinline__ void tma_load_4d(uint32_t dst,
+                                                   const CUtensorMap* map,
+                                                   uint32_t bar, int c0,
+                                                   int c1, int c2, int c3) {
   asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(ptr)));
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
+         "r"(c2), "r"(c3), "r"(bar)
+      : "memory");
 }
 
-static __device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4],
-                                                         const void* ptr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(ptr)));
+// wgmma shared-memory descriptor of a 128-byte-swizzled tile (layout type
+// 1): start address, leading and stride byte offsets, in 16-byte units.
+// Every tile is 1024-byte aligned, so the base offset is 0.
+static __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr,
+                                                      uint32_t lbo,
+                                                      uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4)
+         | static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16
+         | static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32
+         | static_cast<uint64_t>(1) << 62;
 }
 
-// c += a (16 x 16, row) * b (16 x 8, col), bf16 in, float32 sums
-static __device__ __forceinline__ void mma_bf16(float (&c)[4],
-                                                const unsigned (&a)[4],
-                                                unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+static __device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
 
-static __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+static __device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// Wait until at most N committed groups are still in flight (groups
+// complete in order).
+template <int N>
+static __device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+
+// Keep the compiler from touching wgmma's registers across its issue and
+// wait: the accumulators are read only after this point.
+template <int N>
+static __device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
+}
+
+template <int N>
+static __device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i]) :: "memory");
+}
+
+static __device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+static __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<unsigned*>(&v);
+  return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// ROWS x D bf16 rows (row stride ld elements) into dst[r * (D + 8) + c]
-// with cp.async, 16 bytes a copy; rows at or beyond n_rows are zero-filled
-// (no bytes read).
-template <int D, int ROWS, int NT>
-static __device__ __forceinline__ void load_rows_async(
-    __nv_bfloat16* dst, const __nv_bfloat16* src, long long ld, int n_rows) {
-  constexpr int CHUNKS = D / 8;
-  for (int e = threadIdx.x; e < ROWS * CHUNKS; e += NT) {
-    const int r = e / CHUNKS, c = (e % CHUNKS) * 8;
-    const bool in = r < n_rows;
-    const __nv_bfloat16* g = in ? src + r * ld + c : src;
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-                 :: "r"(smem_u32(dst + r * (D + 8) + c)), "l"(g),
-                    "r"(in ? 16 : 0));
-  }
-  asm volatile("cp.async.commit_group;\n" ::);
+// d (64 x 128, float32) += a (64 x 16) * b (16 x 128), bf16, both from
+// shared memory through descriptors, both K-major
+static __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64],
+                                                   uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
+      "%62, %63 "
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+      "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+      "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+      "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+      "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+      "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+      "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+      "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+      "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+      "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+      "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+      "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+      "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1)
+      : "memory");
 }
 
-static __device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+// d (64 x 128, float32) = a (64 x 16) * b (16 x 128): the first k-step,
+// which ignores d's old value (scale-d false), so d is output-only here and
+// the compiler need not keep its old contents alive up to this point
+static __device__ __forceinline__ void wgmma_ss_n128_first(float (&d)[64],
+                                                         uint64_t da,
+                                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
+      "%62, %63 "
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]),
+      "=f"(d[4]), "=f"(d[5]), "=f"(d[6]), "=f"(d[7]),
+      "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]),
+      "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15]),
+      "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]),
+      "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]),
+      "=f"(d[24]), "=f"(d[25]), "=f"(d[26]), "=f"(d[27]),
+      "=f"(d[28]), "=f"(d[29]), "=f"(d[30]), "=f"(d[31]),
+      "=f"(d[32]), "=f"(d[33]), "=f"(d[34]), "=f"(d[35]),
+      "=f"(d[36]), "=f"(d[37]), "=f"(d[38]), "=f"(d[39]),
+      "=f"(d[40]), "=f"(d[41]), "=f"(d[42]), "=f"(d[43]),
+      "=f"(d[44]), "=f"(d[45]), "=f"(d[46]), "=f"(d[47]),
+      "=f"(d[48]), "=f"(d[49]), "=f"(d[50]), "=f"(d[51]),
+      "=f"(d[52]), "=f"(d[53]), "=f"(d[54]), "=f"(d[55]),
+      "=f"(d[56]), "=f"(d[57]), "=f"(d[58]), "=f"(d[59]),
+      "=f"(d[60]), "=f"(d[61]), "=f"(d[62]), "=f"(d[63])
+      : "l"(da), "l"(db), "r"(0)
+      : "memory");
 }
 
+// d (64 x 128, float32) += a (64 x 16, bf16 pairs in registers, the
+// m16n8k16 A-fragment layout per warp) * b (16 x 128, bf16, shared memory,
+// MN-major: the transpose bit)
+static __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                                   const uint32_t (&a)[4],
+                                                   uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
+      "%62, %63 "
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+      "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+      "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+      "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+      "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+      "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+      "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+      "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+      "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+      "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+      "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+      "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+      "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1)
+      : "memory");
+}
+
+// d (64 x 64, float32) += a (64 x 16, bf16 pairs in registers, the
+// m16n8k16 A-fragment layout per warp) * b (16 x 64, bf16, shared memory,
+// MN-major: the transpose bit)
+static __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                                   const uint32_t (&a)[4],
+                                                   uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31 "
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+      "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+      "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+      "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+      "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1)
+      : "memory");
+}
+
+// S = Q K^T for one kv tile (issued, not waited on): 64 q rows x 128 keys,
+// D / 16 k-steps
 template <int D>
-static __global__ void __launch_bounds__(128, 2)
-flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                     const __nv_bfloat16* __restrict__ k,
-                     const __nv_bfloat16* __restrict__ v,
-                     __nv_bfloat16* __restrict__ o, int n_bh, int sq, int sk,
-                     int h, int kh, int n_qtiles, float scale, int causal) {
-  constexpr int NT = 128, LDS = D + 8, KS = D / 16, DT = D / 8;
-  extern __shared__ float4 smem4[];
-  __nv_bfloat16* sq_t = reinterpret_cast<__nv_bfloat16*>(smem4);  // [BQ][LDS]
-  __nv_bfloat16* sk_t = sq_t + BQ * LDS;                      // [2][BK][LDS]
-  __nv_bfloat16* sv_t = sk_t + 2 * BK * LDS;                  // [2][BK][LDS]
-
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int qtile = n_qtiles - 1 - static_cast<int>(blockIdx.x / n_bh);
-  const int bh = static_cast<int>(blockIdx.x % n_bh);
-  const int b = bh / h, hh = bh % h;
-  const int kvh = hh / (h / kh);
-  const int q0 = qtile * BQ;
-  const long long q_ld = static_cast<long long>(h) * D;
-  const long long kv_ld = static_cast<long long>(kh) * D;
-  const __nv_bfloat16* qb = q + (static_cast<long long>(b) * sq * h + hh) * D;
-  const __nv_bfloat16* kb =
-      k + (static_cast<long long>(b) * sk * kh + kvh) * D;
-  const __nv_bfloat16* vb =
-      v + (static_cast<long long>(b) * sk * kh + kvh) * D;
-
-  const int kv_end = causal ? min(sk, q0 + BQ) : sk;
-  const int n_kt = (kv_end + BK - 1) / BK;
-  load_rows_async<D, BQ, NT>(sq_t, qb + q0 * q_ld, q_ld, sq - q0);
-  if (n_kt > 0) {
-    load_rows_async<D, BK, NT>(sk_t, kb, kv_ld, min(BK, sk));
-    load_rows_async<D, BK, NT>(sv_t, vb, kv_ld, min(BK, sk));
+static __device__ __forceinline__ void qk_product(float (&s)[64],
+                                                  uint32_t q_wg,
+                                                  uint32_t k_tile) {
+#pragma unroll
+  for (int ks = 0; ks < D / 16; ++ks) {
+    const uint32_t qoff = (ks >> 2) * WgTile<D>::Q_PANEL + (ks & 3) * 32;
+    const uint32_t koff = (ks >> 2) * WgTile<D>::KV_PANEL + (ks & 3) * 32;
+    const uint64_t da = sw128_desc(q_wg + qoff, 16, 1024);
+    const uint64_t db = sw128_desc(k_tile + koff, 16, 1024);
+    if (ks == 0) wgmma_ss_n128_first(s, da, db);
+    else wgmma_ss_n128(s, da, db);
   }
-  cp_async_wait_all();
-  __syncthreads();
+}
 
-  // this warp's 16 q rows as A fragments, one per 16 dims
-  unsigned qa[KS][4];
+// O += P V for one kv tile (issued, not waited on): 128 keys in 8 k-steps
+// of 16, P's registers p[4 kk .. 4 kk + 3] for keys 16 kk .. 16 kk + 15
+template <int D>
+static __device__ __forceinline__ void pv_product(float (&acc)[D / 2],
+                                                  const uint32_t (&p)[32],
+                                                  uint32_t v_tile) {
 #pragma unroll
-  for (int ks = 0; ks < KS; ++ks)
-    ldmatrix_x4(qa[ks], sq_t + (warp * 16 + (lane & 15)) * LDS + ks * 16
-                            + (lane >> 4) * 8);
-
-  float acc[DT][4];
-#pragma unroll
-  for (int j = 0; j < DT; ++j)
-    acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-  float m_run[2] = {-INFINITY, -INFINITY};
-  float l_run[2] = {0.f, 0.f};      // this thread's columns only
-  const int row0 = q0 + warp * 16 + (lane >> 2);
-
-  for (int t = 0; t < n_kt; ++t) {
-    const int cur = t & 1;
-    if (t + 1 < n_kt) {
-      const int k1 = (t + 1) * BK;
-      load_rows_async<D, BK, NT>(sk_t + (cur ^ 1) * BK * LDS, kb + k1 * kv_ld,
-                                 kv_ld, min(BK, sk - k1));
-      load_rows_async<D, BK, NT>(sv_t + (cur ^ 1) * BK * LDS, vb + k1 * kv_ld,
-                                 kv_ld, min(BK, sk - k1));
-    }
-    const __nv_bfloat16* kt_s = sk_t + cur * BK * LDS;
-    const __nv_bfloat16* vt_s = sv_t + cur * BK * LDS;
-    const int k0 = t * BK;
-
-    // S = Q K^T: 16 rows x 64 keys per warp, 8 tiles of 8 keys
-    float s[8][4];
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < KS; ++ks) {
-#pragma unroll
-      for (int nt = 0; nt < 8; nt += 2) {
-        unsigned kf[4];
-        const int mi = lane >> 3;
-        ldmatrix_x4(kf, kt_s + (nt * 8 + (mi >> 1) * 8 + (lane & 7)) * LDS
-                            + ks * 16 + (mi & 1) * 8);
-        mma_bf16(s[nt], qa[ks], kf[0], kf[1]);
-        mma_bf16(s[nt + 1], qa[ks], kf[2], kf[3]);
-      }
-    }
-
-    // scale after the sum, mask, online softmax on rows row0 and row0 + 8
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int qp = row0 + half * 8;
-      float mx = -INFINITY;
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int kp = k0 + nt * 8 + (lane & 3) * 2 + e;
-          const bool visible = kp < sk && (!causal || kp <= qp);
-          float& x = s[nt][half * 2 + e];
-          x = visible ? x * scale : -INFINITY;
-          mx = fmaxf(mx, x);
-        }
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float m_new = fmaxf(m_run[half], mx);
-      const bool finite_new = isfinite(m_new);
-      const float alpha = isfinite(m_run[half]) ? expf(m_run[half] - m_new)
-                                                : 0.f;
-      float psum = 0.f;
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          float& x = s[nt][half * 2 + e];
-          x = finite_new ? expf(x - m_new) : 0.f;
-          psum += x;
-        }
-      l_run[half] = l_run[half] * alpha + psum;
-      m_run[half] = m_new;
-#pragma unroll
-      for (int j = 0; j < DT; ++j) {
-        acc[j][half * 2] *= alpha;
-        acc[j][half * 2 + 1] *= alpha;
-      }
-    }
-
-    // O += P V: P (rounded to bf16) from the score registers, 16 keys a step
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      const unsigned pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-      for (int dt = 0; dt < DT; dt += 2) {
-        unsigned vf[4];
-        const int mi = lane >> 3;
-        ldmatrix_x4_trans(vf, vt_s + (kk * 16 + (mi & 1) * 8 + (lane & 7))
-                                         * LDS + dt * 8 + (mi >> 1) * 8);
-        mma_bf16(acc[dt], pa, vf[0], vf[1]);
-        mma_bf16(acc[dt + 1], pa, vf[2], vf[3]);
-      }
-    }
-    cp_async_wait_all();
-    __syncthreads();          // the next tile is in; this one is free
+  for (int kk = 0; kk < WG_BK / 16; ++kk) {
+    const uint32_t a[4] = {p[4 * kk], p[4 * kk + 1], p[4 * kk + 2],
+                           p[4 * kk + 3]};
+    const uint64_t db = sw128_desc(v_tile + kk * 16 * 128,
+                                   WgTile<D>::KV_PANEL, 1024);
+    if constexpr (D == 128) wgmma_rs_n128(acc, a, db);
+    else wgmma_rs_n64(acc, a, db);
   }
+}
 
+// The online softmax over one tile's scores s[4 j + e] (row row0 + 8 (e >>
+// 1), key k0 + 8 j + 2 (lane & 3) + (e & 1)): masks where `edge` (the tile
+// crosses Sk or the diagonal), takes the row max over the quad on the raw
+// scores, and leaves P = exp2(s * scale_log2 - m * scale_log2) in s (one
+// FMA and one exp2 each), the rescale factor of each row in alpha, and the
+// running max and this thread's running sum updated.
+static __device__ __forceinline__ void softmax_tile(
+    float (&s)[64], float (&m_run)[2], float (&l_run)[2], float (&alpha)[2],
+    bool edge, int k0, int row0, int lane, int sk, int causal,
+    float scale_log2) {
+  if (edge) {
+#pragma unroll
+    for (int i = 0; i < 64; ++i) {
+      const int kp = k0 + (i >> 2) * 8 + (lane & 3) * 2 + (i & 1);
+      const int qp = row0 + ((i >> 1) & 1) * 8;
+      if (kp >= sk || (causal && kp > qp)) s[i] = -INFINITY;
+    }
+  }
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int i = 0; i < 64; ++i)
+    mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+  float m_use[2];
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
-    float l = l_run[half];
-    l += __shfl_xor_sync(0xffffffffu, l, 1);
-    l += __shfl_xor_sync(0xffffffffu, l, 2);
-    const int qp = row0 + half * 8;
-    if (qp >= sq) continue;
-    const float inv_l = 1.f / fmaxf(l, 1e-20f);
-    __nv_bfloat16* dst = o + (static_cast<long long>(b) * sq + qp) * q_ld
-                         + static_cast<long long>(hh) * D + (lane & 3) * 2;
-#pragma unroll
-    for (int dt = 0; dt < DT; ++dt)
-      *reinterpret_cast<__nv_bfloat162*>(dst + dt * 8) =
-          __floats2bfloat162_rn(acc[dt][half * 2] * inv_l,
-                                acc[dt][half * 2 + 1] * inv_l);
+    mx[half] = fmaxf(mx[half], __shfl_xor_sync(0xffffffffu, mx[half], 1));
+    mx[half] = fmaxf(mx[half], __shfl_xor_sync(0xffffffffu, mx[half], 2));
+    const float m_new = fmaxf(m_run[half], mx[half]);
+    m_use[half] = isfinite(m_new) ? m_new * scale_log2 : 0.f;
+    alpha[half] = isfinite(m_run[half])
+                      ? ex2(fmaf(m_run[half], scale_log2, -m_use[half]))
+                      : 0.f;
+    m_run[half] = m_new;
   }
+  float psum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < 64; ++i) {
+    const int half = (i >> 1) & 1;
+    s[i] = ex2(fmaf(s[i], scale_log2, -m_use[half]));
+    psum[half] += s[i];
+  }
+#pragma unroll
+  for (int half = 0; half < 2; ++half)
+    l_run[half] = l_run[half] * alpha[half] + psum[half];
+}
+
+// O *= alpha, then P rounded to bf16 and packed as the A fragments
+template <int D>
+static __device__ __forceinline__ void rescale_and_pack(
+    float (&acc)[D / 2], uint32_t (&p)[32], const float (&s)[64],
+    const float (&alpha)[2]) {
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) p[i] = pack_bf16(s[2 * i], s[2 * i + 1]);
+}
+
+// Named barriers 1 and 2 (0 is __syncthreads) between the two consumer
+// warpgroups, 256 threads each: sync waits for the other group's arrive.
+static __device__ __forceinline__ void named_sync(int id) {
+  asm volatile("bar.sync %0, 256;\n" :: "r"(id) : "memory");
+}
+
+static __device__ __forceinline__ void named_arrive(int id) {
+  asm volatile("bar.arrive %0, 256;\n" :: "r"(id) : "memory");
+}
+
+static __device__ __forceinline__ void warp_arrive(uint32_t bar, int lane) {
+  __syncwarp();
+  if (lane == 0) mbar_arrive(bar);
+}
+
+// The work tiles, longest first: tile i is q tile n_qtiles - 1 - i / n_bh
+// of (batch, head) i % n_bh.
+struct WorkTile {
+  int b, hh, q0;
+};
+
+static __device__ __forceinline__ WorkTile work_tile(int i, int n_bh, int h,
+                                                     int n_qtiles) {
+  const int bh = i % n_bh;
+  return {bh / h, bh % h, (n_qtiles - 1 - i / n_bh) * WG_BQ};
+}
+
+// The kv tiles a q tile at q0 walks: causal ones stop at the diagonal.
+static __device__ __forceinline__ int kv_tiles(int q0, int sk, int causal) {
+  const int kv_end = causal ? min(sk, q0 + WG_BQ) : sk;
+  return (kv_end + WG_BK - 1) / WG_BK;
+}
+
+// The r-th tile of CTA c among `grid` persistent CTAs: rounds of `grid`
+// tiles, walked forwards and backwards in turn, so that with the tiles
+// sorted longest first every CTA gets about the same work.
+static __device__ __forceinline__ int snake_tile(int r, int c, int grid) {
+  return r * grid + ((r & 1) ? grid - 1 - c : c);
 }
 
 template <int D>
-static int launch_mma(const void* q, const void* k, const void* v, void* o,
-                      int b, int sq, int sk, int h, int kh, float scale,
-                      int causal, cudaStream_t stream) {
-  const size_t smem = sizeof(__nv_bfloat16) * (BQ + 4 * BK) * (D + 8);
+static __global__ void __launch_bounds__(WG_THREADS, 1)
+flash_fwd_wgmma_kernel(__grid_constant__ const CUtensorMap tq,
+                       __grid_constant__ const CUtensorMap tk,
+                       __grid_constant__ const CUtensorMap tv,
+                       __nv_bfloat16* __restrict__ o, int n_bh, int sq,
+                       int sk, int h, int kh, int n_qtiles, float scale_log2,
+                       int causal) {
+  using T = WgTile<D>;
+  constexpr int S = T::STAGES;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t s_q = base;
+  const uint32_t s_k = base + T::OFF_K;
+  const uint32_t s_v = base + T::OFF_V;
+  const uint32_t full_q = base + T::OFF_BAR;
+  const uint32_t empty_q = full_q + 8;
+  const uint32_t full_k = empty_q + 8;          // + 8 * stage, each
+  const uint32_t full_v = full_k + 8 * S;
+  const uint32_t empty_k = full_v + 8 * S;
+  const uint32_t empty_v = empty_k + 8 * S;
+
+  const int n_tiles = n_qtiles * n_bh;
+  const int grid = static_cast<int>(gridDim.x);
+  const int cta = static_cast<int>(blockIdx.x);
+  const int group = h / kh;
+  // warp-uniform by construction (a shuffle from lane 0)
+  const int wg = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x) / 128,
+                             0);
+
+  if (threadIdx.x == 0) {
+    mbar_init(full_q, 1);
+    mbar_init(empty_q, 8);              // the consumers' eight warps
+    for (int st = 0; st < S; ++st) {
+      mbar_init(full_k + 8 * st, 1);
+      mbar_init(full_v + 8 * st, 1);
+      mbar_init(empty_k + 8 * st, 8);
+      mbar_init(empty_v + 8 * st, 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // ---- producer: one lane keeps Q and the K/V ring full, tile after
+    // tile; the next tile's Q loads while the consumers finish this one
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n"
+                 :: "n"(PRODUCER_REGS));
+    if (threadIdx.x == 0) {
+      int st = 0;
+      uint32_t phase = 0;
+      for (int r = 0;; ++r) {
+        const int i = snake_tile(r, cta, grid);
+        if (i >= n_tiles) break;
+        const WorkTile w = work_tile(i, n_bh, h, n_qtiles);
+        const int kvh = w.hh / group;
+        mbar_wait(empty_q, (r & 1) ^ 1);          // round 0 passes at once
+        mbar_expect_tx(full_q, T::Q_BYTES);
+#pragma unroll
+        for (int p = 0; p < T::PANELS; ++p)
+          tma_load_4d(s_q + p * T::Q_PANEL, &tq, full_q, p * 64, w.hh, w.q0,
+                      w.b);
+        const int n_kt = kv_tiles(w.q0, sk, causal);
+        for (int t = 0; t < n_kt; ++t) {
+          const uint32_t kt = s_k + st * T::KV_BYTES;
+          const uint32_t vt = s_v + st * T::KV_BYTES;
+          mbar_wait(empty_k + 8 * st, phase ^ 1);
+          mbar_expect_tx(full_k + 8 * st, T::KV_BYTES);
+#pragma unroll
+          for (int p = 0; p < T::PANELS; ++p)
+            tma_load_4d(kt + p * T::KV_PANEL, &tk, full_k + 8 * st, p * 64,
+                        kvh, t * WG_BK, w.b);
+          mbar_wait(empty_v + 8 * st, phase ^ 1);
+          mbar_expect_tx(full_v + 8 * st, T::KV_BYTES);
+#pragma unroll
+          for (int p = 0; p < T::PANELS; ++p)
+            tma_load_4d(vt + p * T::KV_PANEL, &tv, full_v + 8 * st, p * 64,
+                        kvh, t * WG_BK, w.b);
+          if (++st == S) { st = 0; phase ^= 1; }
+        }
+      }
+    }
+  } else {
+    // ---- consumers: 64 q rows per warpgroup. The two groups take turns
+    // on the tensor cores (named barriers 1 and 2, group 0 first): in its
+    // turn a group issues kv tile t's S = Q K^T and kv tile t-1's O += P V,
+    // hands the turn over, and runs tile t's softmax while its own P V and
+    // the other group's products run. Turns run on across work tiles.
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n"
+                 :: "n"(CONSUMER_REGS));
+    const int cw = wg - 1;
+    const int tw = static_cast<int>(threadIdx.x) & 127;
+    const int warp = tw >> 5, lane = tw & 31;
+    const int my_turn = 1 + cw, their_turn = 2 - cw;
+    const uint32_t q_wg = s_q + cw * 64 * 128;
+    if (cw == 1) named_arrive(1);      // group 0 takes the first turn
+    int st = 0;                        // ring position of the next kv tile
+    uint32_t phase = 0;
+    for (int r = 0;; ++r) {
+      const int i = snake_tile(r, cta, grid);
+      if (i >= n_tiles) break;
+      const WorkTile w = work_tile(i, n_bh, h, n_qtiles);
+      const int n_kt = kv_tiles(w.q0, sk, causal);
+      const int qw0 = w.q0 + cw * 64;              // first row of the group
+      const int row0 = qw0 + warp * 16 + (lane >> 2);  // and row0 + 8
+      // kv tiles from this one on cross Sk or this group's diagonal
+      const int k_edge = min(sk - WG_BK, causal ? qw0 - WG_BK + 1 : sk);
+
+      float acc[D / 2];
+#pragma unroll
+      for (int j = 0; j < D / 2; ++j) acc[j] = 0.f;
+      float m_run[2] = {-INFINITY, -INFINITY};
+      float l_run[2] = {0.f, 0.f};    // this thread's columns only
+      float s[64], alpha[2];
+      uint32_t p[32];
+      mbar_wait(full_q, r & 1);
+      if (n_kt == 0) warp_arrive(empty_q, lane);
+      if (n_kt > 0) {
+        mbar_wait(full_k + 8 * st, phase);
+        named_sync(my_turn);
+        wgmma_fence();
+        qk_product<D>(s, q_wg, s_k + st * T::KV_BYTES);
+        wgmma_commit();
+        named_arrive(their_turn);
+        wgmma_wait<0>();
+        fence_regs(s);
+        warp_arrive(empty_k + 8 * st, lane);
+        if (n_kt == 1) warp_arrive(empty_q, lane);   // Q's last use
+        softmax_tile(s, m_run, l_run, alpha, 0 > k_edge, 0, row0, lane, sk,
+                     causal, scale_log2);
+        rescale_and_pack<D>(acc, p, s, alpha);
+        for (int t = 1; t < n_kt; ++t) {
+          // turn: kv tile t's S = Q K^T and kv tile t-1's O += P V, both
+          // in flight while tile t's softmax runs
+          const int prev = st;
+          const uint32_t prev_phase = phase;
+          if (++st == S) { st = 0; phase ^= 1; }
+          mbar_wait(full_k + 8 * st, phase);
+          mbar_wait(full_v + 8 * prev, prev_phase);
+          named_sync(my_turn);
+          wgmma_fence();
+          qk_product<D>(s, q_wg, s_k + st * T::KV_BYTES);
+          wgmma_commit();
+          pv_product<D>(acc, p, s_v + prev * T::KV_BYTES);
+          wgmma_commit();
+          named_arrive(their_turn);
+          wgmma_wait<1>();             // S is in; P V still in flight
+          fence_regs(s);
+          warp_arrive(empty_k + 8 * st, lane);
+          if (t == n_kt - 1) warp_arrive(empty_q, lane);   // Q's last use
+          softmax_tile(s, m_run, l_run, alpha, t * WG_BK > k_edge,
+                       t * WG_BK, row0, lane, sk, causal, scale_log2);
+          wgmma_wait<0>();
+          fence_regs(acc);
+          fence_regs(p);
+          warp_arrive(empty_v + 8 * prev, lane);
+          rescale_and_pack<D>(acc, p, s, alpha);
+        }
+        // the work tile's last turn: its last kv tile's O += P V
+        mbar_wait(full_v + 8 * st, phase);
+        named_sync(my_turn);
+        wgmma_fence();
+        pv_product<D>(acc, p, s_v + st * T::KV_BYTES);
+        wgmma_commit();
+        named_arrive(their_turn);
+        wgmma_wait<0>();
+        fence_regs(acc);
+        fence_regs(p);
+        warp_arrive(empty_v + 8 * st, lane);
+        if (++st == S) { st = 0; phase ^= 1; }
+      }
+
+      // acc / max(l, 1e-20) in bf16; rows at or beyond sq are not stored
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        float l = l_run[half];
+        l += __shfl_xor_sync(0xffffffffu, l, 1);
+        l += __shfl_xor_sync(0xffffffffu, l, 2);
+        const int qp = row0 + half * 8;
+        if (qp >= sq) continue;
+        const float inv_l = 1.f / fmaxf(l, 1e-20f);
+        __nv_bfloat16* dst =
+            o + ((static_cast<long long>(w.b) * sq + qp) * h + w.hh) * D
+            + (lane & 3) * 2;
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j)
+          *reinterpret_cast<__nv_bfloat162*>(dst + j * 8) =
+              __floats2bfloat162_rn(acc[4 * j + 2 * half] * inv_l,
+                                    acc[4 * j + 2 * half + 1] * inv_l);
+      }
+    }
+    // group 1's arrivals on barrier 1 lead group 0's turns by one (its
+    // first hand-over above): group 0 takes it here, so none is left over
+    if (cw == 0) named_sync(my_turn);
+  }
+}
+
+// cuTensorMapEncodeTiled, reached through the runtime's driver entry point
+// (the library links no -lcuda)
+using EncodeTiled = CUresult (*)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+static EncodeTiled tensor_map_encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(ptr);
+  }
+  return fn;
+}
+
+// A contiguous bf16 [B, S, N, D] array as a 4-D map over (D, N, S, B) with
+// boxes of 64 x 1 x rows x 1 (one 128-byte panel of `rows` rows of one
+// head), 128-byte swizzled. Rows beyond S read as zeros: a ragged tile
+// never reaches the next sequence. Bases and strides must be 16-byte
+// aligned (the wrapper checks the bases; D is 64 or 128).
+static bool encode_bsnd(EncodeTiled encode, CUtensorMap* map, const void* ptr,
+                        int d, int n, int s, int b, int rows) {
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d),
+                              static_cast<cuuint64_t>(n),
+                              static_cast<cuuint64_t>(s),
+                              static_cast<cuuint64_t>(b)};
+  const cuuint64_t row = 2ull * d;
+  const cuuint64_t strides[3] = {row, row * n, row * n * s};   // bytes
+  const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(ptr), dims, strides, box, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D>
+static int launch_wgmma(const void* q, const void* k, const void* v, void* o,
+                        int b, int sq, int sk, int h, int kh, float scale,
+                        int causal, int n_sm, cudaStream_t stream) {
+  using T = WgTile<D>;
+  const EncodeTiled encode = tensor_map_encoder();
+  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  CUtensorMap tq, tk, tv;
+  if (!encode_bsnd(encode, &tq, q, D, h, sq, b, WG_BQ))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (sk > 0) {
+    if (!encode_bsnd(encode, &tk, k, D, kh, sk, b, WG_BK)
+        || !encode_bsnd(encode, &tv, v, D, kh, sk, b, WG_BK))
+      return static_cast<int>(cudaErrorInvalidValue);
+  } else {
+    tk = tq;        // no kv tile is loaded: every row's output is 0
+    tv = tq;
+  }
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_mma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      flash_fwd_wgmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      T::SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int n_bh = b * h;
-  const int n_qtiles = (sq + BQ - 1) / BQ;
-  const long long blocks = static_cast<long long>(n_bh) * n_qtiles;
-  flash_fwd_mma_kernel<D><<<static_cast<unsigned>(blocks), 128, smem,
-                            stream>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      n_bh, sq, sk, h, kh, n_qtiles, scale, causal);
+  const int n_qtiles = (sq + WG_BQ - 1) / WG_BQ;
+  const long long tiles = static_cast<long long>(n_bh) * n_qtiles;
+  const int grid = static_cast<int>(tiles < n_sm ? tiles : n_sm);
+  flash_fwd_wgmma_kernel<D><<<grid, WG_THREADS, T::SMEM, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), n_bh, sq, sk, h, kh,
+      n_qtiles, scale * LOG2E, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
-// dtype: 0 = float32, 1 = bfloat16. The wrapper checks shapes (Sq >= 1,
-// D <= 128, H a multiple of KH), types and contiguity.
+// dtype: 0 = float32, 1 = bfloat16; n_sm: the card's SM count (the bf16
+// kernel's persistent grid). The wrapper checks shapes (Sq >= 1, D <= 128,
+// H a multiple of KH), types, contiguity and, for bf16 with D of 64 or
+// 128, 16-byte aligned bases.
 REPRO_EXPORT int flash_attention_launch(const void* q, const void* k,
                                         const void* v, void* o, int b, int sq,
                                         int sk, int h, int kh, int d,
                                         int dtype, int causal, float scale,
-                                        void* stream) {
+                                        int n_sm, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1 && d == 128)
-    return launch_mma<128>(q, k, v, o, b, sq, sk, h, kh, scale, causal, s);
+    return launch_wgmma<128>(q, k, v, o, b, sq, sk, h, kh, scale, causal,
+                             n_sm, s);
   if (dtype == 1 && d == 64)
-    return launch_mma<64>(q, k, v, o, b, sq, sk, h, kh, scale, causal, s);
+    return launch_wgmma<64>(q, k, v, o, b, sq, sk, h, kh, scale, causal,
+                            n_sm, s);
   if (dtype == 1)
     return launch_d<__nv_bfloat16>(q, k, v, o, b, sq, sk, h, kh, d, scale,
                                    causal, s);

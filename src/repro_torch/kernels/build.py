@@ -74,10 +74,26 @@ def _ptxas_lines(log: str) -> Dict[str, List[str]]:
     return out
 
 
+def _notes(log: str) -> List[str]:
+    """nvcc's warnings and ptxas's performance notes (a serialised
+    ``wgmma``, an ignored ``setmaxnreg``), one line each."""
+    keys = ("warning", "Performance Loss", "setmaxnreg")
+    return [ln.strip() for ln in log.splitlines()
+            if any(key in ln for key in keys)]
+
+
+def spilled(ptxas: Dict[str, List[str]]) -> List[str]:
+    """The kernels whose -Xptxas -v lines report spill stores or loads."""
+    return sorted(name for name, lines in ptxas.items()
+                  if any(re.search(r"\b[1-9]\d* bytes spill (stores|loads)",
+                                   ln) for ln in lines))
+
+
 def build_all() -> Dict[str, object]:
     """Compile the library if it is missing. Returns ``{"seconds": wall,
-    "built": bool, "ptxas": {kernel: nvcc's -Xptxas -v lines}}``; raises
-    with nvcc's output if the build fails."""
+    "built": bool, "ptxas": {kernel: nvcc's -Xptxas -v lines}, "notes":
+    [warnings and performance notes]}``; raises with nvcc's output if the
+    build fails."""
     out = target()
     log_path = out.with_suffix(".log")
     t0 = time.perf_counter()
@@ -107,8 +123,9 @@ def build_all() -> Dict[str, object]:
                 raise RuntimeError(f"CUDA kernel build failed (nvcc exit "
                                    f"{failed[0]}):\n{log}")
             os.replace(Path(tmp) / out.name, out)
+    log = log_path.read_text()
     return {"seconds": time.perf_counter() - t0, "built": built,
-            "ptxas": _ptxas_lines(log_path.read_text())}
+            "ptxas": _ptxas_lines(log), "notes": _notes(log)}
 
 
 def library() -> ctypes.CDLL:

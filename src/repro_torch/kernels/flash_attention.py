@@ -9,13 +9,19 @@ computes the same function: every layer of the LM's ``forward`` /
 
 q ``[B, Sq, H, D]``, k/v ``[B, Sk, KH, D]`` in float32 or bf16 with
 ``D <= 128``; causal masking is top-left aligned (``k_pos <= q_pos``) as in
-the TPU kernel. One CUDA block per (batch, head, 64-row q tile) walks the
-kv tiles with the running max, sum and accumulator in float32 and writes
-its output once: deterministic, no atomics. At the LM's prefill shape the
-call is bound by operations at the bf16 tensor-core peak. bf16 with
-``D`` of 64 or 128 (the LM path) multiplies on the tensor cores
-(``mma.sync``); float32 and other head dims run a SIMT float32 kernel
-(``PERF.md`` has both against the bound).
+the TPU kernel. One CUDA block per (batch, head, q tile) walks the kv tiles
+with the running max, sum and accumulator in float32 and writes its output
+once: deterministic, no atomics. At the LM's prefill shape the call is
+bound by operations at the bf16 tensor-core peak (~0.21 ms on an H100).
+bf16 with ``D`` of 64 or 128 (the LM path) runs a Hopper kernel: one
+persistent block per SM walks 128-row q tiles, longest first; a producer
+warp streams Q, K and V tiles by TMA through ``mbarrier``s into a ring of
+shared-memory stages, and two consumer warpgroups take turns multiplying
+with ``wgmma`` (128 keys a tile), each running its softmax while the
+tensor cores work on the other's products and its own P V. TMA reads
+16-byte-aligned bases only, so that path raises on a misaligned q, k or v
+(a contiguous view at an odd element offset). float32 and other head dims
+run a SIMT float32 kernel (``PERF.md`` has both against the bound).
 
 The plain version is the chunked twin of ``_flash``
 (``models.common.flash_attention``); CPU tensors run it. The wrapper's
@@ -37,6 +43,8 @@ launches = 0
 
 MAX_HEAD_DIM = 128
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# head dims the bf16 Hopper (TMA + wgmma) kernel takes
+TMA_HEAD_DIMS = (64, 128)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -69,15 +77,22 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     build.require(q, "flash_attention q", q.dtype, dev, (b, sq, h, d))
     build.require(k, "flash_attention k", q.dtype, dev, (b, sk, kh, d))
     build.require(v, "flash_attention v", q.dtype, dev, (b, sk, kh, d))
+    if q.dtype == torch.bfloat16 and d in TMA_HEAD_DIMS:
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            if t.data_ptr() % 16:
+                raise ValueError(f"flash_attention {name}: base pointer not "
+                                 f"16-byte aligned (TMA reads aligned "
+                                 f"bases only)")
     out = torch.empty_like(q)
     if b == 0 or sq == 0:
         return out
     fn = build.entry("flash_attention", [ctypes.c_void_p] * 4
-                     + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p])
+                     + [ctypes.c_int] * 8
+                     + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     build.check("flash_attention", fn(
         build.ptr(q), build.ptr(k), build.ptr(v), build.ptr(out), b, sq, sk,
         h, kh, d, _DTYPES[q.dtype], int(bool(causal)),
-        float(1.0 / np.sqrt(d)), build.stream_of(dev)))
+        float(1.0 / np.sqrt(d)), build.sm_count(dev), build.stream_of(dev)))
     launches += 1
     return out
 

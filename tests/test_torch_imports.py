@@ -8,7 +8,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
 SOURCES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "time_kernels.py"]
+    ROOT / "chip_smoke.py", ROOT / "time_kernels.py", ROOT / "trace_gap.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
