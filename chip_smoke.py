@@ -26,14 +26,20 @@ non-zero:
            the least time the H100 could take for the same bytes and
            operations; ``bucket_assign`` and ``torch.searchsorted`` are
            also timed in alternation (one call each per round, 201
-           rounds) for a median and quartiles each;
+           rounds) for a median and quartiles each, and so are the bag
+           kernels at one retrieve query beside their plain versions,
+           ``torch.bmm`` and ``F.embedding_bag``;
   full     ``partition(grid3d(64, 64, 64), gpu-superpod, backend="device")``
            cold, warm, and once more under torch.profiler (device busy
            time, idle share and top kernels, all from that one traced
            run); the warm run's makespan is re-evaluated on the host and
            held to 1.05x the reference's worst device-backend makespan
            over seeds 0-3; ``match_keys``, ``bucket_assign`` and
-           ``quotient_link_loads`` must have launched in the warm run;
+           ``quotient_link_loads`` must have launched in the warm run,
+           whose ``quotient_link_loads`` launches are grouped by k and
+           arc count (powers of two), each group with the device time of
+           one call at its largest shape (``qll_by_shape``; the serve
+           steps report the same);
   small    ``_rmat(2000, 8000)`` on ``balanced_tree((2, 4))``, host
            backend, then the device backend with the launch counts set to
            0 just before it: the path-walking oracle (``verify``) must pass
@@ -73,7 +79,12 @@ non-zero:
            ``bsr_spmm``. The kernels phase first checks and times
            ``bsr_spmm`` on the bulk batch's layout (3,840 block rows,
            11,008 blocks, F = 64), on the request's, and at a ragged shape
-           (R = 32, F = 96, an empty block row). Launch counts set to 0
+           (R = 32, F = 96, an empty block row), each with the tile it
+           takes, the 16-column slabs it reads against all of them, and
+           two bounds: ``bound_ms`` (x, out and the nonzeros once: what no
+           kernel can beat) and ``bound_ms_stored_blocks`` (every stored
+           block read once), and each equal bitwise to the kernel's walk
+           over every slab (``bitwise_every_slab``). Launch counts set to 0
            just before the counted run, which drives: request, one
            ``molecule_batches(128, 30, 64, 16, 2, seed=0)`` batch
            (``prepare_bsr`` timed on its own), cold, warm, one traced
@@ -129,7 +140,9 @@ that drives it (``full`` for the partitioner's kernels but
 ``gnn`` for ``bsr_spmm``, ``lm`` for ``flash_attention``), its launches
 on every path (``serve`` and ``serve_wide`` show which partitioner
 kernels the server reaches), and the kernels phase's numbers at the main
-path's shape (``flash_attention`` also at 32,768 tokens, ``long``). Last, the result line
+path's shape (``flash_attention`` also at 32,768 tokens, ``long``; the bag
+kernels their one-query alternation, ``retrieve_query``; ``bsr_spmm`` its
+second bound, tile and slabs read). Last, the result line
 ``{"ok": true, "device": {...}}``.
 Without a CUDA device it exits 2 and prints no result; it never runs on the
 CPU.
@@ -202,8 +215,11 @@ LM_WIDE = dict(num_requests=64, prompt_len=256, gen_len=64, slots=32,
                page_size=16, n_pages=0, seed=0)
 LM_WIDE_POLICY = dict(replace_every=64, place_devices=4)
 LM_TEMPERATURE = 0.8
-# bucket_assign against torch.searchsorted: rounds of one call each
+# bucket_assign against torch.searchsorted, and the bag kernels at one
+# retrieve query against their plain versions and library calls: rounds of
+# one call each
 BUCKET_RANKING_ROUNDS = 201
+BAG_RANKING_ROUNDS = 201
 # Idle seconds between the profiler's switch to its recorded cycle and the
 # run it records: a run launched at once sometimes loses its first device
 # events from the trace, or all of them (trace_gap.py counts how often,
@@ -690,6 +706,35 @@ def phase_kernels_recsys(state):
             bytes_moved=4.0 * b * d * f + 4.0 * b * d + 4.0 * b * f,
             flops=flops)
 
+    # one retrieve query (1 bag): the two kernels, their plain versions and
+    # their library calls in alternation, one call each per round (L2
+    # flushed first), a median and quartiles each; the times are within a
+    # few microseconds of each other
+    _, tbl, idx, w = cases[2]
+    rows = tbl[idx]
+    names = ("bag_combine", "bag_combine_plain", "torch.bmm",
+             "gather_combine", "gather_combine_plain", "F.embedding_bag")
+    stats = alternating_device_ms(
+        [lambda: bag_combine.bag_combine(rows, w),
+         lambda: bag_combine.plain(rows, w),
+         lambda: torch.bmm(w[:, None, :], rows),
+         lambda: gather_combine.gather_combine(tbl, idx, w),
+         lambda: gather_combine.plain(tbl, idx, w),
+         lambda: F.embedding_bag(idx, tbl, per_sample_weights=w,
+                                 mode="sum")],
+        rounds=BAG_RANKING_ROUNDS, flush=_flush_buffer(state))
+    ranking = dict(zip(names, stats))
+    med = {k: v["median_ms"] for k, v in ranking.items()}
+    state["bag_ranking"] = dict(
+        shape=list(rows.shape), **ranking,
+        bag_combine_at_or_below_bmm_and_plain=bool(
+            med["bag_combine"] <= min(med["torch.bmm"],
+                                      med["bag_combine_plain"])),
+        gather_combine_at_or_below_embedding_bag=bool(
+            med["gather_combine"] <= med["F.embedding_bag"]))
+    emit("kernels", kernel="bag_combine", step="retrieve_query_ranking",
+         **state["bag_ranking"])
+
 
 def host_makespan(g, topo, part):
     """Host numpy re-evaluation: np.add.at quotient + the S-XOR identity."""
@@ -708,13 +753,53 @@ def host_makespan(g, topo, part):
     return max(comp.max(), (topo.F_l * comm).max())
 
 
+def qll_by_shape(state, shapes):
+    """``quotient_link_loads``' launches of one run, ``shapes`` ``{(arcs m,
+    vertices n, bins k, links L): launches}``, grouped by k and arc count
+    (m in [2^(b-1), 2^b)), with the device time of one call at each
+    group's largest shape on random inputs of that shape (parts in [0, k),
+    arcs between random vertices, a random 0/1 subtree matrix; L2 flushed
+    first)."""
+    import torch
+
+    from repro_torch.kernels import quotient_link_loads
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4)
+    groups = {}
+    for (m, n, k, links), c in shapes.items():
+        g = groups.setdefault((k, m.bit_length()), dict(
+            k=k, arcs_from=1 << max(m.bit_length() - 1, 0),
+            arcs_below=1 << m.bit_length(), launches=0, largest=None))
+        g["launches"] += c
+        if g["largest"] is None or m > g["largest"][0]:
+            g["largest"] = [m, n, k, links]
+    out = []
+    for key in sorted(groups):
+        g = groups[key]
+        m, n, k, links = g["largest"]
+        part = torch.randint(0, k, (n,), generator=gen, device=dev,
+                             dtype=torch.int32)
+        s, r = (torch.randint(0, n, (m,), generator=gen, device=dev,
+                              dtype=torch.int32) for _ in range(2))
+        w = torch.rand(m, generator=gen, device=dev)
+        sub = (torch.rand(links, k, generator=gen, device=dev) < 0.5).float()
+        fl = torch.ones(links, device=dev)
+        g["ms_at_largest"] = device_ms(
+            lambda: quotient_link_loads.quotient_link_loads(
+                part, s, r, w, sub, fl, k), 30, flush=_flush_buffer(state))
+        g["device_ms_estimate"] = g["launches"] * g["ms_at_largest"]
+        out.append(g)
+    return out
+
+
 def phase_full(state):
     import torch
 
     from repro_torch.core.machine import MachineSpec
     from repro_torch.core.partitioner import PartitionConfig, partition
     from repro_torch.graph.generators import grid3d
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import ops, quotient_link_loads
     g = grid3d(64, 64, 64)
     topo = MachineSpec.preset("gpu-superpod").tree()
     cfg = PartitionConfig(seed=0, backend="device")
@@ -731,6 +816,7 @@ def phase_full(state):
     torch.cuda.synchronize()
     warm = time.perf_counter() - t0
     counts = ops.launch_counts()
+    qll_shapes = dict(quotient_link_loads.launch_shapes)
     state["launches"]["full"] = counts
 
     from torch.profiler import ProfilerActivity, profile
@@ -767,7 +853,8 @@ def phase_full(state):
                      for e in top],
          host_makespan=host,
          host_rel_err=rel, limit=limit, launches=counts,
-         max_memory_allocated=torch.cuda.max_memory_allocated())
+         max_memory_allocated=torch.cuda.max_memory_allocated(),
+         quotient_link_loads_by_shape=qll_by_shape(state, qll_shapes))
     if rel > 1e-4:
         raise AssertionError(f"device makespan {res.makespan} != host "
                              f"re-evaluation {host}")
@@ -1131,16 +1218,36 @@ def gnn_placement(state):
 
 
 def bsr_work(layout, f):
-    """(bytes, operations) of one ``bsr_spmm`` call: blocks, ``x`` and
-    ``out`` each moved once, and one multiply-add per nonzero of the
-    blocks and feature, what this layout's product needs (the kernel's
-    dense loop does ``R^2 * F`` per block; ``bsr_dense_ops``)."""
+    """(bytes, operations) that one ``bsr_spmm`` call cannot do without:
+    ``x`` and ``out`` each moved once and every nonzero's value and
+    position (4 bytes each), and one multiply-add per nonzero and feature.
+    A kernel that reads only the nonzero slabs can go under the stored
+    blocks' bytes (``bsr_stored_work``), never under these."""
     import torch
+    nbr, r = layout.n_block_rows, layout.block
+    nnz = int(torch.count_nonzero(layout.blocks))
+    return 8.0 * nbr * r * f + 8.0 * nnz, 2.0 * nnz * f
+
+
+def bsr_stored_work(layout, f):
+    """(bytes, operations) with every stored block read once: blocks,
+    ``x``, ``out`` and the layout's indices."""
     nnzb, r, _ = layout.blocks.shape
     nbr = layout.n_block_rows
     bytes_moved = 4.0 * nnzb * r * r + 8.0 * nbr * r * f + 4.0 * (nbr + 1
                                                                 + nnzb)
-    return bytes_moved, 2.0 * int(torch.count_nonzero(layout.blocks)) * f
+    return bytes_moved, bsr_work(layout, f)[1]
+
+
+def bsr_slabs(layout, f, sms):
+    """The tile the kernel takes for this layout and F, and the 16-column
+    slabs of the blocks it reads (those with a nonzero in its row tile)
+    against all of them."""
+    from repro_torch.kernels import bsr_spmm
+    shape = bsr_spmm.tile(layout.n_block_rows, layout.block, f, sms)
+    read, stored = bsr_spmm.nonzero_slabs(layout.occupancy, shape[0])
+    return dict(tile=list(shape), slabs_read=read, slabs_stored=stored,
+                slab_share=read / stored)
 
 
 def bsr_dense_ops(layout, f):
@@ -1151,6 +1258,14 @@ def bsr_dense_ops(layout, f):
 
 def bsr_args(layout, x):
     return (layout.row_ptr, layout.block_cols, layout.blocks, x)
+
+
+def bsr_call(layout, x, occupancy=None):
+    """``bsr_spmm`` on the layout with its occupancy, as the model calls
+    it, or with ``occupancy`` in its place."""
+    from repro_torch.kernels import bsr_spmm
+    occ = layout.occupancy if occupancy is None else occupancy
+    return bsr_spmm.bsr_spmm(*bsr_args(layout, x), occ)
 
 
 def bsr_library(layout, x):
@@ -1176,17 +1291,15 @@ def gapped_graph(n, m, gap, seed=0):
                       rng.random(m).astype(np.float32) + 0.1)
 
 
-def phase_kernels_gnn(state):
-    """bsr_spmm at the gnn path's shapes: the bulk batch's layout (the main
-    shape), the request's and the bsr_locality graph's in both vertex
-    orders at F = 64, and a ragged R = 32, F = 96 layout with an empty
-    block row."""
+def bsr_cases(state):
+    """(label, layout, F) of the gnn path's ``bsr_spmm`` shapes: the bulk
+    batch's layout (the main shape), the request's and the bsr_locality
+    graph's in both vertex orders at F = 64, and a ragged R = 32, F = 96
+    layout with an empty block row (its count of filled rows in
+    ``state``)."""
     import torch
 
-    from repro_torch.kernels import bsr_spmm, ops
-    dev = torch.device("cuda")
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(2)
+    from repro_torch.kernels import ops
     cases = [(label, gnn_inputs(state, n)["layout"], 64)
              for label, n in (("bulk", GNN_BULK_GRAPHS),
                               ("request", GNN_REQUEST_GRAPHS))]
@@ -1194,28 +1307,50 @@ def phase_kernels_gnn(state):
               for label, b in gnn_placement(state)["orders"].items()]
     g = gapped_graph(1000, 4000, (96, 160))
     lay = ops.prepare_bsr(g.n_nodes, g.senders, g.receivers, g.edge_weight,
-                          32, device=dev)
-    empty = lay.n_block_rows - len(set((g.senders // 32).tolist()))
+                          32, device=torch.device("cuda"))
+    state["bsr_empty_rows"] = lay.n_block_rows - len(set(
+        (g.senders // 32).tolist()))
     cases.append(("ragged_R32_F96", lay, 96))
+    return cases
+
+
+def phase_kernels_gnn(state):
+    """bsr_spmm at the gnn path's shapes (``bsr_cases``), with both bounds:
+    what no kernel can beat (``bsr_work``) and every stored block read
+    once (``bsr_stored_work``), and the share of slabs the kernel reads.
+    Each shape's result must also equal, bitwise, the kernel's walk over
+    every slab of every stored block (an occupancy with every bit set)."""
+    import torch
+
+    from repro_torch.kernels import bsr_spmm
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    for label, layout, f in cases:
+    for label, layout, f in bsr_cases(state):
         x = torch.randn(layout.n_block_rows * layout.block, f, generator=gen,
                         device=dev)
         args = bsr_args(layout, x)
         bytes_moved, flops = bsr_work(layout, f)
         extra = dict(
-            nonzero=int(flops // (2 * f)),
-            wide_tile=bsr_spmm.wide_tile(layout.n_block_rows, layout.block,
-                                         f, sms),
-            # the kernel's dense loop over every block at the f32 peak
+            nonzero=int(flops // (2 * f)), **bsr_slabs(layout, f, sms),
+            bound_ms_stored_blocks=bound(*bsr_stored_work(layout, f))[0],
+            # every stored block's dense product at the f32 peak
             dense_ops_ms=bsr_dense_ops(layout, f) / H100_F32_PER_S * 1e3)
         if label.startswith("ragged"):
-            extra["empty_block_rows_filled"] = empty
+            extra["empty_block_rows_filled"] = state["bsr_empty_rows"]
+        every = bsr_spmm.slab_occupancy(torch.ones_like(layout.blocks))
+        extra["bitwise_every_slab"] = bool(torch.equal(
+            bsr_call(layout, x), bsr_call(layout, x, every)))
+        del every
+        if not extra["bitwise_every_slab"]:
+            raise AssertionError(f"bsr_spmm {label}: reading the nonzero "
+                                 f"slabs differs from reading every slab")
         _check_kernel(
             state, "bsr_spmm",
             [layout.n_block_rows, int(layout.blocks.shape[0]),
              layout.block, f, label],
-            lambda: bsr_spmm.bsr_spmm(*args), lambda: bsr_spmm.plain(*args),
+            lambda: bsr_call(layout, x), lambda: bsr_spmm.plain(*args),
             exact=False, rtol=1e-6, atol=bsr_spmm.order_tolerance(*args),
             tolerance=BSR_TOLERANCE, iters=10 if label == "bulk" else 30,
             library=bsr_library(layout, x), bytes_moved=bytes_moved,
@@ -1325,6 +1460,7 @@ def phase_gnn(state):
 
     # -- placement: block counts and the kernel on each layout
     gen.manual_seed(3)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     place = {}
     for name, b in placed.items():
         lay = b["layout"]
@@ -1336,10 +1472,11 @@ def phase_gnn(state):
             blocks=int(lay.blocks.shape[0]),
             density=bsr_spmm.bsr_density(lay.block_cols, lay.n_block_rows,
                                          lay.n_block_rows),
-            bsr_spmm_ms=device_ms(
-                lambda x=x, lay=lay: bsr_spmm.bsr_spmm(*bsr_args(lay, x)),
-                30, flush=_flush_buffer(state)),
+            bsr_spmm_ms=device_ms(lambda x=x, lay=lay: bsr_call(lay, x), 30,
+                                  flush=_flush_buffer(state)),
             bound_ms=bound_ms, bound_by=bound_by,
+            bound_ms_stored_blocks=bound(*bsr_stored_work(lay, 64))[0],
+            **bsr_slabs(lay, 64, sms),
             dense_ops_ms=bsr_dense_ops(lay, 64) / H100_F32_PER_S * 1e3)
     pl, res = place_in["pl"], place_in["res"]
     emit("gnn", step="placed", graph="rmat(4096,32768,seed=3)",
@@ -1366,7 +1503,7 @@ def phase_gnn(state):
             pad = layout.n_block_rows * layout.block - x.shape[0]
             xp = torch.nn.functional.pad(x, (0, 0, 0, pad)).contiguous()
             args = bsr_args(layout, xp)
-            got, want = bsr_spmm.bsr_spmm(*args), bsr_spmm.plain(*args)
+            got, want = bsr_call(layout, xp), bsr_spmm.plain(*args)
             err = (got - want).abs()
             ok &= bool((err <= bsr_spmm.order_tolerance(*args)
                         + 1e-6 * want.abs()).all())
@@ -1551,7 +1688,7 @@ def phase_lm(state):
 
     from repro_torch import configs
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import ops, quotient_link_loads
     from repro_torch.models import transformer as tr
     from repro_torch.models.common import flash_attention as plain
     from repro_torch.serving.paged_decode import paged_decode_step
@@ -1630,6 +1767,7 @@ def phase_lm(state):
     eng, n_gen = _serve_engine(params, cfg, LM_SERVE, **policy)
     report = eng.run()
     serve_counts = ops.launch_counts()
+    serve_qll = dict(quotient_link_loads.launch_shapes)
     state["launches"]["serve"] = serve_counts
     serve_line = _serve_line(eng, report, n_gen)
     tokens = {f"placed_{LM_TEMPERATURE}": _tokens_of(report)}
@@ -1645,7 +1783,9 @@ def phase_lm(state):
     tokens["placed_0.0"] = _tokens_of(traced_eng.run())
     emit("lm", step="serve", workload=LM_SERVE, policy=policy,
          launches=serve_counts, traced_steps=4, traced_temperature=0.0,
-         traced=serve_trace, **serve_line)
+         traced=serve_trace,
+         quotient_link_loads_by_shape=qll_by_shape(state, serve_qll),
+         **serve_line)
 
     # -- serve_wide: a deployment's pool
     wide_policy = dict(temperature=LM_TEMPERATURE, **LM_WIDE_POLICY)
@@ -1653,8 +1793,10 @@ def phase_lm(state):
     eng, n_gen = _serve_engine(params, cfg, LM_WIDE, **wide_policy)
     wide = eng.run()
     state["launches"]["serve_wide"] = ops.launch_counts()
+    wide_qll = dict(quotient_link_loads.launch_shapes)
     emit("lm", step="serve_wide", workload=LM_WIDE, policy=wide_policy,
          launches=state["launches"]["serve_wide"],
+         quotient_link_loads_by_shape=qll_by_shape(state, wide_qll),
          **_serve_line(eng, wide, n_gen))
     checks["serve_wide_every_request_completed"] = (
         wide.n_requests == LM_WIDE["num_requests"]
@@ -1873,6 +2015,12 @@ def kernels_line(state):
             library_ms=rows[0]["library_ms"], call_ms=rows[0]["call_ms"]))
         if name == "bucket_assign":        # timed against its library call
             out[-1]["ranking"] = state["bucket_ranking"]
+        if name in ("bag_combine", "gather_combine"):  # at one query
+            out[-1]["retrieve_query"] = state["bag_ranking"]
+        if name == "bsr_spmm":             # both bounds, the slabs read
+            out[-1].update({k: rows[0][k] for k in (
+                "bound_ms_stored_blocks", "tile", "slabs_read",
+                "slabs_stored", "slab_share", "bitwise_every_slab")})
         if name == "flash_attention":      # and at the 32k prefill
             out[-1]["long"] = {k: rows[1][k] for k in (
                 "shape", "ms", "call_ms", "plain_ms", "library_ms",

@@ -302,8 +302,8 @@ class RoutingTopology:
     candidate batches with one flat ``segment_sum`` over these tables).
 
     ``path_incidence`` is still available as an on-demand dense view for
-    the small-machine reference paths (``reference.makespan_routing_ref``,
-    ``objective.link_loads_routing``); it raises past
+    the small-machine reference path (``reference.makespan_routing_ref``);
+    it raises past
     ``DENSE_INCIDENCE_MAX`` entries rather than silently allocating GBs.
     """
 

@@ -12,7 +12,15 @@
 
 REPRO_EXPORT int bag_combine_launch(const void* g, const void* w, void* out,
                                     long long n_bags, int d, int f, int vec,
-                                    void* stream) {
-  return bag_reduce_launch<false>(g, nullptr, w, out, n_bags, d, f, vec,
+                                    int sms, void* stream) {
+  return bag_reduce_launch<false>(g, nullptr, w, out, n_bags, d, f, vec, sms,
                                   stream);
+}
+
+// Whether both bag kernels take the small-grid path at this shape on a card
+// of sms multiprocessors (1) or not (0): the launchers' own rule, exported
+// for the card tests.
+REPRO_EXPORT int bag_reduce_small_grid(long long n_bags, int f, int vec,
+                                       int sms) {
+  return bag_small_grid(n_bags, f, vec, sms) ? 1 : 0;
 }

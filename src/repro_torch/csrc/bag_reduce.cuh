@@ -23,6 +23,18 @@
 // kernels give bitwise the same result for the same rows and weights, and
 // the result matches the TPU kernels' mul-then-add. Slots of weight 0 are
 // read like any other.
+//
+// A grid that cannot fill the card (fewer blocks than the multiprocessors
+// the wrapper passes; one retrieve query is one bag) takes a third path that
+// spreads F over more blocks: one warp per block over 32 float columns of
+// one bag, so one bag of F = 256 runs on 8 multiprocessors instead of one.
+// The warp reads a chunk's weights (and ids) in one coalesced load per 32
+// slots and hands each slot's value to every lane by a shuffle, with no
+// shared-memory staging and no __syncthreads, and each thread issues all
+// of a chunk's rows (64; 16 where D <= 16) before its first add: a call waits
+// through one device-memory latency per chunk (two for the gather, whose
+// row addresses come from the ids), not one per kBagDepth rows. The slots
+// are summed in the same order with the same rounding.
 #pragma once
 
 #include <algorithm>
@@ -34,6 +46,10 @@ constexpr int kBagMaxRows = 8;   // bags per block at most
 constexpr int kBagDepth = 16;    // rows loaded ahead of the sum per thread
 // grids of at most this many threads load kBagDepth rows ahead
 constexpr long long kBagDeepMaxThreads = 1 << 16;
+// slots in flight per thread on the small-grid path: kBagSmallChunk, or
+// kBagSmallShort where d is at most that (a shorter add chain)
+constexpr int kBagSmallChunk = 64;
+constexpr int kBagSmallShort = 16;
 
 __device__ __forceinline__ float bag_zero(float*) { return 0.0f; }
 __device__ __forceinline__ float4 bag_zero(float4*) {
@@ -102,6 +118,58 @@ __global__ void bag_reduce_kernel(const float* __restrict__ src,
   if (active) reinterpret_cast<V*>(out)[b * cols + col] = acc;
 }
 
+// The small-grid path: block (32), grid (ceil(f / 32), n_bags); kChunk
+// slots in flight per thread.
+template <bool kGather, int kChunk>
+__global__ void __launch_bounds__(32)
+bag_reduce_small_kernel(const float* __restrict__ src,
+                        const int* __restrict__ idx,
+                        const float* __restrict__ w, float* __restrict__ out,
+                        int d, int f) {
+  const long long b = blockIdx.y;
+  const int lane = threadIdx.x;
+  const int col = blockIdx.x * 32 + lane;
+  const bool active = col < f;
+  const int col_in = min(col, f - 1);
+  constexpr int kH = (kChunk + 31) / 32;
+  float acc = 0.0f;
+  for (int d0 = 0; d0 < d; d0 += kChunk) {
+    const int nd = min(kChunk, d - d0);
+    const long long slot0 = b * d + d0;
+    // the chunk's weights (and ids): one coalesced load per 32 slots, each
+    // slot's value then broadcast to the warp by a shuffle
+    float wl[kH];
+    int il[kH];
+#pragma unroll
+    for (int h = 0; h < kH; ++h) {
+      const int u = min(h * 32 + lane, nd - 1);
+      wl[h] = __ldg(w + slot0 + u);
+      il[h] = kGather ? __ldg(idx + slot0 + u) : 0;
+    }
+    // every row of the chunk in flight before the first add, with no
+    // branch between the loads: slots past nd read slot nd - 1's row again
+    // and are not added
+    float t[kChunk];
+#pragma unroll
+    for (int u = 0; u < kChunk; ++u) {
+      const int uc = min(u, nd - 1);
+      int held = il[0];                   // the register holding slot uc
+#pragma unroll
+      for (int h = 1; h < kH; ++h) held = uc >= h * 32 ? il[h] : held;
+      const long long row =
+          kGather ? __shfl_sync(0xffffffffu, held, uc & 31) : slot0 + uc;
+      t[u] = __ldg(src + row * f + col_in);
+    }
+#pragma unroll
+    for (int u = 0; u < kChunk; ++u) {
+      const float wu = __shfl_sync(0xffffffffu, wl[u / 32], u % 32);
+      const float next = bag_acc(acc, wu, t[u]);
+      acc = u < nd ? next : acc;
+    }
+  }
+  if (active) out[b * f + col] = acc;
+}
+
 template <typename V, bool kGather>
 static void bag_reduce_run(dim3 grid, dim3 block, cudaStream_t s, bool deep,
                            const float* src, const int* idx, const float* w,
@@ -115,30 +183,58 @@ static void bag_reduce_run(dim3 grid, dim3 block, cudaStream_t s, bool deep,
   }
 }
 
-// Launch over n_bags bags of d slots and f floats; vec is 4 (float4 rows,
-// f % 4 == 0 and 16-byte aligned pointers, checked by the wrapper) or 1.
+// The usual path's launch shape for n_bags bags of cols columns of V:
+// 128 threads a block, one block row per bag.
+struct BagGeometry {
+  dim3 block, grid;
+};
+
+static BagGeometry bag_geometry(long long n_bags, int cols) {
+  const int tx = std::min((cols + 31) / 32 * 32, 256);
+  const int ty = std::max(1, std::min(kBagMaxRows, 128 / tx));
+  return {dim3(tx, ty), dim3(static_cast<unsigned>((n_bags + ty - 1) / ty),
+                             (cols + tx - 1) / tx)};
+}
+
+// Whether a launch takes the small-grid path: the usual grid has fewer
+// blocks than the card's sms multiprocessors, and the bags fit the small
+// grid's second axis.
+static bool bag_small_grid(long long n_bags, int f, int vec, int sms) {
+  const dim3 g = bag_geometry(n_bags, f / vec).grid;
+  return static_cast<long long>(g.x) * g.y < sms && n_bags <= 65535;
+}
+
+// Launch over n_bags bags of d slots and f floats on a card of sms
+// multiprocessors; vec is 4 (float4 rows, f % 4 == 0 and 16-byte aligned
+// pointers, checked by the wrapper) or 1.
 template <bool kGather>
 static int bag_reduce_launch(const void* src, const void* idx, const void* w,
                              void* out, long long n_bags, int d, int f,
-                             int vec, void* stream) {
-  const int cols = f / vec;
-  const int tx = std::min((cols + 31) / 32 * 32, 256);
-  const int ty = std::max(1, std::min(kBagMaxRows, 128 / tx));
-  const dim3 block(tx, ty);
-  const dim3 grid(static_cast<unsigned>((n_bags + ty - 1) / ty),
-                  (cols + tx - 1) / tx);
+                             int vec, int sms, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool deep = n_bags * cols <= kBagDeepMaxThreads;
   const float* src_f = static_cast<const float*>(src);
   const int* idx_i = static_cast<const int*>(idx);
   const float* w_f = static_cast<const float*>(w);
   float* out_f = static_cast<float*>(out);
+  if (bag_small_grid(n_bags, f, vec, sms)) {
+    const dim3 grid((f + 31) / 32, static_cast<unsigned>(n_bags));
+    if (d <= kBagSmallShort)
+      bag_reduce_small_kernel<kGather, kBagSmallShort>
+          <<<grid, 32, 0, s>>>(src_f, idx_i, w_f, out_f, d, f);
+    else
+      bag_reduce_small_kernel<kGather, kBagSmallChunk>
+          <<<grid, 32, 0, s>>>(src_f, idx_i, w_f, out_f, d, f);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const int cols = f / vec;
+  const BagGeometry geo = bag_geometry(n_bags, cols);
+  const bool deep = n_bags * cols <= kBagDeepMaxThreads;
   if (vec == 4) {
-    bag_reduce_run<float4, kGather>(grid, block, s, deep, src_f, idx_i, w_f,
-                                    out_f, n_bags, d, cols);
+    bag_reduce_run<float4, kGather>(geo.grid, geo.block, s, deep, src_f,
+                                    idx_i, w_f, out_f, n_bags, d, cols);
   } else {
-    bag_reduce_run<float, kGather>(grid, block, s, deep, src_f, idx_i, w_f,
-                                   out_f, n_bags, d, cols);
+    bag_reduce_run<float, kGather>(geo.grid, geo.block, s, deep, src_f,
+                                   idx_i, w_f, out_f, n_bags, d, cols);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -15,7 +15,7 @@
 REPRO_EXPORT int gather_combine_launch(const void* table, const void* idx,
                                        const void* w, void* out,
                                        long long n_bags, int d, int f,
-                                       int vec, void* stream) {
-  return bag_reduce_launch<true>(table, idx, w, out, n_bags, d, f, vec,
+                                       int vec, int sms, void* stream) {
+  return bag_reduce_launch<true>(table, idx, w, out, n_bags, d, f, vec, sms,
                                  stream);
 }

@@ -8,10 +8,12 @@ Replaces the Pallas kernel ``repro/kernels/bag_combine.py:bag_combine`` with
 The TPU kernel is a batched vec-mat on the matrix unit over (bag tile,
 feature tile). At ~0.5 flop per byte it is a streaming reduction on
 Hopper, bound by reading ``g`` once: one block row per bag, 16-byte loads
-across F, the slots summed in order in registers with separately rounded
-products and sums (``csrc/bag_reduce.cuh``, shared with ``gather_combine``,
-so ``embedding_bag`` and the fused lookup agree bitwise). Mean-combine is
-the caller's ``w = 1 / bag_len``.
+across F (one warp per block over 32 columns where the grid cannot fill
+the card, as for one retrieve query), the slots summed in order in
+registers with separately rounded products and sums
+(``csrc/bag_reduce.cuh``, shared with ``gather_combine``, so
+``embedding_bag`` and the fused lookup agree bitwise). Mean-combine is the
+caller's ``w = 1 / bag_len``.
 """
 from __future__ import annotations
 
@@ -63,10 +65,10 @@ def bag_combine(gathered: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
     if b == 0 or f == 0:
         return out
     fn = build.entry("bag_combine", [ctypes.c_void_p] * 3 + [
-        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p])
+        ctypes.c_longlong] + [ctypes.c_int] * 4 + [ctypes.c_void_p])
     build.check("bag_combine", fn(
         build.ptr(gathered), build.ptr(weights), build.ptr(out), b, d, f,
-        vec_width(gathered, out), build.stream_of(dev)))
+        vec_width(gathered, out), build.sm_count(dev),
+        build.stream_of(dev)))
     launches += 1
     return out

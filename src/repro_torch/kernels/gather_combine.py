@@ -10,7 +10,9 @@ scalar-prefetches the ids and DMAs one row tile per sequential grid step;
 on Hopper a block loads its own bags' ids and weights into shared memory
 and its threads read each named row in 16-byte loads across F, summing the
 slots in order in registers (``csrc/bag_reduce.cuh``, shared with
-``bag_combine``, so the two agree bitwise). Bound by device-memory bytes:
+``bag_combine``, so the two agree bitwise); a grid too small to fill the
+card spreads F over one warp per block and reads the ids and weights
+without staging. Bound by device-memory bytes:
 the rows the bags name, their ids and weights, and the output. Ids must lie
 in ``[0, V)``: callers map padding to row 0 with weight 0, as the reference
 does, since torch's indexing raises where JAX's clamps.
@@ -64,10 +66,10 @@ def gather_combine(table: torch.Tensor, idx: torch.Tensor,
     if b == 0 or f == 0:
         return out
     fn = build.entry("gather_combine", [ctypes.c_void_p] * 4 + [
-        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p])
+        ctypes.c_longlong] + [ctypes.c_int] * 4 + [ctypes.c_void_p])
     build.check("gather_combine", fn(
         build.ptr(table), build.ptr(idx), build.ptr(weights), build.ptr(out),
-        b, d, f, vec_width(table, out), build.stream_of(dev)))
+        b, d, f, vec_width(table, out), build.sm_count(dev),
+        build.stream_of(dev)))
     launches += 1
     return out

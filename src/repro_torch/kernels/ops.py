@@ -41,6 +41,7 @@ def launch_counts() -> Dict[str, int]:
 def reset_launch_counts() -> None:
     for mod in KERNEL_MODULES.values():
         mod.launches = 0
+    _qll.launch_shapes.clear()
 
 
 def match_keys(w: torch.Tensor, u: torch.Tensor,
@@ -113,7 +114,8 @@ def prepare_bsr(n_nodes: int, senders: np.ndarray, receivers: np.ndarray,
                 edge_weight: np.ndarray, block: int = 128,
                 device: DeviceLike = None) -> _bsr.BsrLayout:
     """The graph's BSR layout, built once on the host (``to_bsr``) with its
-    block-row pointers, then moved to ``device`` (``None`` = CUDA)."""
+    block-row pointers, then moved to ``device`` (``None`` = CUDA), where
+    its blocks' nonzero sub-blocks are marked (``slab_occupancy``)."""
     dev = resolve_device(device)
     senders, receivers = np.asarray(senders), np.asarray(receivers)
     for name, ids in (("senders", senders), ("receivers", receivers)):
@@ -122,10 +124,11 @@ def prepare_bsr(n_nodes: int, senders: np.ndarray, receivers: np.ndarray,
             raise ValueError(f"prepare_bsr: {name} outside [0, {n_nodes})")
     rows, cols, blocks, nb = _bsr.to_bsr(n_nodes, senders, receivers,
                                          np.asarray(edge_weight), block)
+    blocks = torch.as_tensor(blocks, device=dev)
     return _bsr.BsrLayout(
         row_ptr=torch.as_tensor(_bsr.row_pointers(rows, nb), device=dev),
-        block_cols=torch.as_tensor(cols, device=dev),
-        blocks=torch.as_tensor(blocks, device=dev), n_block_rows=nb,
+        block_cols=torch.as_tensor(cols, device=dev), blocks=blocks,
+        occupancy=_bsr.slab_occupancy(blocks), n_block_rows=nb,
         n_nodes=n_nodes)
 
 
@@ -138,7 +141,7 @@ def gnn_aggregate_bsr(layout: _bsr.BsrLayout,
     if pad:
         x = torch.nn.functional.pad(x, (0, 0, 0, pad))
     out = _bsr.bsr_spmm(layout.row_ptr, layout.block_cols, layout.blocks,
-                        x.contiguous())
+                        x.contiguous(), layout.occupancy)
     return out[:layout.n_nodes]
 
 

@@ -18,6 +18,7 @@ not bitwise. Call it with ``F_l = ones`` where raw comm is needed.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 from typing import Tuple
 
@@ -26,6 +27,8 @@ import torch
 from repro_torch.kernels import build
 
 launches = 0
+# launches by (arcs m, vertices n, bins k, links L), reset with the count
+launch_shapes: collections.Counter = collections.Counter()
 
 
 def quotient_matrix(part: torch.Tensor, senders: torch.Tensor,
@@ -113,4 +116,5 @@ def loads_and_quotient(part: torch.Tensor, senders: torch.Tensor,
         build.ptr(W), build.ptr(out), build.sm_count(dev),
         build.stream_of(dev)))
     launches += 1
+    launch_shapes[(m, int(part.shape[0]), k, n_links)] += 1
     return out, W.view(k, k)

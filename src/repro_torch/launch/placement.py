@@ -38,7 +38,8 @@ class PlacementSession:
                   node_weight: Optional[np.ndarray] = None,
                   n_devices: Optional[int] = None,
                   machine: Optional[Any] = None,
-                  current: Optional[np.ndarray] = None):
+                  current: Optional[np.ndarray] = None,
+                  seeds: int = 1):
         """Pages-as-rows placement for the serving KV pool.
 
         ``traffic`` is the measured [n_pages, n_pages] co-access matrix
@@ -54,7 +55,8 @@ class PlacementSession:
         ``current`` (the live assignment) prices drift:
         ``drift_ratio = makespan(current on this traffic) /
         makespan(searched)``; the engine re-places when it exceeds
-        ``1 + drift_threshold``. Returns a
+        ``1 + drift_threshold``. ``seeds`` is the partitioner's best-of-S
+        refinement (``PartitionConfig.seeds``). Returns a
         ``serving.kv_cache.PagePlacement``.
         """
         from repro_torch.analysis import shard_lint
@@ -101,7 +103,8 @@ class PlacementSession:
                 g, topo, part, device=self.device)["makespan"])
                 if g is not None else 0.0)
         else:
-            res = partition(g, topo, PartitionConfig(seed=self.seed),
+            res = partition(g, topo, PartitionConfig(seed=self.seed,
+                                                     seeds=seeds),
                             device=self.device)
             part, makespan = res.part, float(res.makespan)
         drift = float("inf")

@@ -124,7 +124,8 @@ def test_plain_bsr_spmm_matches_the_dense_oracle(name, block, feat):
     ptr = torch.as_tensor(tbsr.row_pointers(rows, nb))
     args = (ptr, torch.as_tensor(cols), torch.as_tensor(blocks),
             torch.as_tensor(x))
-    got = tbsr.bsr_spmm(*args)                 # CPU tensors: the plain path
+    occ = tbsr.slab_occupancy(args[2])
+    got = tbsr.bsr_spmm(*args, occ)            # CPU tensors: the plain path
     np.testing.assert_allclose(got.numpy(), want, **SPMM_TOL)
     # chunking the blocks changes nothing; the order bound covers the gap
     np.testing.assert_array_equal(tbsr.plain(*args, chunk=3).numpy(),
@@ -178,14 +179,85 @@ def test_weighted_gnn_aggregate_matches_the_reference():
 
 
 @pytest.mark.parametrize("nbr,r,f,sms,wide", [
-    (3840, 128, 64, 132, True),     # the bulk molecule batch
-    (30, 128, 64, 132, False),      # one molecule request
+    (3840, 128, 64, 132, True),     # the bulk batch: 116 blocks per SM
+    (30, 128, 64, 132, False),      # one request: 240 blocks of 16 rows
     (98, 128, 64, 132, False),      # the placed bsr_locality graph
-    (132, 128, 64, 132, True), (66, 128, 128, 132, True),
-    (5000, 32, 96, 132, False),     # R below the wide tile's height
-    (2, 256, 64, 1, True)])
+    (32, 128, 64, 132, False),      # the unplaced one
+    # 528 blocks of 32 x 64: 4 a multiprocessor, short of 16
+    (132, 128, 64, 132, False), (66, 128, 128, 132, False),
+    (528, 128, 64, 132, True),      # exactly 16 blocks per SM
+    (527, 128, 64, 132, False),
+    (264, 128, 128, 132, True),     # two feature tiles
+    (5000, 32, 96, 132, True),      # R at the wide tile's height
+    (32, 32, 96, 132, False),       # the ragged R = 32, F = 96 layout
+    (5000, 16, 96, 132, False),     # R below it
+    (100000, 16, 64, 132, False),
+    (2, 256, 64, 1, True), (1, 32, 64, 0, True), (1, 32, 64, 1, False)])
 def test_tile_choice(nbr, r, f, sms, wide):
-    assert tbsr.wide_tile(nbr, r, f, sms) is wide
+    """``tile`` takes the wide tile at 16 blocks of it per SM, else the
+    narrow one."""
+    assert tbsr.tile(nbr, r, f, sms) == (tbsr.WIDE_TILE if wide
+                                         else tbsr.NARROW_TILE)
+
+
+def _occupancy_numpy(blocks, grain=16):
+    """Per block, per 16-row strip, the bits of the 16-column groups that
+    hold a nonzero, as uint32 words (numpy, from the host blocks)."""
+    nnzb, r, _ = blocks.shape
+    s = -(-r // grain)
+    nz = np.zeros((nnzb, s * grain, s * grain), bool)
+    nz[:, :r, :r] = blocks != 0
+    sub = nz.reshape(nnzb, s, grain, s, grain).any(axis=(2, 4))
+    words = np.zeros((nnzb, s, -(-s // 32)), np.uint32)
+    for j in range(s):
+        words[:, :, j // 32] |= sub[:, :, j].astype(np.uint32) << (j % 32)
+    return words
+
+
+OCC_CASES = [(name, block) for name in sorted(GRAPHS) for block in (128, 32)]
+OCC_CASES += [("gapped_200", 40), ("rmat_500", 24), ("rmat_500", 600)]
+
+
+@pytest.mark.parametrize("name,block", OCC_CASES)
+def test_prepare_bsr_occupancy_is_a_count_of_the_blocks(name, block):
+    """The layout's occupancy against a numpy count over ``to_bsr``'s
+    blocks, at R = 128 and 32, R not a multiple of 16 (40, 24) and R of
+    more than 32 strips (600: two words a strip)."""
+    g = GRAPHS[name]
+    _, _, blocks, _ = tbsr.to_bsr(g.n_nodes, g.senders, g.receivers,
+                                  g.edge_weight, block)
+    lay = tops.prepare_bsr(g.n_nodes, g.senders, g.receivers, g.edge_weight,
+                           block, device="cpu")
+    assert lay.occupancy.dtype == torch.int32
+    np.testing.assert_array_equal(lay.occupancy.numpy().view(np.uint32),
+                                  _occupancy_numpy(blocks))
+
+
+def test_occupancy_marks_the_empty_block_row_zero():
+    """The gapped graph's block row without arcs holds one zero block,
+    with no bit set."""
+    g = GRAPHS["gapped_200"]
+    lay = tops.prepare_bsr(g.n_nodes, g.senders, g.receivers, g.edge_weight,
+                           32, device="cpu")
+    t = int(lay.row_ptr[2])
+    assert int(lay.row_ptr[3]) == t + 1
+    assert not bool(lay.blocks[t].any())
+    assert int(lay.occupancy[t].abs().sum()) == 0
+
+
+@pytest.mark.parametrize("rows", [16, 32, 64, 128])
+@pytest.mark.parametrize("name", ["molecules_8", "rmat_300"])
+def test_nonzero_slabs_counts_what_a_row_tile_reads(name, rows):
+    """Slabs read by row tiles of ``rows``: the 16-column groups with a
+    nonzero in any of the tile's rows, counted in numpy."""
+    g = GRAPHS[name]
+    lay = tops.prepare_bsr(g.n_nodes, g.senders, g.receivers, g.edge_weight,
+                           128, device="cpu")
+    b = lay.blocks.numpy() != 0
+    nnzb = b.shape[0]
+    tiles = b.reshape(nnzb, 128 // rows, rows, 8, 16).any(axis=(2, 4))
+    assert tbsr.nonzero_slabs(lay.occupancy, rows) == (
+        int(tiles.sum()), nnzb * (128 // rows) * 8)
 
 
 def test_kernel_path_refuses_other_devices_and_no_card(monkeypatch):
@@ -194,7 +266,7 @@ def test_kernel_path_refuses_other_devices_and_no_card(monkeypatch):
     x = torch.zeros(48, 4, device="meta")
     with pytest.raises(ValueError, match="no kernel for device meta"):
         tbsr.bsr_spmm(lay.row_ptr.to("meta"), lay.block_cols.to("meta"),
-                      lay.blocks.to("meta"), x)
+                      lay.blocks.to("meta"), x, lay.occupancy.to("meta"))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tops.prepare_bsr(40, np.array([0, 1]), np.array([1, 0]),

@@ -8,6 +8,7 @@ without one. Imports no JAX (the card's machine has none). Run with
 
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py
 """
+import dataclasses
 import sys
 from pathlib import Path
 
@@ -186,6 +187,60 @@ BAG_SHAPES = [(512, 50, 256, 1_000_000), (37, 7, 96, 5000), (64, 1, 256, 99),
               (7, 17, 64, 500), (3, 33, 128, 400),
               # grids of more than 65,536 threads: the shallow loop
               (1100, 20, 256, 3000), (2048, 13, 130, 4000)]
+# grids too small to fill the card (the small-grid path): one, two and
+# three bags, D around the 16 and 64 rows a thread keeps in flight
+BAG_SMALL_SHAPES = [(b, d, 256, 1000) for b in (1, 2, 3)
+                    for d in (1, 50, 64, 65)] + [(1, 16, 33, 100),
+                                                 (2, 17, 96, 300)]
+BAG_SHAPES += BAG_SMALL_SHAPES
+
+
+def _bag_small_grid(b, f, vec, sms):
+    """The bag launchers' own choice of the small-grid path
+    (``csrc/bag_reduce.cuh``)."""
+    import ctypes
+
+    from repro_torch.kernels import build
+    fn = build.library().bag_reduce_small_grid
+    fn.argtypes = [ctypes.c_longlong] + [ctypes.c_int] * 3
+    fn.restype = ctypes.c_int
+    return bool(fn(b, f, vec, sms))
+
+
+@pytest.mark.parametrize("b,f,vec,sms,small", [
+    (1, 256, 4, 132, True),       # one retrieve query: 1 block of 64 x 2
+    (2, 256, 4, 132, True),
+    (262, 256, 4, 132, True),     # 131 blocks of 2 bags
+    (263, 256, 4, 132, False),    # 132 blocks: the grid fills the card
+    (512, 256, 4, 132, False),    # serve_p99: 256 blocks
+    (262144, 256, 4, 132, False),  # serve_bulk
+    (37, 96, 4, 132, True),       # the ragged shape: 10 blocks of 4 bags
+    (37, 96, 1, 132, True),
+    (1100, 256, 4, 132, False),
+    (70000, 8, 1, 100000, False),  # more bags than the grid's y axis
+    (1, 1100, 1, 2, False),       # 5 blocks across F on 2 multiprocessors
+    (1, 1100, 1, 8, True)])
+def test_bag_small_grid_choice(cuda, b, f, vec, sms, small):
+    assert _bag_small_grid(b, f, vec, sms) is small
+
+
+@pytest.mark.parametrize("b,d,f,v", BAG_SMALL_SHAPES)
+def test_bag_kernels_on_small_grids_equal_the_in_order_sum(cuda, b, d, f, v):
+    """Both kernels bitwise equal to the slots summed in order with each
+    product and sum rounded on its own, and to ``embedding_bag``."""
+    table, idx, w = _bag_inputs(cuda, b, d, f, v, seed=3 * b + d + f)
+    assert _bag_small_grid(b, f, gather_combine.vec_width(table),
+                           torch.cuda.get_device_properties(cuda)
+                           .multi_processor_count)
+    rows = table[idx]
+    want = torch.zeros(b, f, device=cuda)
+    for j in range(d):
+        want = want + w[:, j:j + 1] * rows[:, j]
+    fused = gather_combine.gather_combine(table, idx, w)
+    pre = bag_combine.bag_combine(rows, w)
+    assert torch.equal(fused, want)
+    assert torch.equal(pre, want)
+    assert torch.equal(ops.embedding_bag(table, idx, w), fused)
 
 
 @pytest.mark.parametrize("b,d,f,v", BAG_SHAPES)
@@ -288,22 +343,51 @@ def test_two_tower_serving_on_the_card(cuda):
                                rtol=1e-5, atol=1e-6)
 
 
-def _bsr_case(cuda, graph, block, f, seed=0):
+def _bsr_layout_case(cuda, graph, block, f, seed=0):
     """A graph's BSR layout on the card and a random ``x`` for it."""
     lay = ops.prepare_bsr(graph.n_nodes, graph.senders, graph.receivers,
                           graph.edge_weight, block, device=cuda)
     x = torch.randn(lay.n_block_rows * block, f, generator=_gen(cuda, seed),
                     device=cuda)
+    return lay, x
+
+
+def _bsr_args(lay, x):
+    """The plain version's arguments: the layout's arrays and ``x``."""
     return (lay.row_ptr, lay.block_cols, lay.blocks, x)
 
 
-# (graph, R, F): one molecule request (the narrow tile), 1,024 molecules
-# (240 block rows: the wide tile), ragged F with an empty block row at
+def _with_block_rows(lay, nbr):
+    """The layout cut to its first ``nbr`` block rows, or grown to ``nbr``
+    by rows of one all-zero block each: the first rows' products stay."""
+    dev = lay.blocks.device
+    if nbr <= lay.n_block_rows:
+        end = int(lay.row_ptr[nbr])
+        return dataclasses.replace(
+            lay, row_ptr=lay.row_ptr[:nbr + 1], block_cols=lay.block_cols[:end],
+            blocks=lay.blocks[:end], occupancy=lay.occupancy[:end],
+            n_block_rows=nbr, n_nodes=min(lay.n_nodes, nbr * lay.block))
+    extra, nnzb = nbr - lay.n_block_rows, lay.blocks.shape[0]
+    return dataclasses.replace(
+        lay,
+        row_ptr=torch.cat([lay.row_ptr, nnzb + 1 + torch.arange(
+            extra, dtype=torch.int32, device=dev)]),
+        block_cols=torch.cat([lay.block_cols, torch.zeros(
+            extra, dtype=torch.int32, device=dev)]),
+        blocks=torch.cat([lay.blocks, lay.blocks.new_zeros(
+            (extra,) + tuple(lay.blocks.shape[1:]))]),
+        occupancy=torch.cat([lay.occupancy, lay.occupancy.new_zeros(
+            (extra,) + tuple(lay.occupancy.shape[1:]))]),
+        n_block_rows=nbr)
+
+
+# (graph, R, F): one molecule request (the narrow tile), 2,400 molecules
+# (563 block rows: the wide tile), ragged F with an empty block row at
 # R = 32, R = 16, one block row, F = 1, several feature tiles with a ragged
 # last one, and a power-law graph
 BSR_CASES = {
     "request_128mol": (lambda: molecule_batch(128, 30, 64, seed=0), 128, 64),
-    "wide_1024mol": (lambda: molecule_batch(1024, 30, 64, seed=1), 128, 64),
+    "wide_2400mol": (lambda: molecule_batch(2400, 30, 64, seed=1), 128, 64),
     "ragged_R32_F96": (lambda: gapped_graph(400, 1500, (64, 128)), 32, 96),
     "R16_F8": (lambda: gapped_graph(300, 900, (0, 40), seed=2), 16, 8),
     "R32_F64": (lambda: rmat(700, 3000, seed=4), 32, 64),
@@ -317,9 +401,10 @@ BSR_CASES = {
 @pytest.mark.parametrize("name", sorted(BSR_CASES))
 def test_bsr_spmm_kernel_matches_plain(cuda, name):
     make, block, f = BSR_CASES[name]
-    args = _bsr_case(cuda, make(), block, f, seed=block + f)
+    lay, x = _bsr_layout_case(cuda, make(), block, f, seed=block + f)
+    args = _bsr_args(lay, x)
     before = bsr_spmm.launches
-    got = bsr_spmm.bsr_spmm(*args)
+    got = bsr_spmm.bsr_spmm(*args, lay.occupancy)
     assert bsr_spmm.launches == before + 1
     want = bsr_spmm.plain(*args)
     tol = bsr_spmm.order_tolerance(*args)
@@ -331,32 +416,141 @@ def test_bsr_spmm_kernel_matches_plain(cuda, name):
 
 def test_bsr_spmm_tiles_on_both_sides_of_the_switch(cuda):
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
-    assert not bsr_spmm.wide_tile(30, 128, 64, sms)
-    assert bsr_spmm.wide_tile(240, 128, 64, sms)
+    assert bsr_spmm.tile(30, 128, 64, sms) == bsr_spmm.NARROW_TILE
+    assert bsr_spmm.tile(3840, 128, 64, sms) == bsr_spmm.WIDE_TILE
+    g = molecule_batch(2400, 30, 64, seed=1)
+    assert bsr_spmm.tile(-(-g.n_nodes // 128), 128, 64,
+                         sms) == bsr_spmm.WIDE_TILE
+
+
+@pytest.mark.parametrize("name", sorted(BSR_CASES))
+def test_bsr_spmm_skipping_slabs_is_bitwise_the_dense_walk(cuda, name):
+    """For finite x, reading only the layout's nonzero slabs gives bitwise
+    the walk over every slab of every stored block (an occupancy with
+    every bit set): a skipped slab's terms are fmaf(0, x, acc) == acc."""
+    make, block, f = BSR_CASES[name]
+    lay, x = _bsr_layout_case(cuda, make(), block, f, seed=block + f + 1)
+    every = bsr_spmm.slab_occupancy(torch.ones_like(lay.blocks))
+    rows = bsr_spmm.tile(lay.n_block_rows, block, f,
+                         torch.cuda.get_device_properties(cuda)
+                         .multi_processor_count)[0]
+    read, stored = bsr_spmm.nonzero_slabs(every, rows)
+    assert read == stored
+    args = _bsr_args(lay, x)
+    assert torch.equal(bsr_spmm.bsr_spmm(*args, lay.occupancy),
+                       bsr_spmm.bsr_spmm(*args, every))
+
+
+@pytest.mark.parametrize("name", sorted(BSR_CASES))
+def test_bsr_spmm_tiles_agree_bitwise(cuda, name):
+    """The layout's block rows under the other tile, reached by growing
+    the layout with all-zero block rows to the switch's count or cutting
+    it below: bitwise the same products (the same terms in the same
+    order). R = 16 is below the wide tile and stays narrow."""
+    make, block, f = BSR_CASES[name]
+    lay, x = _bsr_layout_case(cuda, make(), block, f, seed=block + f + 2)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    bm, bn = bsr_spmm.WIDE_TILE
+    per_row = -(-block // bm) * -(-f // bn)
+    switch = -(-bsr_spmm.WIDE_MIN_BLOCKS_PER_SM * sms // per_row)
+    nbr = lay.n_block_rows
+    other = _with_block_rows(lay, switch if nbr < switch else switch - 1)
+    tiles = [bsr_spmm.tile(m, block, f, sms)
+             for m in (nbr, other.n_block_rows)]
+    assert (tiles[0] != tiles[1]) is (block >= bm)
+    keep = min(nbr, other.n_block_rows) * block
+    a = bsr_spmm.bsr_spmm(*_bsr_args(lay, x), lay.occupancy)
+    b = bsr_spmm.bsr_spmm(*_bsr_args(other, x), other.occupancy)
+    assert torch.equal(a[:keep], b[:keep])
+    if other.n_block_rows > nbr:
+        assert bool((b[keep:] == 0).all())
+
+
+def test_bsr_spmm_on_all_zero_slabs_and_an_all_zero_block_row(cuda):
+    """Blocks whose sub-blocks are mostly zero and one block row with no
+    arc at all (to_bsr's zero block there: every slab skipped)."""
+    g = gapped_graph(700, 400, (256, 384), seed=9)
+    lay, x = _bsr_layout_case(cuda, g, 128, 64, seed=4)
+    read, stored = bsr_spmm.nonzero_slabs(lay.occupancy, 64)
+    assert 0 < read < stored
+    assert int(lay.occupancy[int(lay.row_ptr[2])].abs().sum()) == 0
+    got = ops.gnn_aggregate_bsr(lay, x[:700])
+    assert bool((got[256:384] == 0).all())
+    want = bsr_spmm.plain(lay.row_ptr, lay.block_cols, lay.blocks, x)[:700]
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_bsr_spmm_non_finite_x_follows_segment_sum_where_slabs_are_zero(
+        cuda):
+    """An inf in x reaches exactly the row tiles that read its slab
+    (there a stored zero times inf is NaN, as in the dense product); every
+    other row equals ``ops.gnn_aggregate`` (the reference's segment_sum),
+    including rows whose block column holds the inf but whose slab is all
+    zero, where the dense product would give NaN."""
+    g = molecule_batch(1024, 30, 64, seed=11)
+    lay, x = _bsr_layout_case(cuda, g, 128, 64, seed=5)
+    n, r = g.n_nodes, lay.block
+    v = 5 * r + 37                       # column slab 2 of block column 5
+    x[v, 3] = float("inf")
+    got = ops.gnn_aggregate_bsr(lay, x[:n])
+    s = torch.as_tensor(g.senders, device=cuda)
+    rc = torch.as_tensor(g.receivers, device=cuda)
+    w = torch.as_tensor(g.edge_weight, device=cuda)
+    seg = ops.gnn_aggregate(s, rc, w, x[:n], n)
+    # the row tiles that read slab v // 16 of block column v // R
+    bm = bsr_spmm.tile(lay.n_block_rows, r, 64,
+                       torch.cuda.get_device_properties(cuda)
+                       .multi_processor_count)[0]
+    reads = torch.zeros(lay.n_block_rows * r, dtype=torch.bool, device=cuda)
+    rows = torch.repeat_interleave(
+        torch.arange(lay.n_block_rows, device=cuda),
+        (lay.row_ptr[1:] - lay.row_ptr[:-1]).long())
+    bit = ((lay.occupancy[..., 0] >> ((v % r) // 16)) & 1).bool()
+    per = bm // 16
+    for t in torch.nonzero(lay.block_cols == v // r).flatten().tolist():
+        for m0 in range(0, r, bm):
+            if bool(bit[t, m0 // 16:m0 // 16 + per].any()):
+                b0 = int(rows[t]) * r + m0
+                reads[b0:b0 + bm] = True
+    reads = reads[:n]
+    bad = ~torch.isfinite(got[:, 3])
+    assert torch.equal(bad, reads | ~torch.isfinite(seg[:, 3]))
+    dense_nan = torch.zeros_like(reads)
+    for t in torch.nonzero(lay.block_cols == v // r).flatten().tolist():
+        b0 = int(rows[t]) * r
+        dense_nan[b0:b0 + r] = True
+    assert bool((dense_nan[:n] & ~bad).any())     # the pinned difference
+    ok = ~bad
+    torch.testing.assert_close(got[ok], seg[ok], rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(got[:, :3], seg[:, :3], rtol=1e-5, atol=1e-5)
 
 
 def test_bsr_spmm_is_deterministic(cuda):
-    args = _bsr_case(cuda, molecule_batch(1024, 30, 64, seed=3), 128, 64)
-    a = bsr_spmm.bsr_spmm(*args)
-    b = bsr_spmm.bsr_spmm(*args)
+    lay, x = _bsr_layout_case(cuda, molecule_batch(1024, 30, 64, seed=3),
+                              128, 64)
+    a = bsr_spmm.bsr_spmm(*_bsr_args(lay, x), lay.occupancy)
+    b = bsr_spmm.bsr_spmm(*_bsr_args(lay, x), lay.occupancy)
     assert torch.equal(a, b)
 
 
 def test_bsr_spmm_checks_its_arguments(cuda):
-    row_ptr, cols, blocks, x = _bsr_case(cuda, rmat(300, 1000, seed=1), 32,
-                                         16)
+    lay, x = _bsr_layout_case(cuda, rmat(300, 1000, seed=1), 32, 16)
+    row_ptr, cols, blocks, occ = (lay.row_ptr, lay.block_cols, lay.blocks,
+                                  lay.occupancy)
     with pytest.raises(TypeError, match="dtype"):
-        bsr_spmm.bsr_spmm(row_ptr.long(), cols, blocks, x)
+        bsr_spmm.bsr_spmm(row_ptr.long(), cols, blocks, x, occ)
     with pytest.raises(TypeError, match="dtype"):
-        bsr_spmm.bsr_spmm(row_ptr, cols, blocks, x.double())
+        bsr_spmm.bsr_spmm(row_ptr, cols, blocks, x.double(), occ)
     with pytest.raises(ValueError, match="on cpu"):
-        bsr_spmm.bsr_spmm(row_ptr, cols.cpu(), blocks, x)
+        bsr_spmm.bsr_spmm(row_ptr, cols.cpu(), blocks, x, occ)
     with pytest.raises(ValueError, match=r"\[nnzb, R, R\]"):
-        bsr_spmm.bsr_spmm(row_ptr, cols, blocks[:, :, :16], x)
+        bsr_spmm.bsr_spmm(row_ptr, cols, blocks[:, :, :16], x, occ)
     with pytest.raises(ValueError, match="n_block_cols"):
-        bsr_spmm.bsr_spmm(row_ptr, cols, blocks, x[:-1])
+        bsr_spmm.bsr_spmm(row_ptr, cols, blocks, x[:-1], occ)
     with pytest.raises(ValueError, match="contiguous"):
-        bsr_spmm.bsr_spmm(row_ptr, cols, blocks, x.t().contiguous().t())
+        bsr_spmm.bsr_spmm(row_ptr, cols, blocks, x.t().contiguous().t(), occ)
+    with pytest.raises(TypeError, match="dtype"):
+        bsr_spmm.bsr_spmm(row_ptr, cols, blocks, x, occ.long())
 
 
 def test_gin_on_the_card_matches_its_cpu_plain_path(cuda):

@@ -225,7 +225,7 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     lambda t: gather_combine.gather_combine(t.view(2, 2), t.int().view(2, 2),
                                             t.view(2, 2)),
     lambda t: bsr_spmm.bsr_spmm(t.int()[:2], t.int()[:1], t.view(1, 2, 2),
-                                t.view(2, 2)),
+                                t.view(2, 2), t.int().view(1, 1, 4)[..., :1]),
     lambda t: flash_attention.flash_attention(
         t.view(1, 2, 1, 2), t.view(1, 2, 1, 2), t.view(1, 2, 1, 2)),
 ], ids=["match_keys", "bucket_assign", "partition_gain",

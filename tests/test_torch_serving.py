@@ -330,6 +330,56 @@ def test_map_pages_partition_within_band_of_reference(case):
     assert again.drift_ratio >= 1.0
 
 
+@pytest.mark.parametrize("seeds", [1, 2, 3])
+def test_map_pages_passes_seeds_to_partition(monkeypatch, seeds):
+    """``seeds=`` reaches the partitioner's config beside the session's
+    seed, as in the reference's ``map_pages``."""
+    from repro_torch.core import partitioner
+    seen = []
+    real = partitioner.partition
+
+    def spy(g, topo, cfg=None, **kw):
+        seen.append(cfg)
+        return real(g, topo, cfg, **kw)
+    monkeypatch.setattr(partitioner, "partition", spy)
+    got = TSession(seed=7, device="cpu").map_pages(_cliques(), n_devices=4,
+                                                    seeds=seeds)
+    assert [(c.seed, c.seeds) for c in seen] == [(7, seeds)]
+    assert got.page_to_device.shape == (16,)
+
+
+@pytest.mark.parametrize("case", ["cliques", "engine_epoch"])
+def test_map_pages_seeds_2_no_worse_and_within_band_of_reference(case):
+    """Best of two starts: the port's makespan at or below its own
+    ``seeds=1`` placement's on the same traffic, and within 1.05x of the
+    reference's ``map_pages(..., seeds=2)``, both scored by the
+    reference's ``score_all``."""
+    if case == "cliques":
+        traffic, weight = _cliques(), None
+    else:
+        traffic, weight = _engine_traffic()
+    one = TSession(device="cpu").map_pages(traffic, node_weight=weight,
+                                           n_devices=4)
+    two = TSession(device="cpu").map_pages(traffic, node_weight=weight,
+                                           n_devices=4, seeds=2)
+    want = JSession(cache_dir="").map_pages(traffic, node_weight=weight,
+                                            n_devices=4, seeds=2)
+    assert two.makespan <= one.makespan
+    n = traffic.shape[0]
+    nw = np.asarray(weight if weight is not None else traffic.sum(1))
+    nw = np.maximum(nw, max(float(nw.max()), 1.0) * 1e-3)
+    iu = np.triu_indices(n, 1)
+    nz = traffic[iu] > 0
+    g = jfrom_edges(n, iu[0][nz], iu[1][nz],
+                    traffic[iu][nz].astype(np.float32),
+                    nw.astype(np.float32))
+    topo = jguess_tree(4)
+    ours = jbaselines.score_all(g, topo, two.page_to_device)["makespan"]
+    theirs = jbaselines.score_all(g, topo, want.page_to_device)["makespan"]
+    assert ours <= BAND * theirs
+    assert two.makespan == pytest.approx(ours, rel=1e-5)
+
+
 def test_map_pages_refuses_malformed_traffic():
     bad = np.zeros((4, 4))
     bad[0, 1] = 1.0
