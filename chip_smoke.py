@@ -17,7 +17,11 @@ non-zero:
            (a serialised wgmma); fails if any kernel spills registers;
   kernels  every kernel against its plain PyTorch version on the card, at
            the main path's shapes (for the bag kernels every shape the
-           recsys path gives them: 512, 262,144 and 1 bags) and at a
+           recsys path gives them: 512, 262,144 and 1 bags;
+           ``quotient_link_loads`` on random and CSR-local partitions and
+           both kernels at the serve pools' k = 4; ``partition_gain``
+           beside ``scatter_add_`` on bins gathered beforehand and the
+           gather + ``scatter_add_`` sequence) and at a
            ragged one, with the device time
            of the kernel, of the plain version and of one PyTorch call
            computing the same function where there is one (L2 flushed
@@ -38,8 +42,10 @@ non-zero:
            ``quotient_link_loads`` must have launched in the warm run,
            whose ``quotient_link_loads`` launches are grouped by k and
            arc count (powers of two), each group with the device time of
-           one call at its largest shape (``qll_by_shape``; the serve
-           steps report the same);
+           one call at its largest shape on random and on CSR-local inputs
+           and, from one more run that records them, on the path's own
+           inputs (``qll_by_shape``; the serve steps report the synthetic
+           two);
   small    ``_rmat(2000, 8000)`` on ``balanced_tree((2, 4))``, host
            backend, then the device backend with the launch counts set to
            0 just before it: the path-walking oracle (``verify``) must pass
@@ -504,14 +510,13 @@ def _check_kernel(state, name, shape, kern, plain, exact, rtol=0.0, atol=0.0,
 
 
 def phase_kernels(state):
-    import numpy as np
     import torch
 
     from repro_torch.core.machine import MachineSpec
-    from repro_torch.core.topology import production_tree
+    from repro_torch.core.topology import guess_tree, production_tree
     from repro_torch.graph.generators import grid3d
     from repro_torch.kernels import (bucket_assign, match_keys, ops,
-                                     partition_gain, quotient_link_loads)
+                                     partition_gain)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
@@ -563,35 +568,34 @@ def phase_kernels(state):
          **state["bucket_ranking"])
 
     # quotient_link_loads: the full phase's level-0 arcs on gpu-superpod
-    # (k = 64, L = 72), and on production_tree(2, 16, 16) (k = 512)
+    # (k = 64, L = 72) and on production_tree(2, 16, 16) (k = 512) under a
+    # random partition (no two neighbouring arcs share their bin pair), on
+    # gpu-superpod under a CSR-local one (arange(n) * k // n: neighbouring
+    # vertices share a bin, as the path's partitions place them), and at
+    # the serve pools' k = 4 (guess_tree(4)) on 1,280 and 48 pages, both
+    # partitions
     g = grid3d(64, 64, 64)
-    s = torch.as_tensor(g.senders, device=dev)
-    r = torch.as_tensor(g.receivers, device=dev)
-    w = torch.as_tensor(g.edge_weight, device=dev)
-    for label, topo in (("gpu-superpod", MachineSpec.preset("gpu-superpod").tree()),
-                        ("production_tree(2,16,16)", production_tree(2, 16, 16))):
-        k = topo.k
-        part = torch.randint(0, k, (g.n_nodes,), generator=gen, device=dev,
-                             dtype=torch.int32)
-        S = torch.as_tensor(topo.subtree, device=dev)
-        F = torch.as_tensor(topo.F_l, device=dev)
-        nnz_rows = float(np.count_nonzero(topo.subtree))
-        m = g.n_arcs
-        _check_kernel(
-            state, "quotient_link_loads", [m, k, topo.n_links, label],
-            lambda: quotient_link_loads.quotient_link_loads(part, s, r, w, S,
-                                                            F, k),
-            lambda: quotient_link_loads.plain(part, s, r, w, S, F, k),
-            exact=False, rtol=1e-4, atol=1e-3,
-            bytes_moved=12.0 * m + 4.0 * g.n_nodes + 4.0 * S.numel()
-            + 8.0 * topo.n_links,
-            flops=float(m) + 4.0 * k * nnz_rows + 2.0 * topo.n_links)
+    superpod = MachineSpec.preset("gpu-superpod").tree()
+    pool, pool_small = rmat_graph(1280, 2135, seed=0), rmat_graph(48, 300,
+                                                                  seed=0)
+    for label, gq, topo, kind in (
+            ("gpu-superpod", g, superpod, "random"),
+            ("production_tree(2,16,16)", g, production_tree(2, 16, 16),
+             "random"),
+            ("gpu-superpod", g, superpod, "csr_local"),
+            ("serve_wide pool", pool, guess_tree(4), "random"),
+            ("serve_wide pool", pool, guess_tree(4), "csr_local"),
+            ("serve pool", pool_small, guess_tree(4), "random"),
+            ("serve pool", pool_small, guess_tree(4), "csr_local")):
+        _check_qll(state, gq, topo, kind, label, gen)
 
     # partition_gain: the small phase's level 0 (every level is dense at
-    # k = 8), and a ragged row count
-    for n, m in ((2000, 8000), (1001, 5003)):
+    # k = 8), a ragged row count, and the serve pools' level 0 at k = 4;
+    # library_ms: scatter_add_ on bins gathered beforehand,
+    # library_sequence_ms: the gather and the scatter_add_ in one sequence
+    for n, m, k in ((2000, 8000, 8), (1001, 5003, 8), (1280, 2135, 4),
+                    (48, 300, 4)):
         gs = rmat_graph(n, m, seed=0)
-        k = 8
         idx, ew = ops.to_ell(gs.n_nodes, gs.senders, gs.receivers,
                              gs.edge_weight)
         nbr_idx = torch.as_tensor(idx, device=dev)
@@ -599,14 +603,56 @@ def phase_kernels(state):
         part = torch.randint(0, k, (gs.n_nodes,), generator=gen, device=dev,
                              dtype=torch.int32)
         d = idx.shape[1]
+        idx64 = nbr_idx.long()
+        part_pad = torch.cat([part.long(), torch.full((1,), k, device=dev)])
+        bins = part_pad[idx64]
+
+        def scatter(b=bins, n=gs.n_nodes, k=k, w=nbr_w):
+            return torch.zeros(n, k + 1, device=dev).scatter_add_(1, b, w)
+
+        seq_ms = device_ms(lambda: scatter(part_pad[idx64]), 30,
+                           flush=_flush_buffer(state))
         _check_kernel(
             state, "partition_gain", [gs.n_nodes, d, k],
             lambda: partition_gain.partition_gain(part, nbr_idx, nbr_w, k),
             lambda: partition_gain.plain(part, nbr_idx, nbr_w, k),
-            exact=False, rtol=1e-5, atol=1e-5,
+            exact=False, rtol=1e-5, atol=1e-5, library=scatter,
+            extra=dict(library_sequence_ms=seq_ms),
             bytes_moved=8.0 * gs.n_nodes * d + 4.0 * gs.n_nodes
             + 4.0 * gs.n_nodes * k,
             flops=float(gs.n_arcs))
+
+
+def _check_qll(state, g, topo, kind, label, gen):
+    """``quotient_link_loads`` on graph ``g``'s arcs over ``topo``, the
+    partition random (``kind`` "random") or ``arange(n) * k // n``
+    ("csr_local"), against its plain version."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import quotient_link_loads
+    dev = torch.device("cuda")
+    k, n, m = topo.k, g.n_nodes, g.n_arcs
+    s = torch.as_tensor(g.senders, device=dev)
+    r = torch.as_tensor(g.receivers, device=dev)
+    w = torch.as_tensor(g.edge_weight, device=dev)
+    if kind == "random":
+        part = torch.randint(0, k, (n,), generator=gen, device=dev,
+                             dtype=torch.int32)
+    else:
+        part = (torch.arange(n, device=dev) * k // n).to(torch.int32)
+    S = torch.as_tensor(topo.subtree, device=dev)
+    F = torch.as_tensor(topo.F_l, device=dev)
+    nnz_rows = float(np.count_nonzero(topo.subtree))
+    _check_kernel(
+        state, "quotient_link_loads", [m, k, topo.n_links, label, kind],
+        lambda: quotient_link_loads.quotient_link_loads(part, s, r, w, S, F,
+                                                        k),
+        lambda: quotient_link_loads.plain(part, s, r, w, S, F, k),
+        exact=False, rtol=1e-4, atol=1e-3,
+        bytes_moved=12.0 * m + 4.0 * n + 4.0 * S.numel()
+        + 8.0 * topo.n_links,
+        flops=float(m) + 4.0 * k * nnz_rows + 2.0 * topo.n_links)
 
 
 @functools.lru_cache(maxsize=None)
@@ -753,13 +799,17 @@ def host_makespan(g, topo, part):
     return max(comp.max(), (topo.F_l * comm).max())
 
 
-def qll_by_shape(state, shapes):
+def qll_by_shape(state, shapes, path_inputs=None):
     """``quotient_link_loads``' launches of one run, ``shapes`` ``{(arcs m,
     vertices n, bins k, links L): launches}``, grouped by k and arc count
     (m in [2^(b-1), 2^b)), with the device time of one call at each
-    group's largest shape on random inputs of that shape (parts in [0, k),
-    arcs between random vertices, a random 0/1 subtree matrix; L2 flushed
-    first)."""
+    group's largest shape (L2 flushed first) on two synthetic inputs of that
+    shape, a random 0/1 subtree matrix each: ``ms_at_largest`` random (parts
+    in [0, k), arcs between random vertices) and ``ms_at_largest_local``
+    CSR-local (sorted senders, receivers within 8 ids of them, part =
+    arange(n) * k // n); and, where ``path_inputs`` (of
+    :func:`record_qll_inputs`) holds the group, ``ms_at_path`` on the
+    inputs of the path's own call with the most arcs in the group."""
     import torch
 
     from repro_torch.kernels import quotient_link_loads
@@ -774,6 +824,10 @@ def qll_by_shape(state, shapes):
         g["launches"] += c
         if g["largest"] is None or m > g["largest"][0]:
             g["largest"] = [m, n, k, links]
+
+    def timed(*args):
+        return device_ms(lambda: quotient_link_loads.quotient_link_loads(
+            *args), 30, flush=_flush_buffer(state))
     out = []
     for key in sorted(groups):
         g = groups[key]
@@ -785,12 +839,45 @@ def qll_by_shape(state, shapes):
         w = torch.rand(m, generator=gen, device=dev)
         sub = (torch.rand(links, k, generator=gen, device=dev) < 0.5).float()
         fl = torch.ones(links, device=dev)
-        g["ms_at_largest"] = device_ms(
-            lambda: quotient_link_loads.quotient_link_loads(
-                part, s, r, w, sub, fl, k), 30, flush=_flush_buffer(state))
+        g["ms_at_largest"] = timed(part, s, r, w, sub, fl, k)
+        s_local = s.sort().values
+        r_local = (s_local + torch.randint(1, 9, (m,), generator=gen,
+                                           device=dev, dtype=torch.int32)) % n
+        part_local = (torch.arange(n, device=dev) * k // n).to(torch.int32)
+        g["ms_at_largest_local"] = timed(part_local, s_local, r_local, w, sub,
+                                         fl, k)
         g["device_ms_estimate"] = g["launches"] * g["ms_at_largest"]
+        g["device_ms_estimate_local"] = (g["launches"]
+                                         * g["ms_at_largest_local"])
+        if path_inputs and key in path_inputs:
+            args = path_inputs[key]
+            g["path_shape"] = [args[1].shape[0], args[0].shape[0]]
+            g["ms_at_path"] = timed(*args)
+            g["device_ms_estimate_path"] = g["launches"] * g["ms_at_path"]
         out.append(g)
     return out
+
+
+def record_qll_inputs(run):
+    """Run ``run()`` with ``quotient_link_loads``' inputs recorded: for each
+    (k, arc-count group) of :func:`qll_by_shape`, the arguments of its call
+    with the most arcs. The wrapper is replaced for the run only."""
+    from repro_torch.kernels import quotient_link_loads as qll
+    orig = qll.loads_and_quotient
+    seen = {}
+
+    def recording(part, senders, receivers, weight, subtree, F_l, k):
+        m = senders.shape[0]
+        key = (k, m.bit_length())
+        if key not in seen or m > seen[key][1].shape[0]:
+            seen[key] = (part, senders, receivers, weight, subtree, F_l, k)
+        return orig(part, senders, receivers, weight, subtree, F_l, k)
+    qll.loads_and_quotient = recording
+    try:
+        run()
+    finally:
+        qll.loads_and_quotient = orig
+    return seen
 
 
 def phase_full(state):
@@ -835,6 +922,9 @@ def phase_full(state):
                                           and "qll_" in e.key)) / 1e6
            for name in KERNEL_INFO}
 
+    # the path's own inputs for qll_by_shape, from one more run
+    path_inputs = record_qll_inputs(lambda: partition(g, topo, cfg))
+
     host = host_makespan(g, topo, res.part)
     rel = abs(host - res.makespan) / host
     limit = QUALITY_BAND * REF_DEVICE_MAKESPAN_MAX
@@ -854,7 +944,8 @@ def phase_full(state):
          host_makespan=host,
          host_rel_err=rel, limit=limit, launches=counts,
          max_memory_allocated=torch.cuda.max_memory_allocated(),
-         quotient_link_loads_by_shape=qll_by_shape(state, qll_shapes))
+         quotient_link_loads_by_shape=qll_by_shape(state, qll_shapes,
+                                                   path_inputs))
     if rel > 1e-4:
         raise AssertionError(f"device makespan {res.makespan} != host "
                              f"re-evaluation {host}")
@@ -2021,6 +2112,12 @@ def kernels_line(state):
             out[-1].update({k: rows[0][k] for k in (
                 "bound_ms_stored_blocks", "tile", "slabs_read",
                 "slabs_stored", "slab_share", "bitwise_every_slab")})
+        if name in ("quotient_link_loads", "partition_gain"):
+            # every shape: CSR-local partitions, the serve pools
+            out[-1]["shapes"] = [{k: r.get(k) for k in (
+                "shape", "ms", "call_ms", "plain_ms", "library_ms",
+                "library_sequence_ms", "bound_ms", "max_abs_err")}
+                for r in rows]
         if name == "flash_attention":      # and at the 32k prefill
             out[-1]["long"] = {k: rows[1][k] for k in (
                 "shape", "ms", "call_ms", "plain_ms", "library_ms",

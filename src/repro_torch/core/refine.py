@@ -5,7 +5,9 @@ segment ops over the whole vertex set:
 
   1. Score the current assignment: per-bin loads ``comp`` and per-link
      loads ``comm`` (raw volume from the ``quotient_link_loads`` kernel,
-     called with ``F_l = ones``).
+     called with ``F_l = ones``). A trajectory carries ``comm`` from the
+     breakdown that judged the previous round (or the start), so each
+     round calls the kernel once.
   2. Price bins and links with the gradient of the annealed soft-max
      potential.
   3. Build the ``k x k`` price-distance matrix ``pi`` (two products against
@@ -127,11 +129,16 @@ def price_matrix(g_link: torch.Tensor, subtree: torch.Tensor) -> torch.Tensor:
     return u[:, None] + u[None, :] - 2.0 * cross
 
 
-def _scores(part: torch.Tensor, lv: LevelArrays, temp):
-    """comp (raw), bin prices, link prices and pi of the current part."""
+def _scores(part: torch.Tensor, lv: LevelArrays, temp,
+            comm: Optional[torch.Tensor] = None):
+    """comp (raw), bin prices and pi of the current part. ``comm`` is its
+    raw per-link volume where the caller already has it (the
+    ``MakespanBreakdown.comm`` of the same part); else the kernel computes
+    it."""
     comp = objective.comp_loads(part, lv.node_weight, lv.k)
-    comm = kops.link_loads(part, lv.senders, lv.receivers, lv.edge_weight,
-                           lv.subtree, lv.ones_l, lv.k)
+    if comm is None:
+        comm = kops.link_loads(part, lv.senders, lv.receivers,
+                               lv.edge_weight, lv.subtree, lv.ones_l, lv.k)
     g_comp, g_link = objective.load_gradients(comp, comm, lv.F_l, temp,
                                               lv.speed)
     return comp, g_comp, price_matrix(g_link, lv.subtree)
@@ -166,8 +173,9 @@ def _apply_moves(part, cand, gain, node_weight, comp, u_gate, u_thin, k,
 # Dense mode: every vertex scores all k destination bins.
 # ---------------------------------------------------------------------------
 
-def _dense_round(part, lv: LevelArrays, temp, u, damping, inflow_slack):
-    comp, g_comp, pi = _scores(part, lv, temp)
+def _dense_round(part, lv: LevelArrays, temp, u, damping, inflow_slack,
+                 comm=None):
+    comp, g_comp, pi = _scores(part, lv, temp, comm)
     conn = kops.partition_gain(part, lv.ell_idx, lv.ell_w, lv.k)
     # gain[v, b] = sum_j conn[v,j] (pi[a_v, j] - pi[b, j]) + w_v (g_a - g_b)
     cur_price = (conn * pi[part]).sum(dim=1)                 # [n]
@@ -210,8 +218,8 @@ def _sample_candidates(part, lv: LevelArrays, g_comp, mode: int, u_cand):
 
 
 def _sparse_round(part, lv: LevelArrays, temp, u, mode: int, damping,
-                  inflow_slack):
-    comp, g_comp, pi = _scores(part, lv, temp)
+                  inflow_slack, comm=None):
+    comp, g_comp, pi = _scores(part, lv, temp, comm)
     cand = _sample_candidates(part, lv, g_comp, mode, u[0])
     a_s = part[lv.senders]
     b_r = part[lv.receivers]
@@ -240,9 +248,12 @@ def refine_core(part0: torch.Tensor, lv: LevelArrays, cfg: RefineConfig,
                 dense: bool, draws: Iterator):
     """One refinement trajectory on the device. Returns (best part [n]
     int32, best makespan (0-d tensor), per-round stats of ``[rounds]``
-    tensors). Nothing here synchronises with the host."""
+    tensors). Nothing here synchronises with the host. Each round's
+    breakdown hands its raw comm to the next round's scores, so a
+    trajectory of R rounds makes R + 1 link-load calls."""
     best_part = part = part0
-    best_m = _makespan(part0, lv).makespan
+    br = _makespan(part0, lv)
+    best_m = br.makespan
     temp = np.float32(cfg.temp0)    # the reference anneals in float32
     hist = []
     for ridx in range(cfg.rounds):
@@ -250,10 +261,11 @@ def refine_core(part0: torch.Tensor, lv: LevelArrays, cfg: RefineConfig,
                             device=part.device)
         if dense:
             part, moved = _dense_round(part, lv, temp, u, cfg.damping,
-                                       cfg.inflow_slack)
+                                       cfg.inflow_slack, br.comm)
         else:
             part, moved = _sparse_round(part, lv, temp, u, ridx % 3,
-                                        cfg.damping, cfg.inflow_slack)
+                                        cfg.damping, cfg.inflow_slack,
+                                        br.comm)
         # one breakdown per round: acceptance and stats share it
         br = _makespan(part, lv)
         better = br.makespan < best_m

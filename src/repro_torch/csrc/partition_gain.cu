@@ -8,57 +8,96 @@
 // sentinel neighbour id n (weight 0) and are skipped, as bin k is in the
 // TPU kernel's one-hot.
 //
-// Each block owns a tile of rows with a [rows, k] float accumulator in
-// shared memory (row stride k|1, odd, so the 32 rows a warp touches fall in
-// distinct banks). One thread per row walks its D slots in order, so the
-// per-row sum order is fixed and the result is deterministic; the tile is
-// then written to conn once, coalesced. Bound: the ELL arrays are read once
-// (8 B per slot), part is gathered (4 B per slot, mostly from L2) and conn
-// written once (4 B per entry): n*D*8 + n*k*4 bytes over device memory.
+// A block owns a tile of `rows` rows (kernels/partition_gain.py: tile picks
+// it so the grid covers the SMs). The tile's [rows, D] slots of nbr_idx and
+// nbr_w are contiguous: the block copies them in one coalesced pass, each
+// thread keeping kSlotsPerThread slots' loads in flight, then gathers
+// part[u] for every slot at once into shared memory. A call so waits
+// through about three device-memory latencies (ids, bins, the write), not
+// two per slot. Then one thread per (row, bin) scans its row's staged slots
+// in slot order from +0, so each sum is the in-order float32 sum (bitwise
+// np.add.at), and conn is written once, coalesced. Rows whose slots do not
+// fit the staging buffer are done in chunks of slots, the partial sums
+// carried in conn by the thread that owns them.
+//
+// Bound: the ELL arrays are read once (8 B per slot), part is gathered
+// (4 B per vertex) and conn written once (4 B per entry): n*D*8 + n*4 +
+// n*k*4 bytes over device memory.
 #include "common.cuh"
 
-__global__ void partition_gain_kernel(const int* __restrict__ part,
-                                      const int* __restrict__ nbr_idx,
-                                      const float* __restrict__ nbr_w,
-                                      float* __restrict__ conn, int n, int d,
-                                      int k) {
-  extern __shared__ float acc[];
-  const int ks = k | 1;
-  const int rows = blockDim.x;
+namespace {
+
+constexpr int kSlotsPerThread = 4;
+
+__global__ void __launch_bounds__(256) partition_gain_kernel(
+    const int* __restrict__ part, const int* __restrict__ nbr_idx,
+    const float* __restrict__ nbr_w, float* conn, int n, int d, int k,
+    int rows, int d_chunk) {
+  extern __shared__ int s_bin[];                     // [rows * d_chunk]
+  float* s_w = reinterpret_cast<float*>(s_bin + rows * d_chunk);
+  const int t = threadIdx.x, n_threads = blockDim.x;
   const long long row0 = static_cast<long long>(blockIdx.x) * rows;
-  for (int i = threadIdx.x; i < rows * ks; i += blockDim.x) acc[i] = 0.0f;
-  __syncthreads();
-  const long long v = row0 + threadIdx.x;
-  if (v < n) {
-    const int* idx = nbr_idx + v * d;
-    const float* w = nbr_w + v * d;
-    float* mine = acc + threadIdx.x * ks;
-    for (int q = 0; q < d; ++q) {
-      int u = idx[q];
-      if (static_cast<unsigned>(u) < static_cast<unsigned>(n)) {
-        int b = part[u];
-        if (static_cast<unsigned>(b) < static_cast<unsigned>(k)) mine[b] += w[q];
+  const int live = n - row0 < rows ? static_cast<int>(n - row0) : rows;
+  const int outs = live * k;
+  float* out = conn + row0 * k;
+  int c0 = 0;
+  do {                                       // once even for D = 0
+    const int dc = d - c0 < d_chunk ? d - c0 : d_chunk;
+    const int slots = live * dc;
+    if (c0) __syncthreads();                 // the last chunk's scans are done
+    for (int s0 = t; s0 < slots; s0 += n_threads * kSlotsPerThread) {
+      int u[kSlotsPerThread];
+      float w[kSlotsPerThread];
+#pragma unroll
+      for (int q = 0; q < kSlotsPerThread; ++q) {
+        const int s = s0 + q * n_threads;
+        u[q] = n;
+        w[q] = 0.0f;
+        if (s < slots) {
+          const int r = s / dc;
+          const long long g = (row0 + r) * d + c0 + (s - r * dc);
+          u[q] = __ldg(nbr_idx + g);
+          w[q] = __ldg(nbr_w + g);
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < kSlotsPerThread; ++q) {
+        const int s = s0 + q * n_threads;
+        if (s < slots) {
+          s_bin[s] = static_cast<unsigned>(u[q]) < static_cast<unsigned>(n)
+                         ? __ldg(part + u[q])
+                         : -1;
+          s_w[s] = w[q];
+        }
       }
     }
-  }
-  __syncthreads();
-  long long live = n - row0 < rows ? n - row0 : rows;
-  for (long long i = threadIdx.x; i < live * k; i += blockDim.x) {
-    long long r = i / k;
-    conn[row0 * k + i] = acc[r * ks + (i - r * k)];
-  }
+    __syncthreads();
+    for (int o = t; o < outs; o += n_threads) {
+      const int r = o / k, j = o - r * k;
+      const int* bins = s_bin + r * dc;
+      const float* ws = s_w + r * dc;
+      float acc = c0 ? out[o] : 0.0f;
+      for (int q = 0; q < dc; ++q)
+        if (bins[q] == j) acc += ws[q];
+      out[o] = acc;
+    }
+    c0 += d_chunk;
+  } while (c0 < d);
 }
+
+}  // namespace
 
 REPRO_EXPORT int partition_gain_launch(const void* part, const void* nbr_idx,
                                        const void* nbr_w, void* conn, int n,
-                                       int d, int k, int rows_per_block,
-                                       void* stream) {
+                                       int d, int k, int rows, int d_chunk,
+                                       int threads, void* stream) {
   if (n == 0) return static_cast<int>(cudaGetLastError());
-  int blocks = (n + rows_per_block - 1) / rows_per_block;
-  size_t smem = static_cast<size_t>(rows_per_block) * (k | 1) * sizeof(float);
-  partition_gain_kernel<<<blocks, rows_per_block, smem,
+  const int blocks = (n + rows - 1) / rows;
+  const size_t smem = static_cast<size_t>(rows) * d_chunk * 8;
+  partition_gain_kernel<<<blocks, threads, smem,
                           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(part), static_cast<const int*>(nbr_idx),
-      static_cast<const float*>(nbr_w), static_cast<float*>(conn), n, d, k);
+      static_cast<const float*>(nbr_w), static_cast<float*>(conn), n, d, k,
+      rows, d_chunk);
   return static_cast<int>(cudaGetLastError());
 }

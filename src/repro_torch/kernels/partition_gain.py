@@ -8,25 +8,43 @@ partition_gain_ell`` (with the ``part[nbr_idx]`` gather of
     conn[v, j] = sum over slots d of nbr_w[v, d] * [part[nbr_idx[v, d]] = j]
 
 Padding slots hold the sentinel neighbour id ``n`` and weight 0. One CUDA
-block owns a tile of rows with a ``[rows, k]`` accumulator in shared memory;
-each thread sums its row's slots in order (deterministic), and the tile is
-written once, coalesced. Bound: ``n*D*8 + n*k*4`` bytes over device memory.
+block owns a tile of rows (:func:`tile`): it stages the tile's slots and
+their neighbours' bins in shared memory with coalesced loads, then one
+thread per (row, bin) sums the row's matching slots in slot order from +0,
+so every entry is the in-order float32 sum, bitwise; conn is written once,
+coalesced. Bound: ``n*D*8 + n*4 + n*k*4`` bytes over device memory.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
 from repro_torch.kernels import build
 
 launches = 0
-_SMEM_FLOATS = 48 * 1024 // 4
+MAX_ROWS = 64                 # rows of a tile
+MAX_THREADS = 256
+STAGE_BYTES = 48 * 1024       # shared memory for a tile's staged slots
 
 
-def rows_per_block(k: int) -> int:
-    """Rows (= threads) per block so the ``[rows, k|1]`` tile fits 48 KB."""
-    return max(1, min(128, _SMEM_FLOATS // (k | 1)))
+class PgTile(NamedTuple):
+    rows: int                 # rows per block
+    d_chunk: int              # slots of a row staged at once
+    threads: int              # threads per block
+
+
+def tile(n: int, d: int, k: int, n_sm: int) -> PgTile:
+    """The tile for ``n`` rows of ``d`` slots and ``k`` bins on a card with
+    ``n_sm`` SMs: as many rows as spread ``n`` over every SM (at most
+    ``MAX_ROWS``), a thread per (row, bin) up to ``MAX_THREADS`` (a whole
+    number of warps), and as many slots per row as fit ``STAGE_BYTES`` at
+    8 B a slot."""
+    rows = max(1, min(MAX_ROWS, -(-n // max(n_sm, 1))))
+    threads = min(MAX_THREADS, max(32, -(-(rows * k) // 32) * 32))
+    d_chunk = max(1, min(d, STAGE_BYTES // (8 * rows)))
+    return PgTile(rows, d_chunk, threads)
 
 
 def plain(part: torch.Tensor, nbr_idx: torch.Tensor, nbr_w: torch.Tensor,
@@ -62,11 +80,11 @@ def partition_gain(part: torch.Tensor, nbr_idx: torch.Tensor,
     build.require(nbr_idx, "partition_gain nbr_idx", torch.int32, dev, (n, d))
     build.require(nbr_w, "partition_gain nbr_w", torch.float32, dev, (n, d))
     conn = torch.empty(n, k, dtype=torch.float32, device=dev)
+    t = tile(n, d, k, build.sm_count(dev))
     fn = build.entry("partition_gain", [ctypes.c_void_p] * 4 + [
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p])
+        ctypes.c_int] * 6 + [ctypes.c_void_p])
     build.check("partition_gain", fn(
         build.ptr(part), build.ptr(nbr_idx), build.ptr(nbr_w), build.ptr(conn),
-        n, d, k, rows_per_block(k), build.stream_of(dev)))
+        n, d, k, t.rows, t.d_chunk, t.threads, build.stream_of(dev)))
     launches += 1
     return conn

@@ -8,19 +8,25 @@ Replaces the Pallas kernel
     W[i, j] = sum of w over arcs with part[s] = i, part[r] = j      [k, k]
     out[l]  = F_l * 0.5 * (S r + S c - 2 diag(S W S^T))[l]           [L]
 
-The TPU kernel carries W in VMEM across a sequential grid; Hopper blocks run
-in no order, so the CUDA version is a scatter launch (block-private W in
-shared memory for k <= 110, global atomics above) and a one-block-per-link
-epilogue, both written by hand. It is bound by the 12 B per arc it streams
-(~5.9 us at m = 1.5M arcs on an H100). Float atomics vary the summation
-order, so it matches the plain version to allclose (rtol 1e-4, atol 1e-3),
-not bitwise. Call it with ``F_l = ones`` where raw comm is needed.
+The TPU kernel carries W in VMEM across a sequential grid; on Hopper one
+cooperative launch does the whole call, with no fill before it: blocks over
+contiguous chunks of the CSR-ordered arcs (one block for short lists,
+:func:`qll_path`) add W into one half of a device workspace while zeroing
+the other, meet at one grid barrier, and every warp then sums its links'
+share from W in L2. The workspace (two halves of k*k floats and their
+barrier counters) is allocated here once per device and k, zeroed, and the
+half flips with every call; calls that share it must be ordered, so the
+kernel runs on the current stream only. It is bound by the 12 B per arc it
+streams (~5.9 us at m = 1.5M arcs on an H100). Float atomics vary the
+summation order, so it matches the plain version to allclose (rtol 1e-4,
+atol 1e-3), not bitwise. Call it with ``F_l = ones`` where raw comm is
+needed.
 """
 from __future__ import annotations
 
 import collections
 import ctypes
-from typing import Tuple
+from typing import Dict, NamedTuple, Tuple
 
 import torch
 
@@ -29,6 +35,53 @@ from repro_torch.kernels import build
 launches = 0
 # launches by (arcs m, vertices n, bins k, links L), reset with the count
 launch_shapes: collections.Counter = collections.Counter()
+
+# blocks of THREADS threads; arc lists up to SINGLE_BLOCK_ARCS run as one
+# block (measured crossover, PERF.md section 6), longer ones on a grid with
+# at least ARCS_PER_BLOCK arcs a block and at most BLOCKS_PER_SM per SM (the
+# launch is cooperative: every block resident at once)
+THREADS = 512
+SMEM_W_BYTES = 64 * 1024      # a block's W in shared memory up to k = 128
+SINGLE_BLOCK_ARCS = 2_048
+ARCS_PER_BLOCK = 2_048
+BLOCKS_PER_SM = 2
+
+# the workspace by (device, k): two halves of k*k floats and their barrier
+# counters, zeroed once; and the half the next call on it takes
+_workspaces: Dict[Tuple[torch.device, int], torch.Tensor] = {}
+_halves: Dict[Tuple[torch.device, int], int] = {}
+
+
+class QllPath(NamedTuple):
+    blocks: int
+    threads: int
+    smem: int           # bytes of each block's W in shared memory, or 0
+
+
+def qll_path(m: int, k: int, n_sm: int) -> QllPath:
+    """The launch for ``m`` arcs and ``k`` bins on a card with ``n_sm`` SMs:
+    one block while ``m <=
+    SINGLE_BLOCK_ARCS``, else a grid over contiguous chunks of the arcs, at
+    least ``ARCS_PER_BLOCK`` each and at most ``BLOCKS_PER_SM`` per SM;
+    each block keeps its own W in shared memory while it is at most
+    ``SMEM_W_BYTES``."""
+    blocks = (1 if m <= SINGLE_BLOCK_ARCS else
+              max(1, min(-(-m // ARCS_PER_BLOCK), n_sm * BLOCKS_PER_SM)))
+    smem = 4 * k * k
+    return QllPath(blocks, THREADS, smem if smem <= SMEM_W_BYTES else 0)
+
+
+def _workspace(dev: torch.device, k: int) -> Tuple[torch.Tensor, int]:
+    """The workspace for ``k`` on ``dev`` and the half this call takes; the
+    kernel zeroes the other half, so every call finds its own half zero."""
+    key = (dev, k)
+    if key not in _workspaces:
+        _workspaces[key] = torch.zeros(2 * k * k + 2, dtype=torch.float32,
+                                       device=dev)
+        _halves[key] = 0
+    half = _halves[key]
+    _halves[key] = 1 - half
+    return _workspaces[key], half
 
 
 def quotient_matrix(part: torch.Tensor, senders: torch.Tensor,
@@ -104,17 +157,21 @@ def loads_and_quotient(part: torch.Tensor, senders: torch.Tensor,
                   (n_links, k))
     build.require(F_l, "quotient_link_loads F_l", torch.float32, dev,
                   (n_links,))
-    W = torch.zeros(k * k, dtype=torch.float32, device=dev)
+    sms = build.sm_count(dev)
+    path = qll_path(m, k, sms)
+    W = torch.empty(k * k, dtype=torch.float32, device=dev)
     out = torch.empty(n_links, dtype=torch.float32, device=dev)
+    work, half = _workspace(dev, k)
     fn = build.entry("quotient_link_loads", [ctypes.c_void_p] * 4 + [
         ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_void_p])
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+        ctypes.c_int, ctypes.c_void_p])
     build.check("quotient_link_loads", fn(
         build.ptr(part), build.ptr(senders), build.ptr(receivers),
         build.ptr(weight), m, build.ptr(subtree), build.ptr(F_l), n_links, k,
-        build.ptr(W), build.ptr(out), build.sm_count(dev),
-        build.stream_of(dev)))
+        build.ptr(W), build.ptr(out), build.ptr(work), half, path.blocks,
+        path.threads, path.smem, sms, build.stream_of(dev)))
     launches += 1
     launch_shapes[(m, int(part.shape[0]), k, n_links)] += 1
     return out, W.view(k, k)

@@ -19,7 +19,8 @@ import torch
 from repro_torch.core.machine import MachineSpec
 from repro_torch.core.partitioner import PartitionConfig, partition, verify
 from repro_torch.core.reference import total_cut_ref
-from repro_torch.core.topology import balanced_tree, production_tree
+from repro_torch.core.topology import (balanced_tree, guess_tree,
+                                       production_tree)
 from repro_torch.graph.generators import rmat
 from repro_torch.graph.graph import from_edges
 from repro_torch.configs import gin_tu
@@ -39,7 +40,7 @@ from repro_torch.serving import EngineConfig, ServingEngine
 from repro_torch.models.recsys import TwoTower
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
-from chip_smoke import gapped_graph  # noqa: E402  (the smoke run's graph)
+from chip_smoke import _traced, gapped_graph  # noqa: E402  (the smoke run's)
 
 torch.set_num_threads(1)
 pytestmark = pytest.mark.gpu
@@ -126,6 +127,135 @@ def test_partition_gain_kernel_matches_plain(cuda, n, m, k):
     got = partition_gain.partition_gain(part, nbr_idx, nbr_w, k)
     want = partition_gain.plain(part, nbr_idx, nbr_w, k)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+QLL_TOPOS = {4: lambda: guess_tree(4), 8: lambda: balanced_tree((2, 4)),
+             64: lambda: MachineSpec.preset("gpu-superpod").tree(),
+             128: lambda: balanced_tree((2, 8, 8)),
+             512: lambda: production_tree(2, 16, 16)}
+
+
+def _qll_case(cuda, k, m_edges, local, seed, n_links=None):
+    """A CSR-ordered arc list of about 2 * m_edges arcs on k bins: local
+    (receivers a few ids from their senders, part = arange(n) * k // n, so
+    neighbouring arcs share their bin pair) or random (random endpoints and
+    bins). ``n_links`` cuts the topology's links (0: none).
+
+    Local lists carry integer weights (1-4, as the path's coarsened grids
+    do): a subtree's comm is then a small difference of large sums (S r +
+    S c - 2 diag(S W S^T)), which float weights leave to float32 rounding
+    in the plain version too (1.6x the band against float64 at k = 512),
+    while integer sums are exact in any order."""
+    topo = QLL_TOPOS[k]()
+    rng = np.random.default_rng(seed)
+    n = max(m_edges // 3, 2 * k, 2)
+    u = rng.integers(0, n, m_edges)
+    if local:
+        v = (u + rng.integers(1, 9, m_edges)) % n
+        w = rng.integers(1, 5, m_edges).astype(np.float32)
+    else:
+        v = rng.integers(0, n, m_edges)
+        w = rng.random(m_edges).astype(np.float32) + 0.1
+    g = from_edges(n, u, v, w, dedup=False)
+    part = (np.arange(n) * k // n if local
+            else rng.integers(0, k, n)).astype(np.int32)
+    links = topo.n_links if n_links is None else n_links
+    return (torch.as_tensor(part, device=cuda),
+            torch.as_tensor(g.senders, device=cuda),
+            torch.as_tensor(g.receivers, device=cuda),
+            torch.as_tensor(g.edge_weight, device=cuda),
+            torch.as_tensor(topo.subtree[:links], device=cuda),
+            torch.as_tensor(topo.F_l[:links], device=cuda), k)
+
+
+# (k, edges, local, links): one block and a grid, each block's W in shared
+# memory (k <= 128) or not, warps with one link chunk and with several,
+# both inputs, no arcs, no links, in an order that switches k and launch
+# from call to call
+QLL_SEQUENCE = [(4, 2_135, True, None), (64, 100_000, True, None),
+                (4, 0, False, None), (8, 4_000, False, None),
+                (512, 50_000, False, None), (64, 100_000, False, None),
+                (128, 30_000, True, None), (8, 4_097, True, None),
+                (64, 700_000, True, 0), (512, 0, False, None),
+                (4, 2_135, False, 0), (64, 0, True, None),
+                (128, 30_000, False, None), (512, 50_000, True, None),
+                (64, 100_000, True, None), (4, 2_135, True, None),
+                (8, 20_000, True, None), (64, 2_000, True, None),
+                (128, 5_000, False, None), (64, 2_000, False, None)]
+
+
+def test_quotient_link_loads_interleaved_calls_match_plain(cuda):
+    """Calls that change m, k and the launch (one block, a grid) each find
+    their half of the per-k workspace zeroed by the call before: each call
+    matches the plain version."""
+    grids = set()
+    for i, (k, edges, local, links) in enumerate(QLL_SEQUENCE):
+        args = _qll_case(cuda, k, edges, local, seed=i, n_links=links)
+        path = quotient_link_loads.qll_path(
+            args[1].shape[0], k,
+            torch.cuda.get_device_properties(cuda).multi_processor_count)
+        grids.add((path.blocks > 1, path.smem > 0))
+        got, W = quotient_link_loads.loads_and_quotient(*args)
+        want, W_want = quotient_link_loads._plain_with_quotient(*args)
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-3,
+                                   msg=f"call {i}: {(k, edges, local)}")
+        torch.testing.assert_close(W, W_want, rtol=1e-4, atol=1e-3,
+                                   msg=f"call {i}: W")
+    assert grids == {(False, True), (True, True), (False, False),
+                     (True, False)}
+
+
+@pytest.mark.parametrize("k,edges", [(4, 2_135), (8, 4_000), (64, 2_000),
+                                     (64, 100_000), (512, 50_000)])
+def test_quotient_link_loads_is_one_device_kernel(cuda, k, edges):
+    """One call is one device event, the kernel: nothing fills W or the
+    workspace before it (a trace of 5 calls after an untraced warm-up)."""
+    args = _qll_case(cuda, k, edges, True, seed=k)
+    trace = _traced(lambda: [quotient_link_loads.quotient_link_loads(*args)
+                             for _ in range(5)],
+                    {"qll_": ("quotient_link_loads",)})
+    assert trace["port_launches"]["qll_"] == dict(counted=5, traced=5)
+    names = [name for name, _, _ in trace["top_device"]]
+    assert len(names) == 1 and "qll_" in names[0], names
+
+
+def _in_order_conn(part, nbr_idx, nbr_w, k):
+    """conn by np.add.at: every row's slots summed in slot order in float32
+    from +0, padding (ids >= n) and bins outside [0, k) skipped."""
+    n = part.shape[0]
+    conn = np.zeros((n, k), np.float32)
+    rows = np.repeat(np.arange(n), nbr_idx.shape[1]).reshape(nbr_idx.shape)
+    real = nbr_idx < n
+    bins = part[nbr_idx[real]]
+    keep = (bins >= 0) & (bins < k)
+    np.add.at(conn, (rows[real][keep], bins[keep]), nbr_w[real][keep])
+    return conn
+
+
+# (n, edges, k, hub degree): ragged n, hub rows (D >= 64), k from 2 to
+# 512, both sides of one row per SM and of MAX_ROWS, slots in chunks
+PG_BITWISE = [(1, 0, 2, 0), (50, 150, 4, 0), (48, 200, 4, 0),
+              (1280, 2135, 4, 0), (2000, 8000, 8, 0), (1001, 5003, 8, 0),
+              (3000, 12000, 64, 80), (300, 2000, 512, 0), (132, 500, 2, 0),
+              (133, 500, 2, 0), (8448, 30000, 8, 0), (8449, 30000, 8, 120),
+              (9000, 20000, 4, 200)]
+
+
+@pytest.mark.parametrize("n,edges,k,hub", PG_BITWISE)
+def test_partition_gain_kernel_is_the_in_order_sum(cuda, n, edges, k, hub):
+    rng = np.random.default_rng(n + k + hub)
+    u = np.concatenate([rng.integers(0, n, edges), np.zeros(hub, np.int64)])
+    v = np.concatenate([rng.integers(0, n, edges), np.arange(1, hub + 1)])
+    w = rng.random(u.size).astype(np.float32) + 0.1
+    g = from_edges(n, u, v, w)
+    idx, ew = ops.to_ell(n, g.senders, g.receivers, g.edge_weight)
+    part = rng.integers(0, k, n).astype(np.int32)
+    assert hub < 64 or idx.shape[1] >= 64
+    got = partition_gain.partition_gain(
+        torch.as_tensor(part, device=cuda), torch.as_tensor(idx, device=cuda),
+        torch.as_tensor(ew, device=cuda), k)
+    np.testing.assert_array_equal(got.cpu().numpy(),
+                                  _in_order_conn(part, idx, ew, k))
 
 
 def test_wrappers_check_their_arguments(cuda):

@@ -89,6 +89,88 @@ def test_partition_gain_plain_matches_reference(n, m, k):
     np.testing.assert_allclose(got, arcs, rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("n,m,k", [(50, 150, 4), (200, 800, 16), (33, 70, 7)])
+def test_partition_gain_plain_is_the_in_order_float32_sum(n, m, k):
+    """The card's kernel is held bitwise to the in-order float32 sum
+    (``np.add.at``); the plain version on the CPU is that sum too."""
+    g = jrmat(n, m, seed=n + k)
+    rng = np.random.default_rng(n)
+    part = rng.integers(0, k, n).astype(np.int32)
+    w = (rng.random(g.n_arcs).astype(np.float32) + 0.1)
+    nbr_idx, nbr_w = jops.to_ell(n, g.senders, g.receivers, w)
+    got = partition_gain.plain(torch.from_numpy(part),
+                               torch.from_numpy(nbr_idx),
+                               torch.from_numpy(nbr_w), k).numpy()
+    want = np.zeros((n, k), np.float32)
+    rows = np.repeat(np.arange(n), nbr_idx.shape[1]).reshape(nbr_idx.shape)
+    real = nbr_idx < n
+    np.add.at(want, (rows[real], part[nbr_idx[real]]), nbr_w[real])
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("n,d,k,sms,rows,d_chunk,threads", [
+    (2000, 19, 8, 132, 16, 19, 128),      # the small cell: 125 blocks
+    (1280, 10, 4, 132, 10, 10, 64),       # serve_wide's pool
+    (48, 6, 4, 132, 1, 6, 32),            # serve's pool: a block per row
+    (1, 1, 2, 132, 1, 1, 32),
+    (133, 12, 2, 132, 2, 12, 32),         # one row past a row per SM
+    (8448, 20, 8, 132, 64, 20, 256),      # MAX_ROWS reached
+    (100_000, 20, 2, 132, 64, 20, 128),
+    (300, 15, 512, 132, 3, 15, 256),      # threads capped
+    (8449, 300, 8, 132, 64, 96, 256),     # hub rows: slots in chunks
+])
+def test_partition_gain_tile_rule(n, d, k, sms, rows, d_chunk, threads):
+    t = partition_gain.tile(n, d, k, sms)
+    assert t == (rows, d_chunk, threads)
+    assert t.threads % 32 == 0 and t.threads <= partition_gain.MAX_THREADS
+    assert 8 * t.rows * t.d_chunk <= partition_gain.STAGE_BYTES
+    # the fewest rows that keep the grid within one block per SM: one row
+    # fewer would need more blocks than SMs
+    assert -(-n // t.rows) <= sms or t.rows == partition_gain.MAX_ROWS
+    assert t.rows == 1 or -(-n // (t.rows - 1)) > sms
+
+
+@pytest.mark.parametrize("m,k,sms,blocks", [
+    (0, 4, 132, 1),                   # empty arc list
+    (2_048, 4, 132, 1),               # the crossover
+    (2_049, 4, 132, 2),
+    (4_270, 4, 132, 3),               # serve_wide's pool
+    (8_192, 8, 132, 4),               # the small cell
+    (122_656, 64, 132, 60),           # full cell, coarsest
+    (1_548_288, 64, 132, 264),        # full cell, finest
+    (1_548_288, 128, 132, 264),       # the largest W in shared memory
+    (1_548_288, 129, 132, 264),
+    (1_548_288, 512, 132, 264),
+    (1_548_288, 512, 78, 156),        # fewer SMs, fewer blocks
+    (10, 1, 132, 1),                  # k = 1
+])
+def test_quotient_link_loads_path_rule(m, k, sms, blocks):
+    path = quotient_link_loads.qll_path(m, k, sms)
+    assert path == (blocks, quotient_link_loads.THREADS,
+                    4 * k * k if k <= 128 else 0)
+    assert (blocks == 1) == (m <= quotient_link_loads.SINGLE_BLOCK_ARCS)
+    assert blocks <= max(1, sms * quotient_link_loads.BLOCKS_PER_SM)
+    assert blocks == 1 or blocks * quotient_link_loads.ARCS_PER_BLOCK >= min(
+        m, sms * quotient_link_loads.BLOCKS_PER_SM
+        * quotient_link_loads.ARCS_PER_BLOCK)
+
+
+def test_quotient_link_loads_workspace_halves_alternate():
+    """Each call takes the half of the workspace the call before zeroed;
+    the halves alternate per (device, k)."""
+    dev = torch.device("cpu")
+    quotient_link_loads._workspaces.pop((dev, 3), None)
+    ws, halves = None, []
+    for _ in range(4):
+        buf, half = quotient_link_loads._workspace(dev, 3)
+        assert ws is None or buf is ws
+        ws = buf
+        halves.append(half)
+    assert halves == [0, 1, 0, 1]
+    assert ws.shape == (2 * 9 + 2,) and not ws.any()
+    quotient_link_loads._workspaces.pop((dev, 3))
+
+
 @pytest.mark.parametrize("topo_fn", [
     lambda: jbalanced_tree((2, 2)), lambda: jbalanced_tree((2, 2, 2)),
     lambda: jbalanced_tree((4, 4), level_cost=(4.5, 1.0)),

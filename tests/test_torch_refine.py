@@ -184,3 +184,57 @@ def test_dense_round_at_min_temperature_differs_only_at_near_ties(branching,
         c_ref, c_port = G_ref[v].argmax(), G_port[v].argmax()
         assert abs(G_ref[v, c_ref] - G_ref[v, c_port]) <= 1e-6, v
         assert abs(G_ref[v].max() - G_port[v].max()) <= 1e-6, v
+
+
+@pytest.mark.parametrize("dense", [True, False])
+@pytest.mark.parametrize("rounds", [0, 1, 7])
+def test_trajectory_of_r_rounds_makes_r_plus_one_link_load_calls(
+        dense, rounds, monkeypatch):
+    """The start's breakdown and each round's hand their comm to the next
+    round's scores: one ``quotient_link_loads`` call per round, plus one."""
+    g, topo, part = _setup((2, 4), False, seed=2)
+    calls = []
+    for name in ("link_loads", "link_loads_and_quotient"):
+        orig = getattr(trefine.kops, name)
+
+        def counted(*args, _orig=orig, **kw):
+            calls.append(1)
+            return _orig(*args, **kw)
+        monkeypatch.setattr(trefine.kops, name, counted)
+    cfg = trefine.RefineConfig(rounds=rounds,
+                               dense_threshold=10**9 if dense else 0)
+    trefine.refine(interop.graph_from_arrays(g),
+                   interop.topology_from_arrays(topo), part, cfg,
+                   device="cpu")
+    assert len(calls) == rounds + 1
+
+
+@pytest.mark.parametrize("dense,mode", [(True, None), (False, 0),
+                                        (False, 1), (False, 2)])
+def test_round_with_the_carried_comm_is_the_round_that_computes_it(dense,
+                                                                   mode):
+    """A round handed the breakdown's comm of its part moves exactly as the
+    round that calls the kernel itself."""
+    g, topo, part = _setup((2, 2, 2), True, seed=4)
+    lv = trefine.level_arrays(interop.graph_from_arrays(g),
+                              interop.topology_from_arrays(topo), dense,
+                              torch.device("cpu"))
+    pt = torch.from_numpy(part)
+    comm = trefine._makespan(pt, lv).comm
+    u = torch.from_numpy(np.random.default_rng(5).random(
+        (3, g.n_nodes)).astype(np.float32))
+    temp = np.float32(0.1)
+    if dense:
+        runs = [trefine._dense_round(pt, lv, temp, u, CFG.damping,
+                                     CFG.inflow_slack, c)
+                for c in (None, comm)]
+    else:
+        runs = [trefine._sparse_round(pt, lv, temp, u, mode, CFG.damping,
+                                      CFG.inflow_slack, c)
+                for c in (None, comm)]
+    (p0, m0), (p1, m1) = runs
+    assert int(m0) > 0
+    assert torch.equal(p0, p1) and int(m0) == int(m1)
+    for a, b in zip(trefine._scores(pt, lv, temp),
+                    trefine._scores(pt, lv, temp, comm)):
+        assert torch.equal(a, b)
