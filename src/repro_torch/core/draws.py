@@ -11,13 +11,19 @@ itself:
   round, a ``[3, n]`` float32 block of uniforms: row 0 picks the sparse
   round's random incident arc (``_sample_candidates``), rows 1 and 2 are the
   gate and thinning draws of ``_apply_moves``. ``dense`` rounds leave row 0
-  unused.
+  unused;
+* ``cut_refine(seed, n)`` -> an iterator that yields, per round of the
+  total-cut baseline's label propagation (``baselines._cut_refine``), a
+  ``[2, n]`` float32 block: row 0 the gate draws, row 1 the thinning
+  draws. Every call starts the stream afresh from ``seed``, as the
+  reference restarts its key at every level.
 
 :class:`TorchDraws` is the default: ``torch.Generator`` streams on the
 device, one for matching seeded with the partition seed and one per
-refinement trajectory seeded with that trajectory's seed. A test can pass
-any object with the same two methods (for instance one that replays the
-reference's key chain) to make both packages see the same numbers.
+refinement trajectory or cut-refinement level seeded with its seed. A test
+can pass any object with the same three methods (for instance one that
+replays the reference's key chain) to make both packages see the same
+numbers.
 """
 from __future__ import annotations
 
@@ -30,6 +36,8 @@ class DrawSource(Protocol):
     def match(self, level: int, rnd: int, m: int): ...
 
     def refine(self, seed: int, n: int, dense: bool) -> Iterator: ...
+
+    def cut_refine(self, seed: int, n: int) -> Iterator: ...
 
 
 class TorchDraws:
@@ -46,7 +54,13 @@ class TorchDraws:
 
     def refine(self, seed: int, n: int, dense: bool) -> Iterator[torch.Tensor]:
         del dense
+        return self._stream(seed, (3, n))
+
+    def cut_refine(self, seed: int, n: int) -> Iterator[torch.Tensor]:
+        return self._stream(seed, (2, n))
+
+    def _stream(self, seed: int, shape) -> Iterator[torch.Tensor]:
         gen = torch.Generator(device=self.device)
         gen.manual_seed(int(seed))
         while True:
-            yield torch.rand((3, n), generator=gen, device=self.device)
+            yield torch.rand(shape, generator=gen, device=self.device)

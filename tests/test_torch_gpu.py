@@ -40,7 +40,8 @@ from repro_torch.serving import EngineConfig, ServingEngine
 from repro_torch.models.recsys import TwoTower
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
-from chip_smoke import _traced, gapped_graph  # noqa: E402  (the smoke run's)
+from chip_smoke import (  # noqa: E402  (the smoke run's)
+    NumpyDraws, _traced, gapped_graph)
 
 torch.set_num_threads(1)
 pytestmark = pytest.mark.gpu
@@ -915,3 +916,91 @@ def test_smoke_engine_on_the_card_gives_the_cpu_greedy_tokens(cuda):
         rep = eng.run()
         out.append({r["rid"]: r["generated"] for r in rep.requests})
     assert out[0] == out[1]
+
+
+# ---------------------------------------------------------------------------
+# The total-cut baselines and the mesh-mapping search on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("k", [4, 16])
+def test_cut_refine_conn_is_bitwise_the_plain_version(cuda, k, monkeypatch):
+    """Every ``partition_gain`` call of a CUDA ``total_cut_partition``
+    equals the plain version on the same inputs bitwise, and on integer
+    weights the whole partition equals its CPU run with the same draws."""
+    from repro_torch.core import baselines
+    from repro_torch.graph.generators import grid2d
+    g = grid2d(48, 48)
+    calls = []
+    orig = ops.partition_gain
+
+    def recording(part, nbr_idx, nbr_w, kk):
+        out = orig(part, nbr_idx, nbr_w, kk)
+        if part.is_cuda:
+            calls.append((part.clone(), nbr_idx, nbr_w, kk, out.clone()))
+        return out
+    monkeypatch.setattr(ops, "partition_gain", recording)
+    ops.reset_launch_counts()
+    got = baselines.total_cut_partition(g, k, device=cuda,
+                                        draws=NumpyDraws())
+    assert ops.launch_counts()["partition_gain"] == len(calls) > 0
+    for part, nbr_idx, nbr_w, kk, out in calls[::7]:
+        want = partition_gain.plain(part.cpu(), nbr_idx.cpu(), nbr_w.cpu(),
+                                    kk)
+        assert torch.equal(out.cpu(), want)
+    want = baselines.total_cut_partition(g, k, device="cpu",
+                                         draws=NumpyDraws())
+    np.testing.assert_array_equal(got, want)
+
+
+def _mapping_inputs(shape):
+    from repro_torch.core import mapping
+    from repro_torch.core.topology import mesh_tree
+    topo = mesh_tree(shape)
+    T = mapping.collective_traffic_matrix(
+        shape, {a: 10.0 ** (3 - a) for a in range(len(shape))})
+    return topo, T
+
+
+@pytest.mark.parametrize("shape", [(4, 4, 4), (2, 16, 16)])
+def test_score_device_maps_on_the_card_equals_its_cpu_run(cuda, shape):
+    from repro_torch.core import mapping
+    topo, T = _mapping_inputs(shape)
+    cands, _ = mapping.enumerate_candidates(shape, n_random=8, seed=1)
+    got = mapping.score_device_maps(T, topo, cands, device=cuda)
+    want = mapping.score_device_maps(T, topo, cands, device="cpu")
+    scale = float(np.abs(want).max())
+    np.testing.assert_allclose(got, want, rtol=1e-3, atol=1e-4 * scale)
+    ops.reset_launch_counts()
+    looped = [mapping.makespan_of_device_map(T, topo, c, device=cuda)
+              for c in cands[:5]]
+    assert ops.launch_counts()["quotient_link_loads"] == 5
+    np.testing.assert_allclose(looped, want[:5], rtol=1e-3,
+                               atol=1e-4 * scale)
+
+
+def _bottleneck64(T, topo, d2b):
+    W = np.zeros_like(T, dtype=np.float64)
+    W[np.ix_(d2b, d2b)] = T
+    S = topo.subtree.astype(np.float64)
+    loads = 0.5 * (S @ W.sum(1) + S @ W.sum(0) - 2.0 * ((S @ W) * S).sum(1))
+    return float((topo.F_l * loads).max())
+
+
+@pytest.mark.parametrize("shape,kw", [((4, 4, 4), {}),
+                                      ((2, 16, 16), dict(n_random=8)),
+                                      ((2, 4, 4), dict(recursive=True))])
+def test_search_on_the_card_picks_the_cpu_winner(cuda, shape, kw):
+    """The same candidate, or one tied with it exactly (float64): the two
+    devices' float32 scorers may round exact ties apart."""
+    from repro_torch.core import mapping
+    topo, T = _mapping_inputs(shape)
+    got = mapping.search(shape, topo, T, device=cuda, **kw)
+    want = mapping.search(shape, topo, T, device="cpu", **kw)
+    assert got.n_candidates == want.n_candidates
+    np.testing.assert_allclose(got.bottleneck, want.bottleneck, rtol=1e-5)
+    if not np.array_equal(got.device_to_bin, want.device_to_bin):
+        np.testing.assert_allclose(_bottleneck64(T, topo, got.device_to_bin),
+                                   _bottleneck64(T, topo, want.device_to_bin),
+                                   rtol=1e-12)
+    assert got.bottleneck <= mapping.makespan_of_device_map(
+        T, topo, np.arange(topo.k), device=cuda)

@@ -1,6 +1,8 @@
-"""The port stands alone: no module under ``src/repro_torch/`` and not
-``chip_smoke.py`` imports ``jax`` or the reference package ``repro`` (the
-card's machine has no JAX), checked on the source's syntax tree."""
+"""The port stands alone: no module under ``src/repro_torch/``, not
+``chip_smoke.py`` and not the port's benchmark twins
+(``benchmarks/torch_bench_*.py`` and their ``torch_common.py``) imports
+``jax`` or the reference package ``repro`` (the card's machine has no
+JAX), checked on the source's syntax tree."""
 import ast
 from pathlib import Path
 
@@ -8,7 +10,9 @@ import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
 SOURCES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "time_kernels.py", ROOT / "trace_gap.py"]
+    ROOT / "chip_smoke.py", ROOT / "time_kernels.py", ROOT / "trace_gap.py",
+    ROOT / "benchmarks" / "torch_common.py"] + sorted(
+    (ROOT / "benchmarks").glob("torch_bench_*.py"))
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -30,7 +34,9 @@ def imported_roots(path: Path):
 def test_port_sources_exist():
     names = {p.relative_to(ROOT).as_posix() for p in SOURCES}
     for must in ("src/repro_torch/core/partitioner.py",
-                 "src/repro_torch/kernels/ops.py", "chip_smoke.py"):
+                 "src/repro_torch/kernels/ops.py", "chip_smoke.py",
+                 "benchmarks/torch_bench_makespan_vs_cut.py",
+                 "benchmarks/torch_bench_mapping_search.py"):
         assert must in names
 
 

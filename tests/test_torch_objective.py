@@ -201,3 +201,149 @@ def test_score_all_matches_reference(branching, seed, speed):
     for key in want:
         np.testing.assert_allclose(got[key], want[key], err_msg=key,
                                    **SCORE_TOL)
+
+
+# ---------------------------------------------------------------------------
+# The routing objective and the batched scorers, on the reference tests'
+# inputs (tests/test_objective.py)
+# ---------------------------------------------------------------------------
+
+def _rand_graph(n=60, m=180, seed=0):
+    from repro.graph.generators import weighted_nodes
+    return weighted_nodes(rmat(n, m, seed=seed), seed=seed)
+
+
+def test_quotient_and_tree_loads_match_reference_on_its_inputs():
+    from repro.core import reference as jref
+    from repro.core.topology import production_tree
+    g = _rand_graph(seed=7)
+    topo = production_tree(2, 2, 4)
+    part = np.random.default_rng(7).integers(0, topo.k, g.n_nodes)
+    W = tobj.quotient_matrix(_t(part), _t(g.senders), _t(g.receivers),
+                             _t(g.edge_weight), topo.k)
+    jW = jobj.quotient_matrix(jnp.asarray(part, jnp.int32),
+                              jnp.asarray(g.senders), jnp.asarray(g.receivers),
+                              jnp.asarray(g.edge_weight), topo.k)
+    np.testing.assert_allclose(W.numpy(), np.asarray(jW), **TOL)
+    comm = tobj.link_loads_tree(W, _t(topo.subtree))
+    np.testing.assert_allclose(
+        comm.numpy(), np.asarray(jobj.link_loads_tree(
+            jW, jnp.asarray(topo.subtree))), **TOL)
+    _, _, comm_ref = jref.makespan_ref(part, g, topo)
+    np.testing.assert_allclose(comm.numpy(), comm_ref, rtol=1e-5, atol=1e-4)
+    np.testing.assert_allclose(float(tobj.total_cut(W)),
+                               jref.total_cut_ref(part, g), rtol=1e-5)
+
+
+@pytest.mark.parametrize("multipath", [False, True])
+def test_makespan_routing_matches_reference_and_oracle(multipath):
+    from repro.core import reference as jref
+    from repro.core.topology import torus2d_topology
+    g = _rand_graph(40, 120, seed=5)
+    rng = np.random.default_rng(5)
+    if multipath:
+        rng.integers(0, 9, g.n_nodes)      # the reference test's second draw
+    topo = torus2d_topology(3, 3, multipath=multipath)
+    part = rng.integers(0, topo.k, g.n_nodes)
+    br = tobj.makespan_routing(part, g.senders, g.receivers, g.edge_weight,
+                               g.node_weight, topo.path_incidence, topo.F_l,
+                               k=topo.k, device="cpu")
+    jbr = jobj.makespan_routing(
+        jnp.asarray(part, jnp.int32), jnp.asarray(g.senders),
+        jnp.asarray(g.receivers), jnp.asarray(g.edge_weight),
+        jnp.asarray(g.node_weight), jnp.asarray(topo.path_incidence),
+        jnp.asarray(topo.F_l), k=topo.k)
+    for f in MAKESPAN_FIELDS:
+        np.testing.assert_allclose(np.asarray(getattr(br, f)),
+                                   np.asarray(getattr(jbr, f)), **TOL)
+    m_ref, comp_ref, comm_ref = jref.makespan_routing_ref(part, g, topo)
+    # and the port's own copy of the oracle, on the port's topology
+    port_topo = interop.topology_from_arrays(topo)
+    from repro_torch.core.reference import makespan_routing_ref
+    m2, _, comm2 = makespan_routing_ref(part, interop.graph_from_arrays(g),
+                                        port_topo)
+    assert m2 == m_ref and np.array_equal(comm2, comm_ref)
+    np.testing.assert_allclose(br.comm.numpy(), comm_ref, rtol=1e-5,
+                               atol=1e-4)
+    np.testing.assert_allclose(br.comp.numpy(), comp_ref, rtol=1e-5)
+    np.testing.assert_allclose(float(br.makespan), m_ref, rtol=1e-5)
+    loads = tobj.link_loads_routing(
+        tobj.quotient_matrix(_t(part), _t(g.senders), _t(g.receivers),
+                             _t(g.edge_weight), topo.k),
+        _t(topo.path_incidence))
+    np.testing.assert_allclose(loads.numpy(), np.asarray(jbr.comm), **TOL)
+
+
+def _sym(rng, d, lo=0.0, hi=5.0, keep=None):
+    T = rng.uniform(lo, hi, (d, d))
+    if keep is not None:
+        T = T * (rng.uniform(0, 1, (d, d)) > keep)
+    T = np.triu(T, 1)
+    return T + T.T
+
+
+def test_permutation_link_loads_matches_reference():
+    from repro.core.topology import production_tree
+    rng = np.random.default_rng(11)
+    topo = production_tree(2, 2, 2)
+    T = _sym(rng, topo.k)
+    for _ in range(3):
+        d2b = rng.permutation(topo.k)
+        got = tobj.permutation_link_loads(_t(T.astype(np.float32)),
+                                          _t(topo.subtree), _t(d2b))
+        want = jobj.permutation_link_loads(
+            jnp.asarray(T, jnp.float32), jnp.asarray(topo.subtree),
+            jnp.asarray(d2b, jnp.int32))
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                                   atol=1e-4)
+        # the quotient path on the relabelled traffic
+        W = np.zeros_like(T)
+        W[np.ix_(d2b, d2b)] = T
+        ref = tobj.link_loads_tree(_t(W.astype(np.float32)), _t(topo.subtree))
+        np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=1e-5,
+                                   atol=1e-4)
+
+
+def test_permutation_link_loads_batch_matches_reference():
+    rng = np.random.default_rng(12)
+    topo = balanced_tree((2, 2, 2), level_cost=(4.0, 2.0, 1.0))
+    d = topo.k
+    T = _sym(rng, d, 0.0, 3.0, keep=0.4)
+    cands = np.stack([rng.permutation(d) for _ in range(5)])
+    iu = np.triu_indices(d, 1)
+    w = T[iu]
+    nz = w > 0
+    args = (iu[0][nz], iu[1][nz], w[nz].astype(np.float32), topo.lca_table(),
+            topo.subtree, topo.node_subtree_indicator())
+    got = tobj.permutation_link_loads_batch(
+        _t(cands), *(_t(a) for a in args), k=topo.k, n_nodes=topo.n_nodes)
+    want = jobj.permutation_link_loads_batch(
+        jnp.asarray(cands, jnp.int32), *(jnp.asarray(a) for a in args),
+        k=topo.k, n_nodes=topo.n_nodes)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-4)
+    for c, row in zip(cands, got.numpy()):
+        one = tobj.permutation_link_loads(_t(T.astype(np.float32)),
+                                          _t(topo.subtree), _t(c))
+        np.testing.assert_allclose(row, one.numpy(), rtol=1e-5, atol=1e-4)
+
+
+def test_makespan_tree_batch_matches_reference_and_per_candidate():
+    g = _rand_graph(30, 90, seed=13)
+    topo = balanced_tree((2, 3))
+    rng = np.random.default_rng(13)
+    parts = rng.integers(0, topo.k, (4, g.n_nodes))
+    args = (g.senders, g.receivers, g.edge_weight, g.node_weight,
+            topo.subtree, topo.F_l)
+    br = tobj.makespan_tree_batch(parts, *args, k=topo.k, device="cpu")
+    jbr = jobj.makespan_tree_batch(jnp.asarray(parts, jnp.int32),
+                                   *(jnp.asarray(a) for a in args), k=topo.k)
+    assert br.comm.shape == (4, topo.n_links)
+    for f in MAKESPAN_FIELDS:
+        np.testing.assert_allclose(np.asarray(getattr(br, f)),
+                                   np.asarray(getattr(jbr, f)), rtol=1e-5,
+                                   atol=1e-4)
+    for i in range(4):
+        one = tobj.makespan_tree(parts[i], *args, k=topo.k, device="cpu")
+        np.testing.assert_allclose(float(br.makespan[i]), float(one.makespan),
+                                   rtol=1e-5)

@@ -44,6 +44,12 @@ class JaxDraws:
             key, sub = jax.random.split(key)
             yield round_draws(sub, n, dense)
 
+    def cut_refine(self, seed, n):
+        key = jax.random.PRNGKey(seed)
+        while True:
+            key, k_gate, k_thin = jax.random.split(key, 3)
+            yield np.array(_cut_round_draws(k_gate, k_thin, n))
+
 
 def round_draws(key, n, dense):
     """The ``[3, n]`` (candidate, gate, thin) uniforms one round of the
@@ -61,6 +67,12 @@ def _round_draws(key, n, dense):
         u_cand = jax.random.uniform(k_cand, (n,))
     k_gate, k_thin = jax.random.split(k_move)
     return jnp.stack([u_cand, jax.random.uniform(k_gate, (n,)),
+                      jax.random.uniform(k_thin, (n,))])
+
+
+@functools.partial(jax.jit, static_argnums=(2,))
+def _cut_round_draws(k_gate, k_thin, n):
+    return jnp.stack([jax.random.uniform(k_gate, (n,)),
                       jax.random.uniform(k_thin, (n,))])
 
 
@@ -97,6 +109,21 @@ def test_refine_replay_follows_the_reference_key_chain():
     assert jnp.asarray(first).shape == (3, 10)
 
 
+def test_cut_refine_replay_follows_the_reference_key_chain():
+    draws = JaxDraws()
+    it = draws.cut_refine(seed=4, n=12)
+    first, second = next(it), next(it)
+    key = jax.random.PRNGKey(4)
+    key, k_gate, k_thin = jax.random.split(key, 3)
+    np.testing.assert_array_equal(first[0], jax.random.uniform(k_gate, (12,)))
+    np.testing.assert_array_equal(first[1], jax.random.uniform(k_thin, (12,)))
+    _, k_gate, _ = jax.random.split(key, 3)
+    np.testing.assert_array_equal(second[0],
+                                  jax.random.uniform(k_gate, (12,)))
+    # every call restarts from PRNGKey(seed), as every level does
+    np.testing.assert_array_equal(next(draws.cut_refine(4, 12)), first)
+
+
 def test_torch_draws_are_seeded_and_uniform():
     a = TorchDraws(7, torch.device("cpu"))
     b = TorchDraws(7, torch.device("cpu"))
@@ -107,3 +134,8 @@ def test_torch_draws_are_seeded_and_uniform():
     assert abs(float(r.mean()) - 0.5) < 0.02
     assert not torch.equal(next(a.refine(3, 50, True)),
                            next(a.refine(4, 50, True)))
+    c = a.cut_refine(3, 40)
+    c0 = next(c)
+    assert c0.shape == (2, 40) and c0.dtype == torch.float32
+    assert not torch.equal(c0, next(c))
+    assert torch.equal(c0, next(b.cut_refine(3, 40)))
