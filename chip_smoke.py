@@ -3,8 +3,8 @@
 two-tower retrieval serving path over a partition-sharded item table,
 GIN-TU graph classification through the BSR aggregation kernel, the
 Qwen2-1.5B prefill through the flash-attention kernel with the paged
-continuous-batching server, the mesh-mapping search and the paper's C1
-comparison against the total-cut baselines.
+continuous-batching server, the mesh-mapping search, the paper's C1
+comparison against the total-cut baselines, and Qwen2-1.5B training.
 
     python3 chip_smoke.py
 
@@ -173,11 +173,36 @@ non-zero:
            the total-cut partition with its refinement off, is reported
            against the band. The rows come from the port's bench twin
            (``benchmarks/torch_bench_makespan_vs_cut.py: c1_row``).
+  train    ``qwen2-1.5b`` at train_4k's config (FULL, bf16, ``remat``)
+           from seed 0, ``TRAIN_STEPS`` AdamW steps of ``lm_batches(151936,
+           4, 4096, seed=0)`` through ``train.loop.run`` and
+           ``make_train_step`` with the CLI's optimizer settings, launch
+           counts set to 0 just before it (56 ``flash_attention`` launches
+           a step: 28 forward, 28 in the remat recompute; the backward is
+           the plain ``_flash_bwd`` twin): cold and warm (p50) step
+           seconds, tokens/s, ``mfu`` (6 N tokens over the step and the
+           dense bf16 peak), peak bytes, the loss and grad-norm
+           trajectory, one traced step (its 56 kernel events counted),
+           the kernel with and without its log-sum-exp and the plain
+           backward per layer, timed on layer 0's inputs. Gates: (a) on
+           layers 0 and 27's own q, k, v and output cotangents from step
+           1, the kernel's lse, its output with and without it, and dq /
+           dk / dv through its forward against the float32 plain path
+           (``flash_grad_judge``, two planted faults); (b) float32 at FULL
+           widths, 2 layers, 1 x 2,048: kernel path against plain path;
+           (c) bf16 at full depth, banded by two chunkings of the plain
+           path; (d) finite, and the loss comes down; (e) 3 steps with
+           ``--grad-compress-block 256``: the first loss bitwise the
+           uncompressed one's, ``compress.roundtrip`` of step 1's
+           gradients on the card equal to the CPU's bitwise; (f) SMOKE on
+           the card: 8 steps straight against 4, a checkpoint and a
+           resumed ``loop.run``, bitwise.
 
 Then one line ``{"kernels": [...]}``: each kernel's launches on the path
 that drives it (``full`` for the partitioner's kernels but
 ``partition_gain``, ``small`` for it, ``recsys`` for the bag kernels,
-``gnn`` for ``bsr_spmm``, ``lm`` for ``flash_attention``), its launches
+``gnn`` for ``bsr_spmm``, ``lm`` for ``flash_attention``, which also
+launches on ``train``), its launches
 on every path (``serve`` and ``serve_wide`` show which partitioner
 kernels the server reaches; ``mapping`` and ``c1`` that the search and
 the baselines run ``quotient_link_loads`` and ``partition_gain``), and the
@@ -279,6 +304,11 @@ FLASH_CASES = [(2, 64, 64, 4, 2, 32, True), (1, 100, 100, 4, 1, 16, True),
                (2, 64, 64, 8, 8, 32, False), (1, 128, 128, 4, 2, 64, True)]
 FLASH_F32_TOL = 2e-5
 FLASH_BF16_RATIO = 2.0
+# the kernel's log-sum-exp against the bf16 plain forward's on the same
+# inputs (natural-log units of the scaled scores): both are float32 sums of
+# the same bf16 products in other orders, the kernel's exponentials in
+# base 2 (ex2.approx)
+TRAIN_LSE_TOL = 1e-4
 # prefill through the kernel against prefill through the plain version
 # (PERF.md section 2): greedy next tokens agree at this share of positions,
 # in float32 at every position; in bf16 at the positions whose top two
@@ -297,6 +327,39 @@ LM_BF16_TIE_ULPS = 2
 LM_STEP_BAND = 0.04
 # paged against dense decode: the reference's band (tests/test_serving.py)
 LM_PAGED_RTOL = 1e-5
+
+# The train phase: qwen2-1.5b at train_4k's config (configs/qwen2_1_5b.py
+# FULL: 28 layers, bf16, remat) from seed 0, TRAIN_STEPS steps of
+# lm_batches(vocab, 4, 4,096, seed=0) through the CLI's optimizer settings
+# (launch/train.py: lr 3e-3, warm-up min(20, steps // 10)). train_4k's
+# batch of 256 sequences is cut to 4: one card holds one data-parallel
+# replica, and 4 x 4,096 is the prefill cell's token count.
+TRAIN_BATCH = (4, 4096)
+TRAIN_STEPS = 6
+TRAIN_LR = 3e-3
+# gate (b): the kernel path against the plain path in float32 at FULL widths
+# with 2 layers, 1 x 2,048 tokens (the SIMT kernel): the first step's loss
+# to rel 1e-5, each gradient leaf to a relative L2 of 1e-4 (float32 sums in
+# other orders; the CPU parity tests read 2.4e-6 against the reference)
+TRAIN_F32_LAYERS = 2
+TRAIN_F32_BATCH = (1, 2048)
+TRAIN_F32_LOSS_RTOL = 1e-5
+TRAIN_F32_GRAD_REL_L2 = 1e-4
+# gate (c): bf16 at full depth, the kernel path against the plain path
+# (kv_chunk 512), the worst leaf's relative L2 and the loss's relative
+# difference each at most FLASH_BF16_RATIO times the spread between two
+# chunkings of the plain path (kv_chunk 512 against 256); a spread below
+# float32's epsilon counts as that epsilon
+TRAIN_PLAIN_CHUNKS = (512, 256)
+# gate (e): TRAIN_COMPRESS_STEPS steps with --grad-compress-block
+TRAIN_COMPRESS_STEPS = 3
+TRAIN_COMPRESS_BLOCK = 256
+# gate (f): resume at the SMOKE config on the card: TRAIN_RESUME_STEPS
+# straight against a checkpoint at TRAIN_RESUME_AT and a fresh run that
+# resumes, 4 x 64 tokens a step
+TRAIN_RESUME_STEPS = 8
+TRAIN_RESUME_AT = 4
+TRAIN_RESUME_BATCH = (4, 64)
 
 # The mapping phase: bench_mapping_search.py's full-tier scoring table at
 # its two 512-device meshes (the Qwen2 production mesh and the cube), on
@@ -354,7 +417,8 @@ KERNEL_INFO = {
     "bsr_spmm": ("src/repro_torch/csrc/bsr_spmm.cu",
                  "src/repro/kernels/bsr_spmm.py:94", ("gnn",)),
     "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
-                        "src/repro/kernels/flash_attention.py:115", ("lm",)),
+                        "src/repro/kernels/flash_attention.py:115",
+                        ("lm", "train")),
 }
 
 
@@ -1754,6 +1818,88 @@ def flash_bf16_judge(q, k, v, got, want, q_chunk, kv_chunk):
             f"rejected", readings)
 
 
+def flash_grad_judge(q, k, v, do, q_chunk, kv_chunk):
+    """Hold the training path's attention, the kernel's forward with its
+    log-sum-exp and the plain ``_flash_bwd`` recompute from its residuals,
+    to the function's value on bf16 ``q, k, v`` (causal) and the output
+    cotangent ``do``: the plain forward and backward in float32 on the same
+    inputs. dq, dk and dv each: largest and root-mean-square error at most
+    ``FLASH_BF16_RATIO`` times those of the bf16 plain path (the plain
+    forward's residuals, the same backward), the root-mean-square also in
+    every 128-row tile along the sequence, so a fault confined to a few
+    tiles does not hide in the whole tensor's mean. The kernel's ``lse``
+    against the bf16 plain forward's within ``TRAIN_LSE_TOL``; its output
+    bitwise the same with and without ``lse``. Two planted faults are read against
+    the same band and must fail it: ``lse + ln 2`` in the saved residuals
+    (the forward stays right), and the kv tile at the sequence's middle
+    given dv = 0. Returns (ok, readings)."""
+    import math
+
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.common import flash_attention_bwd as bwd
+    from repro_torch.models.common import flash_attention_fwd as fwd
+    chunks = (True, q_chunk, kv_chunk)
+    names = ("dq", "dk", "dv")
+    f32 = [x.float() for x in (q, k, v, do)]
+    o32, l32 = fwd(*f32[:3], *chunks)
+    truth = bwd(*f32[:3], o32, l32, f32[3], *chunks)
+    del o32, f32
+    o_k, l_k = fa.flash_attention(q, k, v, causal=True, return_lse=True)
+    same_out = torch.equal(o_k, fa.flash_attention(q, k, v, causal=True))
+    o_p, l_p = fwd(q, k, v, *chunks)
+    g_k = bwd(q, k, v, o_k, l_k, do, *chunks)
+    g_p = bwd(q, k, v, o_p, l_p, do, *chunks)
+
+    def errs(gs):
+        """Per gradient: (max, rms, [rms of each 128-row sequence tile])."""
+        out = []
+        for g, t in zip(gs, truth):
+            e = g.float() - t
+            sq = e.square()
+            out.append((float(e.abs().max()), float(sq.mean().sqrt()),
+                        [float(sq[:, r:r + 128].mean().sqrt())
+                         for r in range(0, sq.shape[1], 128)]))
+        return out
+    p_err = errs(g_p)
+
+    def within(gs):
+        e = errs(gs)
+        return all(em <= FLASH_BF16_RATIO * pm and er <= FLASH_BF16_RATIO * pr
+                   and all(a <= FLASH_BF16_RATIO * b for a, b in zip(et, pt))
+                   for (em, er, et), (pm, pr, pt) in zip(e, p_err)), e
+
+    def reading(e):
+        """max, rms and the largest tile rms over the plain path's."""
+        return {n: dict(max=m, rms=r, worst_tile_rms_ratio=max(
+            a / b if b else (0.0 if a == 0 else math.inf)
+            for a, b in zip(et, pt)))
+            for n, (m, r, et), (_, _, pt) in zip(names, e, p_err)}
+    ok_grads, k_err = within(g_k)
+    dv_cut = g_k[2].clone()
+    mid = v.shape[1] // 2
+    dv_cut[:, mid:mid + 128] = 0
+    planted = {"lse_plus_ln2": within(bwd(q, k, v, o_k, l_k + math.log(2.0),
+                                          do, *chunks)),
+               "tile_dv_zeroed": within((g_k[0], g_k[1], dv_cut))}
+    del dv_cut
+    lse_err = float((l_k - l_p).abs().max())
+    rejected = not any(p[0] for p in planted.values())
+    readings = dict(
+        kernel_vs_f32=reading(k_err),
+        plain_bf16_vs_f32={n: dict(max=m, rms=r) for n, (m, r, _) in
+                           zip(names, p_err)},
+        lse_kernel_vs_plain_bf16_max=lse_err,
+        lse_kernel_vs_f32_max=float((l_k - l32).abs().max()),
+        lse_range=[float(l_k.min()), float(l_k.max())],
+        out_bitwise_with_and_without_lse=same_out,
+        planted={name: dict(rejected=not passed, **reading(e))
+                 for name, (passed, e) in planted.items()})
+    ok = ok_grads and rejected and same_out and lse_err <= TRAIN_LSE_TOL
+    return ok, readings
+
+
 def phase_kernels_lm(state):
     """flash_attention at the lm path's shapes, on random bf16 inputs: one
     prefill call (4 x 4,096 tokens, 12 query heads on 2 KV heads of 128,
@@ -2347,9 +2493,352 @@ def phase_c1(state):
     _require_launched(counts, "c1")
 
 
+def _loss_and_grads(params, batch, cfg, attend):
+    """(loss, flat grads) of ``transformer.loss_fn`` with the attention
+    ``attend``, through the train step's own ``steps.loss_and_grads``."""
+    from repro_torch import tree
+    from repro_torch.models import transformer as tr
+    from repro_torch.train.steps import loss_and_grads
+    loss, _, grads = loss_and_grads(
+        lambda p, b: tr.loss_fn(p, b, cfg, attend), params, batch)
+    return float(loss), tree.leaves(grads)
+
+
+def _plain_attend(kv_chunk):
+    """The training path's attention with the plain forward (the
+    ``FlashAttention`` Function, plain ``flash_attention_fwd`` and the same
+    backward) at ``kv_chunk``: what the kernel path is held to."""
+    from repro_torch.kernels.flash_attention import FlashAttention
+    from repro_torch.models.common import flash_attention_fwd
+
+    def attend(q, k, v, causal=True, q_chunk=512, **_):
+        return FlashAttention.apply(q, k, v, causal, q_chunk, kv_chunk,
+                                    flash_attention_fwd)
+    return attend
+
+
+def _rel_l2(a, b):
+    return float((a.float() - b.float()).norm() / b.float().norm().clamp_min(
+        1e-30))
+
+
+def _leaf_names(params):
+    from repro_torch import tree
+    return ["/".join(map(str, p)) for p, _ in tree.flatten(params)]
+
+
+def _recording_step(step, record):
+    """``step`` with each call's wall seconds, loss, grad norm and lr (read
+    on the host, so each step ends synchronised) appended to ``record``."""
+    def timed(params, opt, *rest):
+        t0 = time.perf_counter()
+        out = step(params, opt, *rest)
+        m = out[-1]
+        loss, gn, lr = float(m["loss"]), float(m["grad_norm"]), float(m["lr"])
+        record.append(dict(s=time.perf_counter() - t0, loss=loss,
+                           grad_norm=gn, lr=lr))
+        return out
+    return timed
+
+
+def _train_resume_gate(dev, tmp):
+    """Gate (f): SMOKE on the card, TRAIN_RESUME_STEPS straight against
+    TRAIN_RESUME_AT steps, a checkpoint and a fresh ``loop.run`` that
+    resumes from it (the batch stream fast-forwarded): losses and final
+    state compared bitwise."""
+    import itertools
+
+    import torch
+
+    from repro_torch import configs, tree
+    from repro_torch.ckpt import checkpoint as ckpt
+    from repro_torch.launch import train as tlaunch
+    from repro_torch.models import transformer as tr
+    from repro_torch.optim import adamw
+    from repro_torch.train import loop
+    from repro_torch.train.steps import make_train_step
+    cfg = configs.get(LM_ARCH).smoke_config()
+    ocfg = tlaunch.optimizer_config(TRAIN_LR, TRAIN_RESUME_STEPS)
+    step = make_train_step(lambda p, b: tr.loss_fn(p, b, cfg), ocfg)
+
+    def run(ckpt_dir, fail_at=None):
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        params = tr.init(cfg, gen, device=dev)
+        start = ckpt.latest_step(ckpt_dir) or 0
+        batches = tlaunch.make_batches(cfg.vocab, *TRAIN_RESUME_BATCH, dev)
+        batches = itertools.islice(batches, start, None)
+        return loop.run(step, params, adamw.init(params, ocfg), batches,
+                        loop.LoopConfig(total_steps=TRAIN_RESUME_STEPS,
+                                        ckpt_every=TRAIN_RESUME_AT,
+                                        ckpt_dir=ckpt_dir,
+                                        fail_at_step=fail_at))
+    p_a, o_a, r_a = run(str(Path(tmp) / "straight"))
+    try:
+        run(str(Path(tmp) / "resumed"), fail_at=TRAIN_RESUME_AT + 2)
+        failed = False
+    except loop.InjectedFailure:
+        failed = True
+    p_b, o_b, r_b = run(str(Path(tmp) / "resumed"))
+    a_leaves, b_leaves = tree.leaves((p_a, o_a)), tree.leaves((p_b, o_b))
+    differing = [i for i, (x, y) in enumerate(zip(a_leaves, b_leaves))
+                 if not torch.equal(x, y)]
+    readings = dict(losses_straight=r_a.losses, losses_resumed=r_b.losses,
+                    resumed_from=r_b.resumed_from, injected_failure=failed,
+                    leaves=len(a_leaves), leaves_differing=len(differing),
+                    max_abs_diff=max([float((a_leaves[i].float()
+                                             - b_leaves[i].float()).abs()
+                                            .max()) for i in differing],
+                                     default=0.0))
+    ok = (failed and r_b.resumed_from == TRAIN_RESUME_AT
+          and r_a.losses[TRAIN_RESUME_AT:] == r_b.losses and not differing)
+    return ok, readings
+
+
+def phase_train(state):
+    """qwen2-1.5b training at full width on the card: TRAIN_STEPS AdamW
+    steps of train_4k's config at TRAIN_BATCH through ``loop.run``
+    (counted; one more step traced), then the gates (a)-(f)."""
+    import dataclasses as dc
+    import itertools
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch import configs, tree
+    from repro_torch.configs.common import ShapeSpec, lm_model_flops
+    from repro_torch.dist import compress
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as tlaunch
+    from repro_torch.models import transformer as tr
+    from repro_torch.models.common import flash_attention_bwd
+    from repro_torch.optim import adamw
+    from repro_torch.train import loop
+    from repro_torch.train.steps import make_train_step
+    dev = torch.device("cuda")
+    cfg = configs.get(LM_ARCH).make_config("train_4k")
+    b, s = TRAIN_BATCH
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    t0 = time.perf_counter()
+    params = tr.init(cfg, gen, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    batches = list(itertools.islice(
+        tlaunch.make_batches(cfg.vocab, b, s, dev), TRAIN_STEPS))
+    ocfg = tlaunch.optimizer_config(TRAIN_LR, TRAIN_STEPS)
+    step = make_train_step(lambda p, bt: tr.loss_fn(p, bt, cfg), ocfg)
+    flash_events = {"flash_fwd_": ("flash_attention",)}
+    checks, errors = {}, {}
+
+    # -- the counted run: TRAIN_STEPS steps through the loop
+    rec = []
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    p_end, o_end, result = loop.run(
+        _recording_step(step, rec), params, adamw.init(params, ocfg),
+        iter(batches), loop.LoopConfig(total_steps=TRAIN_STEPS))
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    state["launches"]["train"] = counts
+    per_step = 2 * cfg.n_layers
+    checks["train_flash_launches_2_per_layer_per_step"] = (
+        counts["flash_attention"] == per_step * TRAIN_STEPS)
+    trace = _traced(lambda: step(p_end, o_end, batches[0]), flash_events)
+    checks["train_trace_holds_2_flash_launches_per_layer"] = (
+        trace["port_launches"]["flash_fwd_"]["traced"] == per_step)
+    del p_end, o_end
+    torch.cuda.empty_cache()
+    tokens = b * s
+    warm = float(np.median([r["s"] for r in rec[1:]]))
+    flops = lm_model_flops(cfg.n_active_params(), ShapeSpec(
+        "train", "train", {"batch": b, "seq": s}))
+    losses = [r["loss"] for r in rec]
+    norms = [r["grad_norm"] for r in rec]
+    emit("train", step="run", arch=LM_ARCH, config="train_4k",
+         params=cfg.n_params(), init_s=init_s, batch=b, seq=s,
+         reduced="train_4k's batch 256 -> 4: one card holds one replica; "
+                 "4 x 4,096 is the prefill cell's token count",
+         steps=TRAIN_STEPS, optimizer=dc.asdict(ocfg), remat=cfg.remat,
+         cold_s=rec[0]["s"], warm_s_p50=warm,
+         step_s=[r["s"] for r in rec], tokens_per_step=tokens,
+         tokens_per_s=tokens / warm, model_flops_per_step=flops,
+         mfu=flops / warm / H100_BF16_PER_S, max_memory_allocated=peak,
+         launches=counts, flash_per_step=counts["flash_attention"]
+         / TRAIN_STEPS, losses=losses, grad_norms=norms,
+         lrs=[r["lr"] for r in rec], loop_seconds=result.seconds,
+         stragglers=result.straggler_steps, nvidia_smi=state["smi"])
+    # (d) finite, and the loss comes down
+    checks["d_finite_losses_and_grad_norms"] = bool(
+        np.isfinite(losses).all() and np.isfinite(norms).all())
+    checks["d_last_two_losses_below_the_first"] = (
+        float(np.mean(losses[-2:])) < losses[0])
+
+    # -- (a) the kernel inside the Function, on layers 0 and 27's own bf16
+    # q, k, v and their attention outputs' cotangents from step 1; the
+    # step-1 gradients through the kernel path come with them
+    seen, calls = {}, [0]
+
+    def record(q, k, v, **kw):
+        i = calls[0]
+        calls[0] += 1
+        out = ops.flash_attention(q, k, v, **kw)
+        if i in (0, cfg.n_layers - 1):      # the forward, not the recompute
+            seen[i] = [q.detach(), k.detach(), v.detach(), None]
+            out.register_hook(
+                lambda g, i=i: seen[i].__setitem__(3, g.detach()))
+        return out
+    loss_k, grads_k = _loss_and_grads(params, batches[0], cfg, record)
+    ok_a = sorted(seen) == [0, cfg.n_layers - 1] and all(
+        x[3] is not None for x in seen.values())
+    for li, (q, k, v, do) in sorted(seen.items()):
+        passed, readings = flash_grad_judge(q, k, v, do, cfg.q_chunk,
+                                            cfg.kv_chunk)
+        errors[f"a_layer_{li}"] = readings
+        ok_a &= passed
+    checks["a_flash_function_grads_vs_f32"] = ok_a
+    # the kernel with and without lse, and the plain backward, at the
+    # path's own shape (layer 0's inputs): device ms, alternating
+    q, k, v, do = seen[0]
+    out, lse = fa.flash_attention(q, k, v, causal=True, return_lse=True)
+    no_lse, with_lse = alternating_device_ms(
+        [lambda: fa.flash_attention(q, k, v, causal=True),
+         lambda: fa.flash_attention(q, k, v, causal=True, return_lse=True)],
+        rounds=21, flush=_flush_buffer(state))
+    bwd_ms = device_ms(lambda: flash_attention_bwd(
+        q, k, v, out, lse, do, True, cfg.q_chunk, cfg.kv_chunk), iters=5)
+    nbytes, fl = fa.work(b, s, s, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+                         True, 2)
+    timing = dict(kernel_no_lse=no_lse, kernel_with_lse=with_lse,
+                  bound_ms=bound(nbytes + 4 * b * s * cfg.n_heads, fl,
+                                 H100_BF16_PER_S)[0],
+                  plain_bwd_ms_per_layer=bwd_ms,
+                  plain_bwd_share_of_traced_device_busy=cfg.n_layers * bwd_ms
+                  / 1e3 / trace["device_busy_s"])
+    del seen, q, k, v, do, out, lse
+    state["train_flash"] = dict(shape=[b, s, cfg.n_heads, cfg.n_kv_heads,
+                                       cfg.head_dim, "bf16", "train"],
+                                **{k: timing[k] for k in (
+                                    "kernel_no_lse", "kernel_with_lse",
+                                    "bound_ms")})
+    emit("train", step="trace", traced=trace, **timing)
+
+    # -- (c) bf16 at full depth: the kernel path against the plain path,
+    # banded by two chunkings of the plain path
+    names = _leaf_names(params)
+    plain_runs = {c: _loss_and_grads(params, batches[0], cfg,
+                                     _plain_attend(c))
+                  for c in TRAIN_PLAIN_CHUNKS}
+    (loss_p, grads_p), (loss_q, grads_q) = (plain_runs[c] for c in
+                                            TRAIN_PLAIN_CHUNKS)
+    del plain_runs
+    eps = float(np.finfo(np.float32).eps)
+    kern = [_rel_l2(g, w) for g, w in zip(grads_k, grads_p)]
+    spread = [_rel_l2(g, w) for g, w in zip(grads_q, grads_p)]
+    del grads_p, grads_q
+    loss_kern = abs(loss_k - loss_p) / abs(loss_p)
+    loss_spread = abs(loss_q - loss_p) / abs(loss_p)
+    worst = sorted(range(len(names)), key=lambda i: -kern[i])[:3]
+    errors["c_bf16"] = dict(
+        loss_kernel=loss_k, loss_plain=loss_p,
+        loss_plain_other_chunking=loss_q, loss_rel_kernel_vs_plain=loss_kern,
+        loss_rel_plain_chunkings=loss_spread,
+        worst_leaf_rel_l2_kernel_vs_plain=max(kern),
+        worst_leaf_rel_l2_plain_chunkings=max(spread),
+        worst_leaves={names[i]: dict(kernel=kern[i], chunkings=spread[i])
+                      for i in worst})
+    checks["c_bf16_kernel_vs_plain_within_chunking_spread"] = (
+        loss_kern <= FLASH_BF16_RATIO * max(loss_spread, eps)
+        and max(kern) <= FLASH_BF16_RATIO * max(max(spread), eps))
+    checks["a_step1_loss_equals_the_run"] = loss_k == losses[0]
+
+    # -- (e) compression: its first loss is the uncompressed first loss
+    # bitwise; roundtrip of step 1's gradients equals the CPU's bitwise
+    emitted, residual = compress.roundtrip(
+        tree.unflatten(params, grads_k), block=TRAIN_COMPRESS_BLOCK)
+    cpu_grads = tree.unflatten(params, [g.cpu() for g in grads_k])
+    del grads_k
+    t0 = time.perf_counter()
+    cpu_out = compress.roundtrip(cpu_grads, block=TRAIN_COMPRESS_BLOCK)
+    cpu_s = time.perf_counter() - t0
+    diff = sum(not torch.equal(a.cpu(), c) for a, c in zip(
+        tree.leaves((emitted, residual)), tree.leaves(cpu_out)))
+    del emitted, residual, cpu_out, cpu_grads
+    crec = []
+    cocfg = tlaunch.optimizer_config(TRAIN_LR, TRAIN_COMPRESS_STEPS)
+    cstep = make_train_step(lambda p, bt: tr.loss_fn(p, bt, cfg), cocfg,
+                            grad_compress=TRAIN_COMPRESS_BLOCK)
+    p_c, o_c, _ = loop.run(
+        _recording_step(cstep, crec), params, adamw.init(params, cocfg),
+        iter(batches), loop.LoopConfig(total_steps=TRAIN_COMPRESS_STEPS,
+                                       grad_compress=TRAIN_COMPRESS_BLOCK))
+    del p_c, o_c
+    torch.cuda.empty_cache()
+    errors["e_compress"] = dict(
+        losses=[r["loss"] for r in crec],
+        grad_norms=[r["grad_norm"] for r in crec],
+        step_s=[r["s"] for r in crec], roundtrip_leaves_differing=diff,
+        cpu_roundtrip_s=cpu_s)
+    checks["e_compressed_first_loss_equals_uncompressed"] = (
+        crec[0]["loss"] == losses[0])
+    checks["e_roundtrip_card_equals_cpu_bitwise"] = diff == 0
+    checks["e_compressed_losses_finite"] = bool(np.isfinite(
+        [r["loss"] for r in crec]).all())
+    del params
+    torch.cuda.empty_cache()
+
+    # -- (b) float32, FULL widths at 2 layers, 1 x 2,048: the SIMT kernel
+    cfg32 = dc.replace(cfg, n_layers=TRAIN_F32_LAYERS, dtype=torch.float32)
+    gen.manual_seed(0)
+    params32 = tr.init(cfg32, gen, device=dev)
+    batch32 = next(tlaunch.make_batches(cfg32.vocab, *TRAIN_F32_BATCH, dev))
+    loss_k, grads_k = _loss_and_grads(params32, batch32, cfg32,
+                                      ops.flash_attention)
+    loss_p, grads_p = _loss_and_grads(params32, batch32, cfg32,
+                                      _plain_attend(cfg32.kv_chunk))
+    rel = [_rel_l2(g, w) for g, w in zip(grads_k, grads_p)]
+    errors["b_f32"] = dict(loss_kernel=loss_k, loss_plain=loss_p,
+                           loss_rel=abs(loss_k - loss_p) / abs(loss_p),
+                           worst_leaf_rel_l2=max(rel),
+                           worst_leaf=_leaf_names(params32)[int(np.argmax(
+                               rel))])
+    checks["b_f32_kernel_vs_plain"] = (
+        errors["b_f32"]["loss_rel"] <= TRAIN_F32_LOSS_RTOL
+        and max(rel) <= TRAIN_F32_GRAD_REL_L2)
+    del params32, grads_k, grads_p
+    torch.cuda.empty_cache()
+
+    # -- (f) resume on the card, SMOKE
+    with tempfile.TemporaryDirectory() as tmp:
+        ok_f, errors["f_resume"] = _train_resume_gate(dev, tmp)
+    checks["f_resume_equals_uninterrupted_bitwise"] = ok_f
+
+    emit("train", step="checks", tolerances=dict(
+        a=f"dq, dk, dv: max and rms error against the float32 plain path "
+          f"<= {FLASH_BF16_RATIO}x the bf16 plain path's; lse within "
+          f"{TRAIN_LSE_TOL} of the bf16 plain forward's; out bitwise with "
+          f"and without lse; planted faults rejected",
+        b=f"loss rel <= {TRAIN_F32_LOSS_RTOL}, every gradient leaf's "
+          f"relative L2 <= {TRAIN_F32_GRAD_REL_L2}",
+        c=f"loss rel and the worst leaf's relative L2 <= "
+          f"{FLASH_BF16_RATIO}x the plain path's kv_chunk "
+          f"{TRAIN_PLAIN_CHUNKS[0]} vs {TRAIN_PLAIN_CHUNKS[1]} spread",
+        d="finite; mean of the last two losses below the first",
+        e="first loss bitwise the uncompressed one's; roundtrip card == "
+          "CPU bitwise",
+        f="losses and final state bitwise"), max_abs_err=errors, **checks)
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"train checks failed: {failed}")
+    _require_launched(counts, "train")
+
+
 PHASES = (phase_env, phase_build, phase_kernels, phase_kernels_recsys,
           phase_full, phase_small, phase_recsys, phase_kernels_gnn,
-          phase_gnn, phase_kernels_lm, phase_lm, phase_mapping, phase_c1)
+          phase_gnn, phase_kernels_lm, phase_lm, phase_mapping, phase_c1,
+          phase_train)
 
 
 def kernels_line(state):
@@ -2382,10 +2871,11 @@ def kernels_line(state):
                 "shape", "ms", "call_ms", "plain_ms", "library_ms",
                 "library_sequence_ms", "bound_ms", "max_abs_err")}
                 for r in rows]
-        if name == "flash_attention":      # and at the 32k prefill
+        if name == "flash_attention":      # the 32k prefill; training's lse
             out[-1]["long"] = {k: rows[1][k] for k in (
                 "shape", "ms", "call_ms", "plain_ms", "library_ms",
                 "bound_ms", "bound_by")}
+            out[-1]["train"] = state["train_flash"]
     return {"kernels": out}
 
 

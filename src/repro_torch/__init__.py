@@ -4,12 +4,15 @@ Subpackages mirror the JAX package: ``graph`` (arc-list graphs and
 generators), ``core`` (machine trees, the makespan objective, coarsening,
 initial partition, refinement, the ``partition()`` entry point and block
 placement), ``configs`` (two-tower, GIN-TU and dense-LM configurations and
-shape grids), ``data`` (seeded recsys, GNN-feature and molecule batches),
+shape grids), ``data`` (seeded LM, recsys, GNN-feature and molecule batches),
 ``models`` (MLP, two-tower serving, the GIN forward, the dense-GQA
-transformer), ``embed`` (the partition-sharded embedding table),
-``serving`` (paged KV cache, scheduler, paged decode, the
-continuous-batching engine), ``launch`` (the serving CLI and the page
-mapper), ``analysis`` (the traffic-matrix lint) and ``kernels``
+transformer with its loss), ``embed`` (the partition-sharded embedding
+table), ``serving`` (paged KV cache, scheduler, paged decode, the
+continuous-batching engine), ``optim`` (AdamW), ``dist`` (int8 gradient
+compression), ``train`` (the train step and the fault-tolerant loop),
+``ckpt`` (checkpoints), ``tree`` (nested parameter trees), ``launch``
+(the serving and training CLIs and the page mapper), ``analysis`` (the
+traffic-matrix lint) and ``kernels``
 (hand-written CUDA kernels for Hopper, each beside its plain PyTorch
 version: the four partitioner kernels, ``bag_combine``,
 ``gather_combine``, ``bsr_spmm`` and ``flash_attention``). The package

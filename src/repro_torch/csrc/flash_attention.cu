@@ -21,7 +21,12 @@
 // the PV product (the running sum takes the unrounded P); rows whose keys
 // are all masked keep m = -inf, and both exp factors are guarded by
 // isfinite as in the reference, so no NaN appears; the output is
-// acc / max(l, 1e-20) rounded to q's type.
+// acc / max(l, 1e-20) rounded to q's type. Given a non-null lse pointer,
+// both kernels also write each row's log-sum-exp of the scaled scores,
+// float32 [B, Sq, H] (the reference's [B, Sq, KH, G]: query head h sits on
+// KV head h / G), m + ln max(l, 1e-30) and -inf where l = 0, as _flash_fwd
+// returns it for the _flash_bwd recompute (one store per row; the output
+// is the same with and without it).
 //
 // Bound: at the LM's prefill shape (4 x 4,096 tokens, 12 heads on 2, D =
 // 128, causal) one call is ~206 GFLOP against ~117 MB of q, k, v and o, so
@@ -107,9 +112,9 @@ static __device__ __forceinline__ void load_transposed(
 template <typename T, int DM>
 static __global__ void __launch_bounds__(THREADS, 2)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int n_bh,
-                 int sq, int sk, int h, int kh, int d, int n_qtiles,
-                 float scale, int causal) {
+                 const T* __restrict__ v, T* __restrict__ o,
+                 float* __restrict__ lse, int n_bh, int sq, int sk, int h,
+                 int kh, int d, int n_qtiles, float scale, int causal) {
   constexpr int NJ = DM / 16;             // output dims per thread
   constexpr int VEC = NJ < 4 ? NJ : 4;    // contiguous dims per group
   constexpr int NG = NJ / VEC;            // groups of VEC dims
@@ -260,6 +265,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   if (spart == 0) row_l[srow] = l_run;
+  // the log-sum-exp of the row's scaled scores, for the backward
+  if (lse != nullptr && spart == 0 && q0 + srow < sq)
+    lse[(static_cast<long long>(b) * sq + q0 + srow) * h + hh] =
+        l_run > 0.f ? m_run + logf(fmaxf(l_run, 1e-30f)) : -INFINITY;
   __syncthreads();
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -284,8 +293,8 @@ static constexpr size_t smem_bytes(int dm) {
 
 template <typename T, int DM>
 static int launch(const void* q, const void* k, const void* v, void* o,
-                  int b, int sq, int sk, int h, int kh, int d, float scale,
-                  int causal, cudaStream_t stream) {
+                  float* lse, int b, int sq, int sk, int h, int kh, int d,
+                  float scale, int causal, cudaStream_t stream) {
   const size_t smem = smem_bytes(DM);
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_kernel<T, DM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -297,22 +306,22 @@ static int launch(const void* q, const void* k, const void* v, void* o,
   flash_fwd_kernel<T, DM><<<static_cast<unsigned>(blocks), THREADS, smem,
                             stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), n_bh, sq, sk, h, kh, d,
-      n_qtiles, scale, causal);
+      static_cast<const T*>(v), static_cast<T*>(o), lse, n_bh, sq, sk, h, kh,
+      d, n_qtiles, scale, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 static int launch_d(const void* q, const void* k, const void* v, void* o,
-                    int b, int sq, int sk, int h, int kh, int d, float scale,
-                    int causal, cudaStream_t stream) {
+                    float* lse, int b, int sq, int sk, int h, int kh, int d,
+                    float scale, int causal, cudaStream_t stream) {
   if (d <= 32)
-    return launch<T, 32>(q, k, v, o, b, sq, sk, h, kh, d, scale, causal,
+    return launch<T, 32>(q, k, v, o, lse, b, sq, sk, h, kh, d, scale, causal,
                          stream);
   if (d <= 64)
-    return launch<T, 64>(q, k, v, o, b, sq, sk, h, kh, d, scale, causal,
+    return launch<T, 64>(q, k, v, o, lse, b, sq, sk, h, kh, d, scale, causal,
                          stream);
-  return launch<T, 128>(q, k, v, o, b, sq, sk, h, kh, d, scale, causal,
+  return launch<T, 128>(q, k, v, o, lse, b, sq, sk, h, kh, d, scale, causal,
                         stream);
 }
 
@@ -743,9 +752,10 @@ static __global__ void __launch_bounds__(WG_THREADS, 1)
 flash_fwd_wgmma_kernel(__grid_constant__ const CUtensorMap tq,
                        __grid_constant__ const CUtensorMap tk,
                        __grid_constant__ const CUtensorMap tv,
-                       __nv_bfloat16* __restrict__ o, int n_bh, int sq,
-                       int sk, int h, int kh, int n_qtiles, float scale_log2,
-                       int causal) {
+                       __nv_bfloat16* __restrict__ o,
+                       float* __restrict__ lse, int n_bh, int sq, int sk,
+                       int h, int kh, int n_qtiles, float scale,
+                       float scale_log2, int causal) {
   using T = WgTile<D>;
   constexpr int S = T::STAGES;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
@@ -918,6 +928,12 @@ flash_fwd_wgmma_kernel(__grid_constant__ const CUtensorMap tq,
         l += __shfl_xor_sync(0xffffffffu, l, 2);
         const int qp = row0 + half * 8;
         if (qp >= sq) continue;
+        // the log-sum-exp of the scaled scores: m_run is the raw max (the
+        // exponentials took the scale in base 2), so ln l adds to scale m
+        if (lse != nullptr && (lane & 3) == 0)
+          lse[(static_cast<long long>(w.b) * sq + qp) * h + w.hh] =
+              l > 0.f ? __fmul_rn(m_run[half], scale) + logf(fmaxf(l, 1e-30f))
+                      : -INFINITY;
         const float inv_l = 1.f / fmaxf(l, 1e-20f);
         __nv_bfloat16* dst =
             o + ((static_cast<long long>(w.b) * sq + qp) * h + w.hh) * D
@@ -985,8 +1001,9 @@ static bool encode_bsnd(EncodeTiled encode, CUtensorMap* map, const void* ptr,
 
 template <int D>
 static int launch_wgmma(const void* q, const void* k, const void* v, void* o,
-                        int b, int sq, int sk, int h, int kh, float scale,
-                        int causal, int n_sm, cudaStream_t stream) {
+                        float* lse, int b, int sq, int sk, int h, int kh,
+                        float scale, int causal, int n_sm,
+                        cudaStream_t stream) {
   using T = WgTile<D>;
   const EncodeTiled encode = tensor_map_encoder();
   if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
@@ -1010,29 +1027,34 @@ static int launch_wgmma(const void* q, const void* k, const void* v, void* o,
   const long long tiles = static_cast<long long>(n_bh) * n_qtiles;
   const int grid = static_cast<int>(tiles < n_sm ? tiles : n_sm);
   flash_fwd_wgmma_kernel<D><<<grid, WG_THREADS, T::SMEM, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(o), n_bh, sq, sk, h, kh,
-      n_qtiles, scale * LOG2E, causal);
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, n_bh, sq, sk, h, kh,
+      n_qtiles, scale, scale * LOG2E, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
 // dtype: 0 = float32, 1 = bfloat16; n_sm: the card's SM count (the bf16
-// kernel's persistent grid). The wrapper checks shapes (Sq >= 1, D <= 128,
-// H a multiple of KH), types, contiguity and, for bf16 with D of 64 or
-// 128, 16-byte aligned bases.
+// kernel's persistent grid). lse: null, or float32 [B, Sq, H] for the
+// log-sum-exp of each row's scaled scores (m + ln l, -inf where l = 0: the
+// residual the backward recomputes P from); out is the same either way.
+// The wrapper checks shapes (Sq >= 1, D <= 128, H a multiple of KH),
+// types, contiguity and, for bf16 with D of 64 or 128, 16-byte aligned
+// bases.
 REPRO_EXPORT int flash_attention_launch(const void* q, const void* k,
-                                        const void* v, void* o, int b, int sq,
-                                        int sk, int h, int kh, int d,
-                                        int dtype, int causal, float scale,
-                                        int n_sm, void* stream) {
+                                        const void* v, void* o, void* lse,
+                                        int b, int sq, int sk, int h, int kh,
+                                        int d, int dtype, int causal,
+                                        float scale, int n_sm, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   if (dtype == 1 && d == 128)
-    return launch_wgmma<128>(q, k, v, o, b, sq, sk, h, kh, scale, causal,
+    return launch_wgmma<128>(q, k, v, o, l, b, sq, sk, h, kh, scale, causal,
                              n_sm, s);
   if (dtype == 1 && d == 64)
-    return launch_wgmma<64>(q, k, v, o, b, sq, sk, h, kh, scale, causal,
+    return launch_wgmma<64>(q, k, v, o, l, b, sq, sk, h, kh, scale, causal,
                             n_sm, s);
   if (dtype == 1)
-    return launch_d<__nv_bfloat16>(q, k, v, o, b, sq, sk, h, kh, d, scale,
+    return launch_d<__nv_bfloat16>(q, k, v, o, l, b, sq, sk, h, kh, d, scale,
                                    causal, s);
-  return launch_d<float>(q, k, v, o, b, sq, sk, h, kh, d, scale, causal, s);
+  return launch_d<float>(q, k, v, o, l, b, sq, sk, h, kh, d, scale, causal,
+                         s);
 }

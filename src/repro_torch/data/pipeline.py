@@ -1,10 +1,12 @@
 """Synthetic data pipelines, seeded and host-side.
 
-Copies of ``gnn_features``, ``molecule_batches`` and ``recsys_batches`` in
-``repro/data/pipeline.py``: numpy only and exact for the same seed. GNN
-features and labels correlate with the graph's structure so a model can
-learn; recsys item ids follow a power law so the logQ correction has
-something to correct, and histories are -1 padded bags.
+Copies of ``lm_batches``, ``gnn_features``, ``molecule_batches`` and
+``recsys_batches`` in ``repro/data/pipeline.py``: numpy only and exact for
+the same seed. The LM stream is Zipf tokens with a copy structure so a
+model can reduce its loss; GNN features and labels correlate with the
+graph's structure so a model can learn; recsys item ids follow a power law
+so the logQ correction has something to correct, and histories are -1
+padded bags.
 """
 from __future__ import annotations
 
@@ -14,6 +16,25 @@ import numpy as np
 
 from repro_torch.graph.generators import molecule_batch
 from repro_torch.graph.graph import Graph
+
+
+def lm_batches(vocab: int, batch: int, seq: int, seed: int = 0,
+               zipf_a: float = 1.2) -> Iterator[Dict[str, np.ndarray]]:
+    """Zipf-distributed token stream with a copy structure (next token is a
+    noisy function of the current) so a model can actually reduce loss:
+    ``{"tokens", "labels"}`` int32 [batch, seq], labels shifted by one."""
+    rng = np.random.default_rng(seed)
+    ranks = np.arange(1, vocab + 1, dtype=np.float64)
+    probs = ranks ** (-zipf_a)
+    probs /= probs.sum()
+    perm = rng.permutation(vocab)
+    while True:
+        toks = rng.choice(vocab, size=(batch, seq + 1), p=probs)
+        # half the positions copy a permuted previous token (learnable)
+        copy = rng.random((batch, seq)) < 0.5
+        toks[:, 1:][copy] = perm[toks[:, :-1][copy]]
+        yield {"tokens": toks[:, :-1].astype(np.int32),
+               "labels": toks[:, 1:].astype(np.int32)}
 
 
 def gnn_features(g: Graph, d_feat: int, n_classes: int, seed: int = 0,

@@ -5,7 +5,9 @@ fields of the reference's ``Graph``, ``TreeTopology`` / ``RoutingTopology``,
 ``MachineSpec``, ``PartitionConfig``, ``RefineConfig`` and ``ShardPlan`` by
 name (duck typing), or the two-tower, GNN and transformer parameter dicts
 as numpy arrays, and build the port's own objects, so a test can give both packages
-the same inputs.
+the same inputs. Gradients, AdamW moments and compression residuals of
+the transformer map through ``transformer_params_from`` as its parameters
+do.
 """
 from __future__ import annotations
 
@@ -118,17 +120,26 @@ def gnn_params_from(params) -> Dict[str, torch.Tensor]:
     return state
 
 
+def _tensor(x) -> torch.Tensor:
+    """A CPU tensor of ``x``'s values and type; numpy has no bfloat16 of its
+    own, so a bf16 array (``ml_dtypes``) goes through float32, exactly."""
+    x = np.asarray(x)
+    if x.dtype.name == "bfloat16":
+        return torch.from_numpy(x.astype(np.float32)).to(torch.bfloat16)
+    return torch.from_numpy(_copy(x))
+
+
 def transformer_params_from(params) -> Dict:
     """The port's transformer params (``models.transformer``: CPU tensors)
     from the reference's dense-GQA param dict: ``embed``, ``unembed``,
     ``ln_f`` and the layers stacked on axis 0 under ``dense_layers``
     (``attn`` / ``ffn`` dicts, ``ln1``, ``ln2``), unstacked into one dict
-    per layer under ``layers``. MoE layers (``moe_layers``) are refused."""
+    per layer under ``layers``. MoE layers (``moe_layers``) are refused.
+    Any tree of the params' structure maps the same way (gradients, AdamW
+    moments, compression residuals)."""
     if "moe_layers" in params:
         raise NotImplementedError("MoE layers wait for a later slice")
-
-    def t(x):
-        return torch.from_numpy(_copy(np.asarray(x)))
+    t = _tensor
 
     stacked = params["dense_layers"]
     n = np.asarray(stacked["ln1"]).shape[0]
@@ -139,3 +150,4 @@ def transformer_params_from(params) -> Dict:
         "ln2": t(np.asarray(stacked["ln2"])[li])} for li in range(n)]
     return {"embed": t(params["embed"]), "unembed": t(params["unembed"]),
             "ln_f": t(params["ln_f"]), "layers": layers}
+

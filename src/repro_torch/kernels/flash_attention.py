@@ -23,8 +23,19 @@ tensor cores work on the other's products and its own P V. TMA reads
 (a contiguous view at an odd element offset). float32 and other head dims
 run a SIMT float32 kernel (``PERF.md`` has both against the bound).
 
-The plain version is the chunked twin of ``_flash``
-(``models.common.flash_attention``); CPU tensors run it. The wrapper's
+With ``return_lse=True`` the kernel also writes each row's log-sum-exp
+of the scaled scores (float32 ``[B, Sq, H]``), the residual the backward
+recomputes P from; a null pointer skips that store, so the serving and
+prefill calls, which do not ask for it, launch what they did before and
+the output is bitwise the same either way. :class:`FlashAttention` is the
+``torch.autograd.Function`` of the training path (the twin of the
+reference's ``jax.custom_vjp`` around ``_flash``): its forward is this
+wrapper with ``lse`` (the kernel on CUDA tensors), its backward the plain
+``_flash_bwd`` recompute (``models.common.flash_attention_bwd``) on either
+device. :func:`attention` goes through it where a gradient is wanted.
+
+The plain version is the chunked twin of ``_flash_fwd_impl``
+(``models.common.flash_attention_fwd``); CPU tensors run it. The wrapper's
 ``q_chunk`` / ``kv_chunk`` are its chunk sizes and do not change the
 kernel's own tiling.
 """
@@ -36,7 +47,8 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.models.common import flash_attention as plain
+from repro_torch.models.common import flash_attention_bwd as plain_bwd
+from repro_torch.models.common import flash_attention_fwd as plain_fwd
 
 # launches of the CUDA kernel (plain CPU calls do not count)
 launches = 0
@@ -49,15 +61,17 @@ TMA_HEAD_DIMS = (64, 128)
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, q_chunk: int = 512,
-                    kv_chunk: int = 512) -> torch.Tensor:
+                    kv_chunk: int = 512, return_lse: bool = False):
     """``[B, Sq, H, D]`` x ``[B, Sk, KH, D]`` x ``[B, Sk, KH, D]`` ->
-    ``[B, Sq, H, D]`` in q's dtype: the plain version for CPU tensors, the
-    CUDA kernel for CUDA tensors."""
+    ``[B, Sq, H, D]`` in q's dtype, and with ``return_lse`` also the
+    float32 ``[B, Sq, H]`` log-sum-exp, as ``(out, lse)``: the plain
+    version for CPU tensors, the CUDA kernel for CUDA tensors."""
     global launches
     dev = q.device
     if dev.type == "cpu":
-        return plain(q, k, v, causal=causal, q_chunk=q_chunk,
-                     kv_chunk=kv_chunk)
+        out, lse = plain_fwd(q, k, v, causal=causal, q_chunk=q_chunk,
+                             kv_chunk=kv_chunk)
+        return (out, lse) if return_lse else out
     if dev.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for device {dev}")
     if q.dim() != 4 or k.dim() != 4:
@@ -84,17 +98,63 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                  f"16-byte aligned (TMA reads aligned "
                                  f"bases only)")
     out = torch.empty_like(q)
+    lse = (torch.empty((b, sq, h), dtype=torch.float32, device=dev)
+           if return_lse else None)
     if b == 0 or sq == 0:
-        return out
-    fn = build.entry("flash_attention", [ctypes.c_void_p] * 4
+        return (out, lse) if return_lse else out
+    fn = build.entry("flash_attention", [ctypes.c_void_p] * 5
                      + [ctypes.c_int] * 8
                      + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     build.check("flash_attention", fn(
-        build.ptr(q), build.ptr(k), build.ptr(v), build.ptr(out), b, sq, sk,
-        h, kh, d, _DTYPES[q.dtype], int(bool(causal)),
-        float(1.0 / np.sqrt(d)), build.sm_count(dev), build.stream_of(dev)))
+        build.ptr(q), build.ptr(k), build.ptr(v), build.ptr(out),
+        None if lse is None else build.ptr(lse), b, sq, sk, h, kh, d,
+        _DTYPES[q.dtype], int(bool(causal)), float(1.0 / np.sqrt(d)),
+        build.sm_count(dev), build.stream_of(dev)))
     launches += 1
-    return out
+    return (out, lse) if return_lse else out
+
+
+def kernel_fwd(q, k, v, causal, q_chunk, kv_chunk):
+    """``(out, lse)`` of :func:`flash_attention`: the kernel on CUDA
+    tensors, the plain version on CPU tensors."""
+    return flash_attention(q, k, v, causal, q_chunk, kv_chunk,
+                           return_lse=True)
+
+
+class FlashAttention(torch.autograd.Function):
+    """Attention with the reference's custom VJP. ``apply(q, k, v, causal,
+    q_chunk, kv_chunk, fwd)``: the forward is ``fwd``, ``kernel_fwd`` (one
+    kernel launch on CUDA tensors) or ``plain_fwd`` (the plain version on
+    either device, the path the card's checks compare with), saving ``(q,
+    k, v, out, lse)``; the backward is the plain ``_flash_bwd`` recompute,
+    which launches no kernel."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, q_chunk, kv_chunk, fwd):
+        out, lse = fwd(q, k, v, causal, q_chunk, kv_chunk)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.chunking = (causal, q_chunk, kv_chunk)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = plain_bwd(q, k, v, out, lse, do, *ctx.chunking)
+        return dq, dk, dv, None, None, None, None
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              causal: bool = True, q_chunk: int = 512,
+              kv_chunk: int = 512) -> torch.Tensor:
+    """The model's attention: through :class:`FlashAttention` where autograd
+    records (grad mode on and an input that requires grad), else the
+    forward alone without ``lse`` (prefill and serving under
+    ``torch.no_grad``)."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttention.apply(q, k, v, causal, q_chunk, kv_chunk,
+                                    kernel_fwd)
+    return flash_attention(q, k, v, causal, q_chunk, kv_chunk)
 
 
 def work(b: int, sq: int, sk: int, h: int, kh: int, d: int, causal: bool,

@@ -148,12 +148,16 @@ def gnn_aggregate_bsr(layout: _bsr.BsrLayout,
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, q_chunk: int = 512,
                     kv_chunk: int = 512) -> torch.Tensor:
-    """Online-softmax attention forward, GQA through ``h // (H / KH)``,
-    top-left causal: q ``[B, Sq, H, D]``, k/v ``[B, Sk, KH, D]`` ->
-    ``[B, Sq, H, D]``. ``q_chunk`` / ``kv_chunk`` tile the plain version
-    (CPU tensors); the kernel has its own tiles."""
-    return _fa.flash_attention(q, k, v, causal=causal, q_chunk=q_chunk,
-                               kv_chunk=kv_chunk)
+    """Online-softmax attention, GQA through ``h // (H / KH)``, top-left
+    causal: q ``[B, Sq, H, D]``, k/v ``[B, Sk, KH, D]`` -> ``[B, Sq, H,
+    D]``. Differentiable: where autograd records, it goes through
+    ``FlashAttention`` (the kernel's forward with its log-sum-exp, the
+    plain ``_flash_bwd`` recompute); under ``torch.no_grad`` it is the
+    forward alone. ``q_chunk`` / ``kv_chunk`` tile the plain versions (the
+    forward on CPU tensors, the backward on both); the kernel has its own
+    tiles."""
+    return _fa.attention(q, k, v, causal=causal, q_chunk=q_chunk,
+                         kv_chunk=kv_chunk)
 
 
 def to_ell(n_nodes: int, senders: np.ndarray, receivers: np.ndarray,

@@ -1,2 +1,3 @@
-"""Launchers of the port: the serving CLI (``serve``) and the page mapper
-it drives (``placement.PlacementSession.map_pages``)."""
+"""Launchers of the port: the serving CLI (``serve``), the training CLI
+(``train``) and the page mapper the server drives
+(``placement.PlacementSession.map_pages``)."""

@@ -3,21 +3,32 @@
 
 Ported: ``TransformerConfig`` (with ``n_params`` / ``n_active_params`` for
 every kind), ``init``, ``_partial_rope``, ``gqa_attention``, ``_layer_fwd``,
-``forward``, ``prefill``, ``init_cache``, ``_decode_attn_gqa`` and
-``decode_step``. Every layer's attention in ``forward`` / ``prefill`` runs
-the hand-written ``flash_attention`` CUDA kernel on CUDA tensors
+``forward``, ``loss_fn``, ``prefill``, ``init_cache``, ``_decode_attn_gqa``
+and ``decode_step``. Every layer's attention runs the hand-written
+``flash_attention`` CUDA kernel on CUDA tensors
 (``kernels.ops.flash_attention``; the reference runs the pure-JAX ``_flash``
 there, the same function) and its plain chunked version on CPU tensors.
 MoE (deepseek-v2) and MLA raise ``NotImplementedError``: they wait for a
 later slice.
+
+Training: :func:`forward_core` is differentiable and ``loss_fn`` runs it.
+The attention's backward is the reference's ``_flash_bwd`` recompute in
+plain PyTorch (``FlashAttention``, ``kernels/flash_attention.py``). With
+``cfg.remat`` each layer runs under ``torch.utils.checkpoint`` (the twin of
+the reference's ``jax.checkpoint`` per scanned layer): only the layer
+inputs are kept, and the backward recomputes each layer's forward,
+relaunching the kernel. So a training step launches ``flash_attention``
+twice per layer (56 times at Qwen2-1.5B's 28 layers: 28 in the forward, 28
+in the recompute) and its backward launches none. ``forward`` /
+``prefill`` and the server run under ``torch.no_grad`` and launch it once
+per layer, without the log-sum-exp.
 
 Parameters are a plain dict of tensors in the reference's ``[in, out]``
 orientation (``x @ w``), with the reference's per-layer stack unrolled into
 ``params["layers"]``, a list of one dict per layer
 (``interop.transformer_params_from`` carries the reference's across). One
 card has no mesh, so the reference's ``Rules`` sharding annotations have no
-counterpart, and ``remat`` has no meaning for a forward without autograd:
-both are ignored. The port serves; it does not train yet (no backward).
+counterpart and are ignored.
 """
 from __future__ import annotations
 
@@ -26,11 +37,12 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import DeviceLike, resolve_device
 from repro_torch.kernels import ops
-from repro_torch.models.common import (rms_norm, rope_freqs, rope_tables,
-                                      rotate, swiglu)
+from repro_torch.models.common import (cross_entropy, rms_norm, rope_freqs,
+                                      rope_tables, rotate, swiglu)
 
 Params = Dict[str, Any]
 Attend = Callable[..., torch.Tensor]
@@ -252,27 +264,54 @@ def _layer_fwd(p: Params, x: torch.Tensor, cfg: TransformerConfig,
                       p["ffn"]["w_down"])
 
 
+def forward_core(params: Params, tokens: torch.Tensor,
+                 cfg: TransformerConfig, attend: Attend = ops.flash_attention
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """tokens [B, S] -> (logits [B, S, V], aux_loss scalar: 0 for dense),
+    differentiable, with the attention ``attend`` in every layer. Where
+    autograd records and ``cfg.remat`` is set, each layer is a
+    non-reentrant ``torch.utils.checkpoint``: its forward runs again in the
+    backward (see the module docstring for the launches)."""
+    _dense_only(cfg)
+    _, s = tokens.shape
+    tables = _rope_tables(rope_freqs(cfg.head_dim, s, cfg.rope_theta,
+                                     device=tokens.device), cfg)
+    x = params["embed"][tokens.long()]
+    remat = cfg.remat and torch.is_grad_enabled()
+    for layer in params["layers"]:
+        if remat:
+            x = checkpoint(_layer_fwd, layer, x, cfg, tables, attend,
+                           use_reentrant=False)
+        else:
+            x = _layer_fwd(layer, x, cfg, tables, attend)
+    x = rms_norm(x, params["ln_f"])
+    return x @ params["unembed"], torch.zeros((), device=tokens.device)
+
+
 @torch.no_grad()
 def forward_with(params: Params, tokens: torch.Tensor,
                  cfg: TransformerConfig,
                  attend: Attend) -> Tuple[torch.Tensor, torch.Tensor]:
     """:func:`forward` with the attention forward ``attend`` in every layer
     (the checks hold the kernel against its plain version through it)."""
-    _dense_only(cfg)
-    _, s = tokens.shape
-    tables = _rope_tables(rope_freqs(cfg.head_dim, s, cfg.rope_theta,
-                                     device=tokens.device), cfg)
-    x = params["embed"][tokens.long()]
-    for layer in params["layers"]:
-        x = _layer_fwd(layer, x, cfg, tables, attend)
-    x = rms_norm(x, params["ln_f"])
-    return x @ params["unembed"], torch.zeros((), device=tokens.device)
+    return forward_core(params, tokens, cfg, attend)
 
 
 def forward(params: Params, tokens: torch.Tensor,
             cfg: TransformerConfig) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens [B, S] -> (logits [B, S, V], aux_loss scalar: 0 for dense)."""
     return forward_with(params, tokens, cfg, ops.flash_attention)
+
+
+def loss_fn(params: Params, batch: Dict[str, torch.Tensor],
+            cfg: TransformerConfig, attend: Attend = ops.flash_attention
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """``(ce + aux, {"ce", "aux"})`` over ``batch["tokens"]`` /
+    ``["labels"]`` (and an optional ``["mask"]``): the reference's
+    ``loss_fn``, differentiable through :func:`forward_core`."""
+    logits, aux = forward_core(params, batch["tokens"], cfg, attend)
+    ce = cross_entropy(logits, batch["labels"], batch.get("mask"))
+    return ce + aux, {"ce": ce, "aux": aux}
 
 
 def prefill(params: Params, tokens: torch.Tensor,

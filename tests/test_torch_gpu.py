@@ -41,7 +41,7 @@ from repro_torch.models.recsys import TwoTower
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 from chip_smoke import (  # noqa: E402  (the smoke run's)
-    NumpyDraws, _traced, gapped_graph)
+    TRAIN_LSE_TOL, NumpyDraws, _traced, flash_grad_judge, gapped_graph)
 
 torch.set_num_threads(1)
 pytestmark = pytest.mark.gpu
@@ -873,6 +873,114 @@ def test_flash_attention_checks_its_arguments(cuda):
         flash_attention.flash_attention(q.transpose(1, 2), k, k)
     with pytest.raises(ValueError, match="on cpu"):
         flash_attention.flash_attention(q, k.cpu(), k)
+
+
+# the log-sum-exp output: the reference's CASES (tests/test_flash_attention.py)
+# with Dv = D (the CUDA path takes v of q's head dim; its MLA-like case runs
+# on the CPU only, tests/test_torch_flash_bwd.py) as (b, sq, sk, h, kh, d,
+# causal), a ragged bf16 case on the Hopper kernel, and the training shape
+LSE_CASES = [(2, 64, 64, 4, 4, 32, True), (2, 64, 64, 8, 2, 32, True),
+             (1, 100, 100, 4, 1, 16, True), (2, 64, 64, 4, 4, 32, False),
+             (2, 64, 64, 4, 2, 32, True), (2, 300, 300, 12, 2, 128, True),
+             (4, 4096, 4096, 12, 2, 128, True)]
+
+
+@pytest.mark.parametrize("case", LSE_CASES, ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_flash_attention_lse_matches_plain(cuda, case, dtype):
+    """The kernel's lse against the plain forward's on the same inputs
+    (float32: the reference's band; bf16: ``TRAIN_LSE_TOL``), in the
+    reference's layout, and the output bitwise the same with and without
+    it."""
+    q, k, v = _flash_inputs(cuda, case, dtype)
+    b, sq, _, h, _, _, causal = case
+    before = flash_attention.launches
+    out, lse = flash_attention.flash_attention(q, k, v, causal=causal,
+                                               return_lse=True)
+    assert flash_attention.launches == before + 1
+    assert lse.dtype == torch.float32 and tuple(lse.shape) == (b, sq, h)
+    assert torch.equal(out, flash_attention.flash_attention(q, k, v,
+                                                            causal=causal))
+    _, want = mcommon.flash_attention_fwd(q, k, v, causal, 512, 512)
+    if dtype == torch.float32:
+        torch.testing.assert_close(lse, want, **FLASH_F32)
+    else:
+        assert float((lse - want).abs().max()) <= TRAIN_LSE_TOL
+
+
+def test_flash_attention_lse_without_keys_is_minus_inf(cuda):
+    q = torch.randn(1, 5, 2, 128, device=cuda).bfloat16()
+    k = torch.zeros(1, 0, 1, 128, device=cuda, dtype=torch.bfloat16)
+    for qq, kk in ((q, k), (q.float()[..., :16].contiguous(),
+                           k.float()[..., :16].contiguous())):
+        _, lse = flash_attention.flash_attention(qq, kk, kk, causal=False,
+                                                 return_lse=True)
+        assert bool((lse == -torch.inf).all())
+
+
+# (b, sq, sk, h, kh, d, causal) for the training path's gradients
+GRAD_CASES = [(2, 64, 64, 8, 2, 32, True), (1, 100, 100, 4, 1, 16, True),
+              (2, 300, 300, 12, 2, 128, True), (1, 1024, 1024, 12, 2, 128,
+                                                True)]
+# float32: the kernel path's gradients against the plain path's (the plain
+# forward's residuals), relative L2 per gradient (chip_smoke's gate (b))
+GRAD_F32_REL_L2 = 1e-4
+
+
+@pytest.mark.parametrize("case", GRAD_CASES, ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_flash_function_grads_through_the_kernel(cuda, case, dtype):
+    """``FlashAttention`` launches the kernel once in its forward and none
+    in its backward; its dq/dk/dv against the plain path: float32 to a
+    relative L2 of 1e-4, bf16 by ``flash_grad_judge`` (gate (a): 2x the
+    bf16 plain path's error against float32, the planted faults
+    rejected)."""
+    q, k, v = _flash_inputs(cuda, case, dtype)
+    causal = case[-1]
+    do = torch.randn(q.shape, generator=_gen(cuda, 7), device=cuda).to(dtype)
+    if dtype == torch.bfloat16:
+        ok, readings = flash_grad_judge(q, k, v, do, 64, 64)
+        assert ok, readings
+        return
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    before = flash_attention.launches
+    out = ops.flash_attention(*leaves, causal=causal, q_chunk=64, kv_chunk=64)
+    assert flash_attention.launches == before + 1
+    got = torch.autograd.grad(out, leaves, do)
+    assert flash_attention.launches == before + 1
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    out = flash_attention.FlashAttention.apply(
+        *leaves, causal, 64, 64, mcommon.flash_attention_fwd)
+    want = torch.autograd.grad(out, leaves, do)
+    for g, w in zip(got, want):
+        rel = float((g - w).norm() / w.norm())
+        assert rel <= GRAD_F32_REL_L2, rel
+
+
+@pytest.mark.parametrize("block", [None, 256])
+def test_compress_roundtrip_on_the_card_equals_the_cpu(cuda, block):
+    """The int8 round trip divides tensor by tensor, so the card gives the
+    CPU's numbers bitwise (a CUDA tensor divided by a Python number is
+    multiplied by the reciprocal instead), over stacked layer leaves."""
+    from repro_torch import tree
+    from repro_torch.dist import compress
+    gen = _gen(cuda, 3)
+    grads = {"ln_f": torch.randn(48, generator=gen, device=cuda),
+             "layers": [{"w": torch.randn(48, 24, generator=gen,
+                                          device=cuda).bfloat16() * (10 ** -i),
+                         "b": torch.randn(24, generator=gen, device=cuda)}
+                        for i in range(3)]}
+    state = None
+    cpu_grads, cpu_state = tree.map_(lambda t: t.cpu(), grads), None
+    for _ in range(2):
+        out, state = compress.roundtrip(grads, state, block=block)
+        cpu_out, cpu_state = compress.roundtrip(cpu_grads, cpu_state,
+                                                block=block)
+        for a, c in zip(tree.leaves((out, state)),
+                        tree.leaves((cpu_out, cpu_state))):
+            assert torch.equal(a.cpu(), c)
 
 
 def _smoke_lm(cuda):

@@ -36,7 +36,13 @@ def test_port_sources_exist():
     for must in ("src/repro_torch/core/partitioner.py",
                  "src/repro_torch/kernels/ops.py", "chip_smoke.py",
                  "benchmarks/torch_bench_makespan_vs_cut.py",
-                 "benchmarks/torch_bench_mapping_search.py"):
+                 "benchmarks/torch_bench_mapping_search.py",
+                 "src/repro_torch/tree.py", "src/repro_torch/optim/adamw.py",
+                 "src/repro_torch/dist/compress.py",
+                 "src/repro_torch/train/steps.py",
+                 "src/repro_torch/train/loop.py",
+                 "src/repro_torch/ckpt/checkpoint.py",
+                 "src/repro_torch/launch/train.py"):
         assert must in names
 
 
