@@ -18,7 +18,14 @@ non-zero:
            (a serialised wgmma); fails if any kernel spills registers;
   kernels  every kernel against its plain PyTorch version on the card, at
            the main path's shapes (for the bag kernels every shape the
-           recsys path gives them: 512, 262,144 and 1 bags;
+           recsys path gives them: 512, 262,144 and 1 bags, and
+           ``gather_combine`` also on a bf16 copy of the table at 512 and
+           262,144, held within 1 bf16 ulp plus the float32 band, two
+           planted faults failing it, the path each call takes, and the
+           card's L2 read rate, from ``csrc/l2_read.cu``, for its
+           every-slot bound; ``match_round`` bitwise against the plain
+           round on the full cell's level 0 after one round, on
+           ``rmat(20000, 120000, 1)``'s hub rows and at a ragged size;
            ``quotient_link_loads`` on random and CSR-local partitions and
            both kernels at the serve pools' k = 4; ``partition_gain``
            beside ``scatter_add_`` on bins gathered beforehand and the
@@ -39,7 +46,7 @@ non-zero:
            time, idle share and top kernels, all from that one traced
            run); the warm run's makespan is re-evaluated on the host and
            held to 1.05x the reference's worst device-backend makespan
-           over seeds 0-3; ``match_keys``, ``bucket_assign`` and
+           over seeds 0-3; ``match_round``, ``bucket_assign`` and
            ``quotient_link_loads`` must have launched in the warm run,
            whose ``quotient_link_loads`` launches are grouped by k and
            arc count (powers of two), each group with the device time of
@@ -200,7 +207,9 @@ non-zero:
 
 Then one line ``{"kernels": [...]}``: each kernel's launches on the path
 that drives it (``full`` for the partitioner's kernels but
-``partition_gain``, ``small`` for it, ``recsys`` for the bag kernels,
+``partition_gain``, ``small`` for it; ``match_keys``, which no path
+launches since the coarsening runs each round as ``match_round``, with 0
+and ``on_path_as``; ``recsys`` for the bag kernels,
 ``gnn`` for ``bsr_spmm``, ``lm`` for ``flash_attention``, which also
 launches on ``train``), its launches
 on every path (``serve`` and ``serve_wide`` show which partitioner
@@ -208,7 +217,8 @@ kernels the server reaches; ``mapping`` and ``c1`` that the search and
 the baselines run ``quotient_link_loads`` and ``partition_gain``), and the
 kernels phase's numbers at the main path's shape (``flash_attention`` also
 at 32,768 tokens, ``long``; the bag kernels their one-query alternation,
-``retrieve_query``; ``bsr_spmm`` its second bound, tile and slabs read).
+``retrieve_query``; ``gather_combine`` and ``match_round`` every shape,
+``shapes``; ``bsr_spmm`` its second bound, tile and slabs read).
 Last, the result line ``{"ok": true, "device": {...}}``.
 Without a CUDA device it exits 2 and prints no result; it never runs on the
 CPU.
@@ -390,7 +400,10 @@ C1_REF_CUT_IMBALANCE = {"grid2d_64": 0.87890625, "grid3d_16": 0.1640625,
 C1_IMBALANCE_MARGIN = 0.10
 
 # name: (source, the TPU kernel it replaces, the driven paths that must
-# launch it, the first being the one the kernels line reports; the small
+# launch it, the first being the one the kernels line reports; the
+# device coarsening runs each matching round as match_round, so the
+# map kernel match_keys, the reference ops.match_keys' twin, is on no path
+# and is held to its plain version in the kernels phase only; the small
 # path's device V-cycle runs every partitioner kernel; partition_gain needs
 # dense levels, n*k <= 200,000, which the full cell never reaches at k = 64;
 # the recsys plan's host V-cycle scores through quotient_link_loads only;
@@ -399,7 +412,10 @@ C1_IMBALANCE_MARGIN = 0.10
 # partition_gain)
 KERNEL_INFO = {
     "match_keys": ("src/repro_torch/csrc/match_keys.cu",
-                   "src/repro/kernels/match_keys.py:60", ("full", "small")),
+                   "src/repro/kernels/match_keys.py:60", ()),
+    "match_round": ("src/repro_torch/csrc/match_keys.cu",
+                    "src/repro/kernels/match_keys.py:60",
+                    ("full", "small", "c1")),
     "bucket_assign": ("src/repro_torch/csrc/bucket_assign.cu",
                       "src/repro/kernels/bucket_assign.py:69",
                       ("full", "small")),
@@ -662,6 +678,10 @@ def phase_kernels(state):
                       lambda: match_keys.plain(w, u, mask), exact=True,
                       bytes_moved=16.0 * m, flops=3.0 * m)
 
+    # match_round: the whole matching round, bitwise its plain version
+    for label, g, after_round in match_round_cases():
+        _check_match_round(state, label, g, after_round, gen)
+
     # bucket_assign: the coarsest level of the full phase (~12.4k vertices,
     # k = 64), and k = 257
     for n, k in ((12_400, 64), (12_401, 257)):
@@ -754,6 +774,64 @@ def phase_kernels(state):
             flops=float(gs.n_arcs))
 
 
+def match_round_cases():
+    """(label, graph, after one round) of the kernels phase's
+    ``match_round`` checks: level 0 of the full phase's grid3d(64, 64, 64)
+    with the eligibility one real round leaves; the C1 table's
+    rmat(20000, 120000, 1), whose hub rows hold thousands of arcs; and a
+    ragged size."""
+    from repro_torch.graph.generators import grid3d, rmat
+    return [("full level 0, round 2", grid3d(64, 64, 64), True),
+            ("rmat(20000,120000,1)", rmat(20000, 120000, seed=1), False),
+            ("ragged", rmat_graph(1001, 5003, seed=0), True)]
+
+
+def round_inputs(g, after_round, gen):
+    """The arc list of ``g`` on the card, a jitter draw, and the matched
+    flags: none, or those one round with another draw leaves (mutual
+    proposals, as ``core.coarsen.coarsen_step`` takes them)."""
+    import torch
+
+    from repro_torch.kernels import match_keys
+    dev = torch.device("cuda")
+    s = torch.as_tensor(g.senders, device=dev)
+    r = torch.as_tensor(g.receivers, device=dev)
+    w = torch.as_tensor(g.edge_weight, device=dev)
+    n, m = g.n_nodes, g.n_arcs
+    matched = torch.zeros(n, dtype=torch.bool, device=dev)
+    if after_round:
+        u0 = torch.rand(m, generator=gen, device=dev)
+        best = match_keys.match_round_plain(s, r, w, u0, matched)
+        iota = torch.arange(n, dtype=torch.int32, device=dev)
+        prop = torch.where(best >= 0, r[best.clamp_min(0).long()], iota)
+        matched = (prop[prop.long()] == iota) & (prop != iota)
+    u = torch.rand(m, generator=gen, device=dev)
+    return s, r, w, u, matched
+
+
+def _check_match_round(state, label, g, after_round, gen):
+    """``match_round`` bitwise against ``match_round_plain`` (the ATen
+    round it replaces: mask, keys, two segment maxima), timed beside it."""
+    import numpy as np
+
+    from repro_torch.kernels import match_keys
+    s, r, w, u, matched = round_inputs(g, after_round, gen)
+    n, m = g.n_nodes, g.n_arcs
+    plain = match_keys.match_round_plain(s, r, w, u, matched)
+    _check_kernel(
+        state, "match_round", [m, n, label],
+        lambda: match_keys.match_round(s, r, w, u, matched),
+        lambda: match_keys.match_round_plain(s, r, w, u, matched),
+        exact=True,
+        # the arcs' s, r, w, u once, the flags once per vertex, the word
+        # buffer (8 B) and best_arc (4 B) per vertex
+        bytes_moved=16.0 * m + 13.0 * n, flops=5.0 * m,
+        extra=dict(
+            max_degree=int(np.diff(g.offsets).max()),
+            matched=int(matched.sum()),
+            live_senders=int((plain >= 0).sum())))
+
+
 def _check_qll(state, g, topo, kind, label, gen):
     """``quotient_link_loads`` on graph ``g``'s arcs over ``topo``, the
     partition random (``kind`` "random") or ``arange(n) * k // n``
@@ -820,6 +898,113 @@ def bag_plain(rows_of, w, chunk=1 << 14):
 
 BAG_TOLERANCE = ("rtol 1e-6 + 2*D*2^-24*sum_d|w*row| (two float32 sums in "
                  "different orders)")
+BF16_BAG_TOLERANCE = ("1 bf16 ulp of |out| + rtol 1e-6 + "
+                      "2*D*2^-24*sum_d|w*row| against the float32 plain sum "
+                      "of the bf16 rows rounded once to bf16")
+# the L2 probe: a buffer that fits the 50 MB L2, read this many times
+L2_PROBE_BYTES = 40 << 20
+L2_PROBE_REPS = 20
+
+
+def bag_bytes(b, d, f, unique, elem):
+    """The bound's bytes of a gather_combine call: each distinct row the
+    bags name once, the ids and weights (8 B a slot), the output."""
+    return elem * unique * f + 8.0 * b * d + elem * b * f
+
+
+def l2_read_rate(state):
+    """Bytes per second the card reads from L2 (``csrc/l2_read.cu``): a
+    40 MB buffer read ``L2_PROBE_REPS`` times against once, the difference
+    of the two device times over the difference of the bytes."""
+    import ctypes
+
+    import torch
+
+    from repro_torch.kernels import build
+    if "l2_rate" not in state:
+        dev = torch.device("cuda")
+        buf = torch.zeros(L2_PROBE_BYTES // 4, device=dev)
+        sink = torch.zeros(1, device=dev)
+        fn = build.entry("l2_read", [ctypes.c_void_p, ctypes.c_longlong,
+                                     ctypes.c_int, ctypes.c_void_p,
+                                     ctypes.c_int, ctypes.c_void_p])
+
+        def run(reps):
+            build.check("l2_read", fn(build.ptr(buf), L2_PROBE_BYTES, reps,
+                                      build.ptr(sink), build.sm_count(dev),
+                                      build.stream_of(dev)))
+        many = device_ms(lambda: run(L2_PROBE_REPS), 10)
+        once = device_ms(lambda: run(1), 10)
+        state["l2_rate"] = dict(
+            bytes=L2_PROBE_BYTES, reps=L2_PROBE_REPS, ms=many, ms_once=once,
+            bytes_per_s=(L2_PROBE_REPS - 1) * L2_PROBE_BYTES
+            / ((many - once) * 1e-3))
+    return state["l2_rate"]
+
+
+def tile_dedup(ids, tiles):
+    """Distinct rows per tile of T consecutive bags of ``ids`` [B, D], for
+    each T of ``tiles``: mean and most over the tiles, and the share of row
+    reads that reading each distinct row once per tile saves."""
+    import numpy as np
+    a = ids.cpu().numpy()
+    b, d = a.shape
+    out = {}
+    for t in tiles:
+        k = b // t
+        srt = np.sort(a[:k * t].reshape(k, t * d), axis=1)
+        distinct = 1 + (np.diff(srt, axis=1) != 0).sum(1)
+        out[str(t)] = dict(mean=float(distinct.mean()),
+                           max=int(distinct.max()),
+                           reads_saved=float(1 - distinct.sum() / (k * t * d)))
+    return out
+
+
+def gather_extra(tbl, idx, unique, l2_rate, sms):
+    """A gather_combine row's extra readings: its path, the distinct rows,
+    and the every-slot bounds (each slot's row read from device memory, and
+    from L2 at the measured rate)."""
+    from repro_torch.kernels import gather_combine
+    (b, d), f, elem = idx.shape, tbl.shape[1], tbl.element_size()
+    per_slot = elem * b * d * f + 8.0 * b * d + elem * b * f
+    return dict(
+        dtype=str(tbl.dtype).replace("torch.", ""), unique_rows=unique,
+        path=gather_combine.path(b, f, tbl.dtype, tbl.data_ptr() % 16 == 0,
+                                 sms),
+        bound_ms_every_slot=bound(per_slot, 2.0 * b * d * f)[0],
+        bound_ms_every_slot_l2=per_slot / l2_rate["bytes_per_s"] * 1e3)
+
+
+def bf16_ulp(x):
+    """One bf16 ulp of |x| (8 significant bits), 0 where x is 0."""
+    import torch
+    _, e = torch.frexp(x.double())
+    ulp = torch.ldexp(torch.ones_like(x, dtype=torch.float64), e - 8)
+    return torch.where(x == 0, torch.zeros_like(ulp), ulp)
+
+
+def bf16_bag_judge(table16, idx, w, got, want):
+    """``gather_combine`` on a bf16 table against ``want``, the float32
+    plain sum of the bf16 rows rounded once to bf16: every element within 1
+    bf16 ulp of |want| plus the float32 band. Two planted faults must fail
+    it: the output x (1 + 2^-7), and the first live slot of bag 0 dropped
+    (its weight zeroed in a second kernel call)."""
+    from repro_torch.kernels import gather_combine
+    tol = bag_plain(lambda i, j: table16[idx[i:j]].float(), w)[1]
+    band = bf16_ulp(want) + 1e-6 * want.double().abs() + tol
+
+    def share(x):
+        return float(((x.double() - want.double()).abs() / band).max())
+    w2 = w.clone()
+    j = int((w2[0] > 0).nonzero()[0])
+    w2[0, j] = 0.0
+    read = dict(worst_share=share(got),
+                scaled_fault_share=share(got.double() * (1 + 2 ** -7)),
+                dropped_fault_share=share(
+                    gather_combine.gather_combine(table16, idx, w2)))
+    ok = (read["worst_share"] <= 1.0 and read["scaled_fault_share"] > 1.0
+          and read["dropped_fault_share"] > 1.0)
+    return ok, BF16_BAG_TOLERANCE, read
 
 
 def phase_kernels_recsys(state):
@@ -827,7 +1012,9 @@ def phase_kernels_recsys(state):
     stream's histories on a 1M x 256 table): serve_p99 (512 bags, the main
     shape), serve_bulk (262,144 bags; bag_combine reads a 13.4 GB
     [262144, 50, 256] tensor) and one retrieve query (1 bag), and at a
-    ragged shape."""
+    ragged shape; gather_combine also on a bf16 copy of the table at
+    serve_p99 and serve_bulk. First the card's L2 read rate and the
+    distinct rows per tile of consecutive bulk bags."""
     import torch
     import torch.nn.functional as F
 
@@ -853,6 +1040,12 @@ def phase_kernels_recsys(state):
          p99["w"][:1]),
         ("serve_bulk", table, bulk["user_hist"].clamp_min(0), bulk["w"]),
     ]
+    l2_rate = l2_read_rate(state)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    emit("kernels", kernel="gather_combine", step="tile_dedup",
+         ids="serve_bulk", tiles=tile_dedup(bulk["user_hist"].clamp_min(0),
+                                            (1, 2, 4, 8, 16)),
+         l2_read=l2_rate)
     for label, tbl, idx, w in cases:
         (b, d), f = idx.shape, tbl.shape[1]
         rows = tbl[idx]
@@ -860,10 +1053,6 @@ def phase_kernels_recsys(state):
         tol = bag_plain(lambda i, j, rows=rows: rows[i:j], w)[1]
         iters = 5 if label == "serve_bulk" else 30
         flops = 2.0 * b * d * f
-        # the rows the bags name, each read once (a Zipf stream repeats hot
-        # rows; the bound counts them once), ids, weights, output
-        per_slot = 4.0 * b * d * f + 8.0 * b * d + 4.0 * b * f
-        once = 4.0 * unique * f + 8.0 * b * d + 4.0 * b * f
         _check_kernel(
             state, "gather_combine", [b, d, f, tbl.shape[0], label],
             lambda: gather_combine.gather_combine(tbl, idx, w),
@@ -871,9 +1060,8 @@ def phase_kernels_recsys(state):
             rtol=1e-6, atol=tol, tolerance=BAG_TOLERANCE, iters=iters,
             library=lambda: F.embedding_bag(idx, tbl, per_sample_weights=w,
                                             mode="sum"),
-            bytes_moved=once, flops=flops,
-            extra=dict(unique_rows=unique,
-                       bound_ms_every_slot=bound(per_slot, flops)[0]))
+            bytes_moved=bag_bytes(b, d, f, unique, 4), flops=flops,
+            extra=gather_extra(tbl, idx, unique, l2_rate, sms))
         _check_kernel(
             state, "bag_combine", [b, d, f, label],
             lambda: bag_combine.bag_combine(rows, w),
@@ -882,6 +1070,30 @@ def phase_kernels_recsys(state):
             library=lambda: torch.bmm(w[:, None, :], rows),
             bytes_moved=4.0 * b * d * f + 4.0 * b * d + 4.0 * b * f,
             flops=flops)
+        del rows, tol
+
+    # gather_combine on a bf16 copy of the table: float32 sums rounded once
+    # to bf16, held to the float32 plain sum of the bf16 values rounded
+    # once, within 1 bf16 ulp plus the float32 band; two planted faults
+    # must fail the band
+    table16 = table.to(torch.bfloat16)
+    for label, _, idx, w in (cases[0], cases[3]):
+        (b, d), f = idx.shape, table16.shape[1]
+        unique = int(torch.unique(idx).numel())
+        iters = 5 if label == "serve_bulk" else 30
+        _check_kernel(
+            state, "gather_combine", [b, d, f, table16.shape[0], label,
+                                      "bf16"],
+            lambda: gather_combine.gather_combine(table16, idx, w),
+            lambda: gather_combine.plain(table16, idx, w), exact=False,
+            judge=functools.partial(bf16_bag_judge, table16, idx, w),
+            iters=iters,
+            library=lambda: F.embedding_bag(idx, table16,
+                                            per_sample_weights=w.to(
+                                                torch.bfloat16), mode="sum"),
+            bytes_moved=bag_bytes(b, d, f, unique, 2), flops=2.0 * b * d * f,
+            extra=gather_extra(table16, idx, unique, l2_rate, sms))
+    del table16
 
     # one retrieve query (1 bag): the two kernels, their plain versions and
     # their library calls in alternation, one call each per round (L2
@@ -1278,8 +1490,8 @@ def phase_recsys(state):
         c0 = ops.launch_counts()
         _, cold = _wall(serve)
         out[shape], warm = _wall(serve, reps)
-        trace = _traced(serve, {"bag_reduce_kernel": ("bag_combine",
-                                                      "gather_combine")})
+        trace = _traced(serve, {"bag_reduce": ("bag_combine",
+                                               "gather_combine")})
         emit("recsys", step="serve", shape=shape, batch=b, cold_ms=cold,
              warm_ms=warm, warm_reps=reps,
              max_memory_allocated=torch.cuda.max_memory_allocated(),
@@ -2847,10 +3059,11 @@ def kernels_line(state):
     out = []
     for name, (source, replaces, paths) in KERNEL_INFO.items():
         rows = state["kernel_rows"][name]
-        path = paths[0]
+        path = paths[0] if paths else None
         out.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            path=path, launches=state["launches"][path][name],
+            path=path,
+            launches=state["launches"][path][name] if path else 0,
             launches_by_path={p: c[name]
                               for p, c in state["launches"].items()},
             max_abs_err=max(r["max_abs_err"] for r in rows),
@@ -2861,6 +3074,18 @@ def kernels_line(state):
             out[-1]["ranking"] = state["bucket_ranking"]
         if name in ("bag_combine", "gather_combine"):  # at one query
             out[-1]["retrieve_query"] = state["bag_ranking"]
+        if name == "match_keys":           # off the path: match_round
+            out[-1]["on_path_as"] = "match_round"
+        if name == "match_round":          # every case; the old sequence
+            out[-1]["shapes"] = [{k: r.get(k) for k in (
+                "shape", "ms", "call_ms", "plain_ms", "bound_ms",
+                "max_degree")} for r in rows]
+        if name == "gather_combine":       # bulk, ragged, one query, bf16
+            out[-1]["shapes"] = [{k: r.get(k) for k in (
+                "shape", "dtype", "path", "ms", "call_ms",
+                "plain_ms", "library_ms", "bound_ms", "bound_ms_every_slot",
+                "bound_ms_every_slot_l2", "max_abs_err", "readings")}
+                for r in rows]
         if name == "bsr_spmm":             # both bounds, the slabs read
             out[-1].update({k: rows[0][k] for k in (
                 "bound_ms_stored_blocks", "tile", "slabs_read",

@@ -5,9 +5,9 @@ Twin of ``repro/core/coarsen.py``, with two interchangeable front ends:
   * the host-numpy path (``coarsen``) — lexsort / ``np.add.at`` /
     ``np.unique``; a copy of the reference, exact for the same seed;
   * the device path (``coarsen_device``) — the same heavy-edge matching and
-    contraction as torch segment ops on the device (``segment_max``
-    proposal argmax, cumsum rank/relabel, stable-argsort edge dedup), with
-    the per-round jittered arc keys from the ``match_keys`` CUDA kernel.
+    contraction as torch segment ops on the device (cumsum rank/relabel,
+    stable-argsort edge dedup), each matching round's mask, jittered keys
+    and two-pass segment argmax fused in the ``match_round`` CUDA kernel.
     The reference pads arrays to powers of two to bound XLA recompiles;
     PyTorch runs eagerly, so the port does not pad (padded arcs carried
     key -1 and never won). Per level, the two counts (coarse nodes and
@@ -135,25 +135,16 @@ def coarsen_step(s: torch.Tensor, r: torch.Tensor, w: torch.Tensor,
     i32 = torch.int32
     s64, r64 = s.long(), r.long()            # int64 indices, once per level
     iota_n = torch.arange(n, dtype=i32, device=dev)
-    iota_m = torch.arange(m, dtype=i32, device=dev)
-    no_arc = torch.full((m,), -1, dtype=i32, device=dev)
-    w_pos = (w > 0).to(torch.float32)
     matched = torch.zeros(n, dtype=torch.bool, device=dev)
     partner = iota_n
 
     for rnd in range(rounds):
-        elig = (~matched).to(torch.float32)
-        mask = elig[s64] * elig[r64] * w_pos
         u = torch.as_tensor(draws.match(level, rnd, m), dtype=torch.float32,
                             device=dev)
-        keys = kops.match_keys(w, u, mask)
-        # two-pass exact segment argmax: per-sender max key, then the max
-        # arc id among arcs attaining it (deterministic tie-break). Empty
-        # segments hold -inf / int-min, so vertices without a live arc
-        # get best_arc < 0 and propose themselves.
-        seg = segment_max(keys, s64, n)
-        at_max = (keys > 0) & (keys >= seg[s64])
-        best_arc = segment_max(torch.where(at_max, iota_m, no_arc), s64, n)
+        # per sender, the live arc of the largest jittered key (the largest
+        # arc id among equal keys), < 0 where none: the vertex proposes
+        # itself
+        best_arc = kops.match_round(s, r, w, u, matched)
         prop = torch.where(best_arc >= 0, r[best_arc.clamp_min(0).long()],
                            iota_n)
         mutual = (prop[prop.long()] == iota_n) & (prop != iota_n)

@@ -22,7 +22,9 @@
 // the slots are added in order starting from 0 on either path, so both
 // kernels give bitwise the same result for the same rows and weights, and
 // the result matches the TPU kernels' mul-then-add. Slots of weight 0 are
-// read like any other.
+// read like any other. A bf16 table (gather_combine) is widened to float
+// as it is read, summed in float32 the same way, and the sum is rounded
+// once to bf16 as it is stored.
 //
 // A grid that cannot fill the card (fewer blocks than the multiprocessors
 // the wrapper passes; one retrieve query is one bag) takes a third path that
@@ -36,6 +38,8 @@
 // row addresses come from the ids), not one per kBagDepth rows. The slots
 // are summed in the same order with the same rounding.
 #pragma once
+
+#include <cuda_bf16.h>
 
 #include <algorithm>
 
@@ -67,14 +71,87 @@ __device__ __forceinline__ float4 bag_acc(float4 acc, float w, float4 t) {
   return acc;
 }
 
-// V is float4 or float; cols = F / (sizeof(V) / 4) columns of V per row;
-// kDepth rows are loaded before they are summed (kBagDepth or 1).
+// The stored column type V of a row (float4, float, eight bf16 or one) and
+// its float accumulator: a loaded column is widened to float where it is
+// added (so the rows in flight keep their stored size in registers), and
+// the store rounds once.
+template <typename V> struct BagCol;
+template <> struct BagCol<float4> {
+  using Acc = float4;
+  static __device__ __forceinline__ float4 widen(float4 a) { return a; }
+  static __device__ __forceinline__ void store(float4* p, float4 a) {
+    *p = a;
+  }
+};
+template <> struct BagCol<float> {
+  using Acc = float;
+  static __device__ __forceinline__ float widen(float a) { return a; }
+  static __device__ __forceinline__ float ldg(const float* p) {
+    return __ldg(p);
+  }
+  static __device__ __forceinline__ void store(float* p, float a) { *p = a; }
+};
+// eight bf16 columns (16 bytes) and their float accumulators
+struct __align__(16) Bf16x8 {
+  __nv_bfloat162 h[4];
+};
+struct Float8 {
+  float v[8];
+};
+__device__ __forceinline__ Float8 bag_zero(Float8*) {
+  Float8 a;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) a.v[i] = 0.0f;
+  return a;
+}
+__device__ __forceinline__ Float8 bag_acc(Float8 acc, float w, Float8 t) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i) acc.v[i] = bag_acc(acc.v[i], w, t.v[i]);
+  return acc;
+}
+template <> struct BagCol<Bf16x8> {
+  using Acc = Float8;
+  static __device__ __forceinline__ Float8 widen(Bf16x8 q) {
+    Float8 a;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 t = __bfloat1622float2(q.h[i]);
+      a.v[2 * i] = t.x;
+      a.v[2 * i + 1] = t.y;
+    }
+    return a;
+  }
+  static __device__ __forceinline__ void store(Bf16x8* p, Float8 a) {
+    Bf16x8 q;
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      q.h[i] = __floats2bfloat162_rn(a.v[2 * i], a.v[2 * i + 1]);
+    *p = q;
+  }
+};
+template <> struct BagCol<__nv_bfloat16> {
+  using Acc = float;
+  static __device__ __forceinline__ float widen(__nv_bfloat16 h) {
+    return __bfloat162float(h);
+  }
+  static __device__ __forceinline__ float ldg(const __nv_bfloat16* p) {
+    return __bfloat162float(__ldg(p));
+  }
+  static __device__ __forceinline__ void store(__nv_bfloat16* p, float a) {
+    *p = __float2bfloat16_rn(a);
+  }
+};
+
+// V is float4 or float (a float32 table) or Bf16x8 or __nv_bfloat16 (a
+// bf16 table); cols = F / (elements of V) columns of V per row; kDepth rows
+// are loaded before they are summed (kBagDepth or 1).
 template <typename V, bool kGather, int kDepth>
-__global__ void bag_reduce_kernel(const float* __restrict__ src,
+__global__ void bag_reduce_kernel(const void* __restrict__ src,
                                   const int* __restrict__ idx,
                                   const float* __restrict__ w,
-                                  float* __restrict__ out, long long n_bags,
+                                  void* __restrict__ out, long long n_bags,
                                   int d, int cols) {
+  using Acc = typename BagCol<V>::Acc;
   __shared__ int s_idx[kBagMaxRows][kBagChunk];
   __shared__ float s_w[kBagMaxRows][kBagChunk];
   const int by = threadIdx.y;
@@ -83,7 +160,7 @@ __global__ void bag_reduce_kernel(const float* __restrict__ src,
   const bool live = b < n_bags;
   const bool active = live && col < cols;
   const V* rows = reinterpret_cast<const V*>(src);
-  V acc = bag_zero(static_cast<V*>(nullptr));
+  Acc acc = bag_zero(static_cast<Acc*>(nullptr));
   for (int d0 = 0; d0 < d; d0 += kBagChunk) {
     const int nd = min(kBagChunk, d - d0);
     if (live) {
@@ -109,22 +186,24 @@ __global__ void bag_reduce_kernel(const float* __restrict__ src,
         }
 #pragma unroll
         for (int u = 0; u < kDepth; ++u) {
-          if (j0 + u < nd) acc = bag_acc(acc, s_w[by][j0 + u], t[u]);
+          if (j0 + u < nd)
+            acc = bag_acc(acc, s_w[by][j0 + u], BagCol<V>::widen(t[u]));
         }
       }
     }
     __syncthreads();
   }
-  if (active) reinterpret_cast<V*>(out)[b * cols + col] = acc;
+  if (active)
+    BagCol<V>::store(reinterpret_cast<V*>(out) + b * cols + col, acc);
 }
 
 // The small-grid path: block (32), grid (ceil(f / 32), n_bags); kChunk
-// slots in flight per thread.
-template <bool kGather, int kChunk>
+// slots in flight per thread; E is the element type (float or bf16).
+template <typename E, bool kGather, int kChunk>
 __global__ void __launch_bounds__(32)
-bag_reduce_small_kernel(const float* __restrict__ src,
+bag_reduce_small_kernel(const E* __restrict__ src,
                         const int* __restrict__ idx,
-                        const float* __restrict__ w, float* __restrict__ out,
+                        const float* __restrict__ w, E* __restrict__ out,
                         int d, int f) {
   const long long b = blockIdx.y;
   const int lane = threadIdx.x;
@@ -158,7 +237,7 @@ bag_reduce_small_kernel(const float* __restrict__ src,
       for (int h = 1; h < kH; ++h) held = uc >= h * 32 ? il[h] : held;
       const long long row =
           kGather ? __shfl_sync(0xffffffffu, held, uc & 31) : slot0 + uc;
-      t[u] = __ldg(src + row * f + col_in);
+      t[u] = BagCol<E>::ldg(src + row * f + col_in);
     }
 #pragma unroll
     for (int u = 0; u < kChunk; ++u) {
@@ -167,13 +246,13 @@ bag_reduce_small_kernel(const float* __restrict__ src,
       acc = u < nd ? next : acc;
     }
   }
-  if (active) out[b * f + col] = acc;
+  if (active) BagCol<E>::store(out + b * f + col, acc);
 }
 
 template <typename V, bool kGather>
 static void bag_reduce_run(dim3 grid, dim3 block, cudaStream_t s, bool deep,
-                           const float* src, const int* idx, const float* w,
-                           float* out, long long n_bags, int d, int cols) {
+                           const void* src, const int* idx, const float* w,
+                           void* out, long long n_bags, int d, int cols) {
   if (deep) {
     bag_reduce_kernel<V, kGather, kBagDepth><<<grid, block, 0, s>>>(
         src, idx, w, out, n_bags, d, cols);
@@ -204,37 +283,65 @@ static bool bag_small_grid(long long n_bags, int f, int vec, int sms) {
   return static_cast<long long>(g.x) * g.y < sms && n_bags <= 65535;
 }
 
-// Launch over n_bags bags of d slots and f floats on a card of sms
-// multiprocessors; vec is 4 (float4 rows, f % 4 == 0 and 16-byte aligned
-// pointers, checked by the wrapper) or 1.
-template <bool kGather>
+// The vec the small-grid rule reads: the launch's own for float32, float4
+// columns (where f % 4 == 0) for bf16.
+template <typename E>
+static int bag_rule_vec(int f, int vec) {
+  if constexpr (sizeof(E) == 2) return f % 4 == 0 ? 4 : 1;
+  return vec;
+}
+
+// The small-grid path, for E = float or __nv_bfloat16.
+template <typename E, bool kGather>
+static void bag_reduce_small_run(cudaStream_t s, const void* src,
+                                 const int* idx, const float* w, void* out,
+                                 long long n_bags, int d, int f) {
+  const dim3 grid((f + 31) / 32, static_cast<unsigned>(n_bags));
+  const E* src_e = static_cast<const E*>(src);
+  E* out_e = static_cast<E*>(out);
+  if (d <= kBagSmallShort)
+    bag_reduce_small_kernel<E, kGather, kBagSmallShort>
+        <<<grid, 32, 0, s>>>(src_e, idx, w, out_e, d, f);
+  else
+    bag_reduce_small_kernel<E, kGather, kBagSmallChunk>
+        <<<grid, 32, 0, s>>>(src_e, idx, w, out_e, d, f);
+}
+
+// Launch over n_bags bags of d slots and f elements on a card of sms
+// multiprocessors. E = float: vec is 4 (float4 rows, f % 4 == 0 and
+// 16-byte aligned pointers, checked by the wrapper) or 1; E =
+// __nv_bfloat16: vec is 8 (16-byte rows of eight, likewise) or 1. The
+// small-grid rule reads the grid of float4 columns (vec 4 where f % 4 ==
+// 0) for either type, so a bf16 call takes the path a float32 one of the
+// same shape takes.
+template <bool kGather, typename E = float>
 static int bag_reduce_launch(const void* src, const void* idx, const void* w,
                              void* out, long long n_bags, int d, int f,
                              int vec, int sms, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* src_f = static_cast<const float*>(src);
   const int* idx_i = static_cast<const int*>(idx);
   const float* w_f = static_cast<const float*>(w);
-  float* out_f = static_cast<float*>(out);
-  if (bag_small_grid(n_bags, f, vec, sms)) {
-    const dim3 grid((f + 31) / 32, static_cast<unsigned>(n_bags));
-    if (d <= kBagSmallShort)
-      bag_reduce_small_kernel<kGather, kBagSmallShort>
-          <<<grid, 32, 0, s>>>(src_f, idx_i, w_f, out_f, d, f);
-    else
-      bag_reduce_small_kernel<kGather, kBagSmallChunk>
-          <<<grid, 32, 0, s>>>(src_f, idx_i, w_f, out_f, d, f);
+  if (bag_small_grid(n_bags, f, bag_rule_vec<E>(f, vec), sms)) {
+    bag_reduce_small_run<E, kGather>(s, src, idx_i, w_f, out, n_bags, d, f);
     return static_cast<int>(cudaGetLastError());
   }
   const int cols = f / vec;
   const BagGeometry geo = bag_geometry(n_bags, cols);
   const bool deep = n_bags * cols <= kBagDeepMaxThreads;
-  if (vec == 4) {
-    bag_reduce_run<float4, kGather>(geo.grid, geo.block, s, deep, src_f,
-                                    idx_i, w_f, out_f, n_bags, d, cols);
+  if constexpr (sizeof(E) == 2) {
+    if (vec == 8)
+      bag_reduce_run<Bf16x8, kGather>(geo.grid, geo.block, s, deep, src,
+                                      idx_i, w_f, out, n_bags, d, cols);
+    else
+      bag_reduce_run<__nv_bfloat16, kGather>(geo.grid, geo.block, s, deep,
+                                             src, idx_i, w_f, out, n_bags, d,
+                                             cols);
+  } else if (vec == 4) {
+    bag_reduce_run<float4, kGather>(geo.grid, geo.block, s, deep, src, idx_i,
+                                    w_f, out, n_bags, d, cols);
   } else {
-    bag_reduce_run<float, kGather>(geo.grid, geo.block, s, deep, src_f,
-                                   idx_i, w_f, out_f, n_bags, d, cols);
+    bag_reduce_run<float, kGather>(geo.grid, geo.block, s, deep, src, idx_i,
+                                   w_f, out, n_bags, d, cols);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -7,7 +7,9 @@ replaces. ``ops.py`` is the public API; ``build.py`` compiles the sources
 with ``nvcc`` at first use and loads them with ``ctypes``.
 
 Kernels (the partitioner's main path):
-  * ``match_keys`` — jittered masked arc keys of device heavy-edge matching.
+  * ``match_keys`` — jittered masked arc keys of device heavy-edge matching,
+    and ``match_round``, the whole matching round fused (the coarsening
+    path's kernel).
   * ``bucket_assign`` — capacity-boundary bucket search of the device
     initial partition.
   * ``quotient_link_loads`` — the paper's objective: arc list -> per-link
@@ -19,7 +21,7 @@ Kernels (the two-tower serving path):
   * ``bag_combine`` — the weighted bag reduction of ``embedding_bag`` over
     pre-gathered rows (``TwoTower`` user tower input).
   * ``gather_combine`` — the same reduction with the row gather fused
-    (``ShardedEmbeddingTable.lookup_bags``).
+    (``ShardedEmbeddingTable.lookup_bags``), on float32 or bf16 tables.
 
 Kernel (the GIN path):
   * ``bsr_spmm`` — block-sparse ``A @ X`` over a BSR layout's 128 x 128

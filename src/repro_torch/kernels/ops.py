@@ -34,13 +34,17 @@ KERNEL_MODULES = {"match_keys": _mk, "bucket_assign": _ba,
 
 
 def launch_counts() -> Dict[str, int]:
-    """CUDA launches of each kernel since the last reset."""
-    return {name: mod.launches for name, mod in KERNEL_MODULES.items()}
+    """CUDA launches of each kernel since the last reset; ``match_round``
+    is the fused matching round of ``match_keys.cu``."""
+    counts = {name: mod.launches for name, mod in KERNEL_MODULES.items()}
+    counts["match_round"] = _mk.round_launches
+    return counts
 
 
 def reset_launch_counts() -> None:
     for mod in KERNEL_MODULES.values():
         mod.launches = 0
+    _mk.round_launches = 0
     _qll.launch_shapes.clear()
 
 
@@ -48,6 +52,14 @@ def match_keys(w: torch.Tensor, u: torch.Tensor,
                mask: torch.Tensor) -> torch.Tensor:
     """key[a] = w[a]*(1 + 0.01*u[a]) on arcs with mask>0, else -1. [m]"""
     return _mk.match_keys(w, u, mask)
+
+
+def match_round(s: torch.Tensor, r: torch.Tensor, w: torch.Tensor,
+                u: torch.Tensor, matched: torch.Tensor) -> torch.Tensor:
+    """One heavy-edge matching round: per sender, the live arc (both ends
+    unmatched, w > 0) of the largest jittered key, the largest arc id
+    among equal keys; -1 where none. [n] int32"""
+    return _mk.match_round(s, r, w, u, matched)
 
 
 def bucket_assign(cum: torch.Tensor, boundaries: torch.Tensor,

@@ -9,12 +9,15 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 from test_torch_replay import JaxDraws, float_graph, pow2
 
 from repro.core import coarsen as jcoarsen
 from repro.graph.generators import grid2d, rmat
 from repro_torch import interop
 from repro_torch.core import coarsen as tcoarsen
+from repro_torch.graph.graph import from_edges
 
 torch.set_num_threads(1)
 
@@ -132,3 +135,91 @@ def test_coarsen_device_requires_cuda_unless_cpu_is_asked(monkeypatch):
     g = interop.graph_from_arrays(float_graph(100, 300))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tcoarsen.coarsen_device(g, k=2)
+
+
+def _reference_round(s, r, w, u, matched):
+    """The reference's matching round (``repro/core/coarsen.py:138-151``)
+    on unpadded arrays, with its own ``ops.match_keys`` (the Pallas kernel
+    in interpret mode): best_arc and prop."""
+    from repro.kernels import ops as jops
+    n, m = matched.shape[0], w.shape[0]
+    s_j, r_j = jnp.asarray(s), jnp.asarray(r)
+    elig = (~jnp.asarray(matched)).astype(jnp.float32)
+    w_j = jnp.asarray(w)
+    mask = elig[s_j] * elig[r_j] * (w_j > 0).astype(jnp.float32)
+    keys = jops.match_keys(w_j, jnp.asarray(u), mask, interpret=True)
+    seg = jax.ops.segment_max(keys, s_j, num_segments=n)
+    at_max = (keys > 0) & (keys >= seg[s_j])
+    best = jax.ops.segment_max(jnp.where(at_max, jnp.arange(m, dtype=jnp.int32),
+                                         -1), s_j, num_segments=n)
+    iota = jnp.arange(n, dtype=jnp.int32)
+    prop = jnp.where(best >= 0, r_j[jnp.clip(best, 0)], iota)
+    return np.asarray(best), np.asarray(prop)
+
+
+def _round_case(name):
+    """(graph arrays, jitter, matched) of a round: integer weights with no
+    jitter (every key tied inside a row), a graph with isolated vertices,
+    and float weights with a third of the vertices matched."""
+    rng = np.random.default_rng(7)
+    if name == "tied":
+        g = grid2d(12, 9)
+        u = np.zeros(g.n_arcs, np.float32)
+        matched = np.zeros(g.n_nodes, bool)
+    elif name == "isolated":
+        src = rng.integers(0, 60, 150)
+        g = from_edges(100, src, (src + rng.integers(1, 40, 150)) % 60,
+                       rng.integers(1, 4, 150).astype(np.float32),
+                       np.ones(100, np.float32))
+        u = rng.random(g.n_arcs).astype(np.float32)
+        matched = np.zeros(g.n_nodes, bool)
+    else:
+        g = float_graph(700, 2500, seed=3)
+        u = rng.random(g.n_arcs).astype(np.float32)
+        matched = rng.random(g.n_nodes) < 1 / 3
+    return g, u, matched
+
+
+@pytest.mark.parametrize("name", ["tied", "isolated", "partly_matched"])
+def test_match_round_plain_is_the_reference_round(name):
+    from repro_torch.kernels import match_keys as tmk
+    g, u, matched = _round_case(name)
+    best_ref, prop_ref = _reference_round(g.senders, g.receivers,
+                                          g.edge_weight, u, matched)
+    best = tmk.match_round_plain(torch.from_numpy(g.senders),
+                                 torch.from_numpy(g.receivers),
+                                 torch.from_numpy(g.edge_weight),
+                                 torch.from_numpy(u),
+                                 torch.from_numpy(matched)).numpy()
+    assert best.dtype == np.int32
+    live = best_ref >= 0
+    np.testing.assert_array_equal(best[live], best_ref[live])
+    assert (best[~live] == -1).all()
+    if name == "isolated":
+        assert (np.bincount(g.senders, minlength=g.n_nodes) == 0).any()
+        assert (~live).any()
+    prop = np.where(best >= 0, g.receivers[np.maximum(best, 0)],
+                    np.arange(g.n_nodes))
+    np.testing.assert_array_equal(prop, prop_ref)
+
+
+F32_MAX = float(np.finfo(np.float32).max)
+
+
+@settings(max_examples=300, deadline=None)
+@given(a=st.floats(min_value=0.0, max_value=F32_MAX, exclude_min=True,
+                   width=32),
+       b=st.floats(min_value=0.0, max_value=F32_MAX, exclude_min=True,
+                   width=32),
+       ia=st.integers(0, 2 ** 31 - 1), ib=st.integers(0, 2 ** 31 - 1))
+def test_match_round_packed_words_order_as_key_then_arc(a, b, ia, ib):
+    """The fused round's 64-bit word ``(key bits << 32) | arc id``
+    (``csrc/match_keys.cu``): for positive float32 keys its unsigned order
+    is (key, arc id) order, so one atomicMax keeps the largest key and,
+    among equal keys, the largest arc id."""
+    def word(key, arc):
+        bits = int(np.float32(key).view(np.uint32))
+        return (bits << 32) | arc
+    ka, kb = np.float32(a), np.float32(b)
+    assert (word(ka, ia) > word(kb, ib)) == ((ka, ia) > (kb, ib))
+    assert (word(ka, ia) == word(kb, ib)) == ((ka, ia) == (kb, ib))

@@ -21,7 +21,7 @@ from repro_torch.core.partitioner import PartitionConfig, partition, verify
 from repro_torch.core.reference import total_cut_ref
 from repro_torch.core.topology import (balanced_tree, guess_tree,
                                        production_tree)
-from repro_torch.graph.generators import rmat
+from repro_torch.graph.generators import grid3d, rmat
 from repro_torch.graph.graph import from_edges
 from repro_torch.configs import gin_tu
 from repro_torch.configs.two_tower_retrieval import SMOKE, smoke_batch
@@ -289,7 +289,96 @@ def test_small_partition_on_the_card_passes_the_oracle(cuda, backend):
     counts = ops.launch_counts()
     assert counts["quotient_link_loads"] > 0 and counts["partition_gain"] > 0
     if backend == "device":
-        assert counts["match_keys"] > 0 and counts["bucket_assign"] == 1
+        # the coarsening runs each matching round as one fused launch
+        assert counts["match_round"] > 0 and counts["bucket_assign"] == 1
+        assert counts["match_keys"] == 0
+
+
+def _hub_graph(n=30_000, hub_arcs=12_000, extra=60_000, seed=0):
+    """Vertex 0 joined to 12,000 others (a CSR row of >= 10,000 arcs), and
+    random edges; integer weights, so keys tie where the jitter is 0."""
+    rng = np.random.default_rng(seed)
+    hub = rng.choice(np.arange(1, n), hub_arcs, replace=False)
+    u = np.concatenate([np.zeros(hub_arcs, np.int64),
+                        rng.integers(0, n, extra)])
+    v = np.concatenate([hub, rng.integers(0, n, extra)])
+    return from_edges(n, u, v, rng.integers(1, 4, u.size).astype(np.float32),
+                      np.ones(n, np.float32))
+
+
+MATCH_ROUND_GRAPHS = {
+    "grid": lambda: grid3d(24, 24, 24),
+    "rmat": lambda: rmat(20_000, 120_000, seed=1),
+    "hub": _hub_graph,
+}
+
+
+def _round_args(cuda, g, jitter, matched_share, seed=0):
+    gen = _gen(cuda, seed)
+    s = torch.as_tensor(g.senders, device=cuda)
+    r = torch.as_tensor(g.receivers, device=cuda)
+    w = torch.as_tensor(g.edge_weight, device=cuda)
+    u = (torch.rand(g.n_arcs, generator=gen, device=cuda) if jitter
+         else torch.zeros(g.n_arcs, device=cuda))
+    matched = torch.rand(g.n_nodes, generator=gen, device=cuda) < matched_share
+    return s, r, w, u, matched
+
+
+@pytest.mark.parametrize("name", sorted(MATCH_ROUND_GRAPHS))
+@pytest.mark.parametrize("jitter", [True, False], ids=["jitter", "ties"])
+@pytest.mark.parametrize("matched_share", [0.0, 0.4])
+def test_match_round_is_bitwise_the_plain_round(cuda, name, jitter,
+                                                matched_share):
+    g = MATCH_ROUND_GRAPHS[name]()
+    args = _round_args(cuda, g, jitter, matched_share)
+    before = match_keys.round_launches
+    got = match_keys.match_round(*args)
+    assert match_keys.round_launches == before + 1
+    want = match_keys.match_round_plain(*args)
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+    if name == "hub":
+        assert int(np.diff(g.offsets).max()) >= 10_000
+    assert bool((got >= 0).any())
+
+
+@pytest.mark.parametrize("case", ["all_matched", "zero_weights", "no_arcs"])
+def test_match_round_with_no_live_arc_gives_minus_one(cuda, case):
+    g = grid3d(10, 10, 10)
+    s, r, w, u, matched = _round_args(cuda, g, True, 0.0)
+    if case == "all_matched":
+        matched = torch.ones_like(matched)
+    elif case == "zero_weights":
+        w = torch.zeros_like(w)
+    else:
+        s, r, w, u = (x[:0] for x in (s, r, w, u))
+    got = match_keys.match_round(s, r, w, u, matched)
+    assert torch.equal(got, torch.full_like(got, -1))
+    assert torch.equal(got, match_keys.match_round_plain(s, r, w, u, matched))
+
+
+def test_match_round_word_buffer_stays_zero_across_sizes(cuda):
+    """Calls on a larger, a smaller and a larger graph again share one word
+    buffer: each call must find it zero and leave it zero."""
+    for g in (grid3d(20, 20, 20), rmat(500, 3000, seed=2),
+              grid3d(24, 24, 24), rmat(500, 3000, seed=3)):
+        args = _round_args(cuda, g, True, 0.2, seed=g.n_arcs)
+        assert torch.equal(match_keys.match_round(*args),
+                           match_keys.match_round_plain(*args))
+    words = match_keys._words[torch.device("cuda",
+                                           torch.cuda.current_device())]
+    assert int(words[1:].count_nonzero()) == 0
+
+
+def test_match_round_checks_its_arguments(cuda):
+    s, r, w, u, matched = _round_args(cuda, grid3d(4, 4, 4), True, 0.0)
+    with pytest.raises(TypeError, match="dtype"):
+        match_keys.match_round(s.long(), r, w, u, matched)
+    with pytest.raises(TypeError, match="dtype"):
+        match_keys.match_round(s, r, w, u, matched.float())
+    with pytest.raises(ValueError, match="shape"):
+        match_keys.match_round(s, r, w[:5], u, matched)
+    with pytest.raises(ValueError, match="on cpu"):
+        match_keys.match_round(s, r, w, u.cpu(), matched)
 
 
 def _bag_inputs(cuda, b, d, f, v, seed=0):
@@ -425,6 +514,109 @@ def test_bag_wrappers_check_their_arguments(cuda):
         bag_combine.bag_combine(table, w)
     with pytest.raises(ValueError, match="contiguous"):
         bag_combine.bag_combine(table[idx].transpose(0, 1), w.t())
+
+
+def _dup_bag_inputs(cuda, b, d, f, v, dtype, seed=0, offset=0):
+    """Bags whose ids repeat within a bag (every third slot names the bag's
+    first row) and across bags (ids from a small table, and row 0 in a
+    fifth of the slots, as padding puts it), on a table of ``dtype``
+    starting ``offset`` elements into its storage (unaligned where the
+    offset is not a multiple of 16 bytes)."""
+    gen = _gen(cuda, seed)
+    base = torch.randn(v * f + offset, generator=gen, device=cuda).to(dtype)
+    table = base[offset:].view(v, f)
+    idx = torch.randint(0, v, (b, d), generator=gen, device=cuda,
+                        dtype=torch.int32)
+    idx[:, ::3] = idx[:, :1]
+    idx[torch.rand(b, d, generator=gen, device=cuda) < 0.2] = 0
+    w = torch.rand(b, d, generator=gen, device=cuda)
+    return table, idx, w
+
+
+def _in_order_sum(table, idx, w):
+    """Each bag's slots summed from slot 0 in order in float32, every
+    product and sum rounded on its own, then rounded once to the table's
+    dtype."""
+    rows = table[idx].float()
+    acc = torch.zeros(idx.shape[0], table.shape[1], device=table.device)
+    for j in range(idx.shape[1]):
+        acc = acc + w[:, j:j + 1] * rows[:, j]
+    return acc.to(table.dtype)
+
+
+# (bags, slots, F, rows, table offset) and the path each takes in float32
+GATHER_PATH_CASES = [
+    ((512, 50, 256, 300, 0), "rows"),         # serve_p99's shape
+    ((2048, 13, 256, 400, 0), "wide_rows"),   # a grid that fills the card
+    ((3000, 70, 512, 900, 0), "wide_rows"),   # two chunks of 64 slots
+    ((5000, 9, 128, 90, 0), "wide_rows"),     # 16 threads a bag
+    ((1, 50, 256, 64, 0), "small_grid"),      # one retrieve query
+    ((600, 9, 33, 80, 0), "rows"),            # F not a multiple of 4
+    ((600, 9, 64, 80, 1), "rows"),            # an unaligned table
+    ((70_000, 5, 32, 80, 0), "rows"),         # rows too narrow for two
+]                                             # columns a thread
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case,path", GATHER_PATH_CASES,
+                         ids=[p + str(c[:3]) for c, p in GATHER_PATH_CASES])
+def test_gather_combine_paths_are_bitwise_the_in_order_sum(cuda, dtype, case,
+                                                          path):
+    """Every path, in float32 and bf16, with ids repeated within and across
+    the bags a block holds: bitwise the in-order float32 sum rounded once
+    to the table's dtype."""
+    b, d, f, v, offset = case
+    table, idx, w = _dup_bag_inputs(cuda, b, d, f, v, dtype, offset=offset)
+    aligned = table.data_ptr() % 16 == 0
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    if dtype == torch.float32:
+        assert gather_combine.path(b, f, dtype, aligned, sms) == path
+    got = gather_combine.gather_combine(table, idx, w)
+    assert got.dtype == dtype and got.shape == (b, f)
+    assert torch.equal(got, _in_order_sum(table, idx, w))
+
+
+def test_gather_combine_path_rule(cuda):
+    """The kernel's own choice at the recsys shapes, in either dtype:
+    serve_bulk walks its rows two columns a thread, serve_p99 keeps 16 rows
+    a thread in flight, one query takes the small grid; unaligned,
+    serve_bulk takes the one-column row walk, as rows too narrow for two
+    columns a thread do."""
+    P = gather_combine.path
+    for dtype in (torch.float32, torch.bfloat16):
+        assert P(262_144, 256, dtype, True, 132) == "wide_rows"
+        assert P(512, 256, dtype, True, 132) == "rows"
+        assert P(1, 256, dtype, True, 132) == "small_grid"
+        assert P(262_144, 256, dtype, False, 132) == "rows"
+    assert P(262_144, 32, torch.float32, True, 132) == "rows"
+
+
+def test_gather_combine_takes_bf16_and_float32_only(cuda):
+    table, idx, w = _bag_inputs(cuda, 4, 3, 8, 10)
+    for dtype in (torch.float16, torch.float64):
+        with pytest.raises(TypeError, match="dtype"):
+            gather_combine.gather_combine(table.to(dtype), idx, w)
+    before = gather_combine.launches
+    out = gather_combine.gather_combine(table.to(torch.bfloat16), idx, w)
+    assert out.dtype == torch.bfloat16
+    assert gather_combine.launches == before + 1
+
+
+def test_gather_combine_bf16_band_fails_planted_faults(cuda):
+    """The smoke run's bf16 band (1 bf16 ulp of the float32 plain sum
+    rounded once, plus the float32 band) holds the kernel at serve_p99's
+    shape and fails the output x (1 + 2^-7) and a dropped slot."""
+    from chip_smoke import bf16_bag_judge
+    table, idx, w = _bag_inputs(cuda, 512, 50, 256, 5000, seed=9)
+    t16 = (table * 0.01).to(torch.bfloat16)
+    got = gather_combine.gather_combine(t16, idx, w)
+    ok, _, read = bf16_bag_judge(t16, idx, w, got,
+                                 gather_combine.plain(t16, idx, w))
+    assert ok, read
+    assert read["worst_share"] <= 1.0
+    assert read["scaled_fault_share"] > 1.0
+    assert read["dropped_fault_share"] > 1.0
 
 
 def _shuffled_plan(n, seed=0):

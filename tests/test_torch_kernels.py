@@ -274,6 +274,8 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     rng = np.random.default_rng(0)
     x = torch.from_numpy(rng.random(64).astype(np.float32))
     ops.match_keys(x, x, x)
+    arcs = torch.arange(64, dtype=torch.int32) % 8
+    ops.match_round(arcs, arcs.flip(0), x, x, torch.zeros(8, dtype=torch.bool))
     ops.bucket_assign(x, torch.tensor([0.5]), 2)
     part = torch.zeros(64, dtype=torch.int32)
     idx = torch.full((64, 1), 64, dtype=torch.int32)
@@ -293,7 +295,8 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
         "match_keys", "bucket_assign", "quotient_link_loads",
         "partition_gain", "bag_combine", "gather_combine", "bsr_spmm",
         "flash_attention"}
-    assert ops.launch_counts() == {name: 0 for name in ops.KERNEL_MODULES}
+    assert ops.launch_counts() == {name: 0 for name in
+                                   [*ops.KERNEL_MODULES, "match_round"]}
 
 
 @pytest.mark.parametrize("call", [
@@ -318,3 +321,57 @@ def test_wrappers_refuse_devices_without_a_kernel(call):
     device other than the CPU (here ``meta``)."""
     with pytest.raises(ValueError, match="no kernel for device"):
         call(torch.zeros(4, device="meta"))
+
+
+def _bf16_bag_inputs(b, d, f, v):
+    rng = np.random.default_rng(b + d + f)
+    table = rng.normal(0, 1, (v, f)).astype(np.float32)
+    idx = rng.integers(0, v, (b, d)).astype(np.int32)
+    w = rng.random((b, d)).astype(np.float32)
+    return torch.from_numpy(table).to(torch.bfloat16), idx, w
+
+
+@pytest.mark.parametrize("b,d,f,v", [(4, 5, 96, 128), (37, 7, 256, 500),
+                                     (3, 6, 33, 64)])
+def test_gather_combine_bf16_plain_matches_reference(b, d, f, v):
+    """A bf16 table: the plain version against the reference kernel in
+    interpret mode at the reference's own bf16 band and bag depths
+    (``tests/test_embed.py``: rtol = atol = 2e-2; the reference rounds
+    each slot's product into its bf16 output block, so its error grows
+    with D)."""
+    t16, idx, w = _bf16_bag_inputs(b, d, f, v)
+    got = gather_combine.gather_combine(t16, torch.from_numpy(idx),
+                                        torch.from_numpy(w))
+    assert got.dtype == torch.bfloat16 and got.shape == (b, f)
+    ref = jops.gather_combine(jnp.asarray(t16.float().numpy()).astype(
+        jnp.bfloat16), jnp.asarray(idx), jnp.asarray(w), interpret=True)
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(ref, np.float32),
+                               rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.parametrize("b,d,f,v", [(4, 5, 96, 128), (16, 50, 256, 1000),
+                                     (3, 50, 33, 64)])
+def test_gather_combine_bf16_plain_rounds_the_float32_sum_once(b, d, f, v):
+    """The plain version on a bf16 table is the float32 sum of the bf16
+    rows (numpy, float64 products summed in float32 order aside) rounded
+    once to bf16: within one bf16 ulp of it."""
+    t16, idx, w = _bf16_bag_inputs(b, d, f, v)
+    got = gather_combine.gather_combine(t16, torch.from_numpy(idx),
+                                        torch.from_numpy(w))
+    rows = t16.float().numpy()[idx]
+    want = torch.from_numpy(np.einsum("bdf,bd->bf", rows, w)).to(
+        torch.bfloat16).float()
+    err = (got.float() - want).abs()
+    ulp = torch.ldexp(torch.ones_like(err), torch.frexp(want)[1] - 8)
+    assert bool((err <= ulp).all()), float((err / ulp).max())
+
+
+def test_gather_combine_plain_keeps_float32_unchanged():
+    """In float32 the plain version is the gather and einsum it was
+    (``repro/kernels/ref.py``): bitwise ``embedding_bag``'s plain path."""
+    table, idx, w = _bag_inputs(64, 50, 256, 1000)
+    t, i, ww = map(torch.from_numpy, (table, idx, w))
+    want = torch.einsum("bdf,bd->bf", t[i], ww)
+    assert torch.equal(gather_combine.plain(t, i, ww), want)
+    assert gather_combine.plain(t, i, ww).dtype == torch.float32

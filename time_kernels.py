@@ -22,7 +22,9 @@ take either tree);
 ``qll_paths`` times ``quotient_link_loads`` with each of its launch shapes
 forced, the data behind ``kernels/quotient_link_loads.py``'s
 ``SINGLE_BLOCK_ARCS``, ``ARCS_PER_BLOCK`` and ``BLOCKS_PER_SM`` (this
-tree's only). Prints the card's ``nvidia-smi`` line and one JSON line per
+tree's only); ``bag_streams`` times the bulk lookup on four id streams
+(its own, its hot rows spread over the table's pages, all on row 0,
+uniform; either tree). Prints the card's ``nvidia-smi`` line and one JSON line per
 kernel and shape; exits 2 without a CUDA device.
 """
 from __future__ import annotations
@@ -158,11 +160,51 @@ def serve(state):
                             "map_pages_calls", "map_pages_s")})
 
 
+def bag_streams(state):
+    """serve_bulk's lookup (float32 and bf16, 262,144 bags of 50 on the
+    1M x 256 table) on four id streams: its own (Zipf, padding on row 0);
+    the same ids through a bijection of [0, V) (``id * 7919 % V``: every
+    cache sees the same reuse, but the hot rows, the Zipf stream's low ids,
+    spread from the table's first pages over all of it); every slot on row
+    0 (every load after the first hits L1: the kernel's cost without its
+    misses); and uniform ids (almost no reuse: every slot's row from L2 or
+    device memory). Timed in alternation (one call each per round, L2
+    flushed first; median and quartiles)."""
+    import torch
+
+    from repro_torch.configs.two_tower_retrieval import FULL, SHAPES
+    from repro_torch.kernels import gather_combine as gc
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    table = torch.randn(FULL.n_items, FULL.embed_dim, generator=gen,
+                        device=dev) * 0.01
+    req = chip_smoke.recsys_request(FULL.n_items, FULL.n_cats,
+                                    SHAPES["serve_bulk"].meta["batch"])
+    idx, w = req["user_hist"].clamp_min(0), req["w"]
+    streams = {
+        "ids": idx,
+        "spread_ids": (idx.long() * 7919 % FULL.n_items).to(torch.int32),
+        "row_0": torch.zeros_like(idx),
+        "uniform": torch.randint(0, FULL.n_items, idx.shape, generator=gen,
+                                 device=dev, dtype=torch.int32)}
+    for dtype in (torch.float32, torch.bfloat16):
+        tbl = table.to(dtype)
+        stats = chip_smoke.alternating_device_ms(
+            [lambda i=i: gc.gather_combine(tbl, i, w)
+             for i in streams.values()],
+            rounds=5, flush=chip_smoke._flush_buffer(state))
+        chip_smoke.emit("bag_streams", shape="serve_bulk", dtype=str(dtype),
+                        **dict(zip(streams, stats)))
+        del tbl
+
+
 GROUPS = {"partitioner": chip_smoke.phase_kernels,
           "recsys": chip_smoke.phase_kernels_recsys,
           "gnn": chip_smoke.phase_kernels_gnn,
           "lm": chip_smoke.phase_kernels_lm,
-          "qll_paths": qll_paths, "full_qll": full_qll, "serve": serve}
+          "qll_paths": qll_paths, "full_qll": full_qll, "serve": serve,
+          "bag_streams": bag_streams}
 
 
 def main() -> int:
