@@ -4,7 +4,8 @@ two-tower retrieval serving path over a partition-sharded item table,
 GIN-TU graph classification through the BSR aggregation kernel, the
 Qwen2-1.5B prefill through the flash-attention kernel with the paged
 continuous-batching server, the mesh-mapping search, the paper's C1
-comparison against the total-cut baselines, and Qwen2-1.5B training.
+comparison against the total-cut baselines, its remaining claims (C2, C3,
+C4, the section 3.1 variants, scaling), and Qwen2-1.5B training.
 
     python3 chip_smoke.py
 
@@ -40,13 +41,25 @@ non-zero:
            also timed in alternation (one call each per round, 201
            rounds) for a median and quartiles each, and so are the bag
            kernels at one retrieve query beside their plain versions,
-           ``torch.bmm`` and ``F.embedding_bag``;
+           ``torch.bmm`` and ``F.embedding_bag``; ``bag_combine`` also on
+           bf16 rows and weights at all three recsys shapes, held within 1
+           bf16 ulp plus the float32 band and the reference's 5e-2, two
+           planted faults failing it; ``prefix_split`` (the device initial
+           partition's whole split) at the full cell's coarsest shape, at
+           k = 512, at one million vertices (the cooperative path) and at a
+           ragged n, bitwise against its plain version for integer weights,
+           twice (bitwise), and for float weights within the scan's
+           rounding, timed beside the ATen sequence it replaces and the old
+           cumsum + ``bucket_assign`` pair (also in alternation), then
+           ``initial_partition_device`` on the full cell's coarsest graph:
+           one kernel between its two copies in a trace, its wall time
+           against the old sequence's in alternation;
   full     ``partition(grid3d(64, 64, 64), gpu-superpod, backend="device")``
            cold, warm, and once more under torch.profiler (device busy
            time, idle share and top kernels, all from that one traced
            run); the warm run's makespan is re-evaluated on the host and
            held to 1.05x the reference's worst device-backend makespan
-           over seeds 0-3; ``match_round``, ``bucket_assign`` and
+           over seeds 0-3; ``match_round``, ``prefix_split`` and
            ``quotient_link_loads`` must have launched in the warm run,
            whose ``quotient_link_loads`` launches are grouped by k and
            arc count (powers of two), each group with the device time of
@@ -180,6 +193,20 @@ non-zero:
            the total-cut partition with its refinement off, is reported
            against the band. The rows come from the port's bench twin
            (``benchmarks/torch_bench_makespan_vs_cut.py: c1_row``).
+  claims   the paper's remaining claims through the port's bench twins at
+           their full tier, launch counts set to 0 just before it: C2
+           (``torch_bench_spmspv``: every BFS round's link loads from
+           ``quotient_link_loads`` on the card equal to the host walk's),
+           C3 (``torch_bench_tradeoff``), C4 (``torch_bench_hierarchical``),
+           the section 3.1 variants (``torch_bench_variants``: the torus
+           rows equal to the reference's, the fast bins' load above the slow
+           bins') and the scaling rows of ``CLAIMS_SCALING_ROWS``
+           (``torch_bench_scaling``: size, k up to 512, the host and device
+           V-cycles at 10k and 100k edges). Every checked number must lie in
+           its band (``CLAIMS_REF``, from the reference's rows, with C1's
+           slack) and every scorecard must equal a float64 host
+           re-evaluation at rel 1e-4; ``match_round``, ``prefix_split``,
+           ``quotient_link_loads`` and ``partition_gain`` must launch.
   train    ``qwen2-1.5b`` at train_4k's config (FULL, bf16, ``remat``)
            from seed 0, ``TRAIN_STEPS`` AdamW steps of ``lm_batches(151936,
            4, 4096, seed=0)`` through ``train.loop.run`` and
@@ -207,18 +234,22 @@ non-zero:
 
 Then one line ``{"kernels": [...]}``: each kernel's launches on the path
 that drives it (``full`` for the partitioner's kernels but
-``partition_gain``, ``small`` for it; ``match_keys``, which no path
-launches since the coarsening runs each round as ``match_round``, with 0
-and ``on_path_as``; ``recsys`` for the bag kernels,
+``partition_gain``, ``small`` for it; ``match_keys`` and
+``bucket_assign``, which no path launches since the coarsening runs each
+round as ``match_round`` and the initial split runs as ``prefix_split``,
+with 0 and ``on_path_as``; ``recsys`` for the bag kernels,
 ``gnn`` for ``bsr_spmm``, ``lm`` for ``flash_attention``, which also
 launches on ``train``), its launches
 on every path (``serve`` and ``serve_wide`` show which partitioner
-kernels the server reaches; ``mapping`` and ``c1`` that the search and
-the baselines run ``quotient_link_loads`` and ``partition_gain``), and the
+kernels the server reaches; ``mapping``, ``c1`` and ``claims`` that the
+search, the baselines and the claims' twins run ``quotient_link_loads``
+and ``partition_gain``), and the
 kernels phase's numbers at the main path's shape (``flash_attention`` also
 at 32,768 tokens, ``long``; the bag kernels their one-query alternation,
-``retrieve_query``; ``gather_combine`` and ``match_round`` every shape,
-``shapes``; ``bsr_spmm`` its second bound, tile and slabs read).
+``retrieve_query``; ``gather_combine``, ``bag_combine`` (bf16 too),
+``match_round`` and ``prefix_split`` every shape, ``shapes``, and
+``prefix_split`` its alternation and ``initial_partition_device``'s wall;
+``bsr_spmm`` its second bound, tile and slabs read).
 Last, the result line ``{"ok": true, "device": {...}}``.
 Without a CUDA device it exits 2 and prints no result; it never runs on the
 CPU.
@@ -398,12 +429,75 @@ C1_SPEEDUP_BAND = {case: (lo / C1_SPEEDUP_SLACK, hi * C1_SPEEDUP_SLACK)
 C1_REF_CUT_IMBALANCE = {"grid2d_64": 0.87890625, "grid3d_16": 0.1640625,
                         "rmat_20000": 0.05280006, "full": 2.23754883}
 C1_IMBALANCE_MARGIN = 0.10
+# The claims phase's bands, from the reference's own rows
+# (scripts/claims_reference_rows.py, jax 0.9.0 on a CPU; PERF.md section
+# 2): the least and the largest of each checked number over seeds 0-3;
+# the port's row must lie in [min / CLAIMS_SLACK, max * CLAIMS_SLACK],
+# C1's slack. Filled in below from the script's rows.
+CLAIMS_SLACK = C1_SPEEDUP_SLACK
+CLAIMS_REF = {}
+# the torus rows score the same numpy draw through the same host oracle as
+# the reference's, so they must equal its rows
+CLAIMS_TORUS = {}
+# (scripts/claims_reference_rows.py --bands over its rows)
+CLAIMS_REF.update({
+    ('hierarchical', 'grid3d_14', 'hybrid_vs_flat'): (1.344, 1.9516),
+    ('hierarchical', 'grid3d_14', 'ratio'): (0.2978, 0.4896),
+    ('hierarchical', 'rmat_10000', 'hybrid_vs_flat'): (1.6575, 1.6836),
+    ('hierarchical', 'rmat_10000', 'ratio'): (1.6727, 1.7217),
+    ('scaling', 'k_1x16x16', 'makespan'): (557.0, 882.0),
+    ('scaling', 'k_1x4x4', 'makespan'): (4121.0, 4145.0),
+    ('scaling', 'k_2x16x16', 'makespan'): (2896.0, 6888.0),
+    ('scaling', 'size_10000', 'makespan'): (17667.0, 18390.0),
+    ('scaling', 'size_10000', 'vs_random'): (13.0845, 13.62),
+    ('scaling', 'size_100000', 'makespan'): (51546.0, 53254.0),
+    ('scaling', 'size_100000', 'vs_random'): (45.0396, 46.5322),
+    ('scaling', 'size_400000', 'makespan'): (420916.0, 420916.0),
+    ('scaling', 'size_400000', 'vs_random'): (22.8401, 22.8402),
+    ('scaling', 'vcycle_10000', 'device_bottleneck'): (725.0, 1193.0),
+    ('scaling', 'vcycle_10000', 'device_makespan'): (2485.0, 3300.0),
+    ('scaling', 'vcycle_10000', 'host_bottleneck'): (1051.0, 1315.0),
+    ('scaling', 'vcycle_10000', 'host_makespan'): (2237.0, 2554.0),
+    ('scaling', 'vcycle_100000', 'device_bottleneck'): (5672.0, 5672.0),
+    ('scaling', 'vcycle_100000', 'device_makespan'): (22088.0, 22088.0),
+    ('scaling', 'vcycle_100000', 'host_bottleneck'): (10328.0, 11325.0),
+    ('scaling', 'vcycle_100000', 'host_makespan'): (21374.0, 22331.0),
+    ('scaling', 'vcycle_1000000', 'device_bottleneck'): (61489.0, 61489.0),
+    ('scaling', 'vcycle_1000000', 'device_makespan'): (222938.0, 222938.0),
+    ('scaling', 'vcycle_1000000', 'host_bottleneck'): (109459.0, 109459.0),
+    ('scaling', 'vcycle_1000000', 'host_makespan'): (240485.0, 240485.0),
+    ('spmspv', 'high_diam_grid', 'ratio'): (1.612, 2.3972),
+    ('spmspv', 'low_diam_rmat', 'ratio'): (8.3901, 8.8098),
+    ('tradeoff', 'cut_eps0.03', 'makespan'): (792.0, 1632.0),
+    ('tradeoff', 'cut_eps0.1', 'makespan'): (780.0, 1170.0),
+    ('tradeoff', 'makespan_F0.05', 'makespan'): (303.0, 364.0),
+    ('tradeoff', 'makespan_F0.2', 'makespan'): (303.0, 399.0),
+    ('tradeoff', 'makespan_F1.0', 'makespan'): (342.0, 534.0),
+    ('tradeoff', 'makespan_F5.0', 'makespan'): (1740.0, 2550.0),
+    ('variants', 'fat_tree_Fl', 'makespan'): (66.0, 68.0),
+    ('variants', 'fat_tree_Fl', 'makespan_cut_baseline'): (69.0, 91.0),
+    ('variants', 'hetero_speeds', 'makespan'): (2888.0, 3228.335),
+    ('variants', 'routers_16bins', 'makespan'): (68.0, 74.0),
+    ('variants', 'vertex_weighted', 'makespan'): (2933.0, 3106.0),
+})
+CLAIMS_TORUS.update({
+    'torus_multipath=False': {'makespan': 1516.0, 'max_link': 1516.0, 'total_link': 17707.0},
+    'torus_multipath=True': {'makespan': 1072.0, 'max_link': 1072.0, 'total_link': 17785.0},
+})
+# (end of the generated bands)
+# the scaling rows the smoke runs (the twin's full tier also runs
+# size_400000 and vcycle_1000000, minutes of host work each)
+CLAIMS_SCALING_ROWS = ("size_10000", "size_100000", "k_1x4x4", "k_1x16x16",
+                       "k_2x16x16", "vcycle_10000", "vcycle_100000")
 
 # name: (source, the TPU kernel it replaces, the driven paths that must
 # launch it, the first being the one the kernels line reports; the
 # device coarsening runs each matching round as match_round, so the
 # map kernel match_keys, the reference ops.match_keys' twin, is on no path
-# and is held to its plain version in the kernels phase only; the small
+# and is held to its plain version in the kernels phase only; likewise the
+# device initial partition runs its whole split as prefix_split, and
+# bucket_assign is on no path; the claims phase's scaling rows run the
+# device V-cycle, so both fused kernels launch there; the small
 # path's device V-cycle runs every partitioner kernel; partition_gain needs
 # dense levels, n*k <= 200,000, which the full cell never reaches at k = 64;
 # the recsys plan's host V-cycle scores through quotient_link_loads only;
@@ -415,16 +509,19 @@ KERNEL_INFO = {
                    "src/repro/kernels/match_keys.py:60", ()),
     "match_round": ("src/repro_torch/csrc/match_keys.cu",
                     "src/repro/kernels/match_keys.py:60",
-                    ("full", "small", "c1")),
+                    ("full", "small", "c1", "claims")),
     "bucket_assign": ("src/repro_torch/csrc/bucket_assign.cu",
-                      "src/repro/kernels/bucket_assign.py:69",
-                      ("full", "small")),
+                      "src/repro/kernels/bucket_assign.py:69", ()),
+    "prefix_split": ("src/repro_torch/csrc/bucket_assign.cu",
+                     "src/repro/kernels/bucket_assign.py:69",
+                     ("full", "small", "claims")),
     "quotient_link_loads": ("src/repro_torch/csrc/quotient_link_loads.cu",
                             "src/repro/kernels/quotient_link_loads.py:99",
-                            ("full", "small", "recsys", "mapping", "c1")),
+                            ("full", "small", "recsys", "mapping", "c1",
+                             "claims")),
     "partition_gain": ("src/repro_torch/csrc/partition_gain.cu",
                        "src/repro/kernels/partition_gain.py:67",
-                       ("small", "c1")),
+                       ("small", "c1", "claims")),
     "bag_combine": ("src/repro_torch/csrc/bag_combine.cu",
                     "src/repro/kernels/bag_combine.py:59", ("recsys",)),
     "gather_combine": ("src/repro_torch/csrc/gather_combine.cu",
@@ -718,6 +815,8 @@ def phase_kernels(state):
     emit("kernels", kernel="bucket_assign", step="ranking",
          **state["bucket_ranking"])
 
+    phase_kernels_split(state)
+
     # quotient_link_loads: the full phase's level-0 arcs on gpu-superpod
     # (k = 64, L = 72) and on production_tree(2, 16, 16) (k = 512) under a
     # random partition (no two neighbouring arcs share their bin pair), on
@@ -772,6 +871,178 @@ def phase_kernels(state):
             bytes_moved=8.0 * gs.n_nodes * d + 4.0 * gs.n_nodes
             + 4.0 * gs.n_nodes * k,
             flops=float(gs.n_arcs))
+
+
+def split_inputs(n, k, gen, integer=True):
+    """Node weights ``[n]`` on the card (integers 1-4, or floats in [0.1,
+    1.1)) and the k-1 boundaries of k equal capacities, computed on the
+    host in float64 and cast as ``initial_partition_device`` does."""
+    import numpy as np
+    import torch
+    dev = torch.device("cuda")
+    nw = (torch.randint(1, 5, (n,), generator=gen, device=dev).float()
+          if integer else torch.rand(n, generator=gen, device=dev) + 0.1)
+    total = float(nw.double().sum())
+    b = (np.cumsum(np.ones(k))[:-1] / k * total).astype(np.float32)
+    return nw, torch.as_tensor(b, device=dev)
+
+
+def aten_split(nw, bounds, k):
+    """The ATen sequence ``prefix_split`` replaces: cumsum, product,
+    subtraction, ``searchsorted(right=True)`` and the clip (5 launches)."""
+    import torch
+    cum = torch.cumsum(nw, 0) - 0.5 * nw
+    return torch.searchsorted(bounds, cum, right=True).clamp_(0, k - 1)
+
+
+# prefix_split's shapes: the full cell's coarsest graph (12,400 vertices) at
+# its k = 64 and at k = 512, one million vertices (the cooperative path) and
+# a ragged n just past one tile
+SPLIT_CASES = [(12_400, 64), (12_400, 512), (1_000_000, 64), (16_385, 7)]
+SPLIT_RANKING_ROUNDS = 201
+
+
+def _initial_before(g, topo, dev):
+    """``initial_partition_device`` as it was before ``prefix_split``: the
+    weights and boundaries copied apart, cumsum, product and subtraction,
+    ``bucket_assign``, the bins back."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops
+    k = topo.k
+    caps = np.ones(k, dtype=np.float64)
+    bounds = np.cumsum(caps)[:-1] / caps.sum() * float(g.node_weight.sum())
+    nw = torch.as_tensor(g.node_weight, dtype=torch.float32, device=dev)
+    cum = torch.cumsum(nw, dim=0) - 0.5 * nw
+    part = ops.bucket_assign(
+        cum, torch.as_tensor(bounds, dtype=torch.float32, device=dev), k)
+    return part.cpu().numpy().astype(np.int32)
+
+
+def phase_kernels_split(state):
+    """``prefix_split`` at ``SPLIT_CASES``: integer weights bitwise against
+    its plain version, two calls bitwise, float weights two calls bitwise
+    and within the scan's rounding of the plain version (a bin may differ
+    only where the plain midpoint lies within 2^-20 of the total of a
+    boundary), the blocks each call takes; timed beside the ATen sequence
+    it replaces and the old cumsum + ``bucket_assign`` pair, in
+    alternation at the main shape; then ``initial_partition_device`` on
+    the full cell's coarsest graph: one kernel between its two copies in a
+    trace, and its wall time against the old sequence's, in alternation."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.coarsen import coarsen_device
+    from repro_torch.core.initial import initial_partition_device
+    from repro_torch.core.machine import MachineSpec
+    from repro_torch.graph.generators import grid3d
+    from repro_torch.kernels import bucket_assign
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    for n, k in SPLIT_CASES:
+        nw, bounds = split_inputs(n, k, gen)
+        first = bucket_assign.split_kernel(nw, bounds, k)
+        again = bucket_assign.split_kernel(nw, bounds, k)
+        fw, fb = split_inputs(n, k, gen, integer=False)
+        f1 = bucket_assign.split_kernel(fw, fb, k)
+        f2 = bucket_assign.split_kernel(fw, fb, k)
+        fp = bucket_assign.prefix_split_plain(fw, fb, k)
+        cum = torch.cumsum(fw.double(), 0) - 0.5 * fw.double()
+        near = ((cum[:, None] - fb.double()[None, :]).abs()
+                <= 2.0 ** -20 * float(cum[-1])).any(1) if k > 1 else \
+            torch.zeros(n, dtype=torch.bool, device=dev)
+        float_ok = bool(((f1 == fp) | near).all())
+        readings = dict(
+            deterministic_integer=bool(torch.equal(first, again)),
+            deterministic_float=bool(torch.equal(f1, f2)),
+            float_bins_differing=int((f1 != fp).sum()),
+            float_bins_near_a_boundary=int(near.sum()),
+            float_within_rounding=float_ok,
+            non_decreasing=bool((first[1:] >= first[:-1]).all()))
+        seq_ms = device_ms(lambda: aten_split(nw, bounds, k), 30,
+                           flush=_flush_buffer(state))
+        pair_ms = device_ms(lambda: bucket_assign.bucket_assign(
+            torch.cumsum(nw, 0) - 0.5 * nw, bounds, k), 30,
+            flush=_flush_buffer(state))
+        _check_kernel(
+            state, "prefix_split", [n, k],
+            lambda: bucket_assign.split_kernel(nw, bounds, k),
+            lambda: bucket_assign.prefix_split_plain(nw, bounds, k),
+            exact=True, bytes_moved=8.0 * n + 4.0 * (k - 1),
+            flops=float(n) * (3 + max(k - 1, 1).bit_length()),
+            extra=dict(blocks=bucket_assign.split_blocks(n, k - 1, dev),
+                       aten_sequence_ms=seq_ms, aten_sequence_launches=5,
+                       cumsum_bucket_assign_ms=pair_ms, **readings))
+        bad = [key for key in ("deterministic_integer", "deterministic_float",
+                               "float_within_rounding", "non_decreasing")
+               if not readings[key]]
+        if bad:
+            raise AssertionError(f"prefix_split {n, k}: {bad} {readings}")
+    try:
+        bucket_assign.prefix_split(nw, bounds.flip(0), k)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("prefix_split took unsorted boundaries")
+
+    n, k = SPLIT_CASES[0]
+    nw, bounds = split_inputs(n, k, gen)
+    kern, seq, pair = alternating_device_ms(
+        [lambda: bucket_assign.split_kernel(nw, bounds, k),
+         lambda: aten_split(nw, bounds, k),
+         lambda: bucket_assign.bucket_assign(
+             torch.cumsum(nw, 0) - 0.5 * nw, bounds, k)],
+        rounds=SPLIT_RANKING_ROUNDS, flush=_flush_buffer(state))
+    state["split_ranking"] = dict(shape=[n, k], prefix_split=kern,
+                                  aten_sequence=seq,
+                                  cumsum_bucket_assign=pair)
+    emit("kernels", kernel="prefix_split", step="ranking",
+         **state["split_ranking"])
+
+    # initial_partition_device on the full cell's coarsest graph
+    topo = MachineSpec.preset("gpu-superpod").tree()
+    coarsest = coarsen_device(grid3d(64, 64, 64), topo.k, seed=0,
+                              device=dev)[-1].graph
+    after = initial_partition_device(coarsest, topo, device=dev)
+    before = _initial_before(coarsest, topo, dev)
+    walls = {"prefix_split": [], "before": []}
+    for _ in range(SPLIT_RANKING_ROUNDS):
+        for name, fn in (("prefix_split", lambda: initial_partition_device(
+                coarsest, topo, device=dev)),
+                ("before", lambda: _initial_before(coarsest, topo, dev))):
+            t0 = time.perf_counter()
+            fn()
+            walls[name].append((time.perf_counter() - t0) * 1e6)
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        initial_partition_device(coarsest, topo, device=dev)
+        torch.cuda.synchronize()
+    traced = sorted((e for e in prof.events() if _device_work(e)),
+                    key=lambda e: e.time_range.start)
+    events = [e.name for e in traced]
+    # each device event's own duration in the trace, µs
+    event_us = [e.time_range.end - e.time_range.start for e in traced]
+    kernels = [e for e in events if "emcpy" not in e and "emset" not in e]
+    stats = {name: dict(zip(("q25_us", "median_us", "q75_us"),
+                            map(float, np.percentile(v, [25, 50, 75]))))
+             for name, v in walls.items()}
+    emit("kernels", kernel="prefix_split", step="initial_partition_device",
+         n=coarsest.n_nodes, k=topo.k, equal_to_before=bool(
+             np.array_equal(after, before)), wall=stats,
+         rounds=SPLIT_RANKING_ROUNDS, device_events=events,
+         device_event_us=event_us)
+    state["split_initial"] = dict(n=coarsest.n_nodes, wall=stats,
+                                  device_events=events,
+                                  device_event_us=event_us)
+    if len(kernels) != 1 or "prefix_split" not in kernels[0]:
+        raise AssertionError(f"initial_partition_device ran {events}, not "
+                             f"one prefix_split between two copies")
+    if not np.array_equal(after, before):
+        raise AssertionError("initial_partition_device's bins differ from "
+                             "the old sequence's")
 
 
 def match_round_cases():
@@ -1007,6 +1278,35 @@ def bf16_bag_judge(table16, idx, w, got, want):
     return ok, BF16_BAG_TOLERANCE, read
 
 
+def bf16_combine_judge(rows16, w16, got, want):
+    """``bag_combine`` on bf16 rows and weights against ``want``, the
+    float32 plain sum of the same bf16 values rounded once to bf16:
+    ``bf16_bag_judge``'s band (1 bf16 ulp of |want| plus the float32 band)
+    and the reference's ``rtol = atol = 5e-2``. Two planted faults must
+    fail the band: the output x (1 + 2^-7), and the first live slot of bag
+    0 dropped (its weight zeroed in a second kernel call)."""
+    from repro_torch.kernels import bag_combine
+    tol = bag_plain(lambda i, j: rows16[i:j].float(), w16.float())[1]
+    band = bf16_ulp(want) + 1e-6 * want.double().abs() + tol
+    diff = (got.double() - want.double()).abs()
+
+    def share(x):
+        return float(((x.double() - want.double()).abs() / band).max())
+    w2 = w16.clone()
+    j = int((w2[0] > 0).nonzero()[0])
+    w2[0, j] = 0.0
+    read = dict(worst_share=share(got),
+                scaled_fault_share=share(got.double() * (1 + 2 ** -7)),
+                dropped_fault_share=share(bag_combine.bag_combine(rows16,
+                                                                  w2)),
+                reference_5e_2=bool((diff <= 5e-2 * (
+                    1.0 + want.double().abs())).all()))
+    ok = (read["worst_share"] <= 1.0 and read["reference_5e_2"]
+          and read["scaled_fault_share"] > 1.0
+          and read["dropped_fault_share"] > 1.0)
+    return ok, BF16_BAG_TOLERANCE + "; and rtol = atol = 5e-2", read
+
+
 def phase_kernels_recsys(state):
     """bag_combine and gather_combine at the recsys path's shapes (its
     stream's histories on a 1M x 256 table): serve_p99 (512 bags, the main
@@ -1093,6 +1393,25 @@ def phase_kernels_recsys(state):
                                                 torch.bfloat16), mode="sum"),
             bytes_moved=bag_bytes(b, d, f, unique, 2), flops=2.0 * b * d * f,
             extra=gather_extra(table16, idx, unique, l2_rate, sms))
+
+    # bag_combine on bf16 rows with bf16 weights (the reference takes the
+    # input's dtype) at all three shapes: float32 sums rounded once, held
+    # to the float32 plain sum of the bf16 values rounded once, within 1
+    # bf16 ulp plus the float32 band and the reference's 5e-2; two planted
+    # faults must fail the band
+    for label, _, idx, w in (cases[0], cases[3], cases[2]):
+        (b, d), f = idx.shape, table16.shape[1]
+        rows16, w16 = table16[idx], w.to(torch.bfloat16)
+        _check_kernel(
+            state, "bag_combine", [b, d, f, label, "bf16"],
+            lambda: bag_combine.bag_combine(rows16, w16),
+            lambda: bag_combine.plain(rows16, w16), exact=False,
+            judge=functools.partial(bf16_combine_judge, rows16, w16),
+            iters=5 if label == "serve_bulk" else 30,
+            library=lambda: torch.bmm(w16[:, None, :], rows16),
+            bytes_moved=2.0 * b * d * f + 2.0 * b * d + 2.0 * b * f,
+            flops=2.0 * b * d * f, extra=dict(dtype="bfloat16"))
+        del rows16, w16
     del table16
 
     # one retrieve query (1 bag): the two kernels, their plain versions and
@@ -2705,6 +3024,143 @@ def phase_c1(state):
     _require_launched(counts, "c1")
 
 
+def claims_bands(claim, row, bad):
+    """Each checked number of ``row`` (a dict of a twin's row) against its
+    band (``CLAIMS_REF``): ``{key: {value, band, inside}}``; a number
+    outside its band is listed in ``bad``."""
+    out = {}
+    for (c, name, key), (lo, hi) in CLAIMS_REF.items():
+        if c != claim or name != row["name"]:
+            continue
+        v = float(row[key])
+        band = [lo / CLAIMS_SLACK, hi * CLAIMS_SLACK]
+        out[key] = dict(value=v, band=band, inside=band[0] <= v <= band[1])
+        if not out[key]["inside"]:
+            bad.append(f"{claim} {name} {key} {v} outside {band}")
+    return out
+
+
+def claims_host(row, label, bad):
+    """Each scorecard a twin's row took on the card (``row["scored"]``:
+    ``(graph, machine, part, scorecard)``) against a float64 host
+    re-evaluation of the same part, over the keys both have: the largest
+    relative difference, or None where the row scored nothing; above 1e-4
+    is listed in ``bad``."""
+    rel = None
+    for g, topo, part, card in row.get("scored", ()):
+        host = host_scorecard(g, topo, part)
+        r = max(abs(card[k] - v) / max(abs(v), 1.0)
+                for k, v in host.items() if k in card)
+        rel = r if rel is None else max(rel, r)
+        if r > 1e-4:
+            bad.append(f"{label}: card scorecard {card} off the host's "
+                       f"{host}")
+    return rel
+
+
+def _claim_row(row):
+    """A twin's row without what it scored."""
+    return {k: v for k, v in row.items() if k != "scored"}
+
+
+def phase_claims(state):
+    """The paper's remaining claims through the port's bench twins at their
+    full tier, launch counts set to 0 just before: C2 (every BFS round's
+    load from the card equal to the host walk's), C3, C4, the section 3.1
+    variants (the torus rows equal to the reference's, the fast bins above
+    the slow ones) and the scaling rows of ``CLAIMS_SCALING_ROWS``, each
+    checked number in its band and each scorecard against a float64 host
+    re-evaluation."""
+    import torch
+
+    from benchmarks import torch_bench_hierarchical as c4
+    from benchmarks import torch_bench_scaling as scaling
+    from benchmarks import torch_bench_spmspv as c2
+    from benchmarks import torch_bench_tradeoff as c3
+    from benchmarks import torch_bench_variants as variants
+    from repro_torch.kernels import ops
+    dev = "cuda"
+    ops.reset_launch_counts()
+    bad = []
+    t_all = time.perf_counter()
+
+    topo = c2.machine()
+    for name, mk_g in c2.CASES:
+        g = mk_g()
+        t0 = time.perf_counter()
+        row = c2.spmspv_row(g, topo, dev, host_walk=True)
+        secs = time.perf_counter() - t0
+        rounds = differ = 0
+        for method in row["card_rounds"]:
+            for card, host in zip(row["card_rounds"][method],
+                                  row["host_rounds"][method]):
+                rounds += len(host)
+                differ += int(len(card) != len(host)) + sum(
+                    int(a != b) for a, b in zip(card, host))
+        if differ:
+            bad.append(f"C2 {name}: {differ} of {rounds} rounds' card loads "
+                       f"differ from the host walk")
+        r = dict(name=name, ratio=row["ratio"])
+        emit("claims", claim="C2", case=name, seconds=secs,
+             frontier_cost_ours=row["frontier_cost_ours"],
+             frontier_cost_cut=row["frontier_cost_cut"], ratio=row["ratio"],
+             rounds_checked=rounds, rounds_differing=differ,
+             bands=claims_bands("spmspv", r, bad))
+
+    t0 = time.perf_counter()
+    for row in c3.tradeoff_rows(dev):
+        emit("claims", claim="C3", case=row["name"], **_claim_row(row),
+             host_rel_err=claims_host(row, f"C3 {row['name']}", bad),
+             bands=claims_bands("tradeoff", row, bad))
+    emit("claims", claim="C3", step="seconds",
+         seconds=time.perf_counter() - t0)
+
+    topo = c4.machine()
+    for name, mk_g in c4.CASES:
+        g = mk_g()
+        row = dict(name=name, **c4.hierarchical_row(g, topo, dev))
+        emit("claims", claim="C4", case=name, **_claim_row(row),
+             host_rel_err=claims_host(row, f"C4 {name}", bad),
+             bands=claims_bands("hierarchical", row, bad))
+
+    t0 = time.perf_counter()
+    for row in variants.variants_rows(dev):
+        extra = dict(host_rel_err=claims_host(row, f"variants {row['name']}",
+                                              bad))
+        if row["name"] in CLAIMS_TORUS:
+            want = CLAIMS_TORUS[row["name"]]
+            extra["equal_to_reference"] = all(row[k] == v
+                                              for k, v in want.items())
+            if not extra["equal_to_reference"]:
+                bad.append(f"variants {row['name']} {_claim_row(row)} != "
+                           f"the reference's {want}")
+        if row["name"] == "hetero_speeds" and not (row["fast_load"]
+                                                   > row["slow_load"]):
+            bad.append(f"hetero_speeds: fast bins' load {row['fast_load']} "
+                       f"not above the slow bins' {row['slow_load']}")
+        emit("claims", claim="variants", case=row["name"],
+             **_claim_row(row), bands=claims_bands("variants", row, bad),
+             **extra)
+    emit("claims", claim="variants", step="seconds",
+         seconds=time.perf_counter() - t0)
+
+    only = CLAIMS_SCALING_ROWS
+    for fn in (scaling.scaling_size, scaling.scaling_k, scaling.vcycle):
+        for row in fn(dev, only=only):
+            emit("claims", claim="scaling", case=row["name"],
+                 **_claim_row(row),
+                 host_rel_err=claims_host(row, f"scaling {row['name']}", bad),
+                 bands=claims_bands("scaling", row, bad))
+
+    counts = ops.launch_counts()
+    state["launches"]["claims"] = counts
+    emit("claims", step="launches", seconds=time.perf_counter() - t_all,
+         launches=counts)
+    if bad:
+        raise AssertionError("claims: " + "; ".join(bad))
+    _require_launched(counts, "claims")
+
+
 def _loss_and_grads(params, batch, cfg, attend):
     """(loss, flat grads) of ``transformer.loss_fn`` with the attention
     ``attend``, through the train step's own ``steps.loss_and_grads``."""
@@ -3050,7 +3506,7 @@ def phase_train(state):
 PHASES = (phase_env, phase_build, phase_kernels, phase_kernels_recsys,
           phase_full, phase_small, phase_recsys, phase_kernels_gnn,
           phase_gnn, phase_kernels_lm, phase_lm, phase_mapping, phase_c1,
-          phase_train)
+          phase_claims, phase_train)
 
 
 def kernels_line(state):
@@ -3072,8 +3528,20 @@ def kernels_line(state):
             library_ms=rows[0]["library_ms"], call_ms=rows[0]["call_ms"]))
         if name == "bucket_assign":        # timed against its library call
             out[-1]["ranking"] = state["bucket_ranking"]
+            out[-1]["on_path_as"] = "prefix_split"
+        if name == "prefix_split":         # every shape; the ATen sequence
+            out[-1]["shapes"] = [{k: r.get(k) for k in (
+                "shape", "blocks", "ms", "call_ms", "plain_ms", "bound_ms",
+                "aten_sequence_ms", "cumsum_bucket_assign_ms")}
+                for r in rows]
+            out[-1]["ranking"] = state["split_ranking"]
+            out[-1]["initial_partition_device"] = state["split_initial"]
         if name in ("bag_combine", "gather_combine"):  # at one query
             out[-1]["retrieve_query"] = state["bag_ranking"]
+        if name == "bag_combine":          # every shape, bf16 too
+            out[-1]["shapes"] = [{k: r.get(k) for k in (
+                "shape", "ms", "call_ms", "plain_ms", "library_ms",
+                "bound_ms", "max_abs_err", "readings")} for r in rows]
         if name == "match_keys":           # off the path: match_round
             out[-1]["on_path_as"] = "match_round"
         if name == "match_round":          # every case; the old sequence

@@ -10,7 +10,7 @@ This is the direct tree-aware construction the paper calls for (its related
 work had to emulate hierarchy by "applying conventional partitioning twice").
 ``initial_partition_device`` is the device V-cycle's parallel counterpart:
 a capacity-proportional prefix split over the coarsest graph (one
-``bucket_assign`` CUDA kernel call instead of the sequential greedy grow).
+``prefix_split`` CUDA kernel call instead of the sequential greedy grow).
 Twin of ``repro/core/initial.py``; the host paths are numpy copies, exact
 for the same seed.
 """
@@ -20,7 +20,6 @@ import heapq
 from typing import List
 
 import numpy as np
-import torch
 
 from repro_torch import DeviceLike, resolve_device
 from repro_torch.core.topology import TreeTopology
@@ -147,16 +146,18 @@ def initial_partition_device(g: Graph, topo: TreeTopology, seed: int = 0, *,
     """Device-path initial assignment: capacity-proportional prefix split.
 
     Vertex ``v``'s weight midpoint ``cum[v] = prefix_sum(w)[v] - w[v]/2`` is
-    bucketed against the k-1 interior capacity prefix targets by the
-    ``bucket_assign`` kernel, so bin ``b`` receives a contiguous vertex run
-    of ~``capacity(b)/total`` of the node weight. Bins are numbered in leaf
-    order, so contiguous bin runs are subtree-contiguous.
+    bucketed against the k-1 interior capacity prefix targets, so bin ``b``
+    receives a contiguous vertex run of ~``capacity(b)/total`` of the node
+    weight. Bins are numbered in leaf order, so contiguous bin runs are
+    subtree-contiguous. On a card the whole split is one ``prefix_split``
+    kernel between one copy of the weights and boundaries in and one of the
+    bins out.
 
     The prefix sum is float32, like the reference's. A scan taken in
-    another order (torch's CPU cumsum accumulates in float64, the CUDA one
-    in a parallel float32 scan) can move a midpoint that sits within
-    rounding of a capacity boundary to the neighbouring bin; integer node
-    weights (sums below 2**24) are exact in any order.
+    another order (torch's CPU cumsum accumulates in float64, the kernel in
+    a block scan of its own fixed order) can move a midpoint that sits
+    within rounding of a capacity boundary to the neighbouring bin; integer
+    node weights (sums below 2**24) are exact in any order.
 
     ``seed`` is accepted for signature parity with
     :func:`initial_partition`; the prefix split is deterministic.
@@ -172,11 +173,8 @@ def initial_partition_device(g: Graph, topo: TreeTopology, seed: int = 0, *,
             else np.asarray(speed, dtype=np.float64))
     total_w = float(g.node_weight.sum())
     bounds = np.cumsum(caps)[:-1] / caps.sum() * total_w   # [k-1]
-    nw = torch.as_tensor(g.node_weight, dtype=torch.float32, device=dev)
-    cum = torch.cumsum(nw, dim=0) - 0.5 * nw
-    part = ops.bucket_assign(
-        cum, torch.as_tensor(bounds, dtype=torch.float32, device=dev), k)
-    return part.cpu().numpy().astype(np.int32)
+    return ops.prefix_split_host(g.node_weight,
+                                 bounds.astype(np.float32), k, dev)
 
 
 def random_partition(n: int, k: int, node_weight: np.ndarray = None,

@@ -10,7 +10,7 @@ bottleneck objective throughout):
 ``PartitionConfig.backend`` selects the V-cycle front end: ``"host"``
 (numpy coarsening + greedy grow, copies of the reference) or ``"device"``
 (torch segment-op coarsening through the ``match_round`` kernel + the
-capacity-prefix initial through ``bucket_assign``). Refinement and the final
+capacity-prefix initial through ``prefix_split``). Refinement and the final
 evaluation run on the device for both, through ``quotient_link_loads`` and
 ``partition_gain``. Between levels the ``[S, n]`` partitions stay on the
 device.

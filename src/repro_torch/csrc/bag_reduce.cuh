@@ -22,9 +22,10 @@
 // the slots are added in order starting from 0 on either path, so both
 // kernels give bitwise the same result for the same rows and weights, and
 // the result matches the TPU kernels' mul-then-add. Slots of weight 0 are
-// read like any other. A bf16 table (gather_combine) is widened to float
-// as it is read, summed in float32 the same way, and the sum is rounded
-// once to bf16 as it is stored.
+// read like any other. A bf16 table (gather_combine) or bf16 rows with
+// bf16 weights (bag_combine) are widened to float as they are read, summed
+// in float32 the same way, and the sum is rounded once to bf16 as it is
+// stored.
 //
 // A grid that cannot fill the card (fewer blocks than the multiprocessors
 // the wrapper passes; one retrieve query is one bag) takes a third path that
@@ -58,6 +59,12 @@ constexpr int kBagSmallShort = 16;
 __device__ __forceinline__ float bag_zero(float*) { return 0.0f; }
 __device__ __forceinline__ float4 bag_zero(float4*) {
   return make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+}
+
+// a slot's weight as it is summed: float32 as stored, bf16 widened
+__device__ __forceinline__ float bag_weight(float w) { return w; }
+__device__ __forceinline__ float bag_weight(__nv_bfloat16 w) {
+  return __bfloat162float(w);
 }
 
 __device__ __forceinline__ float bag_acc(float acc, float w, float t) {
@@ -144,11 +151,12 @@ template <> struct BagCol<__nv_bfloat16> {
 
 // V is float4 or float (a float32 table) or Bf16x8 or __nv_bfloat16 (a
 // bf16 table); cols = F / (elements of V) columns of V per row; kDepth rows
-// are loaded before they are summed (kBagDepth or 1).
-template <typename V, bool kGather, int kDepth>
+// are loaded before they are summed (kBagDepth or 1); W, the weights'
+// type, float or __nv_bfloat16.
+template <typename V, bool kGather, int kDepth, typename W>
 __global__ void bag_reduce_kernel(const void* __restrict__ src,
                                   const int* __restrict__ idx,
-                                  const float* __restrict__ w,
+                                  const W* __restrict__ w,
                                   void* __restrict__ out, long long n_bags,
                                   int d, int cols) {
   using Acc = typename BagCol<V>::Acc;
@@ -166,7 +174,7 @@ __global__ void bag_reduce_kernel(const void* __restrict__ src,
     if (live) {
       for (int j = threadIdx.x; j < nd; j += blockDim.x) {
         const long long slot = b * d + d0 + j;
-        s_w[by][j] = w[slot];
+        s_w[by][j] = bag_weight(w[slot]);
         if (kGather) s_idx[by][j] = idx[slot];
       }
     }
@@ -198,12 +206,13 @@ __global__ void bag_reduce_kernel(const void* __restrict__ src,
 }
 
 // The small-grid path: block (32), grid (ceil(f / 32), n_bags); kChunk
-// slots in flight per thread; E is the element type (float or bf16).
-template <typename E, bool kGather, int kChunk>
+// slots in flight per thread; E is the element type (float or bf16), W
+// the weights' type.
+template <typename E, bool kGather, int kChunk, typename W>
 __global__ void __launch_bounds__(32)
 bag_reduce_small_kernel(const E* __restrict__ src,
                         const int* __restrict__ idx,
-                        const float* __restrict__ w, E* __restrict__ out,
+                        const W* __restrict__ w, E* __restrict__ out,
                         int d, int f) {
   const long long b = blockIdx.y;
   const int lane = threadIdx.x;
@@ -222,7 +231,7 @@ bag_reduce_small_kernel(const E* __restrict__ src,
 #pragma unroll
     for (int h = 0; h < kH; ++h) {
       const int u = min(h * 32 + lane, nd - 1);
-      wl[h] = __ldg(w + slot0 + u);
+      wl[h] = bag_weight(__ldg(w + slot0 + u));
       il[h] = kGather ? __ldg(idx + slot0 + u) : 0;
     }
     // every row of the chunk in flight before the first add, with no
@@ -249,15 +258,15 @@ bag_reduce_small_kernel(const E* __restrict__ src,
   if (active) BagCol<E>::store(out + b * f + col, acc);
 }
 
-template <typename V, bool kGather>
+template <typename V, bool kGather, typename W>
 static void bag_reduce_run(dim3 grid, dim3 block, cudaStream_t s, bool deep,
-                           const void* src, const int* idx, const float* w,
+                           const void* src, const int* idx, const W* w,
                            void* out, long long n_bags, int d, int cols) {
   if (deep) {
-    bag_reduce_kernel<V, kGather, kBagDepth><<<grid, block, 0, s>>>(
+    bag_reduce_kernel<V, kGather, kBagDepth, W><<<grid, block, 0, s>>>(
         src, idx, w, out, n_bags, d, cols);
   } else {
-    bag_reduce_kernel<V, kGather, 1><<<grid, block, 0, s>>>(
+    bag_reduce_kernel<V, kGather, 1, W><<<grid, block, 0, s>>>(
         src, idx, w, out, n_bags, d, cols);
   }
 }
@@ -292,18 +301,18 @@ static int bag_rule_vec(int f, int vec) {
 }
 
 // The small-grid path, for E = float or __nv_bfloat16.
-template <typename E, bool kGather>
+template <typename E, bool kGather, typename W>
 static void bag_reduce_small_run(cudaStream_t s, const void* src,
-                                 const int* idx, const float* w, void* out,
+                                 const int* idx, const W* w, void* out,
                                  long long n_bags, int d, int f) {
   const dim3 grid((f + 31) / 32, static_cast<unsigned>(n_bags));
   const E* src_e = static_cast<const E*>(src);
   E* out_e = static_cast<E*>(out);
   if (d <= kBagSmallShort)
-    bag_reduce_small_kernel<E, kGather, kBagSmallShort>
+    bag_reduce_small_kernel<E, kGather, kBagSmallShort, W>
         <<<grid, 32, 0, s>>>(src_e, idx, w, out_e, d, f);
   else
-    bag_reduce_small_kernel<E, kGather, kBagSmallChunk>
+    bag_reduce_small_kernel<E, kGather, kBagSmallChunk, W>
         <<<grid, 32, 0, s>>>(src_e, idx, w, out_e, d, f);
 }
 
@@ -313,14 +322,15 @@ static void bag_reduce_small_run(cudaStream_t s, const void* src,
 // __nv_bfloat16: vec is 8 (16-byte rows of eight, likewise) or 1. The
 // small-grid rule reads the grid of float4 columns (vec 4 where f % 4 ==
 // 0) for either type, so a bf16 call takes the path a float32 one of the
-// same shape takes.
-template <bool kGather, typename E = float>
+// same shape takes. W, the weights' type: float, or __nv_bfloat16 with a
+// bf16 E (bag_combine's bf16 rows), widened as they are read.
+template <bool kGather, typename E = float, typename W = float>
 static int bag_reduce_launch(const void* src, const void* idx, const void* w,
                              void* out, long long n_bags, int d, int f,
                              int vec, int sms, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* idx_i = static_cast<const int*>(idx);
-  const float* w_f = static_cast<const float*>(w);
+  const W* w_f = static_cast<const W*>(w);
   if (bag_small_grid(n_bags, f, bag_rule_vec<E>(f, vec), sms)) {
     bag_reduce_small_run<E, kGather>(s, src, idx_i, w_f, out, n_bags, d, f);
     return static_cast<int>(cudaGetLastError());

@@ -11,7 +11,9 @@ Kernels (the partitioner's main path):
     and ``match_round``, the whole matching round fused (the coarsening
     path's kernel).
   * ``bucket_assign`` — capacity-boundary bucket search of the device
-    initial partition.
+    initial partition, and ``prefix_split``, the whole capacity-prefix
+    split (scan, midpoints, count, clip) fused (the initial partition's
+    kernel).
   * ``quotient_link_loads`` — the paper's objective: arc list -> per-link
     communication load.
   * ``partition_gain`` — the dense refinement round's ``[n, k]``
@@ -19,7 +21,7 @@ Kernels (the partitioner's main path):
 
 Kernels (the two-tower serving path):
   * ``bag_combine`` — the weighted bag reduction of ``embedding_bag`` over
-    pre-gathered rows (``TwoTower`` user tower input).
+    pre-gathered rows (``TwoTower`` user tower input), float32 or bf16.
   * ``gather_combine`` — the same reduction with the row gather fused
     (``ShardedEmbeddingTable.lookup_bags``), on float32 or bf16 tables.
 

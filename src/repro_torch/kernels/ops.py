@@ -35,9 +35,11 @@ KERNEL_MODULES = {"match_keys": _mk, "bucket_assign": _ba,
 
 def launch_counts() -> Dict[str, int]:
     """CUDA launches of each kernel since the last reset; ``match_round``
-    is the fused matching round of ``match_keys.cu``."""
+    is the fused matching round of ``match_keys.cu``, ``prefix_split`` the
+    fused capacity-prefix split of ``bucket_assign.cu``."""
     counts = {name: mod.launches for name, mod in KERNEL_MODULES.items()}
     counts["match_round"] = _mk.round_launches
+    counts["prefix_split"] = _ba.split_launches
     return counts
 
 
@@ -45,6 +47,7 @@ def reset_launch_counts() -> None:
     for mod in KERNEL_MODULES.values():
         mod.launches = 0
     _mk.round_launches = 0
+    _ba.split_launches = 0
     _qll.launch_shapes.clear()
 
 
@@ -67,6 +70,22 @@ def bucket_assign(cum: torch.Tensor, boundaries: torch.Tensor,
     """bin[v] = #{i : cum[v] >= boundaries[i]} over the k-1 interior
     capacity prefix targets. [n] int32 in [0, k-1]."""
     return _ba.bucket_assign(cum, boundaries, k)
+
+
+def prefix_split(node_weight: torch.Tensor, boundaries: torch.Tensor,
+                 k: int) -> torch.Tensor:
+    """The capacity-prefix split in one kernel: the midpoints
+    ``cumsum(w) - w / 2`` of the float32 node weights bucketed against the
+    k-1 non-decreasing boundaries (checked on the host; unsorted ones
+    raise). [n] int32 in [0, k-1]."""
+    return _ba.prefix_split(node_weight, boundaries, k)
+
+
+def prefix_split_host(node_weight: np.ndarray, boundaries: np.ndarray,
+                      k: int, device: torch.device) -> np.ndarray:
+    """:func:`prefix_split` of host arrays on ``device``: one pinned copy of
+    the weights and boundaries in, one launch, the bins back. [n] int32."""
+    return _ba.prefix_split_host(node_weight, boundaries, k, device)
 
 
 def partition_gain(part: torch.Tensor, nbr_idx: torch.Tensor,

@@ -59,3 +59,81 @@ def test_mapping_search_twin_writes_its_rows(tmp_path):
         assert r["cap_searched"] <= r["cap_id"]
     assert out["partition_seeds"]["makespan_S"] <= \
         out["partition_seeds"]["makespan_1"]
+
+
+def _rows(out, bench):
+    return {ln.split(",")[1]: {k: v for k, v in _fields(ln).items()}
+            for ln in out.splitlines() if ln.startswith(bench + ",")}
+
+
+def test_spmspv_twin_prints_both_cases(tmp_path):
+    rows = _rows(_run("torch_bench_spmspv", tmp_path), "C2_spmspv")
+    assert list(rows) == ["low_diam_rmat", "high_diam_grid"]
+    for f in rows.values():
+        ours, cut = float(f["frontier_cost_ours"]), float(f["frontier_cost_cut"])
+        assert ours > 0 and cut > 0
+        assert float(f["ratio"]) == pytest.approx(cut / ours, rel=1e-2)
+
+
+def test_tradeoff_twin_prints_the_sweep_and_the_cut_points(tmp_path):
+    rows = _rows(_run("torch_bench_tradeoff", tmp_path), "C3_tradeoff")
+    assert list(rows) == ["makespan_F0.05", "makespan_F0.2",
+                          "makespan_F1.0", "makespan_F5.0", "cut_eps0.03",
+                          "cut_eps0.1", "monotonic_comm_with_F"]
+    for name, f in rows.items():
+        if name.startswith(("makespan", "cut")):
+            assert float(f["makespan"]) > 0 and float(f["imbalance"]) >= 0
+    assert rows["monotonic_comm_with_F"]["monotone"] in ("True", "False")
+
+
+def test_hierarchical_twin_prints_both_cases(tmp_path):
+    rows = _rows(_run("torch_bench_hierarchical", tmp_path),
+                 "C4_hierarchical")
+    assert list(rows) == ["grid3d_6", "rmat_1000"]
+    for f in rows.values():
+        assert float(f["ratio"]) == pytest.approx(
+            float(f["step_flat_twice"]) / float(f["step_hier"]), rel=1e-2)
+
+
+def test_variants_twin_writes_its_rows(tmp_path):
+    _run("torch_bench_variants", tmp_path)
+    out = json.loads((tmp_path / "BENCH_torch_variants.json").read_text())
+    assert out["tiny"] and out["device"] == "cpu"
+    rows = {r["name"]: r for r in out["variants"]}
+    assert list(rows) == ["routers_16bins", "fat_tree_Fl",
+                          "torus_multipath=False", "torus_multipath=True",
+                          "vertex_weighted", "hetero_speeds"]
+    assert rows["routers_16bins"]["n_routers"] == 5
+    # multipath spreads the same traffic over more links
+    assert (rows["torus_multipath=True"]["max_link"]
+            <= rows["torus_multipath=False"]["max_link"])
+    assert rows["hetero_speeds"]["fast_load"] > rows["hetero_speeds"][
+        "slow_load"]
+
+
+def test_scaling_twin_writes_its_rows(tmp_path):
+    _run("torch_bench_scaling", tmp_path)
+    out = json.loads((tmp_path / "BENCH_torch_scaling.json").read_text())
+    assert out["tiny"] and out["device"] == "cpu"
+    assert [r["name"] for r in out["size"]] == ["size_2000"]
+    assert [r["k"] for r in out["k"]] == [16, 256]
+    (v,) = out["vcycle"]
+    assert v["name"] == "vcycle_3000"
+    for backend in ("host", "device"):
+        assert v[f"{backend}_makespan"] > 0
+        assert v[f"{backend}_bottleneck"] > 0
+
+
+def test_torch_quickstart_runs_on_the_cpu(tmp_path):
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable,
+                          str(ROOT / "examples" / "torch_quickstart.py"),
+                          "--device", "cpu"], cwd=tmp_path, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-4000:]
+    lines = {ln.split(":")[0].strip(): ln for ln in out.stdout.splitlines()
+             if ":" in ln}
+    ours = float(lines["makespan-opt"].split("M(P)=")[1].split()[0])
+    for base in ("cut-opt", "random"):
+        assert float(lines[base].split("M(P)=")[1].split()[0]) > ours
+    assert "block placement" in lines and "tpu-mixed-32" in lines

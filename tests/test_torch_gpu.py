@@ -87,6 +87,94 @@ def test_bucket_assign_kernel_equals_plain(cuda, n, k):
                                                       right=True))
 
 
+def _split_inputs(cuda, n, k, seed, integer=True):
+    gen = _gen(cuda, seed)
+    nw = (torch.randint(1, 5, (n,), generator=gen, device=cuda).float()
+          if integer else torch.rand(n, generator=gen, device=cuda) + 0.1)
+    total = float(nw.double().sum())
+    b = (np.cumsum(np.ones(k))[:-1] / k * total).astype(np.float32)
+    return nw, torch.as_tensor(b, device=cuda)
+
+
+@pytest.mark.parametrize("k", [1, 2, 64, 512])
+@pytest.mark.parametrize("n", [0, 1, 1023, 12_400, 1_000_000])
+def test_prefix_split_is_bitwise_the_plain_split(cuda, n, k):
+    """Integer weights (every sum exact in any order): the kernel's bins
+    equal the plain version's bitwise, two calls agree, one launch."""
+    nw, bounds = _split_inputs(cuda, n, k, n + k)
+    before = bucket_assign.split_launches
+    got = bucket_assign.prefix_split(nw, bounds, k)
+    assert got.dtype == torch.int32 and got.shape == (n,)
+    assert bucket_assign.split_launches == before + (1 if n else 0)
+    assert torch.equal(got, bucket_assign.prefix_split_plain(nw, bounds, k))
+    assert torch.equal(got, bucket_assign.prefix_split(nw, bounds, k))
+    if n:
+        assert int(got.min()) >= 0 and int(got.max()) <= k - 1
+        assert bool((got[1:] >= got[:-1]).all())
+
+
+@pytest.mark.parametrize("n,k", [(12_400, 64), (1_000_000, 512),
+                                 (40_000, 7)])
+def test_prefix_split_float_weights_deterministic_and_banded(cuda, n, k):
+    """Float weights: two calls bitwise equal; a bin differs from the plain
+    version's only where the float64 midpoint lies within 2^-18 of the
+    total of a boundary (the two float32 scans round apart)."""
+    nw, bounds = _split_inputs(cuda, n, k, 7, integer=False)
+    got = bucket_assign.prefix_split(nw, bounds, k)
+    assert torch.equal(got, bucket_assign.prefix_split(nw, bounds, k))
+    want = bucket_assign.prefix_split_plain(nw, bounds, k)
+    cum = torch.cumsum(nw.double(), 0) - 0.5 * nw.double()
+    near = ((cum[:, None] - bounds.double()[None, :]).abs()
+            <= 2.0 ** -18 * float(cum[-1])).any(1)
+    assert bool(((got == want) | near).all())
+
+
+def test_prefix_split_refuses_unsorted_boundaries(cuda):
+    nw, bounds = _split_inputs(cuda, 5000, 16, 3)
+    before = bucket_assign.split_launches
+    with pytest.raises(ValueError, match="non-decreasing"):
+        bucket_assign.prefix_split(nw, bounds.flip(0), 16)
+    with pytest.raises(ValueError, match="non-decreasing"):
+        bucket_assign.prefix_split_host(nw.cpu().numpy(),
+                                        bounds.flip(0).cpu().numpy(), 16,
+                                        cuda)
+    assert bucket_assign.split_launches == before
+
+
+def test_prefix_split_paths(cuda):
+    """One block up to one tile of vertices, a cooperative grid beyond."""
+    tile = bucket_assign.SPLIT_TILE
+    assert bucket_assign.split_blocks(tile, 63, cuda) == 1
+    assert bucket_assign.split_blocks(tile + 1, 63, cuda) == 2
+    assert bucket_assign.split_blocks(1_000_000, 63, cuda) == -(
+        -1_000_000 // tile)
+
+
+def test_initial_partition_device_is_one_kernel_between_two_copies(cuda):
+    """The device initial partition: the weights and boundaries in one
+    copy, ``prefix_split``, the bins back; nothing else on the card."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from chip_smoke import _device_work, _initial_before
+    from repro_torch.core.initial import initial_partition_device
+    g = grid3d(24, 24, 24)
+    topo = MachineSpec.preset("gpu-superpod").tree()
+    want = initial_partition_device(g, topo, device="cpu")
+    got = initial_partition_device(g, topo, device=cuda)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, _initial_before(g, topo, cuda))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        initial_partition_device(g, topo, device=cuda)
+        torch.cuda.synchronize()
+    events = [e.name for e in sorted(
+        (e for e in prof.events() if _device_work(e)),
+        key=lambda e: e.time_range.start)]
+    assert len(events) == 3, events
+    assert "HtoD" in events[0] and "DtoH" in events[2]
+    assert "prefix_split" in events[1]
+
+
 @pytest.mark.parametrize("topo_fn", [
     lambda: balanced_tree((2, 2)), lambda: balanced_tree((4, 4)),
     lambda: MachineSpec.preset("gpu-superpod").tree(),
@@ -290,8 +378,8 @@ def test_small_partition_on_the_card_passes_the_oracle(cuda, backend):
     assert counts["quotient_link_loads"] > 0 and counts["partition_gain"] > 0
     if backend == "device":
         # the coarsening runs each matching round as one fused launch
-        assert counts["match_round"] > 0 and counts["bucket_assign"] == 1
-        assert counts["match_keys"] == 0
+        assert counts["match_round"] > 0 and counts["prefix_split"] == 1
+        assert counts["match_keys"] == 0 and counts["bucket_assign"] == 0
 
 
 def _hub_graph(n=30_000, hub_arcs=12_000, extra=60_000, seed=0):
@@ -514,6 +602,34 @@ def test_bag_wrappers_check_their_arguments(cuda):
         bag_combine.bag_combine(table, w)
     with pytest.raises(ValueError, match="contiguous"):
         bag_combine.bag_combine(table[idx].transpose(0, 1), w.t())
+
+
+@pytest.mark.parametrize("b", [512, 262_144, 1])
+def test_bag_combine_bf16_within_its_band(cuda, b):
+    """bf16 rows and weights at the recsys shapes (50 slots of 256): the
+    kernel within ``bf16_combine_judge``'s band of the float32 plain sum
+    rounded once and within the reference's 5e-2; both planted faults
+    fail the band; bf16 out, one launch."""
+    from chip_smoke import bf16_combine_judge
+    gen = _gen(cuda, b)
+    rows = (torch.randn(b, 50, 256, generator=gen, device=cuda)
+            * 0.01).to(torch.bfloat16)
+    w = (torch.rand(b, 50, generator=gen, device=cuda) / 50).to(
+        torch.bfloat16)
+    before = bag_combine.launches
+    got = bag_combine.bag_combine(rows, w)
+    assert bag_combine.launches == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == (b, 256)
+    ok, _, read = bf16_combine_judge(rows, w, got,
+                                     bag_combine.plain(rows, w))
+    assert ok, read
+
+
+def test_bag_combine_float32_unchanged_by_the_bf16_path(cuda):
+    """The float32 path: bitwise the in-order sum gather_combine gives."""
+    table, idx, w = _bag_inputs(cuda, 64, 50, 256, 1000)
+    assert torch.equal(bag_combine.bag_combine(table[idx], w),
+                       gather_combine.gather_combine(table, idx, w))
 
 
 def _dup_bag_inputs(cuda, b, d, f, v, dtype, seed=0, offset=0):

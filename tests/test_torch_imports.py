@@ -12,7 +12,8 @@ ROOT = Path(__file__).resolve().parent.parent
 SOURCES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "time_kernels.py", ROOT / "trace_gap.py",
     ROOT / "benchmarks" / "torch_common.py"] + sorted(
-    (ROOT / "benchmarks").glob("torch_bench_*.py"))
+    (ROOT / "benchmarks").glob("torch_bench_*.py")) + sorted(
+    (ROOT / "examples").glob("torch_*.py"))
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -37,6 +38,12 @@ def test_port_sources_exist():
                  "src/repro_torch/kernels/ops.py", "chip_smoke.py",
                  "benchmarks/torch_bench_makespan_vs_cut.py",
                  "benchmarks/torch_bench_mapping_search.py",
+                 "benchmarks/torch_bench_spmspv.py",
+                 "benchmarks/torch_bench_tradeoff.py",
+                 "benchmarks/torch_bench_hierarchical.py",
+                 "benchmarks/torch_bench_variants.py",
+                 "benchmarks/torch_bench_scaling.py",
+                 "examples/torch_quickstart.py",
                  "src/repro_torch/tree.py", "src/repro_torch/optim/adamw.py",
                  "src/repro_torch/dist/compress.py",
                  "src/repro_torch/train/steps.py",

@@ -295,8 +295,10 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
         "match_keys", "bucket_assign", "quotient_link_loads",
         "partition_gain", "bag_combine", "gather_combine", "bsr_spmm",
         "flash_attention"}
+    ops.prefix_split(x, torch.tensor([0.5]), 2)
     assert ops.launch_counts() == {name: 0 for name in
-                                   [*ops.KERNEL_MODULES, "match_round"]}
+                                   [*ops.KERNEL_MODULES, "match_round",
+                                    "prefix_split"]}
 
 
 @pytest.mark.parametrize("call", [
@@ -313,9 +315,10 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
                                 t.view(2, 2), t.int().view(1, 1, 4)[..., :1]),
     lambda t: flash_attention.flash_attention(
         t.view(1, 2, 1, 2), t.view(1, 2, 1, 2), t.view(1, 2, 1, 2)),
+    lambda t: bucket_assign.prefix_split(t, t[:1], 2),
 ], ids=["match_keys", "bucket_assign", "partition_gain",
         "quotient_link_loads", "bag_combine", "gather_combine", "bsr_spmm",
-        "flash_attention"])
+        "flash_attention", "prefix_split"])
 def test_wrappers_refuse_devices_without_a_kernel(call):
     """Dispatch is by the tensor's device: no silent plain path on a
     device other than the CPU (here ``meta``)."""
@@ -375,3 +378,147 @@ def test_gather_combine_plain_keeps_float32_unchanged():
     want = torch.einsum("bdf,bd->bf", t[i], ww)
     assert torch.equal(gather_combine.plain(t, i, ww), want)
     assert gather_combine.plain(t, i, ww).dtype == torch.float32
+
+
+@pytest.mark.parametrize("b,d,f", [(32, 10, 64), (100, 5, 200), (8, 50, 32)])
+def test_bag_combine_bf16_plain_matches_reference(b, d, f):
+    """bf16 rows and weights: the plain version against the reference
+    kernel in interpret mode at the reference's own bf16 cases and band
+    (``tests/test_kernels.py``: rtol = atol = 5e-2); bf16 out."""
+    rng = np.random.default_rng(b + d + f)
+    g16 = torch.from_numpy(rng.normal(size=(b, d, f)).astype(
+        np.float32)).to(torch.bfloat16)
+    w16 = torch.from_numpy(rng.normal(size=(b, d)).astype(
+        np.float32)).to(torch.bfloat16)
+    got = bag_combine.bag_combine(g16, w16)
+    assert got.dtype == torch.bfloat16 and got.shape == (b, f)
+    ref = jbag_combine.bag_combine(
+        jnp.asarray(g16.float().numpy()).astype(jnp.bfloat16),
+        jnp.asarray(w16.float().numpy()).astype(jnp.bfloat16),
+        interpret=True)
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(ref, np.float32), rtol=5e-2,
+                               atol=5e-2)
+
+
+@pytest.mark.parametrize("b,d,f", [(32, 10, 64), (16, 50, 256), (1, 50, 256)])
+def test_bag_combine_bf16_plain_rounds_the_float32_sum_once(b, d, f):
+    """The plain version on bf16 rows and weights is the float32 sum of the
+    bf16 values rounded once to bf16 (within one bf16 ulp of numpy's), as
+    the kernel sums; float32 inputs keep their einsum bitwise."""
+    rng = np.random.default_rng(b * d)
+    g16 = torch.from_numpy(rng.normal(size=(b, d, f)).astype(
+        np.float32)).to(torch.bfloat16)
+    w16 = torch.from_numpy(rng.random((b, d)).astype(np.float32)).to(
+        torch.bfloat16)
+    got = bag_combine.plain(g16, w16)
+    want = torch.from_numpy(np.einsum(
+        "bdf,bd->bf", g16.float().numpy(), w16.float().numpy())).to(
+        torch.bfloat16).float()
+    err = (got.float() - want).abs()
+    ulp = torch.ldexp(torch.ones_like(err), torch.frexp(want)[1] - 8)
+    assert bool((err <= ulp).all()), float((err / ulp).max())
+    g, w = g16.float(), w16.float()
+    assert torch.equal(bag_combine.plain(g, w),
+                       torch.einsum("bdf,bd->bf", g, w))
+
+
+def _jax_graph(g):
+    from repro.graph.graph import from_edges as jfrom_edges
+    return jfrom_edges(g.n_nodes, g.senders, g.receivers, g.edge_weight,
+                       g.node_weight)
+
+
+def _split_cases():
+    from repro_torch.core.machine import MachineSpec
+    from repro_torch.core.topology import (balanced_tree, production_tree,
+                                           with_bin_speed)
+    from repro_torch.graph.generators import grid2d, grid3d, rmat
+    return [
+        ("grid2d_k2", lambda: grid2d(30, 30), lambda: balanced_tree((2,))),
+        ("grid3d_k16", lambda: grid3d(12, 12, 12),
+         lambda: balanced_tree((4, 4))),
+        ("rmat_superpod", lambda: rmat(3000, 12000, seed=1),
+         lambda: MachineSpec.preset("gpu-superpod").tree()),
+        ("grid3d_k512", lambda: grid3d(16, 16, 16),
+         lambda: production_tree(2, 16, 16)),
+        ("rmat_speeds", lambda: rmat(2000, 8000, seed=2),
+         lambda: with_bin_speed(balanced_tree((4, 4)),
+                                [1.0] * 8 + [0.5] * 8)),
+    ]
+
+
+def _integer_weights(g, seed):
+    import dataclasses
+    w = np.random.default_rng(seed).integers(1, 6, g.n_nodes)
+    return dataclasses.replace(g, node_weight=w.astype(np.float32))
+
+
+@pytest.mark.parametrize("case", [c[0] for c in _split_cases()])
+def test_prefix_split_plain_matches_reference_initial(case):
+    """``initial_partition_device`` through ``prefix_split``'s plain version
+    against the reference's on the same graph and tree, with integer node
+    weights (every scan exact): equal bins, every bin in [0, k-1], and
+    non-decreasing in the vertex order."""
+    from repro.core.initial import initial_partition_device as jinitial
+    from repro.core.topology import make_tree as jmake_tree
+    from repro.core.topology import with_bin_speed as jwith_speed
+    from repro_torch.core.initial import initial_partition_device
+    _, mk_g, mk_t = next(c for c in _split_cases() if c[0] == case)
+    g, topo = _integer_weights(mk_g(), 3), mk_t()
+    got = initial_partition_device(g, topo, device="cpu")
+    jtopo = jmake_tree(topo.parent, topo.is_router)
+    if topo.bin_speed is not None:
+        jtopo = jwith_speed(jtopo, topo.bin_speed)
+    want = jinitial(_jax_graph(g), jtopo)
+    assert got.dtype == np.int32
+    np.testing.assert_array_equal(got, want)
+    assert got.min() >= 0 and got.max() <= topo.k - 1
+    assert (np.diff(got) >= 0).all()
+    assert len(np.unique(got)) == topo.k
+
+
+def test_prefix_split_plain_with_float_weights_within_the_scan_rounding():
+    """Float node weights: the port's float32 cumsum and the reference's
+    scan round apart, so a bin may differ only where the float64 midpoint
+    lies within 2^-18 of the total of a boundary."""
+    from repro.core.initial import initial_partition_device as jinitial
+    from repro.core.topology import balanced_tree as jbt
+    from repro_torch.core.initial import initial_partition_device
+    from repro_torch.core.topology import balanced_tree
+    from repro_torch.graph.generators import rmat, weighted_nodes
+    g = weighted_nodes(rmat(6000, 24000, seed=5), seed=5, lo=0.1, hi=8.0)
+    got = initial_partition_device(g, balanced_tree((8, 8)), device="cpu")
+    want = jinitial(_jax_graph(g), jbt((8, 8)))
+    nw = g.node_weight.astype(np.float64)
+    cum = np.cumsum(nw) - 0.5 * nw
+    bounds = np.arange(1, 64) / 64 * nw.sum()
+    near = (np.abs(cum[:, None] - bounds[None, :])
+            <= 2.0 ** -18 * nw.sum()).any(1)
+    assert ((got == want) | near).all()
+    assert (np.diff(got) >= 0).all()
+
+
+def test_prefix_split_plain_is_the_bucket_assign_of_the_float32_cumsum():
+    rng = np.random.default_rng(0)
+    nw = torch.from_numpy(rng.random(5000).astype(np.float32) + 0.1)
+    b = torch.from_numpy((np.arange(1, 64) / 64 * float(nw.double().sum()))
+                         .astype(np.float32))
+    cum = torch.cumsum(nw, 0) - 0.5 * nw
+    assert torch.equal(ops.prefix_split(nw, b, 64),
+                       bucket_assign.plain(cum, b, 64))
+    assert torch.equal(ops.prefix_split(nw, b, 64), torch.from_numpy(
+        ops.prefix_split_host(nw.numpy(), b.numpy(), 64,
+                              torch.device("cpu"))))
+
+
+def test_prefix_split_refuses_unsorted_boundaries():
+    nw = torch.ones(8)
+    with pytest.raises(ValueError, match="non-decreasing"):
+        ops.prefix_split(nw, torch.tensor([3.0, 1.0, 2.0]), 4)
+    with pytest.raises(ValueError, match="non-decreasing"):
+        ops.prefix_split_host(nw.numpy(), np.array([2.0, 1.0], np.float32),
+                              3, torch.device("cpu"))
+    # equal boundaries are non-decreasing: a bin may stay empty
+    got = ops.prefix_split(nw, torch.tensor([4.0, 4.0, 4.0]), 4)
+    np.testing.assert_array_equal(got.numpy(), [0] * 4 + [3] * 4)

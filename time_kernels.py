@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Time the port's workload kernels on one NVIDIA GPU at their paths'
 shapes, with the checks and measurements of ``chip_smoke.py``'s kernels
-phase: the partitioner's four (``match_keys``, ``bucket_assign``,
+phase: the partitioner's (``match_keys``, ``bucket_assign``,
+``prefix_split``,
 ``quotient_link_loads`` on random and CSR-local partitions and at the serve
 pools' k = 4, ``partition_gain`` beside ``scatter_add_``), the bag kernels
 (``bag_combine``, ``gather_combine``) at the recsys path's shapes, with the
@@ -14,7 +15,12 @@ at the lm path's (one 4 x 4,096 prefill call and one of 32,768 tokens):
 ``SRC`` (default: this checkout's ``src``) is the directory holding the
 ``repro_torch`` package to time, so that two trees can be compared on one
 card, one process each, in the order A, B, B, A. ``--only`` keeps the
-named groups. Three more are not in the default: ``full_qll`` times
+named groups. ``prefix_split`` runs the kernels phase's ``prefix_split``
+part alone (part of ``partitioner``): its checks, the kernel, the ATen
+sequence it replaces and the old cumsum + ``bucket_assign`` pair timed in
+alternation, and ``initial_partition_device``'s wall against the old
+sequence's (either tree whose wrappers take this tree's arguments). Three
+more are not in the default: ``full_qll`` times
 ``quotient_link_loads`` at each of the full cell's arc-count groups, on the
 path's own inputs and on synthetic ones; ``serve`` runs the lm phase's two
 serving streams for their ms per step, the wide one also unplaced (both
@@ -203,6 +209,7 @@ GROUPS = {"partitioner": chip_smoke.phase_kernels,
           "recsys": chip_smoke.phase_kernels_recsys,
           "gnn": chip_smoke.phase_kernels_gnn,
           "lm": chip_smoke.phase_kernels_lm,
+          "prefix_split": chip_smoke.phase_kernels_split,
           "qll_paths": qll_paths, "full_qll": full_qll, "serve": serve,
           "bag_streams": bag_streams}
 
