@@ -3,10 +3,10 @@
 Subpackages mirror the JAX package: ``graph`` (arc-list graphs and
 generators), ``core`` (machine trees, the makespan objective, coarsening,
 initial partition, refinement, the ``partition()`` entry point and block
-placement), ``configs`` (two-tower, GIN-TU and dense-LM configurations and
-shape grids), ``data`` (seeded LM, recsys, GNN-feature and molecule batches),
-``models`` (MLP, two-tower serving, the GIN forward, the dense-GQA
-transformer with its loss), ``embed`` (the partition-sharded embedding
+placement), ``configs`` (two-tower, GIN-TU, dense-GQA and MoE + MLA LM
+configurations and shape grids), ``data`` (seeded LM, recsys, GNN-feature
+and molecule batches), ``models`` (MLP, two-tower serving, the GIN
+forward, the GQA and MoE + MLA transformer with its loss), ``embed`` (the partition-sharded embedding
 table), ``serving`` (paged KV cache, scheduler, paged decode, the
 continuous-batching engine), ``optim`` (AdamW), ``dist`` (int8 gradient
 compression), ``train`` (the train step and the fault-tolerant loop),

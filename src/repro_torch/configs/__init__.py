@@ -1,14 +1,20 @@
 """Model configurations the port runs: the two-tower retrieval config and
 its shape grid (``two_tower_retrieval``), GIN-TU over the GNN shape grid
-(``gin_tu`` on ``gnn_common``) and the dense GQA LMs ``qwen2-1.5b`` and
-``chatglm3-6b`` (on ``lm_common``), on ``common.ShapeSpec`` / ``ArchDef``.
+(``gin_tu`` on ``gnn_common``) and the LMs (on ``lm_common``): the dense
+GQA ``qwen2-1.5b``, ``qwen2-72b`` and ``chatglm3-6b``, and the MoE + MLA
+``deepseek-v2-lite-16b`` and ``deepseek-v2-236b``, on
+``common.ShapeSpec`` / ``ArchDef``.
 
 ``REGISTRY`` / :func:`get` resolve the LM names the serving CLI's
 ``--arch`` takes (twin of ``repro/configs/__init__.py``'s registry, for the
 archs that are ported)."""
-from repro_torch.configs import chatglm3_6b, gin_tu, qwen2_1_5b
+from repro_torch.configs import (chatglm3_6b, deepseek_v2_236b,
+                                 deepseek_v2_lite_16b, gin_tu, qwen2_1_5b,
+                                 qwen2_72b)
 
-REGISTRY = {a.ARCH.name: a.ARCH for a in (chatglm3_6b, qwen2_1_5b, gin_tu)}
+REGISTRY = {a.ARCH.name: a.ARCH for a in (
+    deepseek_v2_236b, deepseek_v2_lite_16b, chatglm3_6b, qwen2_72b,
+    qwen2_1_5b, gin_tu)}
 
 
 def get(name: str):

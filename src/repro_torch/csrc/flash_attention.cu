@@ -4,8 +4,10 @@
 //                  * v[b, j, h / G]
 //
 // over keys j < sk (and j <= i when causal: the mask is top-left aligned,
-// k_pos <= q_pos), q [B, Sq, H, D], k/v [B, Sk, KH, D], G = H / KH, in
-// float32 or bf16, D <= 128.
+// k_pos <= q_pos), q [B, Sq, H, D], k [B, Sk, KH, D], v [B, Sk, KH, DV],
+// o [B, Sq, H, DV], G = H / KH, scale = 1 / sqrt(D), in float32 or bf16,
+// D <= 192, DV <= 128 (MLA's prefill: D = 192 = 128 nope + 64 rope, DV =
+// 128; the dense LMs: DV = D).
 //
 // Replaces the Pallas kernel repro/kernels/flash_attention.py:
 // flash_attention_fwd (and, on the model path, the pure-JAX _flash forward
@@ -32,8 +34,9 @@
 // 128, causal) one call is ~206 GFLOP against ~117 MB of q, k, v and o, so
 // it is bound by operations: ~0.21 ms at the bf16 dense tensor-core peak.
 //
-// Two kernels. bf16 with D = 64 or 128 (the LM path) runs
-// flash_fwd_wgmma_kernel (below), built for Hopper's tensor cores:
+// Two kernels. bf16 with (D, DV) = (64, 64), (128, 128) or (192, 128) (the
+// LM paths) runs flash_fwd_wgmma_kernel (below), built for Hopper's tensor
+// cores:
 // persistent CTAs of three warpgroups, one per SM, each walking 128-row q
 // tiles. One producer warp, its registers given up with setmaxnreg, issues
 // TMA loads: Q once per q tile, then K and V tiles of 128 keys into a ring
@@ -51,9 +54,11 @@
 // (transposed) and then V share one buffer; S = Q K^T is a 4 x 4 register
 // tile per thread read with float4 loads; the scaled, masked scores go to
 // shared memory transposed ([key][row]), the online-softmax update runs
-// four threads per row, and O = P V is a 4 x (D / 16) register tile per
+// four threads per row, and O = P V is a 4 x (DV / 16) register tile per
 // thread; it cannot go below ~3.1 ms at the prefill shape (the float32
-// vector peak). In both, causal blocks stop at their last visible kv tile,
+// vector peak). It is built for a padded q/k width DM of 32, 64, 128 or
+// 192 and a padded output width DVM <= DM of 32, 64 or 128 (DM = 192
+// takes 124 KB of shared memory, one block an SM). In both, causal blocks stop at their last visible kv tile,
 // and the grid issues the longest (last) q tiles first. Ragged Sq and Sk
 // need no padded copies: rows at or beyond Sq load zeros and are not
 // stored, keys at or beyond Sk load zeros and are masked.
@@ -109,18 +114,20 @@ static __device__ __forceinline__ void load_transposed(
   }
 }
 
-template <typename T, int DM>
+template <typename T, int DM, int DVM>
 static __global__ void __launch_bounds__(THREADS, 2)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o,
                  float* __restrict__ lse, int n_bh, int sq, int sk, int h,
-                 int kh, int d, int n_qtiles, float scale, int causal) {
-  constexpr int NJ = DM / 16;             // output dims per thread
+                 int kh, int d, int dv, int n_qtiles, float scale,
+                 int causal) {
+  static_assert(DVM <= DM, "V's rows share the transposed K tile's buffer");
+  constexpr int NJ = DVM / 16;            // output dims per thread
   constexpr int VEC = NJ < 4 ? NJ : 4;    // contiguous dims per group
   constexpr int NG = NJ / VEC;            // groups of VEC dims
   extern __shared__ float4 smem4[];
   float* qt = reinterpret_cast<float*>(smem4);  // [DM][LD]  q tile^T
-  float* kv = qt + DM * LD;                     // [DM][LD] k^T, or [BK][DM] v
+  float* kv = qt + DM * LD;                     // [DM][LD] k^T, or [BK][DVM] v
   float* pt = kv + DM * LD;                     // [BK][LD]  S^T, then P^T
   float* red_m = pt + BK * LD;                  // [4][BQ] partial row max
   float* red_s = red_m + 4 * BQ;                // [4][BQ] partial row sum
@@ -135,9 +142,11 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int q0 = qtile * BQ;
   const long long q_ld = static_cast<long long>(h) * d;
   const long long kv_ld = static_cast<long long>(kh) * d;
+  const long long v_ld = static_cast<long long>(kh) * dv;
+  const long long o_ld = static_cast<long long>(h) * dv;
   const T* qb = q + (static_cast<long long>(b) * sq * h + hh) * d;
   const T* kb = k + (static_cast<long long>(b) * sk * kh + kvh) * d;
-  const T* vb = v + (static_cast<long long>(b) * sk * kh + kvh) * d;
+  const T* vb = v + (static_cast<long long>(b) * sk * kh + kvh) * dv;
 
   // S / PV micro-tile owner: rows tr*4 .. tr*4+3
   const int tr = tid >> 4, tc = tid & 15;
@@ -196,10 +205,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     __syncthreads();                 // S written, K no longer read
 
-    // V replaces K in the shared buffer, row-major [BK][DM]
-    for (int e = tid; e < BK * DM; e += THREADS) {
-      const int r = e / DM, c = e % DM;
-      kv[e] = (r < n_keys && c < d) ? to_f32(vb[(k0 + r) * kv_ld + c]) : 0.f;
+    // V replaces K in the shared buffer, row-major [BK][DVM]
+    for (int e = tid; e < BK * DVM; e += THREADS) {
+      const int r = e / DVM, c = e % DVM;
+      kv[e] = (r < n_keys && c < dv) ? to_f32(vb[(k0 + r) * v_ld + c]) : 0.f;
     }
     // online softmax, part 1: the row max over this tile
     float sv[16];
@@ -247,7 +256,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       float vv[NJ];
 #pragma unroll
       for (int g = 0; g < NG; ++g) {
-        const float* src = kv + kk * DM + g * 16 * VEC + tc * VEC;
+        const float* src = kv + kk * DVM + g * 16 * VEC + tc * VEC;
         if constexpr (VEC == 4) {
           const float4 x = *reinterpret_cast<const float4*>(src);
           vv[g * 4] = x.x; vv[g * 4 + 1] = x.y;
@@ -275,14 +284,14 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int r = tr * 4 + i;
     if (q0 + r >= sq) continue;
     const float inv_l = 1.f / fmaxf(row_l[r], 1e-20f);
-    T* dst = o + (static_cast<long long>(b) * sq + q0 + r) * q_ld
-             + static_cast<long long>(hh) * d;
+    T* dst = o + (static_cast<long long>(b) * sq + q0 + r) * o_ld
+             + static_cast<long long>(hh) * dv;
 #pragma unroll
     for (int g = 0; g < NG; ++g)
 #pragma unroll
       for (int j = 0; j < VEC; ++j) {
         const int c = g * 16 * VEC + tc * VEC + j;
-        if (c < d) dst[c] = from_f32<T>(acc[i][g * VEC + j] * inv_l);
+        if (c < dv) dst[c] = from_f32<T>(acc[i][g * VEC + j] * inv_l);
       }
   }
 }
@@ -291,42 +300,66 @@ static constexpr size_t smem_bytes(int dm) {
   return sizeof(float) * (2 * dm * LD + BK * LD + 4 * BQ * 2 + 2 * BQ);
 }
 
-template <typename T, int DM>
+template <typename T, int DM, int DVM>
 static int launch(const void* q, const void* k, const void* v, void* o,
                   float* lse, int b, int sq, int sk, int h, int kh, int d,
-                  float scale, int causal, cudaStream_t stream) {
+                  int dv, float scale, int causal, cudaStream_t stream) {
   const size_t smem = smem_bytes(DM);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, DM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      flash_fwd_kernel<T, DM, DVM>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const int n_bh = b * h;
   const int n_qtiles = (sq + BQ - 1) / BQ;
   const long long blocks = static_cast<long long>(n_bh) * n_qtiles;
-  flash_fwd_kernel<T, DM><<<static_cast<unsigned>(blocks), THREADS, smem,
-                            stream>>>(
+  flash_fwd_kernel<T, DM, DVM><<<static_cast<unsigned>(blocks), THREADS,
+                                 smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), lse, n_bh, sq, sk, h, kh,
-      d, n_qtiles, scale, causal);
+      d, dv, n_qtiles, scale, causal);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The output width's instance for a padded q/k width DM >= dv
+template <typename T, int DM>
+static int launch_dv(const void* q, const void* k, const void* v, void* o,
+                     float* lse, int b, int sq, int sk, int h, int kh, int d,
+                     int dv, float scale, int causal, cudaStream_t stream) {
+  if (dv <= 32)
+    return launch<T, DM, 32>(q, k, v, o, lse, b, sq, sk, h, kh, d, dv, scale,
+                             causal, stream);
+  if constexpr (DM >= 64) {
+    if (dv <= 64)
+      return launch<T, DM, 64>(q, k, v, o, lse, b, sq, sk, h, kh, d, dv,
+                               scale, causal, stream);
+  }
+  if constexpr (DM >= 128)
+    return launch<T, DM, 128>(q, k, v, o, lse, b, sq, sk, h, kh, d, dv,
+                              scale, causal, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 template <typename T>
 static int launch_d(const void* q, const void* k, const void* v, void* o,
                     float* lse, int b, int sq, int sk, int h, int kh, int d,
-                    float scale, int causal, cudaStream_t stream) {
-  if (d <= 32)
-    return launch<T, 32>(q, k, v, o, lse, b, sq, sk, h, kh, d, scale, causal,
-                         stream);
-  if (d <= 64)
-    return launch<T, 64>(q, k, v, o, lse, b, sq, sk, h, kh, d, scale, causal,
-                         stream);
-  return launch<T, 128>(q, k, v, o, lse, b, sq, sk, h, kh, d, scale, causal,
-                        stream);
+                    int dv, float scale, int causal, cudaStream_t stream) {
+  const int dm = d > dv ? d : dv;
+  if (dm <= 32)
+    return launch_dv<T, 32>(q, k, v, o, lse, b, sq, sk, h, kh, d, dv, scale,
+                            causal, stream);
+  if (dm <= 64)
+    return launch_dv<T, 64>(q, k, v, o, lse, b, sq, sk, h, kh, d, dv, scale,
+                            causal, stream);
+  if (dm <= 128)
+    return launch_dv<T, 128>(q, k, v, o, lse, b, sq, sk, h, kh, d, dv, scale,
+                             causal, stream);
+  return launch_dv<T, 192>(q, k, v, o, lse, b, sq, sk, h, kh, d, dv, scale,
+                           causal, stream);
 }
 
 // ---------------------------------------------------------------------------
-// bf16 with D = 64 or 128 on Hopper: flash_fwd_wgmma_kernel.
+// bf16 with (D, DV) = (64, 64), (128, 128) or (192, 128) on Hopper:
+// flash_fwd_wgmma_kernel.
 //
 // Persistent CTAs, one per SM, each walking work tiles (a 128-row q tile of
 // one (batch, head)) longest first, in rounds of the grid taken forwards
@@ -343,15 +376,17 @@ static int launch_d(const void* q, const void* k, const void* v, void* o,
 // 232 registers. Shared memory, every tile 1024-byte aligned and 128-byte
 // swizzled by TMA exactly as wgmma's SWIZZLE_128B descriptors read it: Q
 // [128 rows][D] as D / 64 panels of 128 rows x 128 bytes (32 KB at D =
-// 128), then STAGES K tiles and STAGES V tiles of 128 keys in the same
-// panel form, then the barriers: 160 KB at D = 128 (two stages), 144 KB at
-// D = 64 (four stages).
+// 128), then STAGES K tiles (D / 64 panels) and STAGES V tiles (DV / 64
+// panels) of 128 keys in the same panel form, then the barriers: 160 KB at
+// D = 128 (two stages), 144 KB at D = 64 (four stages), 208 KB at (192,
+// 128) (two stages: Q 48 KB, K 2 x 48, V 2 x 32).
 //
 // The products, per consumer warpgroup and kv tile:
-//   S = Q K^T   wgmma m64n128k16, both operands K-major in shared memory:
-//               a k-step of 16 dims advances 32 bytes inside a 64-dim
-//               panel and jumps a panel at 64 (SBO = 1024: eight rows);
-//   O += P V    wgmma m64nDk16 with P from registers (the score
+//   S = Q K^T   wgmma m64n128k16, both operands K-major in shared memory,
+//               D / 16 k-steps: a k-step of 16 dims advances 32 bytes
+//               inside a 64-dim panel and jumps a panel at 64 (SBO = 1024:
+//               eight rows);
+//   O += P V    wgmma m64nDVk16 with P from registers (the score
 //               accumulator's layout is the A fragment's, so P never
 //               touches shared memory) and V MN-major (the transpose bit):
 //               a k-step of 16 keys advances 2,048 bytes, LBO is the
@@ -369,19 +404,24 @@ constexpr int PRODUCER_REGS = 40;
 constexpr int CONSUMER_REGS = 232;  // 40 + 2 x 232 = 3 x 168 (launch bound)
 constexpr float LOG2E = 1.4426950408889634f;
 
-template <int D> struct WgTile {
-  static constexpr int PANELS = D / 64;          // 128-byte panels per row
+constexpr int Q_PANEL = WG_BQ * 128;    // bytes of one Q panel
+constexpr int KV_PANEL = WG_BK * 128;   // bytes of one K/V panel
+
+template <int D, int DV> struct WgTile {
+  static constexpr int PANELS = D / 64;          // 128-byte panels of Q, K
+  static constexpr int V_PANELS = DV / 64;       // and of V
   static constexpr int STAGES = D == 64 ? 4 : 2;
-  static constexpr int Q_PANEL = WG_BQ * 128;    // bytes of one Q panel
-  static constexpr int KV_PANEL = WG_BK * 128;   // bytes of one K/V panel
   static constexpr int Q_BYTES = PANELS * Q_PANEL;
-  static constexpr int KV_BYTES = PANELS * KV_PANEL;
+  static constexpr int K_BYTES = PANELS * KV_PANEL;
+  static constexpr int V_BYTES = V_PANELS * KV_PANEL;
   static constexpr int OFF_K = Q_BYTES;
-  static constexpr int OFF_V = OFF_K + STAGES * KV_BYTES;
-  static constexpr int OFF_BAR = OFF_V + STAGES * KV_BYTES;
+  static constexpr int OFF_V = OFF_K + STAGES * K_BYTES;
+  static constexpr int OFF_BAR = OFF_V + STAGES * V_BYTES;
   // full and empty barriers for Q, then for K and for V per stage; 1 KB
   // of slack to align the dynamic shared memory's base to 1,024 bytes
   static constexpr int SMEM = OFF_BAR + 8 * (2 + 4 * STAGES) + 1024;
+  static_assert(SMEM <= 232448, "over the 227 KB of shared memory a block "
+                                "may take");
 };
 
 static __device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
@@ -624,8 +664,8 @@ static __device__ __forceinline__ void qk_product(float (&s)[64],
                                                   uint32_t k_tile) {
 #pragma unroll
   for (int ks = 0; ks < D / 16; ++ks) {
-    const uint32_t qoff = (ks >> 2) * WgTile<D>::Q_PANEL + (ks & 3) * 32;
-    const uint32_t koff = (ks >> 2) * WgTile<D>::KV_PANEL + (ks & 3) * 32;
+    const uint32_t qoff = (ks >> 2) * Q_PANEL + (ks & 3) * 32;
+    const uint32_t koff = (ks >> 2) * KV_PANEL + (ks & 3) * 32;
     const uint64_t da = sw128_desc(q_wg + qoff, 16, 1024);
     const uint64_t db = sw128_desc(k_tile + koff, 16, 1024);
     if (ks == 0) wgmma_ss_n128_first(s, da, db);
@@ -635,17 +675,16 @@ static __device__ __forceinline__ void qk_product(float (&s)[64],
 
 // O += P V for one kv tile (issued, not waited on): 128 keys in 8 k-steps
 // of 16, P's registers p[4 kk .. 4 kk + 3] for keys 16 kk .. 16 kk + 15
-template <int D>
-static __device__ __forceinline__ void pv_product(float (&acc)[D / 2],
+template <int DV>
+static __device__ __forceinline__ void pv_product(float (&acc)[DV / 2],
                                                   const uint32_t (&p)[32],
                                                   uint32_t v_tile) {
 #pragma unroll
   for (int kk = 0; kk < WG_BK / 16; ++kk) {
     const uint32_t a[4] = {p[4 * kk], p[4 * kk + 1], p[4 * kk + 2],
                            p[4 * kk + 3]};
-    const uint64_t db = sw128_desc(v_tile + kk * 16 * 128,
-                                   WgTile<D>::KV_PANEL, 1024);
-    if constexpr (D == 128) wgmma_rs_n128(acc, a, db);
+    const uint64_t db = sw128_desc(v_tile + kk * 16 * 128, KV_PANEL, 1024);
+    if constexpr (DV == 128) wgmma_rs_n128(acc, a, db);
     else wgmma_rs_n64(acc, a, db);
   }
 }
@@ -697,12 +736,12 @@ static __device__ __forceinline__ void softmax_tile(
 }
 
 // O *= alpha, then P rounded to bf16 and packed as the A fragments
-template <int D>
+template <int DV>
 static __device__ __forceinline__ void rescale_and_pack(
-    float (&acc)[D / 2], uint32_t (&p)[32], const float (&s)[64],
+    float (&acc)[DV / 2], uint32_t (&p)[32], const float (&s)[64],
     const float (&alpha)[2]) {
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+  for (int i = 0; i < DV / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
 #pragma unroll
   for (int i = 0; i < 32; ++i) p[i] = pack_bf16(s[2 * i], s[2 * i + 1]);
 }
@@ -747,7 +786,7 @@ static __device__ __forceinline__ int snake_tile(int r, int c, int grid) {
   return r * grid + ((r & 1) ? grid - 1 - c : c);
 }
 
-template <int D>
+template <int D, int DV>
 static __global__ void __launch_bounds__(WG_THREADS, 1)
 flash_fwd_wgmma_kernel(__grid_constant__ const CUtensorMap tq,
                        __grid_constant__ const CUtensorMap tk,
@@ -756,7 +795,7 @@ flash_fwd_wgmma_kernel(__grid_constant__ const CUtensorMap tq,
                        float* __restrict__ lse, int n_bh, int sq, int sk,
                        int h, int kh, int n_qtiles, float scale,
                        float scale_log2, int causal) {
-  using T = WgTile<D>;
+  using T = WgTile<D, DV>;
   constexpr int S = T::STAGES;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
@@ -808,23 +847,23 @@ flash_fwd_wgmma_kernel(__grid_constant__ const CUtensorMap tq,
         mbar_expect_tx(full_q, T::Q_BYTES);
 #pragma unroll
         for (int p = 0; p < T::PANELS; ++p)
-          tma_load_4d(s_q + p * T::Q_PANEL, &tq, full_q, p * 64, w.hh, w.q0,
+          tma_load_4d(s_q + p * Q_PANEL, &tq, full_q, p * 64, w.hh, w.q0,
                       w.b);
         const int n_kt = kv_tiles(w.q0, sk, causal);
         for (int t = 0; t < n_kt; ++t) {
-          const uint32_t kt = s_k + st * T::KV_BYTES;
-          const uint32_t vt = s_v + st * T::KV_BYTES;
+          const uint32_t kt = s_k + st * T::K_BYTES;
+          const uint32_t vt = s_v + st * T::V_BYTES;
           mbar_wait(empty_k + 8 * st, phase ^ 1);
-          mbar_expect_tx(full_k + 8 * st, T::KV_BYTES);
+          mbar_expect_tx(full_k + 8 * st, T::K_BYTES);
 #pragma unroll
           for (int p = 0; p < T::PANELS; ++p)
-            tma_load_4d(kt + p * T::KV_PANEL, &tk, full_k + 8 * st, p * 64,
+            tma_load_4d(kt + p * KV_PANEL, &tk, full_k + 8 * st, p * 64,
                         kvh, t * WG_BK, w.b);
           mbar_wait(empty_v + 8 * st, phase ^ 1);
-          mbar_expect_tx(full_v + 8 * st, T::KV_BYTES);
+          mbar_expect_tx(full_v + 8 * st, T::V_BYTES);
 #pragma unroll
-          for (int p = 0; p < T::PANELS; ++p)
-            tma_load_4d(vt + p * T::KV_PANEL, &tv, full_v + 8 * st, p * 64,
+          for (int p = 0; p < T::V_PANELS; ++p)
+            tma_load_4d(vt + p * KV_PANEL, &tv, full_v + 8 * st, p * 64,
                         kvh, t * WG_BK, w.b);
           if (++st == S) { st = 0; phase ^= 1; }
         }
@@ -856,9 +895,9 @@ flash_fwd_wgmma_kernel(__grid_constant__ const CUtensorMap tq,
       // kv tiles from this one on cross Sk or this group's diagonal
       const int k_edge = min(sk - WG_BK, causal ? qw0 - WG_BK + 1 : sk);
 
-      float acc[D / 2];
+      float acc[DV / 2];
 #pragma unroll
-      for (int j = 0; j < D / 2; ++j) acc[j] = 0.f;
+      for (int j = 0; j < DV / 2; ++j) acc[j] = 0.f;
       float m_run[2] = {-INFINITY, -INFINITY};
       float l_run[2] = {0.f, 0.f};    // this thread's columns only
       float s[64], alpha[2];
@@ -869,7 +908,7 @@ flash_fwd_wgmma_kernel(__grid_constant__ const CUtensorMap tq,
         mbar_wait(full_k + 8 * st, phase);
         named_sync(my_turn);
         wgmma_fence();
-        qk_product<D>(s, q_wg, s_k + st * T::KV_BYTES);
+        qk_product<D>(s, q_wg, s_k + st * T::K_BYTES);
         wgmma_commit();
         named_arrive(their_turn);
         wgmma_wait<0>();
@@ -878,7 +917,7 @@ flash_fwd_wgmma_kernel(__grid_constant__ const CUtensorMap tq,
         if (n_kt == 1) warp_arrive(empty_q, lane);   // Q's last use
         softmax_tile(s, m_run, l_run, alpha, 0 > k_edge, 0, row0, lane, sk,
                      causal, scale_log2);
-        rescale_and_pack<D>(acc, p, s, alpha);
+        rescale_and_pack<DV>(acc, p, s, alpha);
         for (int t = 1; t < n_kt; ++t) {
           // turn: kv tile t's S = Q K^T and kv tile t-1's O += P V, both
           // in flight while tile t's softmax runs
@@ -889,9 +928,9 @@ flash_fwd_wgmma_kernel(__grid_constant__ const CUtensorMap tq,
           mbar_wait(full_v + 8 * prev, prev_phase);
           named_sync(my_turn);
           wgmma_fence();
-          qk_product<D>(s, q_wg, s_k + st * T::KV_BYTES);
+          qk_product<D>(s, q_wg, s_k + st * T::K_BYTES);
           wgmma_commit();
-          pv_product<D>(acc, p, s_v + prev * T::KV_BYTES);
+          pv_product<DV>(acc, p, s_v + prev * T::V_BYTES);
           wgmma_commit();
           named_arrive(their_turn);
           wgmma_wait<1>();             // S is in; P V still in flight
@@ -904,13 +943,13 @@ flash_fwd_wgmma_kernel(__grid_constant__ const CUtensorMap tq,
           fence_regs(acc);
           fence_regs(p);
           warp_arrive(empty_v + 8 * prev, lane);
-          rescale_and_pack<D>(acc, p, s, alpha);
+          rescale_and_pack<DV>(acc, p, s, alpha);
         }
         // the work tile's last turn: its last kv tile's O += P V
         mbar_wait(full_v + 8 * st, phase);
         named_sync(my_turn);
         wgmma_fence();
-        pv_product<D>(acc, p, s_v + st * T::KV_BYTES);
+        pv_product<DV>(acc, p, s_v + st * T::V_BYTES);
         wgmma_commit();
         named_arrive(their_turn);
         wgmma_wait<0>();
@@ -936,10 +975,10 @@ flash_fwd_wgmma_kernel(__grid_constant__ const CUtensorMap tq,
                       : -INFINITY;
         const float inv_l = 1.f / fmaxf(l, 1e-20f);
         __nv_bfloat16* dst =
-            o + ((static_cast<long long>(w.b) * sq + qp) * h + w.hh) * D
+            o + ((static_cast<long long>(w.b) * sq + qp) * h + w.hh) * DV
             + (lane & 3) * 2;
 #pragma unroll
-        for (int j = 0; j < D / 8; ++j)
+        for (int j = 0; j < DV / 8; ++j)
           *reinterpret_cast<__nv_bfloat162*>(dst + j * 8) =
               __floats2bfloat162_rn(acc[4 * j + 2 * half] * inv_l,
                                     acc[4 * j + 2 * half + 1] * inv_l);
@@ -981,7 +1020,7 @@ static EncodeTiled tensor_map_encoder() {
 // boxes of 64 x 1 x rows x 1 (one 128-byte panel of `rows` rows of one
 // head), 128-byte swizzled. Rows beyond S read as zeros: a ragged tile
 // never reaches the next sequence. Bases and strides must be 16-byte
-// aligned (the wrapper checks the bases; D is 64 or 128).
+// aligned (the wrapper checks the bases; D is 64, 128 or 192).
 static bool encode_bsnd(EncodeTiled encode, CUtensorMap* map, const void* ptr,
                         int d, int n, int s, int b, int rows) {
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d),
@@ -999,12 +1038,12 @@ static bool encode_bsnd(EncodeTiled encode, CUtensorMap* map, const void* ptr,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int D>
+template <int D, int DV>
 static int launch_wgmma(const void* q, const void* k, const void* v, void* o,
                         float* lse, int b, int sq, int sk, int h, int kh,
                         float scale, int causal, int n_sm,
                         cudaStream_t stream) {
-  using T = WgTile<D>;
+  using T = WgTile<D, DV>;
   const EncodeTiled encode = tensor_map_encoder();
   if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
   CUtensorMap tq, tk, tv;
@@ -1012,21 +1051,21 @@ static int launch_wgmma(const void* q, const void* k, const void* v, void* o,
     return static_cast<int>(cudaErrorInvalidValue);
   if (sk > 0) {
     if (!encode_bsnd(encode, &tk, k, D, kh, sk, b, WG_BK)
-        || !encode_bsnd(encode, &tv, v, D, kh, sk, b, WG_BK))
+        || !encode_bsnd(encode, &tv, v, DV, kh, sk, b, WG_BK))
       return static_cast<int>(cudaErrorInvalidValue);
   } else {
     tk = tq;        // no kv tile is loaded: every row's output is 0
     tv = tq;
   }
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_wgmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      T::SMEM);
+      flash_fwd_wgmma_kernel<D, DV>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int n_bh = b * h;
   const int n_qtiles = (sq + WG_BQ - 1) / WG_BQ;
   const long long tiles = static_cast<long long>(n_bh) * n_qtiles;
   const int grid = static_cast<int>(tiles < n_sm ? tiles : n_sm);
-  flash_fwd_wgmma_kernel<D><<<grid, WG_THREADS, T::SMEM, stream>>>(
+  flash_fwd_wgmma_kernel<D, DV><<<grid, WG_THREADS, T::SMEM, stream>>>(
       tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, n_bh, sq, sk, h, kh,
       n_qtiles, scale, scale * LOG2E, causal);
   return static_cast<int>(cudaGetLastError());
@@ -1036,25 +1075,28 @@ static int launch_wgmma(const void* q, const void* k, const void* v, void* o,
 // kernel's persistent grid). lse: null, or float32 [B, Sq, H] for the
 // log-sum-exp of each row's scaled scores (m + ln l, -inf where l = 0: the
 // residual the backward recomputes P from); out is the same either way.
-// The wrapper checks shapes (Sq >= 1, D <= 128, H a multiple of KH),
-// types, contiguity and, for bf16 with D of 64 or 128, 16-byte aligned
-// bases.
+// The wrapper checks shapes (Sq >= 1, D <= 192, DV <= 128, H a multiple of
+// KH), types, contiguity and, for bf16 on the Hopper kernel, 16-byte
+// aligned bases.
 REPRO_EXPORT int flash_attention_launch(const void* q, const void* k,
                                         const void* v, void* o, void* lse,
                                         int b, int sq, int sk, int h, int kh,
-                                        int d, int dtype, int causal,
+                                        int d, int dv, int dtype, int causal,
                                         float scale, int n_sm, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
-  if (dtype == 1 && d == 128)
-    return launch_wgmma<128>(q, k, v, o, l, b, sq, sk, h, kh, scale, causal,
-                             n_sm, s);
-  if (dtype == 1 && d == 64)
-    return launch_wgmma<64>(q, k, v, o, l, b, sq, sk, h, kh, scale, causal,
-                            n_sm, s);
+  if (dtype == 1 && d == 128 && dv == 128)
+    return launch_wgmma<128, 128>(q, k, v, o, l, b, sq, sk, h, kh, scale,
+                                  causal, n_sm, s);
+  if (dtype == 1 && d == 64 && dv == 64)
+    return launch_wgmma<64, 64>(q, k, v, o, l, b, sq, sk, h, kh, scale,
+                                causal, n_sm, s);
+  if (dtype == 1 && d == 192 && dv == 128)
+    return launch_wgmma<192, 128>(q, k, v, o, l, b, sq, sk, h, kh, scale,
+                                  causal, n_sm, s);
   if (dtype == 1)
-    return launch_d<__nv_bfloat16>(q, k, v, o, l, b, sq, sk, h, kh, d, scale,
-                                   causal, s);
-  return launch_d<float>(q, k, v, o, l, b, sq, sk, h, kh, d, scale, causal,
-                         s);
+    return launch_d<__nv_bfloat16>(q, k, v, o, l, b, sq, sk, h, kh, d, dv,
+                                   scale, causal, s);
+  return launch_d<float>(q, k, v, o, l, b, sq, sk, h, kh, d, dv, scale,
+                         causal, s);
 }

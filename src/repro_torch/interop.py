@@ -129,25 +129,28 @@ def _tensor(x) -> torch.Tensor:
     return torch.from_numpy(_copy(x))
 
 
+def _unstack(tree, li: int):
+    """Layer ``li`` of a stacked subtree: every leaf's row ``li``."""
+    if isinstance(tree, dict):
+        return {k: _unstack(v, li) for k, v in tree.items()}
+    return _tensor(np.asarray(tree)[li])
+
+
 def transformer_params_from(params) -> Dict:
     """The port's transformer params (``models.transformer``: CPU tensors)
-    from the reference's dense-GQA param dict: ``embed``, ``unembed``,
-    ``ln_f`` and the layers stacked on axis 0 under ``dense_layers``
-    (``attn`` / ``ffn`` dicts, ``ln1``, ``ln2``), unstacked into one dict
-    per layer under ``layers``. MoE layers (``moe_layers``) are refused.
-    Any tree of the params' structure maps the same way (gradients, AdamW
-    moments, compression residuals)."""
-    if "moe_layers" in params:
-        raise NotImplementedError("MoE layers wait for a later slice")
+    from the reference's param dict: ``embed``, ``unembed``, ``ln_f`` and
+    the layers stacked on axis 0 under ``dense_layers``, then
+    ``moe_layers`` (``attn`` / ``ffn`` dicts with the GQA or MLA and the
+    dense or MoE keys, ``ln1``, ``ln2``), unstacked in that order into one
+    dict per layer under ``layers``. Any tree of the params' structure
+    maps the same way (gradients, AdamW moments, compression
+    residuals)."""
     t = _tensor
-
-    stacked = params["dense_layers"]
-    n = np.asarray(stacked["ln1"]).shape[0]
-    layers = [{
-        "attn": {k: t(np.asarray(x)[li]) for k, x in stacked["attn"].items()},
-        "ffn": {k: t(np.asarray(x)[li]) for k, x in stacked["ffn"].items()},
-        "ln1": t(np.asarray(stacked["ln1"])[li]),
-        "ln2": t(np.asarray(stacked["ln2"])[li])} for li in range(n)]
+    layers = []
+    for key in ("dense_layers", "moe_layers"):
+        if key in params:
+            stacked = params[key]
+            n = np.asarray(stacked["ln1"]).shape[0]
+            layers += [_unstack(stacked, li) for li in range(n)]
     return {"embed": t(params["embed"]), "unembed": t(params["unembed"]),
             "ln_f": t(params["ln_f"]), "layers": layers}
-

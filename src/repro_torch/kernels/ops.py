@@ -180,8 +180,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, q_chunk: int = 512,
                     kv_chunk: int = 512) -> torch.Tensor:
     """Online-softmax attention, GQA through ``h // (H / KH)``, top-left
-    causal: q ``[B, Sq, H, D]``, k/v ``[B, Sk, KH, D]`` -> ``[B, Sq, H,
-    D]``. Differentiable: where autograd records, it goes through
+    causal: q ``[B, Sq, H, D]``, k ``[B, Sk, KH, D]``, v ``[B, Sk, KH,
+    Dv]`` -> ``[B, Sq, H, Dv]`` (MLA: D = 192, Dv = 128). Differentiable: where autograd records, it goes through
     ``FlashAttention`` (the kernel's forward with its log-sum-exp, the
     plain ``_flash_bwd`` recompute); under ``torch.no_grad`` it is the
     forward alone. ``q_chunk`` / ``kv_chunk`` tile the plain versions (the

@@ -7,9 +7,14 @@ or the one-shot batched decode. Twin of ``repro/launch/serve.py``.
         [--smoke] [--num-requests 16 --seed 0] [--trace serve_trace.json] \\
         [--replace-every 16 --place-devices 4] [--machine tpu-mixed-32]
 
-    # one-shot: the fixed-batch decode path (prefill by stepping the cache)
+    # one-shot: the fixed-batch decode path (prefill by stepping the cache);
+    # the only mode for MLA (deepseek-v2-*), whose rank-compressed cache
+    # the paged stream does not serve (the stream raises, as the
+    # reference's does)
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \\
         --smoke --oneshot --batch 4 --prompt-len 16 --gen-len 32
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch deepseek-v2-lite-16b --oneshot
 
     # on a machine without a card: the plain PyTorch path on the CPU
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \\
@@ -150,33 +155,42 @@ def serve_stream(args) -> None:
         print(f"[SERVE] wrote trace to {args.trace}", flush=True)
 
 
-def serve_oneshot(args) -> None:
+def oneshot(params, cfg, dev, batch: int, prompt_len: int, gen_len: int,
+            temperature: float, seed: int):
+    """The fixed-batch decode: ``batch`` random prompts of ``prompt_len``
+    tokens from ``seed``, prefilled by stepping the decode cache (simple,
+    exact), then ``gen_len`` sampled tokens (greedy at temperature 0).
+    Returns (generated tokens [batch, gen_len] as numpy, wall seconds
+    of the decode loop, decode steps)."""
     from repro_torch.models import transformer as tr
-    cfg, dev, params = _setup(args)
-    max_seq = args.prompt_len + args.gen_len
+    max_seq = prompt_len + gen_len
     gen = torch.Generator(device=dev)
-    gen.manual_seed(args.seed)
-    toks = torch.randint(0, cfg.vocab, (args.batch, args.prompt_len),
-                         generator=gen, device=dev)
-    cache = tr.init_cache(cfg, args.batch, max_seq, device=dev)
-    # prefill by stepping the decode cache (simple, exact)
+    gen.manual_seed(seed)
+    toks = torch.randint(0, cfg.vocab, (batch, prompt_len), generator=gen,
+                         device=dev)
+    cache = tr.init_cache(cfg, batch, max_seq, device=dev)
     t0 = time.time()
     out = []
     tok = toks[:, :1]
     for pos in range(max_seq - 1):
         logits, cache = tr.decode_step(params, cache, tok, pos, cfg)
-        if pos + 1 < args.prompt_len:
+        if pos + 1 < prompt_len:
             tok = toks[:, pos + 1: pos + 2]
         else:
-            if args.temperature <= 0:
+            if temperature <= 0:
                 nxt = torch.argmax(logits, dim=-1)
             else:
-                probs = torch.softmax(logits.float() / args.temperature, -1)
+                probs = torch.softmax(logits.float() / temperature, -1)
                 nxt = torch.multinomial(probs, 1, generator=gen)[:, 0]
             tok = nxt[:, None]
             out.append(tok.cpu().numpy())
-    dt = time.time() - t0
-    gen_toks = np.concatenate(out, axis=1)
+    return np.concatenate(out, axis=1), time.time() - t0, max_seq - 1
+
+
+def serve_oneshot(args) -> None:
+    cfg, dev, params = _setup(args)
+    gen_toks, dt, _ = oneshot(params, cfg, dev, args.batch, args.prompt_len,
+                              args.gen_len, args.temperature, args.seed)
     tput = args.batch * gen_toks.shape[1] / dt
     print(f"generated {gen_toks.shape} tokens in {dt:.2f}s "
           f"({tput:.1f} tok/s); sample row: {gen_toks[0][:16].tolist()}")

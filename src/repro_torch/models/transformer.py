@@ -1,15 +1,29 @@
-"""Dense GQA transformers (qwen2, chatglm3): twin of the dense path of
-``repro/models/transformer.py``.
+"""LM-family transformers: dense GQA (qwen2, chatglm3) and MoE + MLA
+(deepseek-v2). Twin of ``repro/models/transformer.py``.
 
-Ported: ``TransformerConfig`` (with ``n_params`` / ``n_active_params`` for
-every kind), ``init``, ``_partial_rope``, ``gqa_attention``, ``_layer_fwd``,
-``forward``, ``loss_fn``, ``prefill``, ``init_cache``, ``_decode_attn_gqa``
-and ``decode_step``. Every layer's attention runs the hand-written
-``flash_attention`` CUDA kernel on CUDA tensors
-(``kernels.ops.flash_attention``; the reference runs the pure-JAX ``_flash``
-there, the same function) and its plain chunked version on CPU tensors.
-MoE (deepseek-v2) and MLA raise ``NotImplementedError``: they wait for a
-later slice.
+Ported: ``TransformerConfig`` (with ``n_params`` / ``n_active_params``),
+``init``, ``_partial_rope``, ``gqa_attention``, ``mla_attention``,
+``MoEStats`` and ``moe_ffn`` (the local path), ``_layer_fwd``,
+``forward``, ``loss_fn``, ``prefill``, ``init_cache``,
+``_decode_attn_gqa``, ``_decode_attn_mla`` (the absorbed decode over the
+rank-compressed ``{c_kv, k_rope}`` cache) and ``decode_step``. Every
+layer's attention runs the hand-written ``flash_attention`` CUDA kernel on
+CUDA tensors (``kernels.ops.flash_attention``; the reference runs the
+pure-JAX ``_flash`` there, the same function) and its plain chunked
+version on CPU tensors; MLA calls it with a query/key head dim of
+``qk_nope_head_dim + qk_rope_head_dim`` (192 at DeepSeek-V2) and a value
+head dim of ``v_head_dim`` (128).
+
+MoE dispatch is the reference's sort-based capacity dispatch: a stable
+sort of the flat expert ids, the within-expert position, pairs beyond the
+capacity sent to a dump row, the expert SwiGLU as batched products over
+``[E, cap, D]``. The combine scatters the ``T·k`` weighted rows back to
+``[T, k, D]`` through the inverse permutation and sums over ``k`` in
+float32, rounded once to x's dtype: no atomics, so two calls on the card
+are bitwise equal (the reference's ``segment_sum`` rounds after each add
+in bf16). The reference's ``_moe_routed_shardmap`` is its mesh path; one
+card has no mesh, and the reference falls through to the local path when
+no mesh has a ``model`` axis, as the port does for ``ep_shard_map``.
 
 Training: :func:`forward_core` is differentiable and ``loss_fn`` runs it.
 The attention's backward is the reference's ``_flash_bwd`` recompute in
@@ -24,16 +38,16 @@ in the recompute) and its backward launches none. ``forward`` /
 per layer, without the log-sum-exp.
 
 Parameters are a plain dict of tensors in the reference's ``[in, out]``
-orientation (``x @ w``), with the reference's per-layer stack unrolled into
-``params["layers"]``, a list of one dict per layer
-(``interop.transformer_params_from`` carries the reference's across). One
-card has no mesh, so the reference's ``Rules`` sharding annotations have no
-counterpart and are ignored.
+orientation (``x @ w``), with the reference's per-layer stacks
+(``dense_layers``, then ``moe_layers``) unrolled into ``params["layers"]``,
+a list of one dict per layer (``interop.transformer_params_from`` carries
+the reference's across). One card has no mesh, so the reference's
+``Rules`` sharding annotations have no counterpart and are ignored.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -46,9 +60,6 @@ from repro_torch.models.common import (cross_entropy, rms_norm, rope_freqs,
 
 Params = Dict[str, Any]
 Attend = Callable[..., torch.Tensor]
-
-_LATER = ("{what} waits for a later slice of the port (ROADMAP.md: MoE "
-          "dispatch, then MLA with its absorbed decode)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -132,11 +143,17 @@ class TransformerConfig:
         return total - inactive
 
 
-def _dense_only(cfg: TransformerConfig) -> None:
-    if cfg.moe:
-        raise NotImplementedError(_LATER.format(what="MoE"))
-    if cfg.mla:
-        raise NotImplementedError(_LATER.format(what="MLA"))
+
+    def moe_layer(self, li: int) -> bool:
+        """Whether layer ``li`` has a MoE FFN: all but the first
+        ``n_dense_layers`` when ``moe`` is set."""
+        return self.moe and li >= self.n_dense_layers
+
+    @property
+    def rope_dim(self) -> int:
+        """The head dim RoPE's angles are made for: MLA's rope part, else
+        the head (the reference's ``forward``)."""
+        return self.qk_rope_head_dim if self.mla else self.head_dim
 
 
 # ---------------------------------------------------------------------------
@@ -153,22 +170,64 @@ def dense_init(gen: torch.Generator, d_in: int, d_out: int, dtype,
     return (w * scale).to(dtype)
 
 
-def _layer_init(gen, cfg: TransformerConfig, dev) -> Params:
-    d, h, kh, dh, f = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
-                       cfg.head_dim, cfg.d_ff)
+def _attn_init(gen, cfg: TransformerConfig, dev) -> Params:
+    d, h, kh, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     dt = cfg.dtype
-    attn = {"w_q": dense_init(gen, d, h * dh, dt, dev),
-            "w_k": dense_init(gen, d, kh * dh, dt, dev),
-            "w_v": dense_init(gen, d, kh * dh, dt, dev),
-            "w_o": dense_init(gen, h * dh, d, dt, dev)}
+    if cfg.mla:
+        r, dr = cfg.kv_lora_rank, cfg.qk_rope_head_dim
+        dn, dv = cfg.qk_nope_head_dim, cfg.v_head_dim
+        if cfg.q_lora_rank:
+            p = {"w_dq": dense_init(gen, d, cfg.q_lora_rank, dt, dev),
+                 "q_norm": torch.ones(cfg.q_lora_rank, dtype=dt, device=dev),
+                 "w_uq": dense_init(gen, cfg.q_lora_rank, h * (dn + dr), dt,
+                                    dev)}
+        else:
+            p = {"w_q": dense_init(gen, d, h * (dn + dr), dt, dev)}
+        p.update(w_dkv=dense_init(gen, d, r, dt, dev),
+                 kv_norm=torch.ones(r, dtype=dt, device=dev),
+                 w_kr=dense_init(gen, d, dr, dt, dev),
+                 w_uk=dense_init(gen, r, h * dn, dt, dev),
+                 w_uv=dense_init(gen, r, h * dv, dt, dev),
+                 w_o=dense_init(gen, h * dv, d, dt, dev))
+        return p
+    p = {"w_q": dense_init(gen, d, h * dh, dt, dev),
+         "w_k": dense_init(gen, d, kh * dh, dt, dev),
+         "w_v": dense_init(gen, d, kh * dh, dt, dev),
+         "w_o": dense_init(gen, h * dh, d, dt, dev)}
     if cfg.qkv_bias:
-        attn.update(b_q=torch.zeros(h * dh, dtype=dt, device=dev),
-                    b_k=torch.zeros(kh * dh, dtype=dt, device=dev),
-                    b_v=torch.zeros(kh * dh, dtype=dt, device=dev))
-    ffn = {"w_gate": dense_init(gen, d, f, dt, dev),
-           "w_up": dense_init(gen, d, f, dt, dev),
-           "w_down": dense_init(gen, f, d, dt, dev)}
-    return {"attn": attn, "ffn": ffn,
+        p.update(b_q=torch.zeros(h * dh, dtype=dt, device=dev),
+                 b_k=torch.zeros(kh * dh, dtype=dt, device=dev),
+                 b_v=torch.zeros(kh * dh, dtype=dt, device=dev))
+    return p
+
+
+def _ffn_init(gen, cfg: TransformerConfig, dev, moe_layer: bool) -> Params:
+    d, dt = cfg.d_model, cfg.dtype
+    if not moe_layer:
+        f = cfg.d_ff
+        return {"w_gate": dense_init(gen, d, f, dt, dev),
+                "w_up": dense_init(gen, d, f, dt, dev),
+                "w_down": dense_init(gen, f, d, dt, dev)}
+    e, f = cfg.n_experts, cfg.d_ff_expert
+
+    def experts(d_in, d_out):
+        w = torch.randn((e, d_in, d_out), generator=gen, device=dev)
+        return (w / float(np.sqrt(d_in))).to(dt)
+    p = {"router": dense_init(gen, d, e, torch.float32, dev),
+         "w_gate": experts(d, f), "w_up": experts(d, f),
+         "w_down": experts(f, d)}
+    if cfg.n_shared:
+        fs = cfg.n_shared * f
+        p.update(ws_gate=dense_init(gen, d, fs, dt, dev),
+                 ws_up=dense_init(gen, d, fs, dt, dev),
+                 ws_down=dense_init(gen, fs, d, dt, dev))
+    return p
+
+
+def _layer_init(gen, cfg: TransformerConfig, dev, moe_layer: bool) -> Params:
+    d, dt = cfg.d_model, cfg.dtype
+    return {"attn": _attn_init(gen, cfg, dev),
+            "ffn": _ffn_init(gen, cfg, dev, moe_layer),
             "ln1": torch.ones(d, dtype=dt, device=dev),
             "ln2": torch.ones(d, dtype=dt, device=dev)}
 
@@ -177,20 +236,126 @@ def init(cfg: TransformerConfig, generator: torch.Generator,
          device: DeviceLike = None) -> Params:
     """Random weights at the reference's shapes and scales
     (``transformer.py:init``): normal ``embed`` (scale 1), ``unembed`` and
-    every projection at ``1/sqrt(d_in)``, zero QKV biases, unit norms.
-    ``generator`` lives on ``device`` (``None`` = CUDA). The numbers differ
-    from the reference's (``jax.random`` cannot be replayed); tests carry
-    the reference's weights across with ``interop.transformer_params_from``.
+    every projection at ``1/sqrt(d_in)`` (MLA's too), zero QKV biases, unit
+    norms; MoE layers (all but the first ``n_dense_layers``) a float32
+    ``router [D, E]``, experts ``w_gate`` / ``w_up [E, D, F]`` at
+    ``1/sqrt(D)`` and ``w_down [E, F, D]`` at ``1/sqrt(F)``, and the
+    shared experts' ``ws_*`` at ``n_shared·F``. ``generator`` lives on
+    ``device`` (``None`` = CUDA). The numbers differ from the reference's
+    (``jax.random`` cannot be replayed); tests carry the reference's
+    weights across with ``interop.transformer_params_from``.
     """
-    _dense_only(cfg)
     dev = resolve_device(device)
     dt = cfg.dtype
     return {"embed": dense_init(generator, cfg.vocab, cfg.d_model, dt, dev,
                                 scale=1.0),
             "unembed": dense_init(generator, cfg.d_model, cfg.vocab, dt, dev),
             "ln_f": torch.ones(cfg.d_model, dtype=dt, device=dev),
-            "layers": [_layer_init(generator, cfg, dev)
-                       for _ in range(cfg.n_layers)]}
+            "layers": [_layer_init(generator, cfg, dev, cfg.moe_layer(li))
+                       for li in range(cfg.n_layers)]}
+
+
+# ---------------------------------------------------------------------------
+# MoE dispatch (sort-based, fixed capacity)
+# ---------------------------------------------------------------------------
+
+class MoEStats(NamedTuple):
+    aux_loss: torch.Tensor
+    dropped_frac: torch.Tensor
+
+
+def capacity(cfg: TransformerConfig, t: int) -> int:
+    """Slots per expert for ``t`` tokens: ``ceil(cf·t·k/E)`` rounded up to
+    a multiple of 8, at least 8."""
+    cap = int(np.ceil(cfg.capacity_factor * t * cfg.top_k / cfg.n_experts))
+    return max(8, ((cap + 7) // 8) * 8)
+
+
+def route(p: Params, x: torch.Tensor, cfg: TransformerConfig):
+    """x [T, D] -> (probs [T, E], top_p [T, k], top_i [T, k]): float32
+    router logits, softmax, top-k, renormalised with a floor of 1e-9."""
+    probs = torch.softmax(x.to(torch.float32) @ p["router"], dim=-1)
+    top_p, top_i = torch.topk(probs, cfg.top_k, dim=-1)
+    top_p = top_p / torch.clamp_min(top_p.sum(-1, keepdim=True), 1e-9)
+    return probs, top_p, top_i
+
+
+def dispatch(top_i: torch.Tensor, n_experts: int, cap: int):
+    """The token-expert pairs sorted by expert: ``(order, sorted_e, starts,
+    pos, valid, slot)``. ``order`` is a stable sort of the flat ids (the
+    reference's ``jnp.argsort`` is stable, and which pairs drop depends on
+    it), ``starts[e]`` the first pair of expert ``e``, ``pos`` a pair's
+    place within its expert, ``valid = pos < cap``, ``slot`` its row of
+    the ``[E·cap]`` buffer or the dump row ``E·cap`` when dropped."""
+    flat_e = top_i.reshape(-1).long()
+    sorted_e, order = torch.sort(flat_e, stable=True)
+    starts = torch.searchsorted(
+        sorted_e, torch.arange(n_experts, device=top_i.device))
+    pos = torch.arange(flat_e.numel(), device=top_i.device) - starts[sorted_e]
+    valid = pos < cap
+    slot = torch.where(valid, sorted_e * cap + pos, n_experts * cap)
+    return order, sorted_e, starts, pos, valid, slot
+
+
+def combine(weighted: torch.Tensor, order: torch.Tensor, t: int,
+            k: int) -> torch.Tensor:
+    """The routed output: the ``T·k`` weighted expert rows (in sorted
+    order) scattered back to ``[T, k, D]`` through the inverse permutation
+    and summed over k in float32, rounded once to their dtype."""
+    rows = torch.empty_like(weighted)
+    rows[order] = weighted
+    return rows.view(t, k, -1).to(torch.float32).sum(dim=1).to(
+        weighted.dtype)
+
+
+def moe_ffn(p: Params, x: torch.Tensor, cfg: TransformerConfig
+            ) -> Tuple[torch.Tensor, MoEStats]:
+    """Routed top-k experts + shared experts. x: [T, D] -> [T, D].
+
+    The reference's local path: pairs sorted by expert id, the
+    within-expert position ``arange - start(expert)``, pairs beyond the
+    capacity dropped; the experts as batched products over ``[E, cap, D]``
+    in x's dtype; the Switch aux loss ``E·sum(me·ce)·coef`` and the share
+    of dropped pairs."""
+    t, d = x.shape
+    e, k = cfg.n_experts, cfg.top_k
+    cap = capacity(cfg, t)
+    probs, top_p, top_i = route(p, x, cfg)
+    order, _, starts, _, valid, slot = dispatch(top_i, e, cap)
+    tok_of = order // k
+
+    buf = x.new_zeros((e * cap + 1, d))
+    buf[slot] = x[tok_of]
+    buf = buf[: e * cap].view(e, cap, d)
+    h = (torch.nn.functional.silu(torch.bmm(buf, p["w_gate"]))
+         * torch.bmm(buf, p["w_up"]))
+    out = torch.bmm(h, p["w_down"]).view(e * cap, d)
+    gathered = torch.where(valid[:, None],
+                           out[torch.clamp_max(slot, e * cap - 1)], 0.0)
+    weight = top_p.reshape(-1)[order].to(x.dtype)
+    y = combine(gathered * weight[:, None], order, t, k)
+
+    # load-balance aux (Switch-style): E * sum_e f_e * p_e; the pair counts
+    # per expert from the sorted ids' starts (no atomics)
+    me = probs.mean(dim=0)
+    counts = torch.diff(starts, append=starts.new_full((1,), t * k))
+    ce = counts.to(torch.float32) / (t * k)
+    aux = e * torch.sum(me * ce) * cfg.aux_loss_coef
+    stats = MoEStats(aux_loss=aux,
+                     dropped_frac=1.0 - valid.to(torch.float32).mean())
+    if cfg.n_shared:
+        y = y + swiglu(x, p["ws_gate"], p["ws_up"], p["ws_down"])
+    return y, stats
+
+
+def ffn(p: Params, x: torch.Tensor, cfg: TransformerConfig,
+        moe_layer: bool) -> Tuple[torch.Tensor, Optional[MoEStats]]:
+    """A layer's FFN on x [..., D]: ``moe_ffn`` over the flattened tokens
+    for a MoE layer (with its stats), else the dense SwiGLU (stats None)."""
+    if moe_layer:
+        y, stats = moe_ffn(p, x.reshape(-1, x.shape[-1]), cfg)
+        return y.reshape(x.shape), stats
+    return swiglu(x, p["w_gate"], p["w_up"], p["w_down"]), None
 
 
 # ---------------------------------------------------------------------------
@@ -205,7 +370,7 @@ def _rotary_dim(d: int, frac: float) -> int:
 def _rope_tables(angles: torch.Tensor, cfg: TransformerConfig):
     """(cos, sin) tables of the rotated share, made once per forward or
     decode step and shared by every layer."""
-    dr = _rotary_dim(cfg.head_dim, cfg.rope_fraction)
+    dr = _rotary_dim(cfg.rope_dim, cfg.rope_fraction)
     return rope_tables(angles[..., : dr // 2], cfg.dtype)
 
 
@@ -251,41 +416,79 @@ def gqa_attention(p: Params, x: torch.Tensor, cfg: TransformerConfig,
     return o.reshape(b, sq, h * dh) @ p["w_o"]
 
 
+def _mla_q(p: Params, x: torch.Tensor,
+           cfg: TransformerConfig) -> torch.Tensor:
+    """MLA's query projection: ``w_q``, or ``rms_norm(x @ w_dq, q_norm) @
+    w_uq`` with a ``q_lora_rank``."""
+    if cfg.q_lora_rank:
+        return rms_norm(x @ p["w_dq"], p["q_norm"]) @ p["w_uq"]
+    return x @ p["w_q"]
+
+
+def mla_attention(p: Params, x: torch.Tensor, cfg: TransformerConfig,
+                  tables, attend: Attend = ops.flash_attention
+                  ) -> torch.Tensor:
+    """Training/prefill MLA: per-head K and V materialised from ``c_kv``,
+    attention over the concatenated ``[nope | rope]`` dims (D = dn + dr,
+    Dv = dv). x [B, S, D] -> [B, S, D]; decode runs the absorbed path
+    instead."""
+    b, s, _ = x.shape
+    h = cfg.n_heads
+    dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    q = _mla_q(p, x, cfg).reshape(b, s, h, dn + dr)
+    q_rope = rotate(q[..., dn:], *tables)
+    c_kv = rms_norm(x @ p["w_dkv"], p["kv_norm"])          # [B, S, r]
+    k_rope = rotate((x @ p["w_kr"])[:, :, None, :], *tables)  # [B, S, 1, dr]
+    k_nope = (c_kv @ p["w_uk"]).reshape(b, s, h, dn)
+    v = (c_kv @ p["w_uv"]).reshape(b, s, h, dv)
+    q_cat = torch.cat([q[..., :dn], q_rope], dim=-1)
+    k_cat = torch.cat([k_nope, k_rope.expand(b, s, h, dr)], dim=-1)
+    o = attend(q_cat, k_cat, v.contiguous(), causal=True,
+               q_chunk=cfg.q_chunk or s, kv_chunk=cfg.kv_chunk or s)
+    return o.reshape(b, s, h * dv) @ p["w_o"]
+
+
 # ---------------------------------------------------------------------------
 # Forward (prefill)
 # ---------------------------------------------------------------------------
 
 def _layer_fwd(p: Params, x: torch.Tensor, cfg: TransformerConfig,
-               tables, attend: Attend) -> torch.Tensor:
-    x = x + gqa_attention(p["attn"], rms_norm(x, p["ln1"]), cfg, tables,
-                          attend)
-    hn = rms_norm(x, p["ln2"])
-    return x + swiglu(hn, p["ffn"]["w_gate"], p["ffn"]["w_up"],
-                      p["ffn"]["w_down"])
+               tables, attend: Attend, moe_layer: bool):
+    """One layer: (x [B, S, D], its aux loss: a float32 scalar, 0 for a
+    dense FFN)."""
+    attn = mla_attention if cfg.mla else gqa_attention
+    x = x + attn(p["attn"], rms_norm(x, p["ln1"]), cfg, tables, attend)
+    y, stats = ffn(p["ffn"], rms_norm(x, p["ln2"]), cfg, moe_layer)
+    aux = (stats.aux_loss if stats is not None
+           else torch.zeros((), device=x.device))
+    return x + y, aux
 
 
 def forward_core(params: Params, tokens: torch.Tensor,
                  cfg: TransformerConfig, attend: Attend = ops.flash_attention
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """tokens [B, S] -> (logits [B, S, V], aux_loss scalar: 0 for dense),
-    differentiable, with the attention ``attend`` in every layer. Where
-    autograd records and ``cfg.remat`` is set, each layer is a
-    non-reentrant ``torch.utils.checkpoint``: its forward runs again in the
-    backward (see the module docstring for the launches)."""
-    _dense_only(cfg)
+    """tokens [B, S] -> (logits [B, S, V], aux_loss: the float32 sum of
+    the MoE layers', 0 for dense), differentiable, with the attention
+    ``attend`` in every layer. Where autograd records and ``cfg.remat`` is
+    set, each layer is a non-reentrant ``torch.utils.checkpoint``: its
+    forward runs again in the backward (see the module docstring for the
+    launches)."""
     _, s = tokens.shape
-    tables = _rope_tables(rope_freqs(cfg.head_dim, s, cfg.rope_theta,
+    tables = _rope_tables(rope_freqs(cfg.rope_dim, s, cfg.rope_theta,
                                      device=tokens.device), cfg)
     x = params["embed"][tokens.long()]
+    aux_total = torch.zeros((), device=tokens.device)
     remat = cfg.remat and torch.is_grad_enabled()
-    for layer in params["layers"]:
+    for li, layer in enumerate(params["layers"]):
         if remat:
-            x = checkpoint(_layer_fwd, layer, x, cfg, tables, attend,
-                           use_reentrant=False)
+            x, aux = checkpoint(_layer_fwd, layer, x, cfg, tables, attend,
+                                cfg.moe_layer(li), use_reentrant=False)
         else:
-            x = _layer_fwd(layer, x, cfg, tables, attend)
+            x, aux = _layer_fwd(layer, x, cfg, tables, attend,
+                                cfg.moe_layer(li))
+        aux_total = aux_total + aux
     x = rms_norm(x, params["ln_f"])
-    return x @ params["unembed"], torch.zeros((), device=tokens.device)
+    return x @ params["unembed"], aux_total
 
 
 @torch.no_grad()
@@ -327,10 +530,18 @@ def prefill(params: Params, tokens: torch.Tensor,
 
 def init_cache(cfg: TransformerConfig, batch: int, max_seq: int,
                device: DeviceLike = None) -> Params:
-    """Zero ``{"k", "v"}`` caches ``[n_layers, batch, max_seq, kh, dh]``."""
-    _dense_only(cfg)
+    """Zero caches: MLA's rank-compressed ``{"c_kv" [n_layers, batch,
+    max_seq, kv_lora_rank], "k_rope" [.., qk_rope_head_dim]}``, else
+    ``{"k", "v"}`` of ``[n_layers, batch, max_seq, kh, dh]``."""
     dev = resolve_device(device)
-    shape = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
+    n = cfg.n_layers
+    if cfg.mla:
+        return {"c_kv": torch.zeros((n, batch, max_seq, cfg.kv_lora_rank),
+                                    dtype=cfg.dtype, device=dev),
+                "k_rope": torch.zeros((n, batch, max_seq,
+                                       cfg.qk_rope_head_dim),
+                                      dtype=cfg.dtype, device=dev)}
+    shape = (n, batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=cfg.dtype, device=dev),
             "v": torch.zeros(shape, dtype=cfg.dtype, device=dev)}
 
@@ -362,7 +573,7 @@ def _decode_attn_gqa(p: Params, x: torch.Tensor, k_cache: torch.Tensor,
                      mask: torch.Tensor) -> torch.Tensor:
     """x [B, 1, D]; writes this token's K/V at ``pos`` of the layer's
     caches [B, max_s, kh, dh] in place (the reference returns updated
-    copies) and attends over positions ``<= pos`` (``mask``)."""
+    copies) and attends over positions ``<= pos`` (``mask`` [max_s])."""
     b = x.shape[0]
     h, kh, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q, kk, v = _qkv(p, x, cfg)
@@ -370,20 +581,56 @@ def _decode_attn_gqa(p: Params, x: torch.Tensor, k_cache: torch.Tensor,
     kk = _rotate_partial(kk.reshape(b, 1, kh, dh), tables, cfg.rope_fraction)
     k_cache[:, pos] = kk[:, 0]
     v_cache[:, pos] = v.reshape(b, kh, dh)
-    return decode_attn(q, k_cache, v_cache, mask, cfg) @ p["w_o"]
+    return decode_attn(q, k_cache, v_cache, mask[None, None, None, :],
+                       cfg) @ p["w_o"]
+
+
+def _decode_attn_mla(p: Params, x: torch.Tensor, c_cache: torch.Tensor,
+                     kr_cache: torch.Tensor, pos: int,
+                     cfg: TransformerConfig, tables,
+                     mask: torch.Tensor) -> torch.Tensor:
+    """Absorbed MLA decode: scores and values live in the kv_lora_rank
+    basis. x [B, 1, D]; writes this token's ``c_kv`` and rotated
+    ``k_rope`` at ``pos`` of the layer's caches [B, max_s, r] / [B, max_s,
+    dr] in place and attends over positions ``<= pos`` (``mask``
+    [max_s]). The reference's roundings: the products of the working type
+    (q_eff, the value projection) in that type, the scores and the
+    context in float32, P rounded to the cache's type, the context to x's
+    before ``w_uv``."""
+    b = x.shape[0]
+    h, r = cfg.n_heads, cfg.kv_lora_rank
+    dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    f32 = torch.float32
+    q = _mla_q(p, x, cfg).reshape(b, h, dn + dr)
+    q_rope = rotate(q[:, None, :, dn:], *tables)[:, 0]      # [B, h, dr]
+    # absorb W_uk: q_eff[b, h, r] so scores dot against c_kv directly
+    q_eff = torch.einsum("bhn,rhn->bhr", q[..., :dn],
+                         p["w_uk"].reshape(r, h, dn))
+    c_cache[:, pos] = rms_norm(x @ p["w_dkv"], p["kv_norm"])[:, 0]
+    kr_cache[:, pos] = rotate((x @ p["w_kr"])[:, :, None, :],
+                              *tables)[:, 0, 0]
+    s = (q_eff.to(f32) @ c_cache.to(f32).transpose(1, 2)
+         + q_rope.to(f32) @ kr_cache.to(f32).transpose(1, 2)) \
+        * (1.0 / np.sqrt(dn + dr))
+    s = torch.where(mask[None, None, :], s, -torch.inf)      # [B, h, max_s]
+    pr = torch.softmax(s, dim=-1)
+    ctx = pr.to(c_cache.dtype).to(f32) @ c_cache.to(f32)     # [B, h, r]
+    o = torch.einsum("bhr,rhv->bhv", ctx.to(x.dtype),
+                     p["w_uv"].reshape(r, h, dv))
+    return o.reshape(b, 1, h * dv) @ p["w_o"]
 
 
 def decode_layers(params: Params, x: torch.Tensor, cfg: TransformerConfig,
                   attn_fn: Callable[[int, Params, torch.Tensor],
                                     torch.Tensor]) -> torch.Tensor:
     """The decode stack shared with the paged step: x [B, 1, D] through
-    every layer with ``attn_fn(layer_index, attn_params, normed_x)``, then
+    every layer with ``attn_fn(layer_index, attn_params, normed_x)`` and
+    the layer's FFN (``moe_ffn`` over the B tokens of a MoE layer), then
     the final norm and the unembedding -> logits [B, V]."""
     for li, layer in enumerate(params["layers"]):
         x = x + attn_fn(li, layer["attn"], rms_norm(x, layer["ln1"]))
-        hn2 = rms_norm(x, layer["ln2"])
-        x = x + swiglu(hn2, layer["ffn"]["w_gate"], layer["ffn"]["w_up"],
-                       layer["ffn"]["w_down"])
+        x = x + ffn(layer["ffn"], rms_norm(x, layer["ln2"]), cfg,
+                    cfg.moe_layer(li))[0]
     x = rms_norm(x, params["ln_f"])
     return x[:, 0] @ params["unembed"]
 
@@ -395,17 +642,20 @@ def decode_step(params: Params, cache: Params, tokens: torch.Tensor,
     """One decode step. tokens [B, 1] int; ``pos`` the current length (one
     for the whole batch). Returns (logits [B, V], the cache, updated in
     place)."""
-    _dense_only(cfg)
     pos = int(pos)
-    max_seq = cache["k"].shape[2]
+    max_seq = (cache["c_kv"] if cfg.mla else cache["k"]).shape[2]
     dev = tokens.device
-    angles = rope_freqs(cfg.head_dim, max_seq, cfg.rope_theta, device=dev)
+    angles = rope_freqs(cfg.rope_dim, max_seq, cfg.rope_theta, device=dev)
     tables = _rope_tables(angles[pos:pos + 1], cfg)
-    mask = (torch.arange(max_seq, device=dev) <= pos)[None, None, None, :]
+    mask = torch.arange(max_seq, device=dev) <= pos
     x = params["embed"][tokens.long()]
-    logits = decode_layers(
-        params, x, cfg,
-        lambda li, p, hn: _decode_attn_gqa(p, hn, cache["k"][li],
-                                           cache["v"][li], pos, cfg, tables,
-                                           mask))
-    return logits, cache
+    if cfg.mla:
+        def attn(li, p, hn):
+            return _decode_attn_mla(p, hn, cache["c_kv"][li],
+                                    cache["k_rope"][li], pos, cfg, tables,
+                                    mask)
+    else:
+        def attn(li, p, hn):
+            return _decode_attn_gqa(p, hn, cache["k"][li], cache["v"][li],
+                                    pos, cfg, tables, mask)
+    return decode_layers(params, x, cfg, attn), cache

@@ -1,7 +1,8 @@
 """One continuous-batching decode step over the paged KV cache.
 
 Twin of ``repro/serving/paged_decode.py``. Mirrors
-``models.transformer.decode_step`` (GQA path) with two changes:
+``models.transformer.decode_step`` (GQA attention; dense or MoE FFNs, the
+latter through ``moe_ffn`` over the step's B tokens) with two changes:
 
   * per-request positions: ``lengths[b]`` is the number of tokens already
     cached for slot ``b`` — the new token is written there and the causal
@@ -66,9 +67,6 @@ def paged_decode_step(params: Params, k_pool: torch.Tensor,
     if cfg.mla:
         raise NotImplementedError("paged decode serves the GQA cache "
                                   "layout (see PagedKVCache)")
-    if cfg.moe:
-        raise NotImplementedError("MoE layers wait for a later slice of "
-                                  "the port (ROADMAP.md: MoE dispatch)")
     dev = tokens.device
     b = tokens.shape[0]
     page = k_pool.shape[2]

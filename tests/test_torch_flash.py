@@ -147,3 +147,18 @@ def test_work_counts_the_prefill_call():
     assert round(nbytes / 1e6) == 117
     _, dense = tfa.work(1, 10, 6, 2, 1, 4, False, 4)
     assert dense == 4.0 * 2 * 4 * 60
+
+
+def test_work_counts_the_mla_prefill_call():
+    """DeepSeek-V2-Lite's MLA prefill call (4 x 4,096 tokens, 16 heads on
+    16, D = 192, Dv = 128, causal, bf16): QK^T over 192 dims and PV over
+    128, 343.7 GFLOP (0.3475 ms at the bf16 dense peak of 989 TFLOP/s) and
+    336 MB of q, k, v and o."""
+    nbytes, flops = tfa.work(4, 4096, 4096, 16, 16, 192, True, 2, dv=128)
+    assert flops == 2.0 * 4 * 16 * (4096 * 4097 // 2) * (192 + 128)
+    assert round(flops / 1e9, 1) == 343.7
+    assert round(flops / 989e12 * 1e3, 4) == 0.3475
+    assert nbytes == 2 * (4 * 4096 * 16 * 320 + 4 * 4096 * 16 * 320)
+    assert round(nbytes / 1e6) == 336
+    assert tfa.work(2, 9, 9, 4, 2, 16, False, 4) == tfa.work(
+        2, 9, 9, 4, 2, 16, False, 4, dv=16)

@@ -32,7 +32,8 @@ from repro_torch.graph.generators import molecule_batch
 from repro_torch.kernels import (bag_combine, bsr_spmm, bucket_assign,
                                  flash_attention, gather_combine, match_keys,
                                  ops, partition_gain, quotient_link_loads)
-from repro_torch.configs import qwen2_1_5b
+from repro_torch.configs import (deepseek_v2_236b, deepseek_v2_lite_16b,
+                                 qwen2_1_5b)
 from repro_torch.models import common as mcommon
 from repro_torch.models import transformer as tr
 from repro_torch.models.gnn import GIN, gin_layout
@@ -41,7 +42,8 @@ from repro_torch.models.recsys import TwoTower
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 from chip_smoke import (  # noqa: E402  (the smoke run's)
-    TRAIN_LSE_TOL, NumpyDraws, _traced, flash_grad_judge, gapped_graph)
+    TRAIN_LSE_TOL, NumpyDraws, _traced, flash_bf16_judge, flash_grad_judge,
+    gapped_graph)
 
 torch.set_num_threads(1)
 pytestmark = pytest.mark.gpu
@@ -1184,9 +1186,9 @@ def test_flash_attention_checks_its_arguments(cuda):
 
 
 # the log-sum-exp output: the reference's CASES (tests/test_flash_attention.py)
-# with Dv = D (the CUDA path takes v of q's head dim; its MLA-like case runs
-# on the CPU only, tests/test_torch_flash_bwd.py) as (b, sq, sk, h, kh, d,
-# causal), a ragged bf16 case on the Hopper kernel, and the training shape
+# with Dv = D as (b, sq, sk, h, kh, d, causal), a ragged bf16 case on the
+# Hopper kernel, and the training shape; its MLA-like case (Dv != D) and
+# MLA's (192, 128) are in MLA_FLASH_CASES below
 LSE_CASES = [(2, 64, 64, 4, 4, 32, True), (2, 64, 64, 8, 2, 32, True),
              (1, 100, 100, 4, 1, 16, True), (2, 64, 64, 4, 4, 32, False),
              (2, 64, 64, 4, 2, 32, True), (2, 300, 300, 12, 2, 128, True),
@@ -1225,6 +1227,104 @@ def test_flash_attention_lse_without_keys_is_minus_inf(cuda):
         _, lse = flash_attention.flash_attention(qq, kk, kk, causal=False,
                                                  return_lse=True)
         assert bool((lse == -torch.inf).all())
+
+
+# (b, sq, sk, h, kh, d, dv, causal) with Dv != D: MLA's prefill heads (D =
+# 192 = 128 nope + 64 rope, Dv = 128: the bf16 Hopper instance), 16 heads on
+# 16 and grouped, ragged Sq / Sk on both sides of the 128-row tiles, one
+# row, top-left causal with Sq != Sk; the reference's MLA-like case
+# (tests/test_flash_attention.py: D = 24, Dv = 16) and other (D, Dv) pairs
+# on the SIMT kernel
+MLA_FLASH_CASES = [
+    (1, 300, 300, 16, 16, 192, 128, True), (2, 129, 129, 16, 16, 192, 128,
+                                            False),
+    (2, 257, 131, 8, 2, 192, 128, True), (1, 200, 333, 4, 1, 192, 128, True),
+    (3, 1, 1, 2, 2, 192, 128, True), (2, 33, 33, 4, 2, 24, 16, True),
+    (1, 100, 100, 4, 4, 192, 64, True), (1, 70, 90, 4, 2, 64, 128, False),
+    (2, 65, 65, 6, 3, 160, 96, True),
+]
+
+
+def _mla_inputs(cuda, case, dtype):
+    b, sq, sk, h, kh, d, dv, _ = case
+    gen = _gen(cuda, sum(case[:7]))
+    return [torch.randn(shape, generator=gen, device=cuda).to(dtype)
+            for shape in ((b, sq, h, d), (b, sk, kh, d), (b, sk, kh, dv))]
+
+
+@pytest.mark.parametrize("case", MLA_FLASH_CASES, ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_flash_attention_value_head_dim_apart(cuda, case, dtype):
+    """v of its own head dim: the output [B, Sq, H, Dv] against the plain
+    version (float32: the reference's band; bf16: ``flash_bf16_judge``'s,
+    2x the bf16 plain version's max and rms error against float32, per
+    128-row tile too, and both planted faults rejected), one launch, two
+    calls bitwise, and the lse (float32 [B, Sq, H]) against the plain
+    forward's with the output bitwise the same with and without it."""
+    q, k, v = _mla_inputs(cuda, case, dtype)
+    b, sq, _, h, _, _, dv, causal = case
+    before = flash_attention.launches
+    got = flash_attention.flash_attention(q, k, v, causal=causal)
+    assert flash_attention.launches == before + 1
+    assert got.dtype == dtype and tuple(got.shape) == (b, sq, h, dv)
+    want, want_lse = mcommon.flash_attention_fwd(q, k, v, causal, 64, 64)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, **FLASH_F32)
+    elif causal:
+        ok, _, readings = flash_bf16_judge(q, k, v, got, want, 64, 64)
+        assert ok, readings
+    else:
+        truth = mcommon.flash_attention(q.float(), k.float(), v.float(),
+                                        causal=False, q_chunk=64,
+                                        kv_chunk=64)
+        for x in (got, want):
+            assert x.shape == truth.shape
+        k_err, p_err = (x.float() - truth for x in (got, want))
+        assert float(k_err.abs().max()) <= FLASH_BF16_RATIO * float(
+            p_err.abs().max())
+        assert float(k_err.square().mean()) <= FLASH_BF16_RATIO ** 2 * float(
+            p_err.square().mean())
+    assert torch.equal(flash_attention.flash_attention(q, k, v,
+                                                       causal=causal), got)
+    out, lse = flash_attention.flash_attention(q, k, v, causal=causal,
+                                               return_lse=True)
+    assert torch.equal(out, got)
+    assert lse.dtype == torch.float32 and tuple(lse.shape) == (b, sq, h)
+    if dtype == torch.float32:
+        torch.testing.assert_close(lse, want_lse, **FLASH_F32)
+    else:
+        assert float((lse - want_lse).abs().max()) <= TRAIN_LSE_TOL
+
+
+def test_flash_attention_mla_instance_rejects_misaligned_bases(cuda):
+    """The (192, 128) Hopper instance reads by TMA too: a misaligned q, k
+    or v is refused before any launch."""
+    b, s, h = 1, 16, 4
+    flat = torch.randn(b * s * h * 192 + 1, device=cuda).bfloat16()
+    q = flat[1:].view(b, s, h, 192)
+    k = torch.randn(b, s, h, 192, device=cuda).bfloat16()
+    v = torch.randn(b, s, h, 128, device=cuda).bfloat16()
+    before = flash_attention.launches
+    for args in ((q, k, v), (k, q, v),
+                 (k, k, flat[1:b * s * h * 128 + 1].view(b, s, h, 128))):
+        with pytest.raises(ValueError, match="16-byte"):
+            flash_attention.flash_attention(*args)
+    assert flash_attention.launches == before
+
+
+def test_flash_attention_head_dim_limits(cuda):
+    """D up to 192, Dv up to 128; v's rows must match k's."""
+    q = torch.randn(1, 8, 2, 192, device=cuda)
+    v = torch.randn(1, 8, 2, 128, device=cuda)
+    with pytest.raises(ValueError, match="value head dim"):
+        flash_attention.flash_attention(q, q, torch.randn(1, 8, 2, 160,
+                                                          device=cuda))
+    with pytest.raises(ValueError, match="head dim 256"):
+        big = torch.randn(1, 8, 2, 256, device=cuda)
+        flash_attention.flash_attention(big, big, v)
+    with pytest.raises(ValueError, match="shape"):
+        flash_attention.flash_attention(q, q, v[:, :4].contiguous())
 
 
 # (b, sq, sk, h, kh, d, causal) for the training path's gradients
@@ -1291,8 +1391,7 @@ def test_compress_roundtrip_on_the_card_equals_the_cpu(cuda, block):
             assert torch.equal(a.cpu(), c)
 
 
-def _smoke_lm(cuda):
-    cfg = qwen2_1_5b.SMOKE
+def _smoke_lm(cuda, cfg=qwen2_1_5b.SMOKE):
     params = tr.init(cfg, torch.Generator().manual_seed(0), device="cpu")
     on_card = {"embed": params["embed"].to(cuda),
                "unembed": params["unembed"].to(cuda),
@@ -1304,8 +1403,14 @@ def _smoke_lm(cuda):
     return cfg, params, on_card
 
 
-def test_smoke_prefill_on_the_card_matches_its_cpu_plain_path(cuda):
-    cfg, params, on_card = _smoke_lm(cuda)
+@pytest.mark.parametrize("arch", [qwen2_1_5b, deepseek_v2_lite_16b,
+                                  deepseek_v2_236b],
+                         ids=lambda a: a.FULL.name)
+def test_smoke_prefill_on_the_card_matches_its_cpu_plain_path(cuda, arch):
+    """The SMOKE configs in float32 through the kernel on the card (the
+    DeepSeek ones with MLA at D = 24, Dv = 16 on the SIMT kernel and MoE
+    layers) against their plain path on the CPU."""
+    cfg, params, on_card = _smoke_lm(cuda, arch.SMOKE)
     toks = torch.from_numpy(np.random.default_rng(0).integers(
         0, cfg.vocab, (2, 150)))
     ops.reset_launch_counts()
@@ -1315,6 +1420,70 @@ def test_smoke_prefill_on_the_card_matches_its_cpu_plain_path(cuda):
     scale = float(want.abs().max())
     err = (got.cpu() - want).abs()
     assert bool((err <= 2e-5 * (scale + want.abs())).all()), float(err.max())
+
+
+@pytest.mark.parametrize("arch", [deepseek_v2_lite_16b, deepseek_v2_236b],
+                         ids=lambda a: a.FULL.name)
+def test_smoke_mla_decode_on_the_card_matches_the_cpu(cuda, arch):
+    """The absorbed MLA decode with MoE layers, stepped on the card and on
+    the CPU over the same tokens: logits within the prefill test's band,
+    both caches too."""
+    cfg, params, on_card = _smoke_lm(cuda, arch.SMOKE)
+    b, t = 2, 12
+    toks = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab, (b, t)))
+    caches = (tr.init_cache(cfg, b, t, device="cpu"),
+              tr.init_cache(cfg, b, t, device=cuda))
+    for pos in range(t):
+        want, _ = tr.decode_step(params, caches[0], toks[:, pos:pos + 1],
+                                 pos, cfg)
+        got, _ = tr.decode_step(on_card, caches[1],
+                                toks[:, pos:pos + 1].to(cuda), pos, cfg)
+        scale = float(want.abs().max())
+        err = (got.cpu() - want).abs()
+        assert bool((err <= 2e-5 * (scale + want.abs())).all()), \
+            float(err.max())
+    for key in ("c_kv", "k_rope"):
+        torch.testing.assert_close(caches[1][key].cpu(), caches[0][key],
+                                   rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("t,capacity_factor", [(16384, 1.5), (64, 0.5),
+                                               (4, 1.5)])
+def test_moe_dispatch_on_the_card_equals_the_cpu(cuda, t, capacity_factor):
+    """Sort, positions, the dropped set and slots on the card equal the
+    CPU's on the same expert ids (tied ids, a stable sort), and a bf16
+    ``moe_ffn`` on the card is bitwise the same twice (no atomics)."""
+    import dataclasses as dc
+    cfg = dc.replace(deepseek_v2_lite_16b.SMOKE, dtype=torch.bfloat16,
+                     capacity_factor=capacity_factor, n_experts=64,
+                     top_k=6)
+    gen = _gen(cuda, t)
+    top_i = torch.stack([torch.randperm(64, generator=gen, device=cuda)[:6]
+                         for _ in range(min(t, 512))])
+    top_i = top_i.repeat(-(-t // top_i.shape[0]), 1)[:t]
+    cap = tr.capacity(cfg, t)
+    for a, c in zip(tr.dispatch(top_i, 64, cap),
+                    tr.dispatch(top_i.cpu(), 64, cap)):
+        assert torch.equal(a.cpu(), c)
+    d = cfg.d_model
+    p = {"router": torch.randn(d, 64, generator=gen, device=cuda),
+         "w_gate": torch.randn(64, d, 32, generator=gen,
+                               device=cuda).bfloat16(),
+         "w_up": torch.randn(64, d, 32, generator=gen,
+                             device=cuda).bfloat16(),
+         "w_down": torch.randn(64, 32, d, generator=gen,
+                               device=cuda).bfloat16(),
+         "ws_gate": torch.randn(d, 64, generator=gen,
+                                device=cuda).bfloat16(),
+         "ws_up": torch.randn(d, 64, generator=gen, device=cuda).bfloat16(),
+         "ws_down": torch.randn(64, d, generator=gen,
+                                device=cuda).bfloat16()}
+    x = torch.randn(t, d, generator=gen, device=cuda).bfloat16()
+    y1, s1 = tr.moe_ffn(p, x, cfg)
+    y2, s2 = tr.moe_ffn(p, x, cfg)
+    assert torch.equal(y1, y2) and torch.equal(s1.aux_loss, s2.aux_loss)
+    assert torch.equal(s1.dropped_frac, s2.dropped_frac)
 
 
 def test_smoke_engine_on_the_card_gives_the_cpu_greedy_tokens(cuda):

@@ -1,9 +1,11 @@
-"""Port parity for the dense-GQA LM: the LM configs and shape grid, the
-model pieces of ``models/common.py``, and ``forward`` / ``prefill`` /
-``decode_step`` against ``repro.models.transformer`` on ``qwen2-1.5b`` and
-``chatglm3-6b`` ``SMOKE`` (float32), with the reference's weights carried
-across by ``interop.transformer_params_from``, all on the same numpy
-inputs. The reference's functions are compiled once per module."""
+"""Port parity for the LMs: the LM configs and shape grid, the model
+pieces of ``models/common.py``, and ``forward`` / ``prefill`` /
+``decode_step`` against ``repro.models.transformer`` on the ``SMOKE``
+configs (float32) of the dense GQA ``qwen2-1.5b``, ``chatglm3-6b`` and
+``qwen2-72b`` and the MoE + MLA ``deepseek-v2-lite-16b`` and
+``deepseek-v2-236b``, with the reference's weights carried across by
+``interop.transformer_params_from``, all on the same numpy inputs. The
+reference's functions are compiled once per module."""
 import dataclasses
 import functools
 
@@ -16,7 +18,10 @@ import torch
 from repro import configs as jconfigs
 from repro.configs import chatglm3_6b as jglm
 from repro.configs import common as jcc
+from repro.configs import deepseek_v2_236b as jds
+from repro.configs import deepseek_v2_lite_16b as jlite
 from repro.configs import qwen2_1_5b as jqwen
+from repro.configs import qwen2_72b as jqwen72
 from repro.dist.sharding import lm_rules
 from repro.models import common as jcommon
 from repro.models import transformer as jtr
@@ -24,14 +29,21 @@ from repro_torch import configs as tconfigs
 from repro_torch import interop
 from repro_torch.configs import chatglm3_6b as tglm
 from repro_torch.configs import common as tcc
+from repro_torch.configs import deepseek_v2_236b as tds
+from repro_torch.configs import deepseek_v2_lite_16b as tlite
 from repro_torch.configs import qwen2_1_5b as tqwen
+from repro_torch.configs import qwen2_72b as tqwen72
 from repro_torch.models import common as tcommon
 from repro_torch.models import transformer as ttr
 
 torch.set_num_threads(1)
 RULES = lm_rules(())
-NAMES = ["qwen2-1.5b", "chatglm3-6b"]
-MODULES = {"qwen2-1.5b": (jqwen, tqwen), "chatglm3-6b": (jglm, tglm)}
+NAMES = ["qwen2-1.5b", "chatglm3-6b", "qwen2-72b", "deepseek-v2-lite-16b",
+         "deepseek-v2-236b"]
+MODULES = {"qwen2-1.5b": (jqwen, tqwen), "chatglm3-6b": (jglm, tglm),
+           "qwen2-72b": (jqwen72, tqwen72),
+           "deepseek-v2-lite-16b": (jlite, tlite),
+           "deepseek-v2-236b": (jds, tds)}
 # float32 logits at smoke width: the same float32 products summed in other
 # orders by the two frameworks' GEMMs and attention, over 2 layers; the
 # measured worst is 4.9e-7 of the largest logit (~5), so 2e-5 of it (and of
@@ -204,26 +216,52 @@ def test_init_has_the_reference_shapes(name):
             assert ga[k].shape == gb[k].shape and ga[k].dtype == gb[k].dtype
     layer = got["layers"][0]
     assert torch.equal(layer["ln1"], torch.ones(cfg.d_model))
-    assert torch.equal(layer["attn"]["b_q"], torch.zeros(
-        cfg.n_heads * cfg.head_dim))
+    if cfg.qkv_bias:
+        assert torch.equal(layer["attn"]["b_q"], torch.zeros(
+            cfg.n_heads * cfg.head_dim))
+    if cfg.moe:
+        moe = got["layers"][-1]["ffn"]
+        assert moe["router"].dtype == torch.float32
+        assert abs(float(moe["w_down"].std()) * np.sqrt(cfg.d_ff_expert)
+                   - 1.0) < 0.1
     # scales: embed ~ N(0, 1), projections ~ N(0, 1/d_in)
     assert abs(float(got["embed"].std()) - 1.0) < 0.05
     assert abs(float(layer["ffn"]["w_down"].std()) * np.sqrt(cfg.d_ff)
                - 1.0) < 0.1
 
 
-def test_moe_and_mla_wait_for_a_later_slice():
-    base = tconfigs.get("qwen2-1.5b").smoke_config()
-    gen = torch.Generator().manual_seed(0)
-    for kind in (dict(moe=True, n_experts=4, top_k=2, d_ff_expert=8),
-                 dict(mla=True, kv_lora_rank=8)):
-        cfg = dataclasses.replace(base, **kind)
-        with pytest.raises(NotImplementedError, match="later slice"):
-            ttr.init(cfg, gen, device="cpu")
-        with pytest.raises(NotImplementedError, match="later slice"):
-            ttr.init_cache(cfg, 1, 4, device="cpu")
-    with pytest.raises(NotImplementedError):
-        interop.transformer_params_from({"moe_layers": {}})
+def test_deepseek_lite_full_size():
+    """deepseek-v2-lite-16b at full width: 15.7B parameters (31.4 GB in
+    bf16), 2.7B active a token; 27 layers, the first dense, MLA heads of
+    192 (q/k) and 128 (v)."""
+    cfg = tconfigs.get("deepseek-v2-lite-16b").make_config("decode_32k")
+    assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.qk_head_dim,
+            cfg.v_head_dim, cfg.kv_lora_rank, cfg.n_experts,
+            cfg.top_k) == (27, 2048, 16, 192, 128, 512, 64, 6)
+    assert round(cfg.n_params() / 1e9, 1) == 15.7
+    assert round(cfg.n_params() * 2 / 1e9, 1) == 31.4
+    assert round(cfg.n_active_params() / 1e9, 1) == 2.7
+    assert [cfg.moe_layer(li) for li in range(3)] == [False, True, True]
+
+
+@pytest.mark.parametrize("kind", ["paged_cache", "paged_decode_step"])
+def test_paged_serving_keeps_refusing_mla(kind):
+    """The paged server covers the GQA cache layout only: MLA's
+    rank-compressed cache has no per-head pages, and both the pool and the
+    step refuse it, as the reference's do (``tests/test_serving.py``)."""
+    from repro_torch.serving import PagedKVCache
+    from repro_torch.serving.paged_decode import paged_decode_step
+    cfg = tconfigs.get("deepseek-v2-lite-16b").smoke_config()
+    with pytest.raises(NotImplementedError, match="MLA|GQA"):
+        if kind == "paged_cache":
+            PagedKVCache(8, 4, 2, 4, cfg=cfg, device="cpu")
+        else:
+            params = ttr.init(cfg, torch.Generator().manual_seed(0),
+                              device="cpu")
+            paged_decode_step(params, torch.zeros(1), torch.zeros(1),
+                              torch.zeros((1, 1), dtype=torch.long),
+                              torch.zeros(1, dtype=torch.long),
+                              torch.zeros((1, 1), dtype=torch.long), cfg)
 
 
 def test_entry_points_need_a_card_unless_asked_for_the_cpu():
@@ -248,7 +286,11 @@ def test_forward_and_prefill_match_reference(name):
     want, aux = jfwd(jparams, jnp.asarray(toks))
     got, got_aux = ttr.forward(params, torch.from_numpy(toks), cfg)
     _assert_logits_close(got, want)
-    assert float(got_aux) == float(aux) == 0.0
+    if cfg.moe:
+        assert float(aux) > 0.0
+        assert abs(float(got_aux) - float(aux)) <= 1e-6 * float(aux)
+    else:
+        assert float(got_aux) == float(aux) == 0.0
     _assert_logits_close(ttr.prefill(params, torch.from_numpy(toks), cfg),
                          want)
 
@@ -282,7 +324,8 @@ def test_decode_step_matches_reference(name):
                                      torch.from_numpy(toks[:, pos:pos + 1]),
                                      pos, cfg)
         _assert_logits_close(got, want)
-    for key in ("k", "v"):
+    assert cache.keys() == jcache.keys()
+    for key in cache:
         np.testing.assert_allclose(cache[key].numpy(),
                                    np.asarray(jcache[key]), rtol=1e-5,
                                    atol=1e-5)
@@ -292,7 +335,8 @@ def test_decode_step_matches_reference(name):
 def test_prefill_equals_stepped_decode(name):
     """Within the port: prefill's logits at every position equal the
     decode steps' over the dense cache (the flash forward against the
-    decode's masked softmax)."""
+    decode's masked softmax; MLA's absorbed decode). The DeepSeek SMOKE
+    configs' capacity factor is E / k, so no MoE pair drops in either."""
     cfg, params = _port(name)
     toks = torch.from_numpy(_tokens(cfg.vocab, 2, 16, seed=4))
     full = ttr.prefill(params, toks, cfg)

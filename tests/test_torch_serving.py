@@ -443,6 +443,57 @@ def test_paged_equals_dense_decode(name):
         np.testing.assert_allclose(lg_p.numpy(), lg_d.numpy(), **PAGED_TOL)
 
 
+# the reference's MoE paged-decode config (tests/test_serving.py,
+# test_moe_config_paged_decode): qwen2's smoke widths with MoE layers after
+# the first, at a capacity that never drops, and its band
+MOE_PAGED = dict(moe=True, n_experts=4, n_shared=1, top_k=2, d_ff_expert=32,
+                 n_dense_layers=1, capacity_factor=64.0)
+MOE_PAGED_TOL = dict(rtol=2e-4, atol=2e-4)
+
+
+@functools.lru_cache(maxsize=None)
+def _moe_model():
+    jcfg = dataclasses.replace(jconfigs.get("qwen2-1.5b").smoke_config(),
+                               **MOE_PAGED)
+    params, _ = jtr.init(jax.random.PRNGKey(0), jcfg, RULES)
+    cfg = dataclasses.replace(tconfigs.get("qwen2-1.5b").smoke_config(),
+                              **MOE_PAGED)
+    return jcfg, params, cfg, interop.transformer_params_from(
+        jax.tree.map(np.asarray, params))
+
+
+@pytest.mark.parametrize("against", ["dense", "reference"])
+def test_moe_config_paged_decode(against):
+    """MoE layers (no MLA) go through the paged path: paged equals the
+    port's dense ``decode_step`` within the reference's 2e-4, and the
+    reference's paged step within the parity band."""
+    jcfg, jparams, cfg, params = _moe_model()
+    assert [cfg.moe_layer(li) for li in range(cfg.n_layers)] == [False,
+                                                                 True]
+    b, t, page = 2, 6, 2
+    toks = torch.from_numpy(np.random.default_rng(4).integers(
+        0, cfg.vocab, (b, t)))
+    cache = ttr.init_cache(cfg, b, t, device="cpu")
+    kp, vp = _pools(cfg, 8, page)
+    jk, jv = jnp.asarray(kp.numpy()), jnp.asarray(vp.numpy())
+    pt = torch.tensor([[0, 1, 2], [5, 4, 3]])
+    jstep = jax.jit(lambda p, k, v, t2, ln, tk: jpaged(p, k, v, t2, ln, tk,
+                                                       jcfg, RULES))
+    for pos in range(t - 1):
+        tok = toks[:, pos:pos + 1]
+        lg_p = paged_decode_step(params, kp, vp, pt, torch.full((b,), pos),
+                                 tok, cfg)
+        if against == "dense":
+            lg_d, cache = ttr.decode_step(params, cache, tok, pos, cfg)
+            np.testing.assert_allclose(lg_p.numpy(), lg_d.numpy(),
+                                       **MOE_PAGED_TOL)
+        else:
+            want, jk, jv = jstep(jparams, jk, jv, jnp.asarray(pt.numpy()),
+                                 jnp.full((b,), pos, jnp.int32),
+                                 jnp.asarray(tok.numpy()))
+            _assert_logits_close(lg_p, want)
+
+
 def test_placement_permutation_preserves_logits():
     cfg, params = _port("qwen2-1.5b")
     b, t, page, n_pages = 2, 8, 2, 12
@@ -645,3 +696,32 @@ def test_serve_cli_streams_on_the_cpu(monkeypatch):
     assert "[SERVE] 16 requests" in text
     assert "placement step=16 devices=4" in text
     assert "--fault-plan" in tserve._parser().format_help()
+
+
+@pytest.mark.parametrize("name", ["deepseek-v2-lite-16b", "deepseek-v2-236b"])
+def test_serve_cli_oneshot_runs_mla_on_the_cpu(name, monkeypatch):
+    """``--oneshot`` drives MLA's absorbed decode and the MoE layers
+    (``--smoke --device cpu``); the same seed gives the same tokens."""
+    monkeypatch.setattr(sys, "argv", [
+        "serve", "--arch", name, "--smoke", "--device", "cpu", "--oneshot",
+        "--batch", "2", "--prompt-len", "5", "--gen-len", "6"])
+    out = io.StringIO()
+    with redirect_stdout(out):
+        tserve.main()
+    assert "generated (2, 6) tokens" in out.getvalue()
+    cfg = tconfigs.get(name).smoke_config()
+    params = ttr.init(cfg, torch.Generator().manual_seed(0), device="cpu")
+    runs = [tserve.oneshot(params, cfg, torch.device("cpu"), 2, 5, 6, 0.8,
+                           seed=3) for _ in range(2)]
+    np.testing.assert_array_equal(runs[0][0], runs[1][0])
+    assert runs[0][0].shape == (2, 6) and runs[0][2] == 10
+
+
+def test_serve_cli_stream_refuses_mla(monkeypatch):
+    """The stream runs the paged GQA cache, which MLA's rank-compressed
+    cache has no pages for: it raises the reference's refusal."""
+    monkeypatch.setattr(sys, "argv", [
+        "serve", "--arch", "deepseek-v2-lite-16b", "--smoke", "--device",
+        "cpu"])
+    with pytest.raises(NotImplementedError, match="MLA"):
+        tserve.main()

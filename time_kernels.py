@@ -8,7 +8,9 @@ pools' k = 4, ``partition_gain`` beside ``scatter_add_``), the bag kernels
 (``bag_combine``, ``gather_combine``) at the recsys path's shapes, with the
 one-query alternation against their plain versions and library calls,
 ``bsr_spmm`` at the gnn path's and ``flash_attention``
-at the lm path's (one 4 x 4,096 prefill call and one of 32,768 tokens):
+at the lm paths' (one 4 x 4,096 prefill call, one of 32,768 tokens,
+DeepSeek-V2-Lite's MLA call at D = 192, Dv = 128, and the reference's
+MLA-like float32 case):
 
     python3 time_kernels.py [SRC] [--only partitioner,recsys,gnn,lm]
 
