@@ -29,7 +29,8 @@ non-zero:
            round on the full cell's level 0 after one round, on
            ``rmat(20000, 120000, 1)``'s hub rows and at a ragged size;
            ``quotient_link_loads`` on random and CSR-local partitions and
-           both kernels at the serve pools' k = 4; ``partition_gain``
+           both kernels at the serve pools' k = 4 and, after one death,
+           at k = 3 (``guess_tree(3)``); ``partition_gain``
            beside ``scatter_add_`` on bins gathered beforehand and the
            gather + ``scatter_add_`` sequence) and at a
            ragged one, with the device time
@@ -42,7 +43,9 @@ non-zero:
            also timed in alternation (one call each per round, 201
            rounds) for a median and quartiles each, and so are the bag
            kernels at one retrieve query beside their plain versions,
-           ``torch.bmm`` and ``F.embedding_bag``; ``bag_combine`` also on
+           ``torch.bmm`` and ``F.embedding_bag``; ``bag_combine`` at
+           train_recsys's forward (32,768 x 50 x 256 float32) beside
+           ``torch.bmm``, with its plain backward timed; ``bag_combine`` also on
            bf16 rows and weights at all three recsys shapes, held within 1
            bf16 ulp plus the float32 band and the reference's 5e-2, two
            planted faults failing it; ``prefix_split`` (the device initial
@@ -149,7 +152,20 @@ non-zero:
            wall ms per step p50/p99, ``map_pages`` calls and seconds, which
            partitioner kernels the server launched), with a traced stretch
            of 4 steps of its greedy run; serve_wide, 64 requests (prompts
-           2-256, gens 1-64) on 32 slots, page 16, 1,280 pages. Then the
+           2-256, gens 1-64) on 32 slots, page 16, 1,280 pages;
+           serve_chaos (its own phase lines and launch counts), the serve
+           stream again with ``CHAOS_PLAN`` (device 1 dies at step 6), at
+           0.8 and greedy (one step traced after the recovery), and with
+           ``CHAOS_PLAN_PLACED`` (step 12) at 0.8: every request completes
+           and none fails, the tokens equal the clean runs', the recovery
+           reads device 1 with 3 alive, re-placed exactly where page
+           co-access was left to place (none at step 6; at step 12 the
+           forced ``map_pages`` over 3 bins must run and launch
+           ``quotient_link_loads`` and ``partition_gain`` within the death
+           step), every retired page's K and V rows are zero on the card,
+           the re-prefilled tokens equal the requeued requests' prompts
+           plus replayed tokens (read before the death), and both
+           partition kernels launch after the death. Then the
            checks: (a) the kernel against its plain version on layers 0 and
            27's own inputs, both held to the float32 plain version; (b)
            both in float32 at the reference's ``CASES`` and two calls
@@ -250,6 +266,23 @@ non-zero:
            gradients on the card equal to the CPU's bitwise; (f) SMOKE on
            the card: 8 steps straight against 4, a checkpoint and a
            resumed ``loop.run``, bitwise.
+  train_recsys  two-tower retrieval at full width (1M x 256 item table)
+           through the train CLI's ``build`` with ``TRAIN_RECSYS_CLI``
+           (``--embed-shard --embed-machine gpu-superpod
+           --embed-cache-rows 65536 --embed-probe-batches 1 --prefetch 2``,
+           batch 32,768, cut from 65,536: see ``TRAIN_RECSYS_BATCH``), 6
+           steps through ``loop.run``, launch counts set to 0 just before
+           (one ``bag_combine`` launch a step): seconds a step, examples/s,
+           peak bytes, ``plan_shards``' seconds, the cache's counters, one
+           traced step. Gates: (a) step 1's loss and gradients, kernel path
+           against plain path, float32; (b) dense, masked and sparse row
+           updates bitwise on step 1's table gradients; (c) the same step
+           twice bitwise; (d) ``run_supervised`` with a leaf death at step
+           3 and a checkpoint every 2 steps: the stitched losses and the
+           final params, AdamW and Adagrad state bitwise the clean run's,
+           resumed from 2; (e) finite, the loss comes down; (f) the
+           hot-row cache's invariants, its traffic below the replicated
+           baseline, the prefetcher ran ahead.
 
 Then one line ``{"kernels": [...]}``: each kernel's launches on the path
 that drives it (``full`` for the partitioner's kernels but
@@ -258,14 +291,16 @@ that drives it (``full`` for the partitioner's kernels but
 round as ``match_round`` and the initial split runs as ``prefix_split``,
 with 0 and ``on_path_as``; ``recsys`` for the bag kernels,
 ``gnn`` for ``bsr_spmm``, ``lm`` for ``flash_attention``, which also
-launches on ``train``), its launches
+launches on ``train``; ``serve_chaos`` and ``train_recsys`` are paths
+too), its launches
 on every path (``serve`` and ``serve_wide`` show which partitioner
 kernels the server reaches; ``mapping``, ``c1`` and ``claims`` that the
 search, the baselines and the claims' twins run ``quotient_link_loads``
 and ``partition_gain``), and the
 kernels phase's numbers at the main path's shape (``flash_attention`` also
 at 32,768 tokens, ``long``; the bag kernels their one-query alternation,
-``retrieve_query``; ``gather_combine``, ``bag_combine`` (bf16 too),
+``retrieve_query``, and ``bag_combine`` its training shape and plain
+backward, ``train``; ``gather_combine``, ``bag_combine`` (bf16 too),
 ``match_round`` and ``prefix_split`` every shape, ``shapes``, and
 ``prefix_split`` its alternation and ``initial_partition_device``'s wall;
 ``bsr_spmm`` its second bound, tile and slabs read).
@@ -453,6 +488,37 @@ TRAIN_RESUME_STEPS = 8
 TRAIN_RESUME_AT = 4
 TRAIN_RESUME_BATCH = (4, 64)
 
+# serve_chaos: the lm serve stream (LM_SERVE, LM_SERVE_POLICY) with this
+# fault plan, at LM_TEMPERATURE and greedy, on the same weights. Up to step
+# 7 every request's tokens fit its first page, so the measured page
+# co-access is empty at step 6 and the forced re-placement has nothing to
+# place (the reference's rule: no traffic, no placement; PR 23's first
+# card run read replaced=false). CHAOS_PLAN_PLACED kills the same device
+# at step 12, after 32 co-access counts, where the forced map_pages over
+# the 3 survivors must run
+CHAOS_PLAN = "6:leaf_death:1"
+CHAOS_PLAN_PLACED = "12:leaf_death:1"
+# train_recsys: two-tower retrieval at full width (configs/
+# two_tower_retrieval.py:FULL) through the train CLI's own code, at the
+# CLI's learning rate. The batch is cut from the grid's 65,536 to 32,768:
+# each [B, B] float32 logits tensor is 17.2 GB at 65,536 and the loss holds
+# about four at once (logits, logits after logQ, the logsumexp's
+# exponentials, the softmax gradient), ~69 GB before the 3.4 GB of gathered
+# rows and their gradient; at 32,768 that count is ~25 GB. One probe batch
+# (32,768 bags) builds the co-access graph (see PERF.md for the seconds).
+TRAIN_RECSYS_BATCH = 32_768
+TRAIN_RECSYS_STEPS = 6
+TRAIN_RECSYS_CLI = ["--arch", "two-tower-retrieval", "--steps",
+                    str(TRAIN_RECSYS_STEPS), "--batch",
+                    str(TRAIN_RECSYS_BATCH), "--embed-shard",
+                    "--embed-machine", "gpu-superpod", "--embed-cache-rows",
+                    "65536", "--embed-probe-batches", "1", "--prefetch", "2"]
+# gate (a): kernel path against plain path, float32: train (b)'s bands
+# (TRAIN_F32_LOSS_RTOL, TRAIN_F32_GRAD_REL_L2); gate (d): run_supervised
+# with this plan and a checkpoint every TRAIN_RECSYS_CKPT_EVERY steps
+TRAIN_RECSYS_FAULTS = "3:leaf_death:1"
+TRAIN_RECSYS_CKPT_EVERY = 2
+
 # The mapping phase: bench_mapping_search.py's full-tier scoring table at
 # its two 512-device meshes (the Qwen2 production mesh and the cube), on
 # mesh_tree(shape), then its machine sweep (the port's twin,
@@ -569,12 +635,13 @@ KERNEL_INFO = {
     "quotient_link_loads": ("src/repro_torch/csrc/quotient_link_loads.cu",
                             "src/repro/kernels/quotient_link_loads.py:99",
                             ("full", "small", "recsys", "mapping", "c1",
-                             "claims")),
+                             "claims", "serve_chaos")),
     "partition_gain": ("src/repro_torch/csrc/partition_gain.cu",
                        "src/repro/kernels/partition_gain.py:67",
-                       ("small", "c1", "claims")),
+                       ("small", "c1", "claims", "serve_chaos")),
     "bag_combine": ("src/repro_torch/csrc/bag_combine.cu",
-                    "src/repro/kernels/bag_combine.py:59", ("recsys",)),
+                    "src/repro/kernels/bag_combine.py:59",
+                    ("recsys", "train_recsys")),
     "gather_combine": ("src/repro_torch/csrc/gather_combine.cu",
                        "src/repro/kernels/gather_combine.py:85",
                        ("recsys",)),
@@ -874,7 +941,8 @@ def phase_kernels(state):
     # gpu-superpod under a CSR-local one (arange(n) * k // n: neighbouring
     # vertices share a bin, as the path's partitions place them), and at
     # the serve pools' k = 4 (guess_tree(4)) on 1,280 and 48 pages, both
-    # partitions
+    # partitions, and the serve pool after one death (serve_chaos's forced
+    # re-placement over 3 survivors: guess_tree(3), the flat star)
     g = grid3d(64, 64, 64)
     superpod = MachineSpec.preset("gpu-superpod").tree()
     pool, pool_small = rmat_graph(1280, 2135, seed=0), rmat_graph(48, 300,
@@ -887,15 +955,20 @@ def phase_kernels(state):
             ("serve_wide pool", pool, guess_tree(4), "random"),
             ("serve_wide pool", pool, guess_tree(4), "csr_local"),
             ("serve pool", pool_small, guess_tree(4), "random"),
-            ("serve pool", pool_small, guess_tree(4), "csr_local")):
+            ("serve pool", pool_small, guess_tree(4), "csr_local"),
+            ("serve pool after a death", pool_small, guess_tree(3),
+             "random"),
+            ("serve pool after a death", pool_small, guess_tree(3),
+             "csr_local")):
         _check_qll(state, gq, topo, kind, label, gen)
 
     # partition_gain: the small phase's level 0 (every level is dense at
-    # k = 8), a ragged row count, and the serve pools' level 0 at k = 4;
+    # k = 8), a ragged row count, and the serve pools' level 0 at k = 4
+    # and, after one death, at k = 3;
     # library_ms: scatter_add_ on bins gathered beforehand,
     # library_sequence_ms: the gather and the scatter_add_ in one sequence
     for n, m, k in ((2000, 8000, 8), (1001, 5003, 8), (1280, 2135, 4),
-                    (48, 300, 4)):
+                    (48, 300, 4), (48, 300, 3)):
         gs = rmat_graph(n, m, seed=0)
         idx, ew = ops.to_ell(gs.n_nodes, gs.senders, gs.receivers,
                              gs.edge_weight)
@@ -1493,6 +1566,36 @@ def phase_kernels_recsys(state):
             med["gather_combine"] <= med["F.embedding_bag"]))
     emit("kernels", kernel="bag_combine", step="retrieve_query_ranking",
          **state["bag_ranking"])
+    del rows
+
+    # bag_combine at train_recsys's forward: TRAIN_RECSYS_BATCH of the
+    # stream's histories, float32 (1.68 GB of gathered rows), beside
+    # torch.bmm; then the plain backward it runs under autograd, d gathered
+    # = w[:, :, None] * g[:, None, :] (a [B, D, F] write), with its bound
+    train = recsys_request(FULL.n_items, FULL.n_cats, TRAIN_RECSYS_BATCH)
+    idx, w = train["user_hist"].clamp_min(0), train["w"]
+    (b, d), f = idx.shape, table.shape[1]
+    rows = table[idx]
+    tol = bag_plain(lambda i, j: rows[i:j], w)[1]
+    _check_kernel(
+        state, "bag_combine", [b, d, f, "train"],
+        lambda: bag_combine.bag_combine(rows, w),
+        lambda: bag_combine.plain(rows, w), exact=False, rtol=1e-6,
+        atol=tol, tolerance=BAG_TOLERANCE, iters=10,
+        library=lambda: torch.bmm(w[:, None, :], rows),
+        bytes_moved=4.0 * b * d * f + 4.0 * b * d + 4.0 * b * f,
+        flops=2.0 * b * d * f)
+    del tol
+    g = torch.randn(b, f, generator=gen, device=dev)
+    bwd_bytes = 4.0 * b * f + 4.0 * b * d + 4.0 * b * d * f
+    state["bag_train"] = dict(
+        shape=[b, d, f, "train"],
+        plain_backward_ms=device_ms(lambda: w[:, :, None] * g[:, None, :],
+                                    10, flush=_flush_buffer(state)),
+        plain_backward_bound_ms=bound(bwd_bytes, float(b * d * f))[0])
+    emit("kernels", kernel="bag_combine", step="train_backward",
+         **state["bag_train"])
+    del rows, g
 
 
 def host_scorecard(g, topo, part):
@@ -2585,10 +2688,10 @@ def phase_kernels_lm(state):
         flops=flops)
 
 
-def _serve_engine(params, cfg, workload, **policy):
+def _serve_engine(params, cfg, workload, injector=None, **policy):
     """A ``ServingEngine`` on the card with the serving CLI's stream
     (``launch.serve.stream_workload``) submitted, its own
-    ``PlacementSession``."""
+    ``PlacementSession`` and the fault ``injector`` if given."""
     import torch
 
     from repro_torch.launch.placement import PlacementSession
@@ -2602,7 +2705,8 @@ def _serve_engine(params, cfg, workload, **policy):
         n_pages=n_pages, max_pages_per_req=max_pages, seed=workload["seed"],
         **policy)
     eng = ServingEngine(params, cfg, ecfg, device=dev,
-                        session=PlacementSession(device=dev))
+                        session=PlacementSession(device=dev),
+                        injector=injector)
     for p, g in zip(prompts, gens):
         eng.submit(p, g)
     return eng, sum(gens)
@@ -2738,6 +2842,7 @@ def phase_lm(state):
          traced=serve_trace,
          quotient_link_loads_by_shape=qll_by_shape(state, serve_qll),
          **serve_line)
+    serve_chaos(state, params, cfg, tokens)
 
     # -- serve_wide: a deployment's pool
     wide_policy = dict(temperature=LM_TEMPERATURE, **LM_WIDE_POLICY)
@@ -2911,6 +3016,129 @@ def phase_lm(state):
     if failed:
         raise AssertionError(f"lm checks failed: {failed}")
     _require_launched(counts, "lm")
+
+
+def _chaos_engine(params, cfg, temperature, plan):
+    """The lm serve stream's engine with ``plan`` injected, and a record
+    of each ``handle_leaf_death`` call: the requeued requests' prompt
+    lengths and generated counts read just before the call, the page
+    traffic left after it (what the forced re-placement places) and the
+    launch counts at that point."""
+    from repro_torch.kernels import ops
+    from repro_torch.resilience import FaultInjector, parse_fault_plan
+    eng, n_gen = _serve_engine(
+        params, cfg, LM_SERVE,
+        injector=FaultInjector(parse_fault_plan(plan)),
+        **dict(LM_SERVE_POLICY, temperature=temperature))
+    deaths = []
+    handle = eng.scheduler.handle_leaf_death
+
+    def recorded(dead_pages, step, **kw):
+        before = {r.rid: (r.prompt_len, len(r.generated))
+                  for r in eng.scheduler.active.values()}
+        res = handle(dead_pages, step, **kw)
+        deaths.append(dict(step=step, pages=len(dead_pages),
+                           requeued={r.rid: before[r.rid]
+                                     for r in res["requeued"]},
+                           traffic=float(eng.cache.page_traffic().sum()),
+                           counts_before=ops.launch_counts()))
+        return res
+    eng.scheduler.handle_leaf_death = recorded
+    return eng, n_gen, deaths
+
+
+def serve_chaos(state, params, cfg, clean_tokens):
+    """The lm serve stream with CHAOS_PLAN (a leaf death at step 6) on the
+    same weights, at LM_TEMPERATURE (counted) and greedy (one step traced
+    after the recovery), then with CHAOS_PLAN_PLACED at LM_TEMPERATURE:
+    every request completes, the tokens equal the clean runs', the
+    recovery record (re-placed exactly where page co-access was left to
+    place, and at step 12 it must be), the retired pages zeroed on the
+    card, the re-prefilled tokens, and the partition kernels launched
+    after the death, by the forced re-placement itself at step 12."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops
+    t0 = time.perf_counter()
+    checks, out = {}, {}
+    for plan, temp in ((CHAOS_PLAN, LM_TEMPERATURE), (CHAOS_PLAN, 0.0),
+                       (CHAOS_PLAN_PLACED, LM_TEMPERATURE)):
+        ops.reset_launch_counts()
+        eng, n_gen, deaths = _chaos_engine(params, cfg, temp, plan)
+        trace, at_death = None, {}
+        death_step = int(plan.split(":")[0])
+        while eng._step <= death_step:
+            eng.step()
+        if deaths:
+            now = ops.launch_counts()
+            at_death = {k: now[k] - deaths[0]["counts_before"][k]
+                        for k in now}
+        if temp == 0.0:
+            trace = _traced(eng.step, {"flash_fwd_": ("flash_attention",)})
+        report = eng.run()
+        counts = ops.launch_counts()
+        if (plan, temp) == (CHAOS_PLAN, LM_TEMPERATURE):
+            state["launches"]["serve_chaos"] = counts
+        key = f"{plan}@{temp}"
+        rec = report.recoveries[0] if report.recoveries else {}
+        dead = eng.cache.allocator.dead_pages()
+        rows = torch.as_tensor(dead, device=eng.cache.k_pool.device)
+        zeroed = bool(dead.size) and all(
+            not bool(pool.index_select(1, rows).any())
+            for pool in (eng.cache.k_pool, eng.cache.v_pool))
+        want_reprefill = sum(p + g for d in deaths
+                             for p, g in d["requeued"].values())
+        after = ({k: counts[k] - deaths[0]["counts_before"][k]
+                  for k in counts} if deaths else {})
+        placeable = bool(deaths) and deaths[0]["traffic"] > 0
+        checks[f"{key}_every_request_completed_none_failed"] = (
+            report.n_requests == LM_SERVE["num_requests"]
+            and report.requests_failed == 0
+            and report.tokens_out == n_gen)
+        checks[f"{key}_tokens_equal_the_clean_run"] = (
+            _tokens_of(report) == clean_tokens[f"placed_{temp}"])
+        checks[f"{key}_recovery_device_1_alive_3"] = (
+            len(deaths) == 1 and rec.get("device") == 1
+            and rec.get("n_alive") == 3)
+        checks[f"{key}_replaced_where_traffic_was_left"] = (
+            rec.get("replaced") is placeable)
+        checks[f"{key}_retired_pages_zero_on_the_card"] = zeroed
+        checks[f"{key}_tokens_reprefilled"] = (
+            report.tokens_reprefilled == want_reprefill)
+        checks[f"{key}_partition_kernels_launch_after_the_death"] = (
+            after.get("quotient_link_loads", 0) > 0
+            and after.get("partition_gain", 0) > 0)
+        if plan == CHAOS_PLAN_PLACED:
+            checks[f"{key}_forced_replacement_ran_the_kernels"] = (
+                placeable and rec.get("replaced") is True
+                and at_death.get("quotient_link_loads", 0) > 0
+                and at_death.get("partition_gain", 0) > 0)
+        steps = np.asarray(eng.step_s) * 1e3
+        out[key] = dict(
+            report={k: v for k, v in report.__dict__.items()
+                    if k not in ("requests", "placements")},
+            placements=report.placements, recovery=rec,
+            retired_pages=int(dead.size),
+            traffic_left_at_the_death=deaths[0]["traffic"] if deaths
+            else None,
+            requeued={str(k): v for d in deaths
+                      for k, v in d["requeued"].items()},
+            tokens_reprefilled_expected=want_reprefill,
+            launches=counts, launches_after_the_death=after,
+            launches_in_the_death_step=at_death,
+            step_ms_p50=float(np.percentile(steps, 50)),
+            step_ms_p99=float(np.percentile(steps, 99)),
+            step_ms_max=float(steps.max()),
+            recovery_s=rec.get("recovery_s"), traced=trace)
+    emit("serve_chaos", plans=[CHAOS_PLAN, CHAOS_PLAN_PLACED],
+         workload=LM_SERVE, policy=LM_SERVE_POLICY, runs=out,
+         seconds=time.perf_counter() - t0, nvidia_smi=state["smi"],
+         **checks)
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"serve_chaos checks failed: {failed}")
+    _require_launched(state["launches"]["serve_chaos"], "serve_chaos")
 
 
 def materialised_mla_decode(p, x, c_cache, kr_cache, pos, cfg, tables,
@@ -3961,11 +4189,224 @@ def phase_train(state):
     _require_launched(counts, "train")
 
 
+def _plain_bag_forward():
+    """A context in which ``bag_combine``'s forward is its plain version
+    (the ``BagCombine`` Function looks ``_forward`` up at call time): the
+    plain path gate (a) holds the kernel path to."""
+    import contextlib
+
+    from repro_torch.kernels import bag_combine
+
+    @contextlib.contextmanager
+    def ctx():
+        saved = bag_combine._forward
+        bag_combine._forward = bag_combine.plain
+        try:
+            yield
+        finally:
+            bag_combine._forward = saved
+    return ctx()
+
+
+def _restored_state(ckpt_dir, like):
+    from repro_torch.ckpt import checkpoint as ckpt
+    from repro_torch import tree
+    state, _ = ckpt.restore(ckpt_dir, like, TRAIN_RECSYS_STEPS)
+    return tree.leaves(state)
+
+
+def phase_train_recsys(state):
+    """Two-tower retrieval training at full width through the train CLI's
+    ``build`` (TRAIN_RECSYS_CLI: the sharded table, sparse rowwise Adagrad,
+    the hot-row cache report, the prefetcher): TRAIN_RECSYS_STEPS steps
+    through ``loop.run`` (counted, its final state saved; one more step
+    traced), then gates (a)-(f)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch import tree
+    from repro_torch.embed import hot_cache
+    from repro_torch.embed import training as embed_training
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as tlaunch
+    from repro_torch.resilience import parse_fault_plan
+    from repro_torch.train import loop
+    from repro_torch.train.steps import loss_and_grads
+    t_phase = time.perf_counter()
+    args = tlaunch._parser().parse_args(TRAIN_RECSYS_CLI)
+    t0 = time.perf_counter()
+    setup = tlaunch.build(args)
+    build_s = time.perf_counter() - t0
+    emb = setup.embed
+    params, cfg = setup.params, setup.cfg
+    host0 = next(tlaunch.host_batches("recsys", cfg, args.batch, args.seq))
+    batch0 = tlaunch.to_device(host0, setup.device)
+    checks, errors = {}, {}
+
+    # -- the counted run: the CLI's loop; its final state is saved once,
+    # after the last step, for gate (d)
+    tmp = tempfile.TemporaryDirectory()
+    clean_dir = str(Path(tmp.name) / "clean")
+    rec = []
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    stream = setup.batches(0)
+    p_end, o_end, result = loop.run(
+        _recording_step(setup.step, rec), params, setup.opt, stream,
+        dataclasses.replace(setup.lcfg, ckpt_dir=clean_dir,
+                            ckpt_every=TRAIN_RECSYS_STEPS + 1))
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    state["launches"]["train_recsys"] = counts
+    prefetch = stream.stats()
+    checks["bag_combine_one_launch_a_step"] = (
+        counts["bag_combine"] == TRAIN_RECSYS_STEPS)
+    e0 = embed_training.init_embed_state(p_end, emb["ecfg"])
+    trace = _traced(lambda: setup.step(p_end, o_end, e0, batch0),
+                    {"bag_reduce": ("bag_combine", "gather_combine")})
+    del p_end, o_end, e0
+    torch.cuda.empty_cache()
+    losses = [r["loss"] for r in rec]
+    warm = float(np.median([r["s"] for r in rec[1:]]))
+    cache, rep_t = emb["cache"], emb["replicated"]
+    emit("train_recsys", step="run", arch=setup.arch.name, cli=args.__dict__,
+         reduced="batch 65,536 -> 32,768: the loss's [B, B] float32 "
+                 "tensors (~4 x 17.2 GB at 65,536) do not fit beside the "
+                 "table; --embed-probe-batches 1",
+         params=cfg.n_params(), batch=args.batch, steps=TRAIN_RECSYS_STEPS,
+         build_s=build_s, probe_s=emb["probe_s"],
+         plan_shards_s=emb["plan_s"], cache_report_s=emb["cache_s"],
+         plan=dict(n_rows=emb["plan"].n_rows,
+                   n_devices=emb["plan"].n_devices,
+                   machine=emb["plan"].machine,
+                   makespan=emb["plan"].makespan),
+         cold_s=rec[0]["s"], warm_s_p50=warm,
+         step_s=[r["s"] for r in rec], examples_per_s=args.batch / warm,
+         max_memory_allocated=peak, launches=counts, losses=losses,
+         grad_norms=[r["grad_norm"] for r in rec], lrs=[r["lr"] for r in rec],
+         loop_seconds=result.seconds, prefetch=prefetch,
+         cache=dict(hits=cache.hits, misses=cache.misses,
+                    lookups=cache.lookups, evictions=cache.evictions,
+                    hit_rate=cache.hit_rate,
+                    traffic_bytes=cache.traffic_bytes(),
+                    replicated_bytes=float(rep_t.sum()) / 2),
+         traced=trace, nvidia_smi=state["smi"])
+    # (e) finite, and the loss comes down
+    checks["e_finite_losses"] = bool(np.isfinite(losses).all())
+    checks["e_last_two_losses_below_the_first"] = (
+        float(np.mean(losses[-2:])) < losses[0])
+    # (f) the hot-row cache and the prefetcher
+    cache.check_invariants()
+    checks["f_cache_invariants_hold"] = True
+    checks["f_cache_traffic_below_replicated"] = (
+        cache.traffic_bytes() < float(rep_t.sum()) / 2)
+    checks["f_prefetch_ran_ahead"] = prefetch["max_occupancy"] >= 1
+
+    # -- (a) step 1: loss and every gradient leaf, kernel path against the
+    # plain path, float32
+    names = _leaf_names(params)
+    loss_k, _, grads_k = loss_and_grads(setup.loss_fn, params, batch0)
+    with _plain_bag_forward():
+        loss_p, _, grads_p = loss_and_grads(setup.loss_fn, params, batch0)
+    rel = [_rel_l2(g, w) for g, w in zip(tree.leaves(grads_k),
+                                         tree.leaves(grads_p))]
+    del grads_p
+    errors["a"] = dict(loss_kernel=float(loss_k), loss_plain=float(loss_p),
+                       loss_rel=abs(float(loss_k) - float(loss_p))
+                       / abs(float(loss_p)),
+                       worst_leaf_rel_l2=max(rel),
+                       worst_leaf=names[int(np.argmax(rel))])
+    checks["a_kernel_vs_plain"] = (
+        errors["a"]["loss_rel"] <= TRAIN_F32_LOSS_RTOL
+        and max(rel) <= TRAIN_F32_GRAD_REL_L2)
+    checks["a_step1_loss_equals_the_run"] = float(loss_k) == losses[0]
+
+    # -- (b) dense, masked and sparse row updates on step 1's table
+    # gradients, bitwise
+    ok_b, touched = True, {}
+    for name in emb["ecfg"].tables:
+        g, tbl = grads_k[name], params[name]
+        acc = torch.zeros(tbl.shape[0], device=tbl.device)
+        dense = hot_cache.dense_row_update(tbl, acc, g)
+        masked = hot_cache.masked_row_update(tbl, acc, g)
+        rows = torch.nonzero((g != 0).any(-1))[:, 0]
+        sparse = hot_cache.sparse_row_update(tbl, acc, rows, g[rows])
+        touched[name] = int(rows.numel())
+        ok_b &= all(torch.equal(a, b) for a, b in zip(dense, masked))
+        ok_b &= all(torch.equal(a, b) for a, b in zip(dense, sparse))
+        del dense, masked, sparse
+    errors["b_touched_rows"] = touched
+    checks["b_dense_masked_sparse_bitwise"] = ok_b
+    del grads_k
+    torch.cuda.empty_cache()
+
+    # -- (c) the same step twice, bitwise (the table gradient is a scatter
+    # with duplicate ids)
+    e0 = embed_training.init_embed_state(params, emb["ecfg"])
+    one = tree.leaves(setup.step(params, setup.opt, e0, batch0)[:3])
+    two = tree.leaves(setup.step(params, setup.opt, e0, batch0)[:3])
+    differing = [i for i, (a, b) in enumerate(zip(one, two))
+                 if not torch.equal(a, b)]
+    errors["c_leaves_differing"] = len(differing)
+    checks["c_step_twice_bitwise"] = not differing
+    del one, two, e0
+    torch.cuda.empty_cache()
+
+    # -- (d) run_supervised with a leaf death against the counted run: the
+    # stitched losses and the final params, AdamW and Adagrad state bitwise
+    with tmp:
+        lcfg = loop.LoopConfig(
+            total_steps=TRAIN_RECSYS_STEPS,
+            ckpt_every=TRAIN_RECSYS_CKPT_EVERY,
+            ckpt_dir=str(Path(tmp.name) / "chaos"), embed_sparse=emb["ecfg"])
+        t0 = time.perf_counter()
+        _, _, chaos = loop.run_supervised(
+            setup.step, params, setup.opt, setup.batches, lcfg,
+            parse_fault_plan(TRAIN_RECSYS_FAULTS),
+            machine=args.embed_machine)
+        chaos_s = time.perf_counter() - t0
+        like = (params, setup.opt,
+                embed_training.init_embed_state(params, emb["ecfg"]))
+        a_leaves = _restored_state(clean_dir, like)
+        b_leaves = _restored_state(lcfg.ckpt_dir, like)
+        differing = [i for i, (a, b) in enumerate(zip(a_leaves, b_leaves))
+                     if not torch.equal(a, b)]
+        del a_leaves, b_leaves, like
+    errors["d"] = dict(losses_chaos=chaos.losses,
+                       recoveries=chaos.recoveries, attempts=chaos.attempts,
+                       n_alive=chaos.machine.n_alive,
+                       final_leaves_differing=len(differing),
+                       seconds=chaos_s)
+    checks["d_stitched_losses_equal_the_clean_run"] = chaos.losses == losses
+    checks["d_final_state_bitwise"] = not differing
+    checks["d_resumed_from_2"] = (
+        len(chaos.recoveries) == 1
+        and chaos.recoveries[0]["resumed_from"] == TRAIN_RECSYS_CKPT_EVERY)
+
+    emit("train_recsys", step="checks", tolerances=dict(
+        a=f"loss rel <= {TRAIN_F32_LOSS_RTOL}, every gradient leaf's "
+          f"relative L2 <= {TRAIN_F32_GRAD_REL_L2}; step 1's loss bitwise "
+          f"the run's",
+        b="bitwise", c="bitwise",
+        d="stitched losses equal; final params, AdamW and Adagrad state "
+          "bitwise; resumed from step 2",
+        e="finite; mean of the last two losses below the first",
+        f="check_invariants; traffic below the replicated baseline; "
+          "prefetch max_occupancy >= 1"),
+        max_abs_err=errors, seconds=time.perf_counter() - t_phase, **checks)
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"train_recsys checks failed: {failed}")
+    _require_launched(counts, "train_recsys")
+
+
 PHASES = (phase_env, phase_build, phase_kernels, phase_kernels_recsys,
           phase_full, phase_small, phase_recsys, phase_kernels_gnn,
           phase_gnn, phase_kernels_lm, phase_lm, phase_lm_mla, phase_mapping,
           phase_c1,
-          phase_claims, phase_train)
+          phase_claims, phase_train, phase_train_recsys)
 
 
 def kernels_line(state):
@@ -3997,10 +4438,13 @@ def kernels_line(state):
             out[-1]["initial_partition_device"] = state["split_initial"]
         if name in ("bag_combine", "gather_combine"):  # at one query
             out[-1]["retrieve_query"] = state["bag_ranking"]
-        if name == "bag_combine":          # every shape, bf16 too
+        if name == "bag_combine":          # every shape, bf16 too; training
             out[-1]["shapes"] = [{k: r.get(k) for k in (
                 "shape", "ms", "call_ms", "plain_ms", "library_ms",
                 "bound_ms", "max_abs_err", "readings")} for r in rows]
+            out[-1]["train"] = dict(
+                next(r for r in out[-1]["shapes"] if "train" in r["shape"]),
+                **state["bag_train"])
         if name == "match_keys":           # off the path: match_round
             out[-1]["on_path_as"] = "match_round"
         if name == "match_round":          # every case; the old sequence

@@ -5,11 +5,14 @@ generators), ``core`` (machine trees, the makespan objective, coarsening,
 initial partition, refinement, the ``partition()`` entry point and block
 placement), ``configs`` (two-tower, GIN-TU, dense-GQA and MoE + MLA LM
 configurations and shape grids), ``data`` (seeded LM, recsys, GNN-feature
-and molecule batches), ``models`` (MLP, two-tower serving, the GIN
+and molecule batches), ``models`` (MLP, the two-tower model, the GIN
 forward, the GQA and MoE + MLA transformer with its loss), ``embed`` (the partition-sharded embedding
-table), ``serving`` (paged KV cache, scheduler, paged decode, the
-continuous-batching engine), ``optim`` (AdamW), ``dist`` (int8 gradient
-compression), ``train`` (the train step and the fault-tolerant loop),
+table, the hot-row cache, the sparse table optimizer and the prefetching
+sampler), ``serving`` (paged KV cache, scheduler, paged decode, the
+continuous-batching engine with its fault recovery), ``resilience``
+(fault plans, the injector, the chaos harness), ``optim`` (AdamW),
+``dist`` (int8 gradient compression), ``train`` (the train step, the
+fault-tolerant loop and its restart supervisor),
 ``ckpt`` (checkpoints), ``tree`` (nested parameter trees), ``launch``
 (the serving and training CLIs and the page mapper), ``analysis`` (the
 traffic-matrix lint) and ``kernels``

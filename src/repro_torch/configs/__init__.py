@@ -5,16 +5,16 @@ GQA ``qwen2-1.5b``, ``qwen2-72b`` and ``chatglm3-6b``, and the MoE + MLA
 ``deepseek-v2-lite-16b`` and ``deepseek-v2-236b``, on
 ``common.ShapeSpec`` / ``ArchDef``.
 
-``REGISTRY`` / :func:`get` resolve the LM names the serving CLI's
-``--arch`` takes (twin of ``repro/configs/__init__.py``'s registry, for the
-archs that are ported)."""
+``REGISTRY`` / :func:`get` resolve the names the CLIs' ``--arch`` takes
+(twin of ``repro/configs/__init__.py``'s registry, for the archs that are
+ported)."""
 from repro_torch.configs import (chatglm3_6b, deepseek_v2_236b,
                                  deepseek_v2_lite_16b, gin_tu, qwen2_1_5b,
-                                 qwen2_72b)
+                                 qwen2_72b, two_tower_retrieval)
 
 REGISTRY = {a.ARCH.name: a.ARCH for a in (
     deepseek_v2_236b, deepseek_v2_lite_16b, chatglm3_6b, qwen2_72b,
-    qwen2_1_5b, gin_tu)}
+    qwen2_1_5b, two_tower_retrieval, gin_tu)}
 
 
 def get(name: str):

@@ -13,7 +13,8 @@ and the bins are the leaves of the machine tree:
   row -> device assignment realised as a device-contiguous permutation;
 * :class:`ShardedEmbeddingTable` holds the permuted table on the device
   plus the old -> new id translation; ``lookup_bags`` runs the
-  ``gather_combine`` CUDA kernel and ``replicated()`` is the exact inverse.
+  ``gather_combine`` CUDA kernel and ``replicated()`` is the exact inverse;
+  ``lookup`` / ``update_rows`` take original ids as tensors or arrays.
 """
 from __future__ import annotations
 
@@ -110,6 +111,27 @@ class RowAccessStats:
         self._compact()
         return (self._keys // self.n_rows, self._keys % self.n_rows,
                 self._w.copy())
+
+    def top_rows(self, n: int) -> np.ndarray:
+        """The ``n`` most-accessed rows, hottest first (cache warm set)."""
+        n = min(int(n), self.n_rows)
+        order = np.argsort(-self.counts, kind="stable")
+        return order[:n]
+
+    def device_traffic(self, row_to_device: np.ndarray, n_devices: int,
+                       row_bytes: float = 1.0) -> np.ndarray:
+        """[D, D] symmetric zero-diagonal co-access bytes under an
+        assignment: the quotient of the co-access graph the partitioner
+        minimises, in ``lint_traffic``-lawful shape."""
+        row_to_device = np.asarray(row_to_device, dtype=np.int64)
+        T = np.zeros((n_devices, n_devices), dtype=np.float64)
+        u, v, w = self.pair_arrays()
+        if u.size:
+            du, dv = row_to_device[u], row_to_device[v]
+            cross = du != dv
+            np.add.at(T, (du[cross], dv[cross]), w[cross] * row_bytes)
+            T = T + T.T
+        return T
 
 
 @dataclasses.dataclass(frozen=True)
@@ -305,14 +327,29 @@ class ShardedEmbeddingTable:
         self._perm = torch.as_tensor(plan.perm, dtype=torch.int32,
                                      device=dev)
 
+    @property
+    def n_rows(self) -> int:
+        return self.plan.n_rows
+
+    @property
+    def dim(self) -> int:
+        return int(self.data.shape[1])
+
+    @property
+    def row_bytes(self) -> int:
+        return self.dim * self.data.element_size()
+
     def translate(self, ids: torch.Tensor) -> torch.Tensor:
         """Original ids -> physical rows (negative padding preserved)."""
         phys = self._perm[ids.clamp_min(0)].to(ids.dtype)
         return torch.where(ids >= 0, phys, ids)
 
-    def lookup(self, ids: torch.Tensor) -> torch.Tensor:
+    def _ids(self, ids) -> torch.Tensor:
+        return torch.as_tensor(ids, device=self.data.device).long()
+
+    def lookup(self, ids) -> torch.Tensor:
         """[...,] original ids -> [..., E] rows (ids must be >= 0)."""
-        return self.data[self._perm[ids]]
+        return self.data[self._perm[self._ids(ids)]]
 
     def lookup_bags(self, ids: torch.Tensor,
                     weights: torch.Tensor) -> torch.Tensor:
@@ -321,11 +358,11 @@ class ShardedEmbeddingTable:
         return kops.gather_combine(self.data, self._perm[ids.clamp_min(0)],
                                    weights)
 
-    def update_rows(self, ids: torch.Tensor, values: torch.Tensor) -> None:
+    def update_rows(self, ids, values: torch.Tensor) -> None:
         """Write new values into the rows named by ORIGINAL ids, in place
         (the reference replaces its immutable array; a table built with
         ``permuted=True`` shares the caller's tensor)."""
-        self.data[self._perm[ids]] = values
+        self.data[self._perm[self._ids(ids)]] = values
 
     def replicated(self) -> torch.Tensor:
         """The full table back in original row order (inverse of the
@@ -335,3 +372,6 @@ class ShardedEmbeddingTable:
     def device_of(self, ids) -> np.ndarray:
         """Owning device per ORIGINAL row id (host-side)."""
         return self.plan.row_to_device[np.asarray(ids)]
+
+    def rows_per_device(self) -> np.ndarray:
+        return self.plan.shard_sizes

@@ -19,6 +19,12 @@ Rows and weights are float32, or both bf16 as the reference takes the
 input's dtype (``repro/kernels/bag_combine.py``): the kernel widens bf16
 rows and weights as it reads them, sums in float32 and rounds once to
 bf16, as ``gather_combine``'s bf16 path does.
+
+Where autograd records (the two-tower training loss), the call goes
+through :class:`BagCombine`: the forward above, and a plain PyTorch
+backward, ``d gathered = w[:, :, None] * g[:, None, :]`` and, when the
+weights need one, ``d w = einsum("bdf,bf->bd")``. The reference has no
+backward kernel either (its training differentiates the XLA path).
 """
 from __future__ import annotations
 
@@ -66,7 +72,38 @@ def _vec(gathered: torch.Tensor, out: torch.Tensor) -> int:
 def bag_combine(gathered: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
     """``[B, D, F]`` x ``[B, D]`` -> ``[B, F]``, float32 or bf16 (the
     weights of the rows' dtype, the output too): the plain version for CPU
-    tensors, the CUDA kernel for CUDA tensors."""
+    tensors, the CUDA kernel for CUDA tensors; differentiable through
+    :class:`BagCombine` where autograd records."""
+    if torch.is_grad_enabled() and (gathered.requires_grad
+                                    or weights.requires_grad):
+        return BagCombine.apply(gathered, weights)
+    return _forward(gathered, weights)
+
+
+class BagCombine(torch.autograd.Function):
+    """The forward of :func:`bag_combine` (kernel or plain version by
+    device) with the plain backward. ``gathered`` is kept for the backward
+    only when the weights need a gradient."""
+
+    @staticmethod
+    def forward(ctx, gathered, weights):
+        ctx.save_for_backward(
+            gathered if weights.requires_grad else None, weights)
+        return _forward(gathered, weights)
+
+    @staticmethod
+    def backward(ctx, g):
+        gathered, weights = ctx.saved_tensors
+        d_gathered = d_w = None
+        if ctx.needs_input_grad[0]:
+            d_gathered = weights[:, :, None].to(g.dtype) * g[:, None, :]
+        if ctx.needs_input_grad[1]:
+            d_w = torch.einsum("bdf,bf->bd", gathered,
+                               g.to(gathered.dtype)).to(weights.dtype)
+        return d_gathered, d_w
+
+
+def _forward(gathered: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
     global launches
     dev = gathered.device
     if dev.type == "cpu":

@@ -115,12 +115,50 @@ def link_loads_and_quotient(part: torch.Tensor, senders: torch.Tensor,
                                    subtree, F_l, k)
 
 
+class TakeRows(torch.autograd.Function):
+    """``table[idx]`` whose backward sums each row's gradients in one
+    fixed order, so a step is bitwise repeatable. Autograd's own index
+    backward is ``index_put_(accumulate=True)``: on CUDA a sort of the ids
+    and one warp summing each row's run in order (repeatable), on the CPU
+    a parallel scatter whose sums change from run to run with duplicate
+    ids. Here CUDA keeps that ``index_put_``; the CPU takes
+    ``index_add_``, which walks the ids in order."""
+
+    @staticmethod
+    def forward(ctx, table, idx):
+        ctx.save_for_backward(idx)
+        ctx.n_rows = table.shape[0]
+        return table[idx]
+
+    @staticmethod
+    def backward(ctx, g):
+        idx, = ctx.saved_tensors
+        flat = idx.reshape(-1).long()
+        rows = g.reshape(flat.shape[0], *g.shape[idx.dim():])
+        out = torch.zeros((ctx.n_rows, *rows.shape[1:]), dtype=g.dtype,
+                          device=g.device)
+        if g.device.type == "cuda":
+            out.index_put_((flat,), rows, accumulate=True)
+        else:
+            out.index_add_(0, flat, rows)
+        return out, None
+
+
+def take_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``table[idx]`` (rows of a [V, ...] table by an integer tensor of
+    any shape), through :class:`TakeRows` where autograd records."""
+    if torch.is_grad_enabled() and table.requires_grad:
+        return TakeRows.apply(table, idx)
+    return table[idx]
+
+
 def embedding_bag(table: torch.Tensor, idx: torch.Tensor,
                   weights: torch.Tensor) -> torch.Tensor:
     """[V, F] table, [B, D] row ids (pad slots point at any row with
     w = 0), [B, D] per-slot weights -> [B, F]: the gather as plain
-    indexing (the reference leaves it to XLA), then ``bag_combine``."""
-    gathered = table[idx]                  # [B, D, F]
+    indexing (the reference leaves it to XLA; :func:`take_rows` under
+    autograd), then ``bag_combine``."""
+    gathered = take_rows(table, idx)       # [B, D, F]
     return _bag.bag_combine(gathered, weights.to(gathered.dtype))
 
 

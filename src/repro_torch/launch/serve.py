@@ -5,7 +5,8 @@ or the one-shot batched decode. Twin of ``repro/launch/serve.py``.
     # engine with the placement-aware paged KV cache (on the card)
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \\
         [--smoke] [--num-requests 16 --seed 0] [--trace serve_trace.json] \\
-        [--replace-every 16 --place-devices 4] [--machine tpu-mixed-32]
+        [--replace-every 16 --place-devices 4] [--machine tpu-mixed-32] \\
+        [--fault-plan "6:leaf_death:1"]
 
     # one-shot: the fixed-batch decode path (prefill by stepping the cache);
     # the only mode for MLA (deepseek-v2-*), whose rank-compressed cache
@@ -21,10 +22,12 @@ or the one-shot batched decode. Twin of ``repro/launch/serve.py``.
         --smoke --device cpu
 
 Weights are random, made from seed 0 (``models.transformer.init``); the
-full config is ``make_config("decode_32k")``. The reference's
-``--profile``, ``--topology-aware``, ``--fault-plan`` and
-``--map-restarts`` belong to its mesh search or to fault recovery and are
-not ported.
+full config is ``make_config("decode_32k")``. ``--fault-plan`` injects
+faults into the stream (``resilience.parse_fault_plan``): a leaf death
+drops its pages, requeues their requests and re-places the survivors, and
+every completed request's tokens stay the clean run's. The reference's
+``--profile``, ``--topology-aware`` and ``--map-restarts`` belong to its
+mesh search and are not ported.
 """
 from __future__ import annotations
 
@@ -41,8 +44,8 @@ def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         description="Stream or one-shot LM serving on the port.",
         epilog="Not ported from the reference CLI: --profile and "
-               "--topology-aware (mesh search), --map-restarts (mesh "
-               "search restarts) and --fault-plan (fault recovery).")
+               "--topology-aware (mesh search) and --map-restarts (mesh "
+               "search restarts).")
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--device", default=None,
@@ -85,6 +88,12 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--trace", default=None, metavar="PATH",
                     help="write the ServeReport JSON (per-request "
                          "lifecycle + placement epochs)")
+    ap.add_argument("--fault-plan", default=None, metavar="SPEC",
+                    help="inject faults into the stream loop: a JSON "
+                         "file ({\"events\": [...]}) or inline "
+                         "'step:kind:target[:factor]' items, comma-"
+                         "separated, e.g. '6:leaf_death:1'. Survivor "
+                         "outputs stay identical to a clean run's")
     return ap
 
 
@@ -138,8 +147,14 @@ def serve_stream(args) -> None:
         replace_every=args.replace_every,
         drift_threshold=args.drift_threshold,
         place_devices=args.place_devices, machine=args.machine)
+    injector = None
+    if args.fault_plan:
+        from repro_torch.resilience.faults import (FaultInjector,
+                                                   parse_fault_plan)
+        injector = FaultInjector(parse_fault_plan(args.fault_plan))
     session = PlacementSession(machine=args.machine, device=dev)
-    engine = ServingEngine(params, cfg, ecfg, session=session, device=dev)
+    engine = ServingEngine(params, cfg, ecfg, session=session,
+                           injector=injector, device=dev)
     for p, g in zip(prompts, gens):
         engine.submit(p, g)
     report = engine.run()
@@ -149,6 +164,12 @@ def serve_stream(args) -> None:
               f"devices={ev['n_devices']} makespan={ev['makespan']:.3e} "
               f"drift={ev['drift_ratio']} replaced={ev['replaced']} "
               f"moved={ev['pages_moved']}", flush=True)
+    for rec in report.recoveries:
+        print(f"[SERVE]   recovery step={rec['step']} "
+              f"device={rec['device']} pages_lost={rec['pages_lost']} "
+              f"requeued={rec['requests_requeued']} "
+              f"failed={rec['requests_failed']} n_alive={rec['n_alive']}",
+              flush=True)
     if args.trace:
         with open(args.trace, "w") as f:
             f.write(report.to_json())

@@ -1,21 +1,31 @@
 """Training CLI of the port: twin of ``repro/launch/train.py`` for the LM
-family.
+and recsys families.
 
     # on the card: Qwen2-1.5B at full width (train_4k's config), random
     # weights from seed 0
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-1.5b \\
         --steps 6 --batch 4 --seq 4096
 
+    # on the card: two-tower retrieval at full width (1M x 256 item table)
+    # with the sharded table's sparse rowwise Adagrad, the hot-row cache
+    # report and the prefetching sampler
+    PYTHONPATH=src python -m repro_torch.launch.train \\
+        --arch two-tower-retrieval --steps 6 --batch 32768 --embed-shard \\
+        --embed-machine gpu-superpod --embed-cache-rows 65536 --prefetch 2
+
     # on a machine without a card: the reduced config through the plain
     # PyTorch path on the CPU
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-1.5b \\
         --smoke --device cpu --steps 3 [--ckpt-dir DIR] [--grad-compress]
+    PYTHONPATH=src python -m repro_torch.launch.train \\
+        --arch two-tower-retrieval --smoke --device cpu --embed-shard \\
+        --prefetch 2 [--fault-plan "3:leaf_death:1" --ckpt-dir DIR]
 
 ``--smoke`` runs the reduced config; without it the full config is
-``make_config("train_4k")`` (the reference takes the grid's first shape).
-Weights are random, made from seed 0 (``models.transformer.init``): the
-real checkpoint is not in the repository. The batches are
-``data.pipeline.lm_batches`` (seed 0) and the optimizer is AdamW with the
+``make_config`` of the grid's first shape (``train_4k`` for the LMs).
+Weights are random, made from seed 0: the real checkpoints are not in the
+repository. The batches are ``data.pipeline.lm_batches`` /
+``recsys_batches`` (seed 0) and the optimizer is AdamW with the
 reference's settings (``lr``, ``total_steps = steps``, ``warmup_steps =
 min(20, steps // 10)``). The loop (``train.loop.run``) checkpoints every
 ``--ckpt-every`` steps under ``--ckpt-dir`` and resumes from the newest
@@ -23,19 +33,34 @@ checkpoint there. ``--grad-compress`` routes the gradients through the
 int8 error-feedback round trip (``--grad-compress-block N``: one scale per
 N-element block); the loop owns the residual.
 
+``--embed-shard`` (recsys only) turns on ``repro_torch.embed``: probe
+batches build the row co-access graph, the makespan partitioner shards the
+item table over the ``--embed-machine`` model (a modelling choice; it
+need not match the local device count), the table is permuted
+device-contiguous and the loop steps with touched-rows-only rowwise
+Adagrad (not with ``--grad-compress``). ``--embed-cache-rows N`` reports
+the measured hot-row-cache traffic against the replicated baseline;
+``--prefetch D`` builds the host batches on a producer thread ``D``
+batches ahead.
+
+``--fault-plan "3:leaf_death:1"`` (with ``--ckpt-dir``) injects a device
+failure and runs under ``loop.run_supervised``: the machine model is
+degraded, the newest checkpoint restored, the batch stream replayed from
+its step, and the stitched loss trajectory is the uninterrupted one.
+
 Not ported, because they belong to later slices (ROADMAP Queue 1): the
-recsys and GNN families (items 7 and 8; their ``--arch`` raises
-``NotImplementedError``); ``--fault-plan`` / ``--max-restarts`` (fault
-recovery, item 6); ``--embed-shard``, ``--embed-*`` and ``--prefetch``
-(the sharded embedding table's training, item 7); ``--profile``,
-``--topology-aware``, ``--machine``, ``--map-restarts`` and ``--lint``
-(meshes, their mapping search and the sharding lint, items 10 and 11).
-One card has no mesh for them to act on.
+GNN family (item 6; its ``--arch`` raises ``NotImplementedError``);
+``--profile``, ``--topology-aware``, ``--machine``, ``--map-restarts``
+and ``--lint`` (meshes, their mapping search and the sharding lint,
+items 8 and 9). One card has no mesh for them to act on.
 """
 from __future__ import annotations
 
 import argparse
-from typing import Dict, Iterator
+import dataclasses
+import itertools
+import time
+from typing import Any, Callable, Dict, Iterator, Optional
 
 import numpy as np
 import torch
@@ -46,16 +71,13 @@ from repro_torch.optim import adamw
 from repro_torch.train import loop
 from repro_torch.train.steps import make_train_step
 
-_LATER = {"recsys": "recsys training waits for ROADMAP Queue 1, item 7",
-          "gnn": "GNN training waits for ROADMAP Queue 1, item 8"}
+_LATER = {"gnn": "GNN training waits for ROADMAP Queue 1, item 6"}
 
 
 def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
-        description="LM training on the port.",
-        epilog="Not ported from the reference CLI: --fault-plan and "
-               "--max-restarts (fault recovery), --embed-shard, --embed-* "
-               "and --prefetch (embedding training), --profile, "
+        description="LM and recsys training on the port.",
+        epilog="Not ported from the reference CLI: --profile, "
                "--topology-aware, --machine, --map-restarts and --lint "
                "(meshes and their lint).")
     ap.add_argument("--arch", required=True)
@@ -74,6 +96,34 @@ def _parser() -> argparse.ArgumentParser:
                     help="per-block compression scale size (power of two; "
                          "implies --grad-compress; 0 = one scale per "
                          "tensor)")
+    ap.add_argument("--fault-plan", default=None, metavar="SPEC",
+                    help="inject device failures: a JSON file or inline "
+                         "'step:kind:target[:factor]' items, e.g. "
+                         "'7:leaf_death:1'. Runs under the restart "
+                         "supervisor: on a death the machine model is "
+                         "degraded, the newest checkpoint restored and "
+                         "training resumes on the replayed stream. Needs "
+                         "--ckpt-dir for the loss trajectory's continuity")
+    ap.add_argument("--max-restarts", type=int, default=4,
+                    help="supervisor restart budget before the injected "
+                         "failure propagates")
+    ap.add_argument("--embed-shard", action="store_true",
+                    help="recsys only: partition the item table by the "
+                         "measured row co-access graph, permute it "
+                         "device-contiguous, and train with "
+                         "touched-rows-only sparse table updates")
+    ap.add_argument("--embed-cache-rows", type=int, default=0,
+                    help="with --embed-shard: hot-row cache slots for the "
+                         "lookup-traffic report (0 = no cache)")
+    ap.add_argument("--embed-probe-batches", type=int, default=4,
+                    help="batches probed to build the co-access graph")
+    ap.add_argument("--embed-machine", default=None,
+                    help="machine model the table is sharded against "
+                         "(default: the local device count); a modelling "
+                         "choice, its mesh need not fit the local devices")
+    ap.add_argument("--prefetch", type=int, default=0, metavar="DEPTH",
+                    help="async batch prefetch depth (0 = off; 2 = "
+                         "double buffering)")
     return ap
 
 
@@ -83,48 +133,226 @@ def optimizer_config(lr: float, steps: int) -> adamw.AdamWConfig:
                              warmup_steps=min(20, steps // 10))
 
 
+def to_device(batch: Dict[str, Any], device: torch.device
+              ) -> Dict[str, torch.Tensor]:
+    return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+
+
 def make_batches(vocab: int, batch: int, seq: int, device: torch.device,
                  seed: int = 0) -> Iterator[Dict[str, torch.Tensor]]:
     """``lm_batches`` as tensors on ``device``."""
     for b in pipeline.lm_batches(vocab, batch, seq, seed=seed):
-        yield {k: torch.as_tensor(v, device=device) for k, v in b.items()}
+        yield to_device(b, device)
 
 
-def train(args) -> tuple:
-    """Build the model, optimizer, step and loop from parsed arguments and
-    run; returns (params, opt_state, LoopResult)."""
-    from repro_torch.models import transformer as tr
+def host_batches(family: str, cfg, batch: int, seq: int,
+                 seed: int = 0) -> Iterator[Dict[str, np.ndarray]]:
+    """The family's batch stream as host arrays: ``lm_batches`` or
+    ``recsys_batches`` from ``seed``."""
+    if family == "lm":
+        return pipeline.lm_batches(cfg.vocab, batch, seq, seed=seed)
+    return pipeline.recsys_batches(cfg.n_items, cfg.n_cats, batch,
+                                   cfg.hist_len, cfg.d_dense, seed=seed)
+
+
+def probe_embed_stats(cfg, n_rows: int, batch: int, n_batches: int):
+    """Replay the training stream's first batches (same seed) into a row
+    co-access measurement for the table partitioner."""
+    from repro_torch import embed
+    stats = embed.RowAccessStats(n_rows)
+    gen = pipeline.recsys_batches(cfg.n_items, cfg.n_cats, batch,
+                                  cfg.hist_len, cfg.d_dense)
+    for b in itertools.islice(gen, n_batches):
+        stats.record(b["user_hist"])
+        stats.record(b["item_id"])
+    return stats
+
+
+def embed_traffic_report(stats, plan, table, cfg, batch: int,
+                         cache_rows: int, n_batches: int):
+    """Drive the hot-row cache over the probe stream; returns the cache
+    (measured [D, D] traffic inside) and the replicated baseline matrix."""
+    from repro_torch import embed
+    st = embed.ShardedEmbeddingTable(table, plan, permuted=True)
+    cache = embed.HotRowCache(st, n_cache=cache_rows, policy="lru")
+    if cache_rows:
+        cache.warm(stats.top_rows(cache_rows))
+    rep = np.zeros((plan.n_devices, plan.n_devices))
+    gen = pipeline.recsys_batches(cfg.n_items, cfg.n_cats, batch,
+                                  cfg.hist_len, cfg.d_dense)
+    for b in itertools.islice(gen, n_batches):
+        hist = np.asarray(b["user_hist"])
+        req_row = embed.requester_of(hist.shape[0], plan.n_devices)
+        valid = hist >= 0
+        ids = hist[valid]
+        req = np.broadcast_to(req_row[:, None], hist.shape)[valid]
+        cache.lookup(ids, req)
+        rep += embed.replicated_update_traffic(ids, req, plan.n_devices,
+                                               st.row_bytes)
+    cache.check_invariants()
+    return cache, rep
+
+
+@dataclasses.dataclass
+class TrainSetup:
+    """What :func:`build` makes of the arguments: the model, its
+    optimizer state, the step, the loop config and a replayable batch
+    stream (``batches(start)``: from step ``start``, on the device,
+    prefetched when asked); ``embed`` holds the shard plan, ``row_perm``,
+    the hot-row cache and its baseline, and their seconds."""
+    arch: Any
+    cfg: Any
+    device: torch.device
+    params: Any
+    opt: Any
+    step: Callable
+    lcfg: loop.LoopConfig
+    batches: Callable[[int], Iterator]
+    loss_fn: Callable
+    embed: Optional[Dict[str, Any]] = None
+
+
+def build(args) -> TrainSetup:
+    """Build the model, optimizer, step, loop config and batch stream from
+    parsed arguments (printing what the reference CLI prints)."""
     arch = configs.get(args.arch)
-    if arch.family != "lm":
+    if arch.family in _LATER:
         raise NotImplementedError(_LATER[arch.family])
-    cfg = arch.smoke_config() if args.smoke else arch.make_config("train_4k")
+    cfg = arch.smoke_config() if args.smoke else arch.make_config(
+        next(iter(arch.shapes)))
     dev = resolve_device(args.device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
-    params = tr.init(cfg, gen, device=dev)
+    if arch.family == "lm":
+        from repro_torch.models import transformer as mdl
+    else:
+        from repro_torch.models import recsys as mdl
+    params = mdl.init(cfg, gen, device=dev)
     n_params = sum(int(np.prod(x.shape)) for x in tree.leaves(params))
     print(f"arch={arch.name} params={n_params / 1e6:.1f}M devices=1 "
           f"({dev})", flush=True)
     grad_compress = args.grad_compress_block or args.grad_compress
     ocfg = optimizer_config(args.lr, args.steps)
-    opt = adamw.init(params, ocfg)
-    step = make_train_step(lambda p, b: tr.loss_fn(p, b, cfg), ocfg,
-                           grad_compress=grad_compress)
+    ecfg = False
+    embed_info = None
+    if args.embed_shard:
+        if arch.family != "recsys":
+            raise SystemExit("--embed-shard requires a recsys arch")
+        if grad_compress:
+            raise SystemExit("--embed-shard and --grad-compress are "
+                             "mutually exclusive")
+        from repro_torch import embed
+        from repro_torch.core import machine as machine_lib
+        from repro_torch.embed import training as embed_training
+        t0 = time.perf_counter()
+        stats = probe_embed_stats(cfg, params["item_table"].shape[0],
+                                  args.batch, args.embed_probe_batches)
+        probe_s = time.perf_counter() - t0
+        emachine = machine_lib.resolve(args.embed_machine)
+        t0 = time.perf_counter()
+        plan = embed.plan_shards(
+            stats, machine=emachine,
+            n_devices=None if emachine is not None else 1, device=dev)
+        plan.check()
+        plan_s = time.perf_counter() - t0
+        params["item_table"] = params["item_table"][
+            torch.as_tensor(plan.order, device=dev)]
+        row_perm = torch.as_tensor(plan.perm, device=dev)
+        ecfg = embed_training.EmbedConfig()
+        opt = embed_training.init_dense_opt(params, ecfg, ocfg)
+
+        def loss_fn(p, b):
+            return mdl.loss_fn(p, b, cfg, row_perm)
+        step = embed_training.make_embed_train_step(loss_fn, ocfg, ecfg)
+        sizes = plan.shard_sizes
+        print(f"embed: {plan.n_rows} rows over {plan.n_devices} leaves of "
+              f"{plan.machine or 'local'} (rows/leaf "
+              f"{int(sizes.min())}..{int(sizes.max())}, makespan "
+              f"{plan.makespan:.3e})", flush=True)
+        t0 = time.perf_counter()
+        cache, rep = embed_traffic_report(
+            stats, plan, params["item_table"], cfg, args.batch,
+            args.embed_cache_rows, args.embed_probe_batches)
+        cache_s = time.perf_counter() - t0
+        print(f"embed traffic: replicated {rep.sum() / 2:.0f} B -> "
+              f"sharded+cache({args.embed_cache_rows}) "
+              f"{cache.traffic_bytes():.0f} B "
+              f"(hit rate {cache.hit_rate:.2f})", flush=True)
+        embed_info = dict(stats=stats, plan=plan, row_perm=row_perm,
+                          ecfg=ecfg, cache=cache, replicated=rep,
+                          probe_s=probe_s, plan_s=plan_s, cache_s=cache_s)
+    else:
+        def loss_fn(p, b):
+            return mdl.loss_fn(p, b, cfg)
+        opt = adamw.init(params, ocfg)
+        step = make_train_step(loss_fn, ocfg, grad_compress=grad_compress)
     lcfg = loop.LoopConfig(total_steps=args.steps,
                            ckpt_every=args.ckpt_every,
                            ckpt_dir=args.ckpt_dir,
-                           grad_compress=grad_compress)
-    return loop.run(step, params, opt,
-                    make_batches(cfg.vocab, args.batch, args.seq, dev), lcfg)
+                           grad_compress=grad_compress,
+                           embed_sparse=ecfg)
+
+    def batches(start: int = 0) -> Iterator:
+        host = itertools.islice(
+            host_batches(arch.family, cfg, args.batch, args.seq), start,
+            None)
+        if args.prefetch:
+            from repro_torch.embed import PrefetchIterator
+            return PrefetchIterator(host, depth=args.prefetch,
+                                    consume=lambda b: to_device(b, dev))
+        return (to_device(b, dev) for b in host)
+
+    return TrainSetup(arch=arch, cfg=cfg, device=dev, params=params,
+                      opt=opt, step=step, lcfg=lcfg, batches=batches,
+                      loss_fn=loss_fn, embed=embed_info)
+
+
+def train(args) -> tuple:
+    """Build from parsed arguments and run: ``loop.run``, or
+    ``loop.run_supervised`` under ``--fault-plan``. Returns (params,
+    opt_state, LoopResult or SupervisedResult, the batch stream of the
+    last attempt)."""
+    s = build(args)
+    if args.fault_plan:
+        from repro_torch.resilience.faults import parse_fault_plan
+        streams = []
+
+        def factory(start):
+            streams.append(s.batches(start))
+            return streams[-1]
+        params, opt, sup = loop.run_supervised(
+            s.step, s.params, s.opt, factory, s.lcfg,
+            parse_fault_plan(args.fault_plan),
+            max_restarts=args.max_restarts)
+        return params, opt, sup, streams[-1]
+    stream = s.batches(0)
+    params, opt, result = loop.run(s.step, s.params, s.opt, stream, s.lcfg)
+    return params, opt, result, stream
 
 
 def main(argv=None) -> None:
     args = _parser().parse_args(argv)
-    _, _, result = train(args)
-    print(f"steps={result.steps_run} resumed_from={result.resumed_from} "
-          f"loss {result.losses[0]:.4f} -> {result.losses[-1]:.4f} "
-          f"({result.seconds:.1f}s, stragglers={result.straggler_steps})",
-          flush=True)
+    _, _, result, stream = train(args)
+    if args.fault_plan:
+        for rec in result.recoveries:
+            print(f"[TRAIN] recovery: device {rec['device']} died at step "
+                  f"{rec['step']}; resumed from checkpoint "
+                  f"{rec['resumed_from']} on {rec['n_alive']} leaves",
+                  flush=True)
+        print(f"steps={result.steps_run} attempts={result.attempts} "
+              f"recoveries={len(result.recoveries)} "
+              f"loss {result.losses[0]:.4f} -> {result.losses[-1]:.4f}",
+              flush=True)
+    else:
+        print(f"steps={result.steps_run} resumed_from={result.resumed_from} "
+              f"loss {result.losses[0]:.4f} -> {result.losses[-1]:.4f} "
+              f"({result.seconds:.1f}s, "
+              f"stragglers={result.straggler_steps})", flush=True)
+    if getattr(stream, "is_prefetcher", False):
+        st = stream.stats()
+        print(f"prefetch: depth={st['depth']} produced={st['produced']} "
+              f"ready_hits={st['ready_hits']} "
+              f"max_occupancy={st['max_occupancy']}", flush=True)
 
 
 if __name__ == "__main__":

@@ -1,5 +1,6 @@
 """Dense MLP block: twin of ``mlp_init`` / ``mlp_apply`` in
-``repro/models/gnn.py``.
+``repro/models/gnn.py`` (:class:`MLP` and the functional
+:func:`mlp_apply`).
 
 Weights are kept as the reference lays them out, ``w[i]`` of shape
 ``[d_in, d_out]`` applied as ``x @ w + b`` (not ``nn.Linear``'s transposed
@@ -9,7 +10,7 @@ none after the last; an optional final LayerNorm without bias (eps 1e-6).
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence
+from typing import Any, Dict, Optional, Sequence
 
 import torch
 from torch import nn
@@ -37,14 +38,28 @@ class MLP(nn.Module):
             "ln", nn.Parameter(torch.ones(dims[-1], device=dev, dtype=dtype))
             if layer_norm else None)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        n = len(self.w)
-        for i, (w, b) in enumerate(zip(self.w, self.b)):
-            x = x @ w + b
-            if i < n - 1:
-                x = torch.relu(x)
+    def params(self) -> Dict[str, Any]:
+        """The weights as the reference's ``{"w": [...], "b": [...],
+        "ln"?}`` dict (the module's own tensors, not copies)."""
+        p = {"w": list(self.w), "b": list(self.b)}
         if self.ln is not None:
-            mu = x.mean(-1, keepdim=True)
-            var = ((x - mu) ** 2).mean(-1, keepdim=True)
-            x = (x - mu) * torch.rsqrt(var + 1e-6) * self.ln
-        return x
+            p["ln"] = self.ln
+        return p
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return mlp_apply(self.params(), x)
+
+
+def mlp_apply(p: Dict[str, Any], x: torch.Tensor) -> torch.Tensor:
+    """``x @ w + b`` per layer, ReLU between layers, the optional final
+    LayerNorm: the MLP over a ``{"w", "b", "ln"?}`` dict, differentiable."""
+    n = len(p["w"])
+    for i, (w, b) in enumerate(zip(p["w"], p["b"])):
+        x = x @ w + b
+        if i < n - 1:
+            x = torch.relu(x)
+    if p.get("ln") is not None:
+        mu = x.mean(-1, keepdim=True)
+        var = ((x - mu) ** 2).mean(-1, keepdim=True)
+        x = (x - mu) * torch.rsqrt(var + 1e-6) * p["ln"]
+    return x

@@ -1,35 +1,41 @@
-"""Two-tower retrieval serving (YouTube RecSys'19): embedding tables ->
-tower MLPs -> dot product. Twin of the serving half of
-``repro/models/recsys.py`` (``user_embed``, ``item_embed``, ``score``,
-``retrieve``); the training loss waits for a later slice.
+"""Two-tower retrieval (YouTube RecSys'19): embedding tables -> tower
+MLPs -> dot product -> in-batch sampled softmax with logQ correction. Twin
+of ``repro/models/recsys.py``: the functional ``init``, ``user_embed``,
+``item_embed``, ``loss_fn``, ``score`` and ``retrieve`` over a params dict
+of the reference's layout (``item_table``, ``cat_table`` and the towers'
+``{"w": [...], "b": [...]}``), and :class:`TwoTower`, the same model as a
+module whose serving methods run under ``torch.no_grad``.
 
 The user tower's input is a mean-combined bag over the item table: the
 gather is plain indexing and the weighted reduction the ``bag_combine``
-CUDA kernel (``kernels.ops.embedding_bag``). ``row_perm`` (``[V]``,
-original -> physical row) serves a table permuted device-contiguous by an
-embed shard plan (``embed.sharded_table``); results are bitwise those of
-the unpermuted table.
+CUDA kernel (``kernels.ops.embedding_bag``), differentiable through its
+plain backward, so ``loss_fn`` trains under autograd. ``row_perm``
+(``[V]``, original -> physical row) serves a table permuted
+device-contiguous by an embed shard plan (``embed.sharded_table``);
+results are bitwise those of the unpermuted table.
 
 On one card every sharding rule of the reference resolves to no
-constraint, so the port has no ``Rules``. The serving methods run without
-autograd: the kernels have no backward yet.
+constraint, so the port has no ``Rules``.
 
-Batch dicts (numpy arrays or tensors; moved to the model's device):
-  serve:      user_hist [B, H] int32 (item-id bags, -1 pad),
-              user_dense [B, F_d], item_id [B], item_cat [B]
+Batch dicts (numpy arrays or tensors; moved to the table's device):
+  train:      user_hist [B, H] int32 (item-id bags, -1 pad),
+              user_dense [B, F_d], item_id [B], item_cat [B], log_q [B]?
+  serve:      the same without the in-batch softmax (pointwise score)
   retrieval:  one user + cand_emb [N_cand, D] precomputed item embeddings
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch import nn
 
-from repro_torch import DeviceLike, resolve_device
+from repro_torch import DeviceLike, resolve_device, tree
 from repro_torch.kernels import ops as kops
-from repro_torch.models.mlp import MLP
+from repro_torch.models.mlp import MLP, mlp_apply
+
+Params = Dict[str, Any]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,7 +47,17 @@ class TwoTowerConfig:
     tower_mlp: Tuple[int, ...] = (1024, 512, 256)
     hist_len: int = 50
     d_dense: int = 16
+    temperature: float = 0.05
     dtype: torch.dtype = torch.float32
+
+    def n_params(self) -> int:
+        e = self.embed_dim
+        emb = (self.n_items + self.n_cats) * e
+        dims_u = [e + self.d_dense] + list(self.tower_mlp)
+        dims_i = [2 * e] + list(self.tower_mlp)
+        mlps = sum(a * b + b for a, b in zip(dims_u[:-1], dims_u[1:]))
+        mlps += sum(a * b + b for a, b in zip(dims_i[:-1], dims_i[1:]))
+        return emb + mlps
 
 
 def _row_pad(n: int, m: int = 8) -> int:
@@ -66,6 +82,88 @@ def _bag_lookup(table: torch.Tensor, ids: torch.Tensor,
 def _normalize(x: torch.Tensor) -> torch.Tensor:
     return x / torch.clamp_min(
         torch.linalg.vector_norm(x, dim=-1, keepdim=True), 1e-6)
+
+
+def _on(x, like: torch.Tensor) -> torch.Tensor:
+    return torch.as_tensor(x, device=like.device)
+
+
+def user_embed(p: Params, batch: Dict, cfg: TwoTowerConfig,
+               row_perm=None) -> torch.Tensor:
+    """[B, D] unit-norm user embeddings."""
+    table = p["item_table"]
+    perm = None if row_perm is None else _on(row_perm, table)
+    hist = _bag_lookup(table, _on(batch["user_hist"], table), perm)
+    dense = _on(batch["user_dense"], table).to(cfg.dtype)
+    return _normalize(mlp_apply(p["user_tower"], torch.cat([hist, dense],
+                                                           -1)))
+
+
+def item_embed(p: Params, batch: Dict, cfg: TwoTowerConfig,
+               row_perm=None) -> torch.Tensor:
+    """[B, D] unit-norm item embeddings."""
+    table = p["item_table"]
+    item_id = _on(batch["item_id"], table)
+    if row_perm is not None:
+        item_id = _on(row_perm, table)[item_id]
+    it = kops.take_rows(table, item_id)
+    ct = kops.take_rows(p["cat_table"], _on(batch["item_cat"], table))
+    return _normalize(mlp_apply(p["item_tower"], torch.cat([it, ct], -1)))
+
+
+def loss_fn(p: Params, batch: Dict, cfg: TwoTowerConfig, row_perm=None
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """In-batch sampled softmax with logQ correction (Yi et al. '19):
+    ``(loss, {"ce", "acc"})``, differentiable in ``p``. The ``[B, B]``
+    logits are float32 and held once (``B = 32,768`` makes each such
+    tensor 4.3 GB)."""
+    u = user_embed(p, batch, cfg, row_perm)
+    v = item_embed(p, batch, cfg, row_perm)
+    logits = (u @ v.T) / cfg.temperature                 # [B, B]
+    # logQ: in-batch negatives are sampled in proportion to frequency
+    logq = batch.get("log_q")
+    if logq is not None:
+        logits = logits - _on(logq, logits)[None, :]
+    logits = logits.to(torch.float32)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.diagonal(logits)
+    loss = (logz - gold).mean()
+    labels = torch.arange(logits.shape[0], device=logits.device)
+    acc = (logits.detach().argmax(-1) == labels).to(torch.float32).mean()
+    return loss, {"ce": loss.detach(), "acc": acc}
+
+
+def score(p: Params, batch: Dict, cfg: TwoTowerConfig,
+          row_perm=None) -> torch.Tensor:
+    """Pointwise serving: score[b] = <u_b, v_b>. [B]"""
+    u = user_embed(p, batch, cfg, row_perm)
+    v = item_embed(p, batch, cfg, row_perm)
+    return torch.sum(u * v, dim=-1)
+
+
+def retrieve(p: Params, batch: Dict, cfg: TwoTowerConfig, top_k: int = 1024,
+             row_perm=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One query against a precomputed candidate matrix [N_cand, D]: one
+    matrix-vector product + top-k. Returns (values, indices)."""
+    u = user_embed(p, batch, cfg, row_perm)                  # [1, D]
+    cand = _on(batch["cand_emb"], u).to(cfg.dtype)
+    scores = (cand @ u[0]).to(torch.float32)                 # [N_cand]
+    return torch.topk(scores, top_k)
+
+
+def init(cfg: TwoTowerConfig, generator: Optional[torch.Generator] = None,
+         device: DeviceLike = None) -> Params:
+    """The params dict of :class:`TwoTower` drawn from ``generator`` on
+    ``device`` (``None`` = CUDA): tables normal x 0.01, then the towers,
+    in that order; plain tensors, not parameters."""
+    with torch.no_grad():
+        return params_of(TwoTower(cfg, generator=generator, device=device))
+
+
+def params_of(model: "TwoTower") -> Params:
+    """A module's tensors as a functional params dict, detached (shared
+    storage, no autograd history)."""
+    return tree.map_(lambda t: t.detach(), model.params())
 
 
 class TwoTower(nn.Module):
@@ -94,41 +192,30 @@ class TwoTower(nn.Module):
         self.item_tower = MLP((2 * e, *cfg.tower_mlp), generator=generator,
                               device=dev, dtype=cfg.dtype)
 
-    def _on_device(self, x) -> torch.Tensor:
-        return torch.as_tensor(x, device=self.item_table.device)
+    def params(self) -> Params:
+        """The module's tensors in the functional params layout."""
+        return {"item_table": self.item_table, "cat_table": self.cat_table,
+                "user_tower": self.user_tower.params(),
+                "item_tower": self.item_tower.params()}
 
     @torch.no_grad()
     def user_embed(self, batch: Dict, row_perm=None) -> torch.Tensor:
         """[B, D] unit-norm user embeddings."""
-        perm = None if row_perm is None else self._on_device(row_perm)
-        hist = _bag_lookup(self.item_table, self._on_device(batch["user_hist"]),
-                           perm)
-        dense = self._on_device(batch["user_dense"]).to(self.cfg.dtype)
-        return _normalize(self.user_tower(torch.cat([hist, dense], -1)))
+        return user_embed(self.params(), batch, self.cfg, row_perm)
 
     @torch.no_grad()
     def item_embed(self, batch: Dict, row_perm=None) -> torch.Tensor:
         """[B, D] unit-norm item embeddings."""
-        item_id = self._on_device(batch["item_id"])
-        if row_perm is not None:
-            item_id = self._on_device(row_perm)[item_id]
-        it = self.item_table[item_id]
-        ct = self.cat_table[self._on_device(batch["item_cat"])]
-        return _normalize(self.item_tower(torch.cat([it, ct], -1)))
+        return item_embed(self.params(), batch, self.cfg, row_perm)
 
     @torch.no_grad()
     def score(self, batch: Dict, row_perm=None) -> torch.Tensor:
         """Pointwise serving: score[b] = <u_b, v_b>. [B]"""
-        u = self.user_embed(batch, row_perm)
-        v = self.item_embed(batch, row_perm)
-        return torch.sum(u * v, dim=-1)
+        return score(self.params(), batch, self.cfg, row_perm)
 
     @torch.no_grad()
     def retrieve(self, batch: Dict, top_k: int = 1024, row_perm=None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
         """One query against a precomputed candidate matrix [N_cand, D]:
         one matrix-vector product + top-k. Returns (values, indices)."""
-        u = self.user_embed(batch, row_perm)                 # [1, D]
-        cand = self._on_device(batch["cand_emb"]).to(self.cfg.dtype)
-        scores = (cand @ u[0]).to(torch.float32)             # [N_cand]
-        return torch.topk(scores, top_k)
+        return retrieve(self.params(), batch, self.cfg, top_k, row_perm)

@@ -26,8 +26,16 @@ assignment — physically reordering the pool — when the current
 placement's makespan on the NEW traffic exceeds the searched one by more
 than ``drift_threshold``.
 
-Fault injection (the reference's ``injector``, its leaf-death recovery)
-waits for the resilience slice: an engine given an injector raises.
+Fault recovery: with an ``injector`` (``resilience.FaultInjector``),
+every step first fires the due fault events. A leaf death drops the KV
+pages resident on the dead device (their pool rows zeroed, the pages
+retired), requeues the affected requests through
+``Scheduler.handle_leaf_death`` (bounded retries, exponential backoff,
+FIFO kept for untouched requests), degrades the machine spec, and
+force-re-places the surviving pages over the survivors with
+``map_pages``. Because sampling is keyed by ``(seed, rid, pos)``, a
+replayed request's continuation, and every survivor's output, is the
+clean run's token for token.
 """
 from __future__ import annotations
 
@@ -60,6 +68,9 @@ class EngineConfig:
     drift_threshold: float = 0.1   # re-place when old/new makespan > 1+thr
     place_devices: int = 0         # placement bins; 0 = CUDA device count
     machine: Optional[str] = None  # machine preset for the page topology
+    # -- fault recovery --
+    max_retries: int = 3           # requeues per request before FAILED
+    retry_backoff: int = 2         # backoff steps: base * 2**retries
 
 
 @dataclasses.dataclass
@@ -77,20 +88,37 @@ class ServeReport:
     mean_batch_occupancy: float    # active slots per step / n_slots
     placements: List[Dict[str, Any]]
     requests: List[Dict[str, Any]]
+    # -- fault recovery (empty/zero on a clean run) --
+    requests_retried: int = 0      # requests requeued at least once
+    requests_failed: int = 0       # terminally FAILED requests
+    tokens_reprefilled: int = 0    # tokens re-run because pages died
+    recoveries: List[Dict[str, Any]] = dataclasses.field(
+        default_factory=list)      # one record per leaf-death recovery
+    faults: List[Dict[str, Any]] = dataclasses.field(
+        default_factory=list)      # every injected event, as fired
+    failed: List[Dict[str, Any]] = dataclasses.field(
+        default_factory=list)      # FAILED request records with reasons
 
     def to_json(self) -> str:
         return json.dumps(dataclasses.asdict(self), indent=1)
 
     def summary(self) -> str:
-        return (f"[SERVE] {self.n_requests} requests in {self.steps} "
-                f"steps / {self.wall_s:.2f}s -> {self.tokens_out} tokens "
-                f"({self.tok_per_s:.1f} tok/s) "
-                f"latency p50/p99 = {self.latency_steps_p50:.0f}/"
-                f"{self.latency_steps_p99:.0f} steps, ttft p50/p99 = "
-                f"{self.ttft_steps_p50:.0f}/{self.ttft_steps_p99:.0f}, "
-                f"occupancy {self.mean_batch_occupancy:.2f}, "
-                f"replacements "
-                f"{sum(1 for p in self.placements if p['replaced'])}")
+        s = (f"[SERVE] {self.n_requests} requests in {self.steps} "
+             f"steps / {self.wall_s:.2f}s -> {self.tokens_out} tokens "
+             f"({self.tok_per_s:.1f} tok/s) "
+             f"latency p50/p99 = {self.latency_steps_p50:.0f}/"
+             f"{self.latency_steps_p99:.0f} steps, ttft p50/p99 = "
+             f"{self.ttft_steps_p50:.0f}/{self.ttft_steps_p99:.0f}, "
+             f"occupancy {self.mean_batch_occupancy:.2f}, "
+             f"replacements "
+             f"{sum(1 for p in self.placements if p['replaced'])}")
+        if self.faults:
+            s += (f"\n[SERVE] faults: {len(self.faults)} event(s), "
+                  f"{len(self.recoveries)} recover(ies), "
+                  f"{self.requests_retried} retried, "
+                  f"{self.requests_failed} failed, "
+                  f"{self.tokens_reprefilled} tokens re-prefilled")
+        return s
 
 
 class GumbelSource(Protocol):
@@ -122,18 +150,14 @@ class ServingEngine:
     """Ties scheduler + paged cache + the paged decode step into one stream
     loop on ``device`` (``None`` = CUDA). ``session`` is an optional
     ``launch.placement.PlacementSession`` (one is created lazily when the
-    placement policy is on); ``noise`` replaces the default
-    :class:`TorchGumbel` sampling noise. ``step_s`` holds each decode
-    step's wall seconds."""
+    placement policy is on); ``injector`` fires a fault plan into the
+    stream; ``noise`` replaces the default :class:`TorchGumbel` sampling
+    noise. ``step_s`` holds each decode step's wall seconds."""
 
     def __init__(self, params, cfg, ecfg: EngineConfig,
                  session: Optional[Any] = None,
                  injector: Optional[Any] = None, device: DeviceLike = None,
                  noise: Optional[GumbelSource] = None):
-        if injector is not None:
-            raise NotImplementedError(
-                "fault injection waits for the resilience slice of the port "
-                "(ROADMAP.md, Queue 1 item 14)")
         self.device = resolve_device(device)
         self.params = params
         self.cfg = cfg
@@ -143,14 +167,28 @@ class ServingEngine:
                                   cfg=cfg, device=self.device)
         self.scheduler = Scheduler(self.cache)
         self.session = session
+        self.injector = injector
+        # the machine model degrades as injected faults fire; map_pages
+        # gets the object
         self.machine_spec = machine_lib.resolve(ecfg.machine)
         local = (torch.cuda.device_count() if self.device.type == "cuda"
                  else 1)
-        self._n_devices = (self.machine_spec.n_alive
-                           if self.machine_spec is not None
-                           else (ecfg.place_devices or local))
+        self._n_devices0 = (self.machine_spec.n_devices
+                            if self.machine_spec is not None
+                            else (ecfg.place_devices or local))
+        self._dead_devices: set = set()
         self.page_to_device: Optional[np.ndarray] = None
         self.placements: List[Dict[str, Any]] = []
+        self.recoveries: List[Dict[str, Any]] = []
+        self.fault_log: List[Dict[str, Any]] = []
+        self._tokens_reprefilled = 0
+        if injector is not None:
+            # a death can fire before the first placement epoch; start
+            # from balanced contiguous blocks so "pages on the dead
+            # device" is defined from step 0
+            n_dev = self._n_place_bins()
+            self.page_to_device = ((np.arange(ecfg.n_pages) * n_dev)
+                                   // max(ecfg.n_pages, 1))
         self.noise = noise if noise is not None else TorchGumbel(
             ecfg.seed, self.device)
         self.step_s: List[float] = []
@@ -189,14 +227,24 @@ class ServingEngine:
         return dict(zip(slots, tok.cpu().tolist()))
 
     def step(self) -> None:
-        """One engine step: admit, batched decode, sample, advance."""
+        """One engine step: fire due faults, admit, batched decode,
+        sample, advance."""
         t0 = time.perf_counter()
         ecfg = self.ecfg
+        if self.injector is not None:
+            for ev in self.injector.fire(self._step):
+                self._handle_fault(ev)
         self.scheduler.admit(self._step,
                              only_when_idle=ecfg.static_batching)
         inputs = self.scheduler.step_inputs()
         if not inputs:
             if self.scheduler.queue:
+                if self.scheduler.queue[0].not_before > self._step:
+                    # every queued request waits out its retry backoff:
+                    # an idle step passes
+                    self._occupancy.append(0)
+                    self._step += 1
+                    return
                 raise RuntimeError(
                     "no active slot and the queue head cannot be "
                     "admitted — infeasible request escaped submit()")
@@ -223,7 +271,7 @@ class ServingEngine:
         self._step += 1
         if (ecfg.replace_every > 0
                 and self._step % ecfg.replace_every == 0):
-            self._replace()
+            self._replace(force=False, tag="epoch")
         self.step_s.append(time.perf_counter() - t0)
 
     def run(self) -> ServeReport:
@@ -233,9 +281,68 @@ class ServingEngine:
             self.step()
         return self._report(time.time() - t0)
 
+    # -- fault recovery --------------------------------------------------
+
+    def _n_place_bins(self) -> int:
+        """Placement bins on the current machine: survivors only."""
+        if self.machine_spec is not None:
+            return self.machine_spec.n_alive
+        return max(self._n_devices0 - len(self._dead_devices), 1)
+
+    def _handle_fault(self, ev) -> None:
+        self.fault_log.append(dict(ev.to_dict(), fired_step=self._step))
+        if ev.kind == "leaf_death":
+            self._recover_leaf_death(ev)
+        elif self.machine_spec is not None:
+            # link_degrade / straggler reprice the machine the next
+            # map_pages scores against
+            self.machine_spec = self.machine_spec.degrade([ev])
+
+    def _recover_leaf_death(self, ev) -> None:
+        """Drop the dead device's pages, requeue or fail their requests,
+        shrink the machine, re-place the survivors."""
+        t0 = time.time()
+        target = int(ev.target)
+        if target in self._dead_devices or not (
+                0 <= target < self._n_devices0):
+            return                     # already dead / unknown: no pages
+        alive = [d for d in range(self._n_devices0)
+                 if d not in self._dead_devices]
+        surv_idx = alive.index(target)
+        retired = set(self.cache.allocator.dead_pages().tolist())
+        dead_pages = [int(p) for p in
+                      np.nonzero(self.page_to_device == surv_idx)[0]
+                      if p not in retired]
+        res = self.scheduler.handle_leaf_death(
+            dead_pages, self._step, max_retries=self.ecfg.max_retries,
+            backoff_base=self.ecfg.retry_backoff)
+        self._tokens_reprefilled += sum(
+            r.prompt_len + r.replay_gen for r in res["requeued"])
+        self._dead_devices.add(target)
+        if self.machine_spec is not None:
+            self.machine_spec = self.machine_spec.degrade([ev])
+        # shift the live assignment into the survivors' index space (bins
+        # above the dead one slide down; its own pages are retired and
+        # carry no traffic: park them on bin 0)
+        asg = self.page_to_device.copy()
+        asg[asg == surv_idx] = 0
+        asg[asg > surv_idx] -= 1
+        self.page_to_device = asg
+        # one forced re-placement of the surviving pages onto the shrunk
+        # machine: a failure is drift at its most discontinuous
+        replaced = self._replace(force=True, tag="leaf_death")
+        self.recoveries.append({
+            "step": self._step, "device": target,
+            "pages_lost": len(dead_pages),
+            "requests_requeued": len(res["requeued"]),
+            "requests_failed": len(res["failed"]),
+            "n_alive": self._n_place_bins(),
+            "replaced": replaced,
+            "recovery_s": round(time.time() - t0, 4)})
+
     # -- placement policy ------------------------------------------------
 
-    def _replace(self) -> bool:
+    def _replace(self, *, force: bool, tag: str) -> bool:
         traffic = self.cache.page_traffic()
         if traffic.sum() <= 0:
             return False
@@ -244,9 +351,9 @@ class ServingEngine:
             self.session = PlacementSession(device=self.device)
         placement = self.session.map_pages(
             traffic, node_weight=self.cache.page_weight(),
-            n_devices=self._n_devices, machine=self.machine_spec,
-            current=self.page_to_device)
-        apply = (self.page_to_device is None
+            n_devices=self._n_place_bins(), machine=self.machine_spec,
+            current=None if force else self.page_to_device)
+        apply = (force or self.page_to_device is None
                  or placement.drift_ratio
                  > 1.0 + self.ecfg.drift_threshold)
         if apply:
@@ -265,7 +372,7 @@ class ServingEngine:
             "drift_ratio": (None if not np.isfinite(placement.drift_ratio)
                             else float(placement.drift_ratio)),
             "replaced": bool(placement.replaced), "pages_moved": moved,
-            "tag": "epoch"})
+            "tag": tag})
         self.cache.reset_traffic()
         return bool(apply)
 
@@ -284,6 +391,7 @@ class ServingEngine:
 
         occ = (float(np.mean(self._occupancy)) / self.cache.n_slots
                if self._occupancy else 0.0)
+        failed = self.scheduler.failed
         return ServeReport(
             n_requests=len(done), steps=self._step,
             wall_s=round(wall_s, 4), tokens_out=tokens_out,
@@ -300,4 +408,15 @@ class ServingEngine:
                 "done_step": r.done_step, "generated": list(r.generated),
                 "retries": r.retries,
                 "requeue_steps": list(r.requeue_steps),
-            } for r in done])
+            } for r in done],
+            requests_retried=sum(1 for r in done + failed if r.retries),
+            requests_failed=len(failed),
+            tokens_reprefilled=self._tokens_reprefilled,
+            recoveries=list(self.recoveries),
+            faults=list(self.fault_log),
+            failed=[{
+                "rid": r.rid, "prompt_len": r.prompt_len,
+                "max_new_tokens": r.max_new_tokens,
+                "retries": r.retries, "fail_step": r.fail_step,
+                "fail_reason": r.fail_reason,
+            } for r in failed])

@@ -1,6 +1,6 @@
-"""Fault-tolerant training loop: twin of ``run`` in
-``repro/train/loop.py`` (checkpoint/restart, async saves, straggler
-counting, loss tracking).
+"""Fault-tolerant training loop: twin of ``repro/train/loop.py``
+(checkpoint/restart, async saves, straggler counting, loss tracking, fault
+injection and the restart supervisor).
 
 Failure model, the reference's:
   * the process can die at any step -> on restart, ``run`` resumes from the
@@ -10,23 +10,32 @@ Failure model, the reference's:
   * checkpoints are pruned to a budget.
 
 With ``LoopConfig.grad_compress`` the int8 error-feedback residual
-(``dist.compress``) is part of the loop state: threaded through the step,
-saved in every checkpoint, restored on resume.
+(``dist.compress``) is part of the loop state, and with
+``LoopConfig.embed_sparse`` the embedding tables' rowwise-Adagrad
+accumulators (``embed.training``) are: threaded through the step, saved in
+every checkpoint, restored on resume.
 
-Not ported yet: the fault injector (``injector=``) and ``run_supervised``,
-which wait for resilience (ROADMAP Queue 1, item 6); the sparse embedding
-optimizer (``embed_sparse``), which waits for recsys training (item 7).
-Both raise ``NotImplementedError``. One card has no mesh, so ``run`` takes
-no ``mesh`` / ``state_specs``.
+Device failure: ``run`` consults an optional ``resilience.FaultInjector``
+each step; an injected ``leaf_death`` raises
+:class:`~repro_torch.resilience.faults.DeviceFailure` carrying the partial
+loss trajectory. :func:`run_supervised` is the restart supervisor: it
+degrades the machine model, restores the newest checkpoint and resumes on
+a batch stream replayed from that step, stitching the attempts' losses
+into one trajectory equal to an uninterrupted run's. One card has no mesh,
+so neither ``run`` nor the supervisor takes a ``mesh`` / ``state_specs``
+/ ``mesh_fn``: the restore is the plain one and the death shrinks only
+the machine model (``n_alive``).
 """
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Any, Callable, Dict, Iterator, Optional
+from typing import Any, Callable, Dict, Iterator, List, Optional, Union
 
 from repro_torch.ckpt import checkpoint as ckpt
 from repro_torch.dist import compress
+from repro_torch.resilience.faults import (DeviceFailure, FaultInjector,
+                                           plan_from)
 
 
 @dataclasses.dataclass
@@ -45,7 +54,11 @@ class LoopConfig:
     # is the per-block scale size, baked into the step; the loop only
     # checks truthiness.
     grad_compress: Any = False
-    # the reference's sparse embedding-table optimizer: not ported yet
+    # sparse embedding-table optimizer state (embed.training): truthy holds
+    # the EmbedConfig whose per-table Adagrad accumulators the loop owns
+    # (initialised from params, threaded, checkpointed and restored; the
+    # step_fn must come from make_embed_train_step). Mutually exclusive
+    # with grad_compress (the two step signatures differ).
     embed_sparse: Any = False
 
 
@@ -64,60 +77,84 @@ class InjectedFailure(RuntimeError):
 
 def run(step_fn: Callable, params: Any, opt_state: Any,
         batches: Iterator[Dict[str, Any]], cfg: LoopConfig,
-        step_offset: int = 0, injector: Any = None) -> tuple:
-    """Returns (params, opt_state, LoopResult)."""
-    if injector is not None:
-        raise NotImplementedError(
-            "fault injection waits for the resilience slice (ROADMAP Queue "
-            "1, item 6)")
-    if cfg.embed_sparse:
-        raise NotImplementedError(
-            "the sparse embedding optimizer waits for the recsys-training "
-            "slice (ROADMAP Queue 1, item 7)")
+        step_offset: int = 0,
+        injector: Optional[FaultInjector] = None) -> tuple:
+    """Returns (params, opt_state, LoopResult).
+
+    ``injector`` fires seeded fault events by step index: a ``leaf_death``
+    raises :class:`DeviceFailure` (partial ``losses`` and ``start_step``
+    attached so a supervisor can stitch the trajectory), a ``straggler``
+    is counted into ``straggler_steps``. A ``PrefetchIterator`` given as
+    ``batches`` is closed on the way out."""
+    if cfg.grad_compress and cfg.embed_sparse:
+        raise ValueError("grad_compress and embed_sparse are mutually "
+                         "exclusive (different step signatures)")
     saver = ckpt.AsyncSaver()
     cstate = compress.init_state(params) if cfg.grad_compress else None
+    estate = None
+    if cfg.embed_sparse:
+        from repro_torch.embed import training as embed_training
+        estate = embed_training.init_embed_state(params, cfg.embed_sparse)
     resumed_from = None
     start = step_offset
 
     def state_tuple():
         if cfg.grad_compress:
             return (params, opt_state, cstate)
+        if cfg.embed_sparse:
+            return (params, opt_state, estate)
         return (params, opt_state)
 
-    if cfg.ckpt_dir and cfg.resume:
-        latest = ckpt.latest_step(cfg.ckpt_dir, gc_tmp=True)
-        if latest is not None:
-            try:
-                restored, _ = ckpt.restore(cfg.ckpt_dir, state_tuple(),
-                                           latest)
-            except ValueError:
-                if not cfg.grad_compress:
-                    raise
-                # the checkpoint predates the residual: restore (params,
-                # opt_state) and restart the residual from zeros
-                restored, _ = ckpt.restore(cfg.ckpt_dir, (params, opt_state),
-                                           latest)
-                restored = restored + (cstate,)
-            if cfg.grad_compress:
-                params, opt_state, cstate = restored
-            else:
-                params, opt_state = restored
-            start = latest
-            resumed_from = latest
-
-    losses = []
-    ewma = None
-    stragglers = 0
-    t_begin = time.time()
     try:
+        if cfg.ckpt_dir and cfg.resume:
+            latest = ckpt.latest_step(cfg.ckpt_dir, gc_tmp=True)
+            if latest is not None:
+                try:
+                    restored, _ = ckpt.restore(cfg.ckpt_dir, state_tuple(),
+                                               latest)
+                except ValueError:
+                    if not (cfg.grad_compress or cfg.embed_sparse):
+                        raise
+                    # the checkpoint predates the extra loop state
+                    # (residual / embed accumulators): restore (params,
+                    # opt_state) and restart that state from zeros
+                    restored, _ = ckpt.restore(cfg.ckpt_dir,
+                                               (params, opt_state), latest)
+                    restored = restored + ((cstate,) if cfg.grad_compress
+                                           else (estate,))
+                if cfg.grad_compress:
+                    params, opt_state, cstate = restored
+                elif cfg.embed_sparse:
+                    params, opt_state, estate = restored
+                else:
+                    params, opt_state = restored
+                start = latest
+                resumed_from = latest
+
+        losses = []
+        ewma = None
+        stragglers = 0
+        t_begin = time.time()
         for step in range(start, cfg.total_steps):
             if cfg.fail_at_step is not None and step == cfg.fail_at_step:
                 raise InjectedFailure(f"injected failure at step {step}")
+            if injector is not None:
+                for ev in injector.fire(step):
+                    if ev.kind == "leaf_death":
+                        err = DeviceFailure(ev)
+                        err.losses = list(losses)
+                        err.start_step = start
+                        raise err
+                    if ev.kind == "straggler":
+                        stragglers += 1
             batch = next(batches)
             t0 = time.time()
             if cfg.grad_compress:
                 params, opt_state, cstate, metrics = step_fn(
                     params, opt_state, cstate, batch)
+            elif cfg.embed_sparse:
+                params, opt_state, estate, metrics = step_fn(
+                    params, opt_state, estate, batch)
             else:
                 params, opt_state, metrics = step_fn(params, opt_state, batch)
             loss = float(metrics["loss"])
@@ -131,9 +168,111 @@ def run(step_fn: Callable, params: Any, opt_state: Any,
                 ckpt.prune(cfg.ckpt_dir, cfg.keep_ckpts)
     finally:
         saver.join()
+        # stop a PrefetchIterator's producer thread (not a generic
+        # .close(): plain generators have one too, and run_supervised
+        # replays bare iterators across restart attempts)
+        if getattr(batches, "is_prefetcher", False):
+            batches.close()
     if cfg.ckpt_dir:
         ckpt.save(cfg.ckpt_dir, cfg.total_steps, state_tuple())
         ckpt.prune(cfg.ckpt_dir, cfg.keep_ckpts)
     return params, opt_state, LoopResult(
         losses=losses, steps_run=len(losses), resumed_from=resumed_from,
         straggler_steps=stragglers, seconds=time.time() - t_begin)
+
+
+# -- restart supervisor ---------------------------------------------------
+
+@dataclasses.dataclass
+class SupervisedResult:
+    """Stitched view over every attempt of a supervised run. ``losses``
+    is continuous across restarts: per-attempt losses are truncated at
+    the checkpoint the next attempt resumed from, so with a replayable
+    batch stream the trajectory equals an uninterrupted run's exactly."""
+    losses: list
+    steps_run: int
+    attempts: int
+    recoveries: List[Dict[str, Any]]
+    machine: Any                        # final (possibly degraded) spec
+    final: LoopResult
+
+
+def run_supervised(step_fn: Callable, params: Any, opt_state: Any,
+                   batches_factory: Union[Callable[[int], Iterator],
+                                          Iterator],
+                   cfg: LoopConfig, plan: Any = None, *,
+                   machine: Any = None, max_restarts: int = 4,
+                   injector: Optional[FaultInjector] = None) -> tuple:
+    """Drive :func:`run` to completion across injected device failures.
+
+    On each :class:`DeviceFailure` the supervisor (1) degrades the machine
+    spec (the dead leaf masked, so the next placement never sees a
+    zero-capacity bin) and shrinks ``n_alive``, (2) lets ``run`` restore
+    the newest complete checkpoint, with the compression residual or the
+    embedding accumulators where the loop owns them, and (3) replays the
+    batch stream from that step (``batches_factory(start_step)``). The
+    injector is shared across attempts, so an already-fired death is not
+    replayed after the resume. (The reference also rebuilds its mesh over
+    the survivors; one card has none.)
+
+    ``batches_factory`` is ``start_step -> iterator`` (a bare iterator is
+    accepted for streams that are only consumed forward: continuity then
+    depends on the stream, not the supervisor). Loss stitching: the
+    failed attempt's losses are kept up to the checkpoint the resume
+    lands on; everything after is recomputed by the resumed attempt.
+
+    Returns ``(params, opt_state, SupervisedResult)``.
+    """
+    import torch
+
+    from repro_torch.core import machine as machine_lib
+    if injector is None:
+        injector = FaultInjector(plan_from(plan))
+    if machine is not None:
+        machine = machine_lib.resolve(machine)
+    n_alive = (machine.n_alive if machine is not None
+               else max(torch.cuda.device_count(), 1))
+    if callable(batches_factory):
+        factory = batches_factory
+    else:
+        stream = batches_factory
+
+        def factory(start_step: int) -> Iterator:
+            return stream
+
+    stitched: List[float] = []
+    recoveries: List[Dict[str, Any]] = []
+    attempts = 0
+    while True:
+        attempts += 1
+        start = 0
+        if cfg.ckpt_dir:
+            start = ckpt.latest_step(cfg.ckpt_dir, gc_tmp=True) or 0
+        try:
+            params, opt_state, res = run(
+                step_fn, params, opt_state, factory(start), cfg,
+                injector=injector)
+            stitched.extend(res.losses)
+            break
+        except DeviceFailure as exc:
+            if len(recoveries) >= max_restarts:
+                raise
+            latest = 0
+            if cfg.ckpt_dir:
+                latest = ckpt.latest_step(cfg.ckpt_dir, gc_tmp=True) or 0
+            # keep only the losses the resume will NOT recompute
+            keep = max(0, latest - exc.start_step)
+            stitched.extend(exc.losses[:keep])
+            ev = exc.event
+            if machine is not None:
+                machine = machine.degrade([ev])
+                n_alive = machine.n_alive
+            else:
+                n_alive = max(1, n_alive - 1)
+            recoveries.append({
+                "step": int(ev.step), "device": ev.target,
+                "resumed_from": int(latest), "n_alive": int(n_alive),
+                "losses_kept": int(keep)})
+    return params, opt_state, SupervisedResult(
+        losses=stitched, steps_run=len(stitched), attempts=attempts,
+        recoveries=recoveries, machine=machine, final=res)

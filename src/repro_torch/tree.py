@@ -4,7 +4,9 @@ too) of tensors, the counterpart of ``jax.tree`` for the training modules
 
 Flattening order, which checkpoints record: depth first, dict entries in
 sorted key order (as ``jax.tree`` orders them), list and tuple entries in
-order. Anything that is not a dict, list or tuple is a leaf.
+order. ``None`` is an empty subtree, as in ``jax.tree`` (an optimizer
+state a step does not use checkpoints as nothing). Anything else that is
+not a dict, list or tuple is a leaf.
 
 The LM's parameters unroll the reference's per-layer stack into
 ``tree["layers"]``, a list of one dict per layer (``models/transformer``).
@@ -23,6 +25,8 @@ LAYERS = "layers"
 
 
 def _children(tree):
+    if tree is None:
+        return []
     if isinstance(tree, dict):
         return [(k, tree[k]) for k in sorted(tree)]
     if isinstance(tree, (list, tuple)):
@@ -31,6 +35,8 @@ def _children(tree):
 
 
 def _rebuild(like, values):
+    if like is None:
+        return None
     if isinstance(like, dict):
         return dict(zip(sorted(like), values))
     if isinstance(like, tuple) and hasattr(like, "_fields"):

@@ -137,3 +137,31 @@ def test_torch_quickstart_runs_on_the_cpu(tmp_path):
     for base in ("cut-opt", "random"):
         assert float(lines[base].split("M(P)=")[1].split()[0]) > ours
     assert "block placement" in lines and "tpu-mixed-32" in lines
+
+
+def test_embed_twin_holds_its_gates_and_writes_its_rows(tmp_path):
+    _run("torch_bench_embed", tmp_path)
+    out = json.loads((tmp_path / "BENCH_torch_embed.json").read_text())
+    assert out["tiny"] and out["device"] == "cpu"
+    rows = {r["name"]: r for r in out["embed"]}
+    assert list(rows) == ["replicated", "sharded", "sharded_cache",
+                          "sharded_cache_prefetch"]
+    assert rows["sharded_cache"]["traffic_bytes"] < \
+        rows["replicated"]["traffic_bytes"]
+    assert rows["sharded_cache_prefetch"]["max_occupancy"] >= 1
+    assert rows["sharded_cache"]["hit_rate"] > 0.3
+
+
+def test_torch_retrieval_serving_runs_on_the_cpu(tmp_path):
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable,
+                          str(ROOT / "examples" /
+                              "torch_retrieval_serving.py"),
+                          "--device", "cpu", "--steps", "20"], cwd=tmp_path,
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr[-4000:]
+    first, last = out.stdout.split("train: loss ")[1].split()[0:3:2]
+    assert float(last) < float(first)
+    assert "scored 128 pairs" in out.stdout
+    assert "top-10 of 100000 candidates" in out.stdout

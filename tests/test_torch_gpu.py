@@ -1589,3 +1589,133 @@ def test_search_on_the_card_picks_the_cpu_winner(cuda, shape, kw):
                                    rtol=1e-12)
     assert got.bottleneck <= mapping.makespan_of_device_map(
         T, topo, np.arange(topo.k), device=cuda)
+
+
+# ---------------------------------------------------------------------------
+# Fault recovery and two-tower training on the card
+# ---------------------------------------------------------------------------
+
+def test_smoke_engine_recovers_on_the_card_with_the_cpu_tokens(cuda):
+    """A leaf death in the smoke stream on the card: every request
+    completes with the clean CPU run's greedy tokens, the retired pages
+    read zero, and the forced re-placement launches the partition
+    kernels."""
+    from repro_torch.resilience import FaultInjector, parse_fault_plan
+    cfg, params, on_card = _smoke_lm(cuda)
+    rng = np.random.default_rng(12)
+    work = [(rng.integers(0, cfg.vocab, int(rng.integers(4, 12))),
+             int(rng.integers(2, 9))) for _ in range(8)]
+    out = []
+    for p, dev, plan in ((params, "cpu", None), (on_card, cuda,
+                                                  "5:leaf_death:2")):
+        ops.reset_launch_counts()
+        eng = ServingEngine(p, cfg, EngineConfig(
+            n_slots=3, page_size=2, n_pages=48, max_pages_per_req=10,
+            temperature=0.0, replace_every=0, place_devices=4), device=dev,
+            injector=plan and FaultInjector(parse_fault_plan(plan)))
+        for prompt, gen in work:
+            eng.submit(prompt, gen)
+        rep = eng.run()
+        out.append({r["rid"]: r["generated"] for r in rep.requests})
+    assert out[0] == out[1] and rep.requests_failed == 0
+    rec = rep.recoveries[0]
+    assert rec["device"] == 2 and rec["n_alive"] == 3 and rec["replaced"]
+    dead = torch.as_tensor(eng.cache.allocator.dead_pages(), device=cuda)
+    assert dead.numel() == rec["pages_lost"] > 0
+    for pool in (eng.cache.k_pool, eng.cache.v_pool):
+        assert not bool(pool.index_select(1, dead).any())
+    counts = ops.launch_counts()
+    assert counts["quotient_link_loads"] > 0
+    assert counts["partition_gain"] > 0
+
+
+@pytest.mark.parametrize("b,d,f", [(32, 50, 256), (7, 3, 96)])
+def test_bag_combine_autograd_through_the_kernel(cuda, b, d, f):
+    """The Function's forward launches the kernel; its gradients are the
+    plain version's (autograd of the einsum) on the same inputs."""
+    gen = _gen(cuda, 31)
+    g0 = torch.randn(b, d, f, generator=gen, device=cuda)
+    w0 = torch.rand(b, d, generator=gen, device=cuda)
+    cot = torch.randn(b, f, generator=gen, device=cuda)
+    grads = []
+    for fn in (bag_combine.bag_combine, bag_combine.plain):
+        g, w = g0.clone().requires_grad_(), w0.clone().requires_grad_()
+        before = bag_combine.launches
+        out = fn(g, w)
+        launched = bag_combine.launches - before
+        grads.append((out.detach(), *torch.autograd.grad(out, (g, w), cot)))
+        assert launched == (1 if fn is bag_combine.bag_combine else 0)
+    (ok, gk, wk), (op, gp, wp) = grads
+    tol = bag_combine.order_tolerance(g0, w0)
+    assert bool(((ok - op).abs() <= 1e-6 * op.abs() + tol).all())
+    assert torch.equal(gk, gp)            # one product per element
+    torch.testing.assert_close(wk, wp, rtol=1e-5, atol=1e-5)
+
+
+def test_take_rows_backward_is_repeatable_on_the_card(cuda):
+    gen = _gen(cuda, 32)
+    table = torch.randn(1000, 64, generator=gen, device=cuda,
+                        requires_grad=True)
+    idx = (torch.rand(200_000, generator=gen, device=cuda) ** 4 * 1000
+           ).long()                        # many duplicates of hot rows
+    cot = torch.randn(200_000, 64, generator=gen, device=cuda)
+    outs = [torch.autograd.grad(ops.take_rows(table, idx), table, cot)[0]
+            for _ in range(3)]
+    assert all(torch.equal(outs[0], o) for o in outs[1:])
+    want = torch.zeros(1000, 64, dtype=torch.float64).index_add_(
+        0, idx.cpu(), cot.cpu().double())
+    torch.testing.assert_close(outs[0].cpu().double(), want, rtol=1e-4,
+                               atol=1e-3)
+
+
+def test_row_updates_on_the_card_bitwise_and_equal_the_cpu(cuda):
+    from repro_torch import embed
+    gen = _gen(cuda, 33)
+    table = torch.randn(5000, 128, generator=gen, device=cuda)
+    accum = torch.rand(5000, generator=gen, device=cuda)
+    rows = torch.unique(torch.randint(0, 5000, (1500,), generator=gen,
+                                      device=cuda))
+    g = torch.zeros_like(table)
+    g[rows] = torch.randn(rows.numel(), 128, generator=gen, device=cuda)
+    dense = embed.dense_row_update(table, accum, g)
+    masked = embed.masked_row_update(table, accum, g)
+    sparse = embed.sparse_row_update(table, accum, rows, g[rows])
+    cpu = embed.dense_row_update(table.cpu(), accum.cpu(), g.cpu())
+    for x, y, z, c in zip(dense, masked, sparse, cpu):
+        assert torch.equal(x, y) and torch.equal(x, z)
+        torch.testing.assert_close(x.cpu(), c, rtol=1e-6, atol=1e-6)
+
+
+def test_smoke_recsys_step_on_the_card_matches_its_cpu_run(cuda):
+    """Three sparse embed steps at SMOKE width from the same weights and
+    batches, on the card (bag_combine launching once a step) and on the
+    CPU."""
+    from repro_torch import tree
+    from repro_torch.data.pipeline import recsys_batches
+    from repro_torch.embed import training as etr
+    from repro_torch.models import recsys
+    from repro_torch.optim import adamw
+    params = recsys.init(SMOKE, torch.Generator().manual_seed(0),
+                         device="cpu")
+    ocfg = adamw.AdamWConfig(lr=3e-3, total_steps=3, warmup_steps=0)
+    ecfg = etr.EmbedConfig()
+    step = etr.make_embed_train_step(
+        lambda p, b: recsys.loss_fn(p, b, SMOKE), ocfg, ecfg)
+    batches = list(zip(range(3), recsys_batches(
+        SMOKE.n_items, SMOKE.n_cats, 64, SMOKE.hist_len, SMOKE.d_dense)))
+    runs = []
+    for dev in ("cpu", cuda):
+        p = tree.map_(lambda t: t.to(dev), params)
+        o, e = etr.init_dense_opt(p, ecfg, ocfg), etr.init_embed_state(
+            p, ecfg)
+        before, losses = bag_combine.launches, []
+        for _, b in batches:
+            p, o, e, m = step(p, o, e, {k: torch.as_tensor(v, device=dev)
+                                        for k, v in b.items()})
+            losses.append(float(m["loss"]))
+        runs.append((losses, p, e, bag_combine.launches - before))
+    (lc, pc, ec, nc), (lg, pg, eg, ng) = runs
+    assert nc == 0 and ng == 3
+    np.testing.assert_allclose(lg, lc, rtol=1e-5)
+    for a, b in zip(tree.leaves((pg, eg)), tree.leaves((pc, ec))):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-5)

@@ -49,7 +49,14 @@ def test_port_sources_exist():
                  "src/repro_torch/train/steps.py",
                  "src/repro_torch/train/loop.py",
                  "src/repro_torch/ckpt/checkpoint.py",
-                 "src/repro_torch/launch/train.py"):
+                 "src/repro_torch/launch/train.py",
+                 "src/repro_torch/resilience/faults.py",
+                 "src/repro_torch/resilience/harness.py",
+                 "src/repro_torch/embed/hot_cache.py",
+                 "src/repro_torch/embed/training.py",
+                 "src/repro_torch/embed/prefetch.py",
+                 "benchmarks/torch_bench_embed.py",
+                 "examples/torch_retrieval_serving.py"):
         assert must in names
 
 
