@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port on one NVIDIA GPU: the partitioner, the
 two-tower retrieval serving path over a partition-sharded item table,
-GIN-TU graph classification through the BSR aggregation kernel, the
+GIN-TU graph classification through the BSR aggregation kernel, GNN
+training (GIN-TU through the kernel both ways, PNA, MeshGraphNet), the
 Qwen2-1.5B prefill through the flash-attention kernel with the paged
 continuous-batching server, DeepSeek-V2-Lite's MoE + MLA prefill and
 absorbed decode, the mesh-mapping search, the paper's C1
@@ -134,6 +135,28 @@ non-zero:
            forward against the same forward aggregated by ``gnn_aggregate``
            (the reference's ``segment_sum``), both at both batch sizes, and
            the placed logits, un-permuted, against the unplaced ones.
+  gnn_train  GNN training at full width, launch counts set to 0 just
+           before it, each run ``GNN_TRAIN_STEPS`` AdamW steps through
+           ``train.loop.run`` (lr ``GNN_TRAIN_LR``) with one traced step:
+           gin_molecule, GIN-TU's ``molecule`` config from seed 0 on
+           ``molecule_batches(128, 30, 64, 16, 2, seed=0)`` with each
+           batch's BSR layouts (``gin_layouts``: ``bsr_spmm`` forward on
+           A, backward on Aᵀ; 5 + 5 launches a step, counted and traced),
+           then 2 steps on the gnn phase's bulk 16,384 molecules;
+           pna_minibatch and mgn_minibatch, ``pna.py`` / ``meshgraphnet.py``
+           BASE at ``minibatch_lg`` on ``minibatch_batches`` of 1,024 seeds
+           over ``random_regular(232,965, GNN_TRAIN_DEGREE)`` (the cut is in
+           each line's ``reduced``). Gates: (a) GIN's loss and gradients
+           through the kernel against the plain ``edge_apply`` path, on the
+           molecules and on them with a seeded half of one direction of
+           their edges dropped (``asymmetric_batch``); (b) a backward
+           through the forward layout on those arcs must fail (a); (c) PNA
+           and MeshGraphNet at full width cut to 2 layers, float32 with
+           TF32 off, the card's loss and gradients against the CPU's in
+           (a)'s bands; (d)
+           finite and the loss comes down in every run; (e) ``bsr_spmm`` on
+           the transposed layout on step 1's own cotangents against the
+           plain product in float64.
 
   lm       ``qwen2-1.5b`` at full width (``configs/qwen2_1_5b.py:FULL``:
            28 layers, d_model 1536, 12 query heads on 2 KV heads of 128,
@@ -290,7 +313,8 @@ that drives it (``full`` for the partitioner's kernels but
 ``bucket_assign``, which no path launches since the coarsening runs each
 round as ``match_round`` and the initial split runs as ``prefix_split``,
 with 0 and ``on_path_as``; ``recsys`` for the bag kernels,
-``gnn`` for ``bsr_spmm``, ``lm`` for ``flash_attention``, which also
+``gnn`` for ``bsr_spmm``, which also launches on ``gnn_train``, ``lm`` for
+``flash_attention``, which also
 launches on ``train``; ``serve_chaos`` and ``train_recsys`` are paths
 too), its launches
 on every path (``serve`` and ``serve_wide`` show which partitioner
@@ -303,7 +327,8 @@ at 32,768 tokens, ``long``; the bag kernels their one-query alternation,
 backward, ``train``; ``gather_combine``, ``bag_combine`` (bf16 too),
 ``match_round`` and ``prefix_split`` every shape, ``shapes``, and
 ``prefix_split`` its alternation and ``initial_partition_device``'s wall;
-``bsr_spmm`` its second bound, tile and slabs read).
+``bsr_spmm`` its second bound, tile and slabs read, and its rows on the
+gnn_train backward's transposed layouts, ``transposed``).
 Last, the result line ``{"ok": true, "device": {...}}``.
 Without a CUDA device it exits 2 and prints no result; it never runs on the
 CPU.
@@ -356,6 +381,27 @@ GNN_BULK_GRAPHS = 16_384
 GNN_RTOL = 1e-5
 BSR_TOLERANCE = ("rtol 1e-6 + 2*K*2^-24*(|A| @ |x|), K = R x most blocks in "
                  "a block row (two float32 sums in different orders)")
+
+# The gnn_train phase: GIN-TU (molecule), PNA and MeshGraphNet
+# (minibatch_lg) at their BASE widths and depths, GNN_TRAIN_STEPS AdamW
+# steps each through train.loop.run with the train CLI's optimizer
+# settings. minibatch_lg's parent graph is cut from 232,965 nodes of mean
+# degree 492 (114,615,892 arcs) to random_regular(232,965, 50): 11,646,970
+# arcs (rmat at that node count leaves 239,540 of the 337,920 arc slots to
+# padding); its batches are the grid's 1,024 seeds with fanout (15, 10),
+# padded to 169,984 nodes and 337,920 arcs.
+GNN_TRAIN_STEPS = 6
+# the CLI's 3e-3 without warm-up (6 steps) throws PNA's loss up at step 3
+# and it is not back below step 1's by step 6's mean (gate (d)); the
+# reference's make_train_step does the same on the same params and batches
+# (scripts/gnn_train_lr_reference.py: PNA at 128 seeds of this stream)
+GNN_TRAIN_LR = 1e-3
+GNN_TRAIN_DEGREE = 50
+# gate (c): PNA and MeshGraphNet at full width cut to this many layers
+GNN_TRAIN_CUT_LAYERS = 2
+# gates (a), (c): train (b)'s float32 bands (loss rel, per-leaf rel L2)
+GNN_TRAIN_LOSS_RTOL = 1e-5
+GNN_TRAIN_GRAD_REL_L2 = 1e-4
 
 # The LM phase: qwen2-1.5b at full width (configs/qwen2_1_5b.py FULL, bf16,
 # random weights from seed 0). prefill: 4 prompts of 4,096 tokens; its
@@ -646,7 +692,7 @@ KERNEL_INFO = {
                        "src/repro/kernels/gather_combine.py:85",
                        ("recsys",)),
     "bsr_spmm": ("src/repro_torch/csrc/bsr_spmm.cu",
-                 "src/repro/kernels/bsr_spmm.py:94", ("gnn",)),
+                 "src/repro/kernels/bsr_spmm.py:94", ("gnn", "gnn_train")),
     "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:115",
                         ("lm", "train", "lm_mla")),
@@ -2217,12 +2263,44 @@ def gapped_graph(n, m, gap, seed=0):
                       rng.random(m).astype(np.float32) + 0.1)
 
 
+def asymmetric_batch(batch, seed=0):
+    """The batch with one direction of a seeded half of its edges dropped
+    (each arc s -> r with s < r goes with probability 1/2, its reverse
+    stays), so that A != Aᵀ: what a backward through the forward layout
+    gets wrong. ``degrees`` counts the arcs left."""
+    import numpy as np
+    s, r = np.asarray(batch["senders"]), np.asarray(batch["receivers"])
+    keep = ~((s < r) & (np.random.default_rng(seed).random(s.shape[0])
+                        < 0.5))
+    out = dict(batch, senders=s[keep], receivers=r[keep],
+               edge_weight=np.asarray(batch["edge_weight"])[keep])
+    out["degrees"] = np.bincount(out["senders"], minlength=int(
+        batch["x"].shape[0])).astype(np.float32)
+    return out
+
+
+def transposed_layout(batch, device):
+    """The layout of the batch's reversed arcs (Aᵀ, unit weights), built
+    as ``ops.prepare_bsr_pair`` builds it when the arcs are not
+    symmetric."""
+    import numpy as np
+
+    from repro_torch.kernels import ops
+    s = np.asarray(batch["senders"])
+    return ops.prepare_bsr(int(batch["x"].shape[0]),
+                           np.asarray(batch["receivers"]), s,
+                           np.ones(s.shape[0], np.float32), device=device)
+
+
 def bsr_cases(state):
     """(label, layout, F) of the gnn path's ``bsr_spmm`` shapes: the bulk
     batch's layout (the main shape), the request's and the bsr_locality
-    graph's in both vertex orders at F = 64, and a ragged R = 32, F = 96
+    graph's in both vertex orders at F = 64, a ragged R = 32, F = 96
     layout with an empty block row (its count of filled rows in
-    ``state``)."""
+    ``state``), then the gnn_train backward's transposed layouts (built
+    from the reversed arcs: the bulk and request molecules', equal to
+    their forward layouts, whose arcs are symmetric, and the asymmetric
+    request's of gate (a))."""
     import torch
 
     from repro_torch.kernels import ops
@@ -2237,6 +2315,15 @@ def bsr_cases(state):
     state["bsr_empty_rows"] = lay.n_block_rows - len(set(
         (g.senders // 32).tolist()))
     cases.append(("ragged_R32_F96", lay, 96))
+    dev = torch.device("cuda")
+    for label, n in (("bulk", GNN_BULK_GRAPHS),
+                     ("request", GNN_REQUEST_GRAPHS)):
+        inp = gnn_inputs(state, n)
+        cases.append((f"{label}_transposed",
+                      transposed_layout(inp["batch"], dev), 64))
+    asym = asymmetric_batch(gnn_inputs(state, GNN_REQUEST_GRAPHS)["batch"])
+    cases.append(("request_asymmetric_transposed",
+                  transposed_layout(asym, dev), 64))
     return cases
 
 
@@ -2265,6 +2352,12 @@ def phase_kernels_gnn(state):
             dense_ops_ms=bsr_dense_ops(layout, f) / H100_F32_PER_S * 1e3)
         if label.startswith("ragged"):
             extra["empty_block_rows_filled"] = state["bsr_empty_rows"]
+        if label in ("bulk_transposed", "request_transposed"):
+            fwd = gnn_inputs(state, GNN_BULK_GRAPHS if label.startswith(
+                "bulk") else GNN_REQUEST_GRAPHS)["layout"]
+            extra["equal_to_forward_layout"] = bool(
+                torch.equal(fwd.block_cols, layout.block_cols)
+                and torch.equal(fwd.blocks, layout.blocks))
         every = bsr_spmm.slab_occupancy(torch.ones_like(layout.blocks))
         extra["bitwise_every_slab"] = bool(torch.equal(
             bsr_call(layout, x), bsr_call(layout, x, every)))
@@ -2278,7 +2371,8 @@ def phase_kernels_gnn(state):
              layout.block, f, label],
             lambda: bsr_call(layout, x), lambda: bsr_spmm.plain(*args),
             exact=False, rtol=1e-6, atol=bsr_spmm.order_tolerance(*args),
-            tolerance=BSR_TOLERANCE, iters=10 if label == "bulk" else 30,
+            tolerance=BSR_TOLERANCE,
+            iters=10 if label.startswith("bulk") else 30,
             library=bsr_library(layout, x), bytes_moved=bytes_moved,
             flops=flops, extra=extra)
 
@@ -2459,12 +2553,381 @@ def phase_gnn(state):
     emit("gnn", step="checks", tolerance_logits=f"{GNN_RTOL} x (max|logit| "
          f"+ |logit|)", tolerance_bsr_spmm=BSR_TOLERANCE, forwards=forwards,
          launches=counts, max_abs_err=errors, **checks)
-    for key in [k for k in state if k.startswith("gnn_")]:
-        del state[key]     # the batches, layouts and placement go
     failed = [k for k, ok in checks.items() if not ok]
     if failed:
         raise AssertionError(f"gnn checks failed: {failed}")
     _require_launched(counts, "gnn")
+
+
+def _gnn_device_batch(batch, dev, layouts=False):
+    """A host batch's arrays on the card, with GIN's BSR layouts
+    (``gin_layouts``) where asked."""
+    from repro_torch.launch.train import to_device
+    from repro_torch.models.gnn import gin_layouts
+    out = to_device(batch, dev)
+    if layouts:
+        out.update(gin_layouts(batch, device=dev))
+    return out
+
+
+def _gnn_train_run(cfg, params, batches, kernel_events):
+    """GNN_TRAIN_STEPS AdamW steps of ``gnn.loss_fn`` through ``loop.run``
+    and ``make_train_step`` with the train CLI's optimizer settings
+    (launches read around it), then one traced step from its end state.
+    Returns the readings and the step."""
+    import dataclasses as dc
+
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as tlaunch
+    from repro_torch.models import gnn
+    from repro_torch.optim import adamw
+    from repro_torch.train import loop
+    from repro_torch.train.steps import make_train_step
+    ocfg = tlaunch.optimizer_config(GNN_TRAIN_LR, GNN_TRAIN_STEPS)
+    step = make_train_step(lambda p, b: gnn.loss_fn(p, b, cfg), ocfg)
+    rec = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    c0 = ops.launch_counts()
+    p_end, o_end, result = loop.run(
+        _recording_step(step, rec), params, adamw.init(params, ocfg),
+        iter(batches), loop.LoopConfig(total_steps=GNN_TRAIN_STEPS))
+    launches = _since(c0)
+    peak = torch.cuda.max_memory_allocated()
+    trace = _traced(lambda: step(p_end, o_end, batches[0]), kernel_events)
+    del p_end, o_end
+    torch.cuda.empty_cache()
+    return dict(
+        steps=GNN_TRAIN_STEPS, optimizer=dc.asdict(ocfg), remat=cfg.remat,
+        cold_s=rec[0]["s"],
+        warm_s_p50=float(np.median([r["s"] for r in rec[1:]])),
+        step_s=[r["s"] for r in rec], losses=[r["loss"] for r in rec],
+        grad_norms=[r["grad_norm"] for r in rec],
+        lrs=[r["lr"] for r in rec], loop_seconds=result.seconds,
+        max_memory_allocated=peak, launches=launches, traced=trace), step
+
+
+def _progress(run):
+    """Gate (d): finite losses and grad norms, and the mean of the last
+    two losses below the first."""
+    import numpy as np
+    losses, norms = run["losses"], run["grad_norms"]
+    return bool(np.isfinite(losses).all() and np.isfinite(norms).all()
+                and np.mean(losses[-2:]) < losses[0])
+
+
+def _grads_against(got, want):
+    """(loss rel, per-leaf relative L2) of two ``loss_and_grads`` results."""
+    loss_g, _, grads_g = got
+    loss_w, _, grads_w = want
+    from repro_torch import tree
+    rel = [_rel_l2(a.cpu(), b.cpu()) for a, b in zip(tree.leaves(grads_g),
+                                                     tree.leaves(grads_w))]
+    return abs(float(loss_g) - float(loss_w)) / abs(float(loss_w)), rel
+
+
+def _bsr_backward_check(params, batch, cfg):
+    """Gate (e): the step's own cotangents of the five aggregations
+    (recorded by a hook on each output), each through ``bsr_spmm`` on the
+    transposed layout against the plain version of the same product in
+    float64, in the forward's band. (The plain version in float32 is no
+    yardstick here: its ``bmm`` flushes subnormal products to zero, and a
+    saturated softmax gives cotangents of ~1e-40, which the kernel sums
+    exactly.) Returns (ok, readings)."""
+    import torch
+
+    from repro_torch import tree
+    from repro_torch.kernels import bsr_spmm, ops
+    from repro_torch.models import gnn
+    from repro_torch.models.common import cross_entropy
+    lay, lay_t = batch["bsr"], batch["bsr_t"]
+    douts = []
+
+    def record(x):
+        out = ops.gnn_aggregate_bsr(lay, x, lay_t)
+        out.register_hook(lambda g: douts.append(g.detach()))
+        return out
+    live = [p.detach().requires_grad_(True) for p in tree.leaves(params)]
+    logits = gnn.forward(tree.unflatten(params, live), batch, cfg, record)
+    torch.autograd.grad(cross_entropy(logits, batch["labels"],
+                                      batch["label_mask"]), live)
+    ok, worst, worst_plain, flushed = True, 0.0, 0.0, 0
+    n = lay_t.n_nodes
+    for g in douts:
+        got = ops.gnn_aggregate_bsr(lay_t, g)
+        pad = lay_t.n_block_rows * lay_t.block - n
+        args = bsr_args(lay_t, torch.nn.functional.pad(g, (0, 0, 0, pad)))
+        exact = bsr_spmm.plain(*args[:2], args[2].double(),
+                               args[3].double())[:n]
+        err = (got.double() - exact).abs()
+        tol = bsr_spmm.order_tolerance(*args[:2], args[2].double(),
+                                       args[3].double())[:n]
+        ok &= bool((err <= tol + 1e-6 * exact.abs()).all())
+        worst = max(worst, float(err.max()))
+        plain32 = bsr_spmm.plain(*args)[:n]
+        worst_plain = max(worst_plain,
+                          float((plain32.double() - exact).abs().max()))
+        flushed += int(((plain32 == 0) & (exact != 0)).sum())
+    return ok, dict(cotangents=len(douts), max_abs_err=worst,
+                    plain_f32_max_abs_err=worst_plain,
+                    plain_f32_flushed_entries=flushed,
+                    subnormal_cotangent_entries=sum(
+                        int(((g != 0) & (g.abs() < 2.0 ** -126)).sum())
+                        for g in douts))
+
+
+def phase_gnn_train(state):
+    """GNN training on the card at full width: GIN-TU on molecules through
+    ``bsr_spmm`` forward and on the transposed layout backward, PNA and
+    MeshGraphNet on minibatch_lg's sampled batches (plain PyTorch
+    aggregations), each GNN_TRAIN_STEPS steps through ``loop.run`` with one
+    traced step, then the gates (a)-(e)."""
+    import dataclasses as dc
+    import itertools
+
+    import numpy as np
+    import torch
+
+    from repro_torch import tree
+    from repro_torch.configs import gin_tu, meshgraphnet, pna
+    from repro_torch.configs.common import GNN_SHAPE_META
+    from repro_torch.data.pipeline import (gnn_features, minibatch_batches,
+                                           molecule_batches)
+    from repro_torch.graph.generators import random_regular
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as tlaunch
+    from repro_torch.models import gnn
+    from repro_torch.optim import adamw
+    from repro_torch.train.steps import loss_and_grads
+    dev = torch.device("cuda")
+    bsr_events = {"bsr_spmm_kernel": ("bsr_spmm",)}
+    checks, errors = {}, {}
+    ops.reset_launch_counts()
+
+    # -- gin_molecule: 6 steps of 128 molecules, then the bulk batch
+    cfg = gin_tu.ARCH.make_config("molecule")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    params = gnn.init(cfg, gen, device=dev)
+    t0 = time.perf_counter()
+    mol_host = list(itertools.islice(molecule_batches(
+        GNN_REQUEST_GRAPHS, 30, 64, 16, 2, seed=0), GNN_TRAIN_STEPS))
+    mol = [_gnn_device_batch(b, dev, layouts=True) for b in mol_host]
+    torch.cuda.synchronize()
+    prep_s = time.perf_counter() - t0
+    gin, gin_step = _gnn_train_run(cfg, params, mol, bsr_events)
+    n_layers = cfg.n_layers
+    c0 = ops.launch_counts()
+    with torch.no_grad():
+        gnn.loss_fn(params, mol[0], cfg)
+    gin["bsr_spmm_per_forward"] = _since(c0)["bsr_spmm"]
+    gin["bsr_spmm_per_step"] = gin["launches"]["bsr_spmm"] / GNN_TRAIN_STEPS
+    flops = gin_tu.ARCH.model_flops("molecule")
+    emit("gnn_train", step="gin_molecule", arch="gin-tu", config="molecule",
+         layers=n_layers, width=cfg.d_hidden, graphs=GNN_REQUEST_GRAPHS,
+         nodes=int(mol_host[0]["x"].shape[0]),
+         arcs=len(mol_host[0]["senders"]), batches_and_layouts_s=prep_s,
+         molecules_per_s=GNN_REQUEST_GRAPHS / gin["warm_s_p50"],
+         model_flops_per_step=flops,
+         model_tflops_per_s=flops / gin["warm_s_p50"] / 1e12,
+         nvidia_smi=state["smi"], **gin)
+    checks["a_gin_bsr_spmm_5_forward_launches"] = (
+        gin["bsr_spmm_per_forward"] == n_layers)
+    checks["a_gin_bsr_spmm_10_launches_per_step"] = (
+        gin["launches"]["bsr_spmm"] == 2 * n_layers * GNN_TRAIN_STEPS)
+    checks["a_gin_trace_holds_10_bsr_spmm_events"] = (
+        gin["traced"]["port_launches"]["bsr_spmm_kernel"]["traced"]
+        == 2 * n_layers)
+    checks["d_gin_molecule_progress"] = _progress(gin)
+
+    bulk_in = gnn_inputs(state, GNN_BULK_GRAPHS)
+    bulk_host, bulk_lay = bulk_in["batch"], bulk_in["layout"]
+    t0 = time.perf_counter()
+    symmetric = ops.arcs_symmetric(
+        bulk_host["senders"], bulk_host["receivers"],
+        np.ones(len(bulk_host["senders"]), np.float32))
+    sym_s = time.perf_counter() - t0
+    if not symmetric:
+        raise AssertionError("the bulk molecules' arcs are not symmetric")
+    bulk = dict(_gnn_device_batch(bulk_host, dev), bsr=bulk_lay,
+                bsr_t=bulk_lay)
+    torch.cuda.reset_peak_memory_stats()
+    c0 = ops.launch_counts()
+    rec = []
+    timed = _recording_step(gin_step, rec)
+    p_b, o_b = params, adamw.init(params, tlaunch.optimizer_config(
+        GNN_TRAIN_LR, GNN_TRAIN_STEPS))
+    for _ in range(2):
+        p_b, o_b, _ = timed(p_b, o_b, bulk)
+    bulk_launches = _since(c0)
+    flops_bulk = flops * GNN_BULK_GRAPHS / GNN_REQUEST_GRAPHS
+    emit("gnn_train", step="gin_bulk", graphs=GNN_BULK_GRAPHS,
+         nodes=int(bulk_host["x"].shape[0]),
+         arcs=len(bulk_host["senders"]), symmetric_check_s=sym_s,
+         cold_s=rec[0]["s"], warm_s=rec[1]["s"],
+         molecules_per_s=GNN_BULK_GRAPHS / rec[1]["s"],
+         model_tflops_per_s=flops_bulk / rec[1]["s"] / 1e12,
+         losses=[r["loss"] for r in rec],
+         grad_norms=[r["grad_norm"] for r in rec],
+         max_memory_allocated=torch.cuda.max_memory_allocated(),
+         launches=bulk_launches)
+    checks["a_gin_bulk_bsr_spmm_10_launches_per_step"] = (
+        bulk_launches["bsr_spmm"] == 2 * 2 * n_layers)
+    checks["d_gin_bulk_finite"] = bool(np.isfinite(
+        [r["loss"] for r in rec] + [r["grad_norm"] for r in rec]).all())
+    del bulk, p_b, o_b
+    for key in [k for k in state if k.startswith("gnn_")]:
+        del state[key]     # the gnn phase's batches, layouts, placement
+    torch.cuda.empty_cache()
+
+    # -- minibatch_lg: the sampled batches, then PNA and MeshGraphNet
+    meta = GNN_SHAPE_META["minibatch_lg"]
+    t0 = time.perf_counter()
+    g = random_regular(meta["full_n"], GNN_TRAIN_DEGREE, seed=0)
+    graph_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    feats = gnn_features(g, meta["d_feat"], meta["classes"], seed=0)
+    feats_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    stream = minibatch_batches(g, feats, meta["batch_nodes"],
+                               tuple(meta["fanout"]), meta["n"],
+                               meta["arcs"], seed=0)
+    mb_host = list(itertools.islice(stream, GNN_TRAIN_STEPS))
+    sample_s = (time.perf_counter() - t0) / GNN_TRAIN_STEPS
+    del g, feats, stream
+    s0, r0 = mb_host[0]["senders"], mb_host[0]["receivers"]
+    sink = meta["n"] - 1
+    real = ~((s0 == sink) & (r0 == sink))
+    keys = s0[real].astype(np.int64) * meta["n"] + r0[real]
+    data = dict(parent_nodes=meta["full_n"], parent_degree=GNN_TRAIN_DEGREE,
+                parent_arcs=meta["full_n"] * GNN_TRAIN_DEGREE,
+                graph_s=graph_s, features_s=feats_s,
+                sample_s_per_batch=sample_s,
+                batch0_padding_arcs=int((~real).sum()),
+                batch0_duplicate_arcs=int(real.sum() - np.unique(keys).size),
+                batch0_nodes_used=int(np.unique(np.concatenate(
+                    [s0[real], r0[real]])).size))
+    mb = [_gnn_device_batch(b, dev) for b in mb_host]
+    reduced = (f"minibatch_lg's parent graph cut from full_arcs "
+               f"{meta['full_arcs']:,} (mean degree 492) to random_regular("
+               f"{meta['full_n']:,}, {GNN_TRAIN_DEGREE}): "
+               f"{meta['full_n'] * GNN_TRAIN_DEGREE:,} arcs; batches at the "
+               f"grid's full size")
+    runs = {}
+    for kind, arch in (("pna", pna.ARCH), ("mgn", meshgraphnet.ARCH)):
+        kcfg = arch.make_config("minibatch_lg")
+        gen.manual_seed(0)
+        kparams = gnn.init(kcfg, gen, device=dev)
+        run, _ = _gnn_train_run(kcfg, kparams, mb, {})
+        del kparams
+        kflops = arch.model_flops("minibatch_lg")
+        runs[kind] = run
+        emit("gnn_train", step=f"{kind}_minibatch", arch=arch.name,
+             config="minibatch_lg", layers=kcfg.n_layers,
+             width=kcfg.d_hidden, d_in=kcfg.d_in, classes=kcfg.n_classes,
+             seeds=meta["batch_nodes"], nodes=meta["n"], arcs=meta["arcs"],
+             data=data, reduced=reduced,
+             seeds_per_s=meta["batch_nodes"] / run["warm_s_p50"],
+             model_flops_per_step=kflops,
+             model_tflops_per_s=kflops / run["warm_s_p50"] / 1e12,
+             mfu_f32=kflops / run["warm_s_p50"] / H100_F32_PER_S,
+             tf32=torch.backends.cuda.matmul.allow_tf32,
+             nvidia_smi=state["smi"], **run)
+        checks[f"d_{kind}_minibatch_progress"] = _progress(run)
+        torch.cuda.empty_cache()
+    counts = ops.launch_counts()
+    state["launches"]["gnn_train"] = counts
+    del mb
+
+    # -- (c) PNA and MeshGraphNet, card against CPU at full width, 2 layers
+    allow = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for kind, arch in (("pna", pna.ARCH), ("mgn", meshgraphnet.ARCH)):
+        kcfg = dc.replace(arch.make_config("minibatch_lg"),
+                          n_layers=GNN_TRAIN_CUT_LAYERS)
+        p_cpu = gnn.init(kcfg, torch.Generator().manual_seed(0),
+                         device="cpu")
+        t0 = time.perf_counter()
+        card = loss_and_grads(
+            lambda p, b: gnn.loss_fn(p, b, kcfg),
+            tree.map_(lambda t: t.to(dev), p_cpu),
+            _gnn_device_batch(mb_host[0], dev))
+        card_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cpu = loss_and_grads(lambda p, b: gnn.loss_fn(p, b, kcfg), p_cpu,
+                             mb_host[0])
+        cpu_s = time.perf_counter() - t0
+        names = _leaf_names(p_cpu)
+        l_rel, rel = _grads_against(card, cpu)
+        errors[f"c_{kind}"] = dict(
+            layers=GNN_TRAIN_CUT_LAYERS, loss_card=float(card[0]),
+            loss_cpu=float(cpu[0]), loss_rel=l_rel,
+            worst_leaf_rel_l2=max(rel),
+            worst_leaf=names[int(np.argmax(rel))],
+            seconds=dict(card=card_s, cpu=cpu_s))
+        checks[f"c_{kind}_card_vs_cpu"] = (
+            l_rel <= GNN_TRAIN_LOSS_RTOL and max(rel) <= GNN_TRAIN_GRAD_REL_L2)
+        del card, cpu, p_cpu
+        torch.cuda.empty_cache()
+    torch.backends.cuda.matmul.allow_tf32 = allow
+
+    # -- (a), (b), (e): GIN's kernel path against its plain path
+    plain0 = {k: v for k, v in mol[0].items() if k not in ("bsr", "bsr_t")}
+    asym_host = asymmetric_batch(mol_host[0], seed=0)
+    asym = _gnn_device_batch(asym_host, dev, layouts=True)
+    checks["a_asymmetric_layouts_differ"] = asym["bsr_t"] is not asym["bsr"]
+    asym_plain = {k: v for k, v in asym.items() if k not in ("bsr", "bsr_t")}
+
+    def grads(b, aggregate=None):
+        return loss_and_grads(
+            lambda p, bt: gnn.loss_fn(p, bt, cfg, aggregate), params, b)
+
+    def plain_grads(b):
+        return grads(b, gnn.plain_aggregate(b))
+    names = _leaf_names(params)
+    for label, kern, plain in (("molecule", mol[0], plain0),
+                               ("asymmetric", asym, asym_plain)):
+        l_rel, rel = _grads_against(grads(kern), plain_grads(plain))
+        errors[f"a_{label}"] = dict(loss_rel=l_rel,
+                                    worst_leaf_rel_l2=max(rel),
+                                    worst_leaf=names[int(np.argmax(rel))])
+        checks[f"a_{label}_kernel_vs_plain"] = (
+            l_rel <= GNN_TRAIN_LOSS_RTOL and max(rel) <= GNN_TRAIN_GRAD_REL_L2)
+    planted = dict(asym, bsr_t=asym["bsr"])
+    l_rel, rel = _grads_against(grads(planted), plain_grads(asym_plain))
+    errors["b_planted_forward_layout_backward"] = dict(
+        loss_rel=l_rel, worst_leaf_rel_l2=max(rel),
+        worst_leaf=names[int(np.argmax(rel))],
+        times_the_band=max(rel) / GNN_TRAIN_GRAD_REL_L2)
+    checks["b_planted_fault_fails_a"] = max(rel) > GNN_TRAIN_GRAD_REL_L2
+    for label, b in (("molecule", mol[0]), ("asymmetric", asym)):
+        ok, readings = _bsr_backward_check(params, b, cfg)
+        errors[f"e_{label}_bsr_spmm_backward"] = readings
+        checks[f"e_{label}_backward_vs_plain"] = (
+            ok and readings["cotangents"] == n_layers)
+
+    emit("gnn_train", step="checks", tolerances=dict(
+        a=f"loss rel <= {GNN_TRAIN_LOSS_RTOL}, every gradient leaf's "
+          f"relative L2 <= {GNN_TRAIN_GRAD_REL_L2}: kernel path vs plain "
+          f"edge_apply path on the card; molecules and a seeded half of one "
+          f"direction of their edges dropped",
+        b="a backward through the forward layout on the asymmetric arcs "
+          "must fail (a)",
+        c=f"float32, TF32 off, full width at {GNN_TRAIN_CUT_LAYERS} "
+          f"layers: the card's loss and each gradient leaf against the "
+          f"CPU's in the (a) bands",
+        d="finite; mean of the last two losses below the first",
+        e=BSR_TOLERANCE + ", on each of step 1's own cotangents through "
+          "the transposed layout, against the plain product in float64"),
+        max_abs_err=errors, launches=counts,
+        **checks)
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"gnn_train checks failed: {failed}")
+    _require_launched(counts, "gnn_train")
 
 
 def flash_bf16_judge(q, k, v, got, want, q_chunk, kv_chunk):
@@ -4404,7 +4867,8 @@ def phase_train_recsys(state):
 
 PHASES = (phase_env, phase_build, phase_kernels, phase_kernels_recsys,
           phase_full, phase_small, phase_recsys, phase_kernels_gnn,
-          phase_gnn, phase_kernels_lm, phase_lm, phase_lm_mla, phase_mapping,
+          phase_gnn, phase_gnn_train, phase_kernels_lm, phase_lm,
+          phase_lm_mla, phase_mapping,
           phase_c1,
           phase_claims, phase_train, phase_train_recsys)
 
@@ -4461,6 +4925,12 @@ def kernels_line(state):
             out[-1].update({k: rows[0][k] for k in (
                 "bound_ms_stored_blocks", "tile", "slabs_read",
                 "slabs_stored", "slab_share", "bitwise_every_slab")})
+            # the gnn_train backward's transposed layouts
+            out[-1]["transposed"] = [{k: r.get(k) for k in (
+                "shape", "ms", "call_ms", "plain_ms", "library_ms",
+                "bound_ms", "bound_by", "max_abs_err",
+                "equal_to_forward_layout")}
+                for r in rows if "transposed" in r["shape"][-1]]
         if name in ("quotient_link_loads", "partition_gain"):
             # every shape: CSR-local partitions, the serve pools
             out[-1]["shapes"] = [{k: r.get(k) for k in (

@@ -1,16 +1,18 @@
 """Synthetic data pipelines, seeded and host-side.
 
-Copies of ``lm_batches``, ``gnn_features``, ``molecule_batches`` and
-``recsys_batches`` in ``repro/data/pipeline.py``: numpy only and exact for
-the same seed. The LM stream is Zipf tokens with a copy structure so a
-model can reduce its loss; GNN features and labels correlate with the
-graph's structure so a model can learn; recsys item ids follow a power law
-so the logQ correction has something to correct, and histories are -1
-padded bags.
+Copies of ``lm_batches``, ``gnn_features``, the fanout sampler
+(``SampledSubgraph``, ``sample_fanout``, ``minibatch_batches``),
+``molecule_batches`` and ``recsys_batches`` in ``repro/data/pipeline.py``:
+numpy only and exact for the same seed. The LM stream is Zipf tokens
+with a copy structure so a model can reduce its loss; GNN features and
+labels correlate with the graph's structure so a model can learn; recsys
+item ids follow a power law so the logQ correction has something to
+correct, and histories are -1 padded bags.
 """
 from __future__ import annotations
 
-from typing import Dict, Iterator
+import dataclasses
+from typing import Dict, Iterator, Tuple
 
 import numpy as np
 
@@ -67,6 +69,93 @@ def gnn_features(g: Graph, d_feat: int, n_classes: int, seed: int = 0,
     if with_pos:
         out["pos"] = rng.normal(0, 1, (n, 3)).astype(np.float32)
     return out
+
+
+@dataclasses.dataclass
+class SampledSubgraph:
+    nodes: np.ndarray        # [n_sub] original node ids (seeds first)
+    senders: np.ndarray      # [e_sub] local ids (symmetric arcs)
+    receivers: np.ndarray
+    n_seeds: int
+
+
+def sample_fanout(g: Graph, seeds: np.ndarray, fanout: Tuple[int, ...],
+                  rng: np.random.Generator) -> SampledSubgraph:
+    """GraphSAGE-style fixed-fanout sampling. Returns the union subgraph of
+    all sampled (hop) edges, seeds first in the node order."""
+    frontier = seeds
+    all_nodes = [seeds]
+    edges_u, edges_v = [], []
+    for f in fanout:
+        deg = g.offsets[frontier + 1] - g.offsets[frontier]
+        # f slots per frontier node, drawn with replacement for deg > 0;
+        # empty rows dropped
+        nz = deg > 0
+        fr = frontier[nz]
+        d = deg[nz]
+        # exact per-row bound: a fixed-range draw mod degree over-weights
+        # low arc slots whenever 2**31 % deg != 0
+        offs = rng.integers(0, d[:, None], size=(fr.shape[0], f))
+        arc = g.offsets[fr][:, None] + offs
+        nbrs = g.receivers[arc]                    # [n_frontier, f]
+        edges_u.append(np.repeat(fr, f))
+        edges_v.append(nbrs.ravel())
+        frontier = np.unique(nbrs.ravel())
+        all_nodes.append(frontier)
+    nodes, inv = np.unique(np.concatenate(all_nodes), return_inverse=True)
+    # seeds must come first: build permutation
+    seed_set = np.zeros(nodes.shape[0], dtype=bool)
+    seed_pos = np.searchsorted(nodes, seeds)
+    seed_set[seed_pos] = True
+    order = np.concatenate([np.nonzero(seed_set)[0], np.nonzero(~seed_set)[0]])
+    rank = np.empty_like(order)
+    rank[order] = np.arange(order.shape[0])
+    u = rank[np.searchsorted(nodes, np.concatenate(edges_u))]
+    v = rank[np.searchsorted(nodes, np.concatenate(edges_v))]
+    # symmetric arcs for message passing
+    su = np.concatenate([u, v]).astype(np.int32)
+    sv = np.concatenate([v, u]).astype(np.int32)
+    return SampledSubgraph(nodes=nodes[np.argsort(rank)], senders=su,
+                           receivers=sv, n_seeds=seeds.shape[0])
+
+
+def minibatch_batches(g: Graph, feats: Dict[str, np.ndarray],
+                      batch_nodes: int, fanout: Tuple[int, ...],
+                      pad_nodes: int, pad_arcs: int, seed: int = 0,
+                      ) -> Iterator[Dict[str, np.ndarray]]:
+    """Padded sampled-subgraph batches (static shapes): ``batch_nodes``
+    seeds a batch, their ``fanout`` neighbourhood's nodes and arcs padded
+    to ``pad_nodes`` / ``pad_arcs``; padding arcs run from and to the sink
+    node ``pad_nodes - 1``, and only the seeds carry a label."""
+    rng = np.random.default_rng(seed)
+    n = g.n_nodes
+    while True:
+        seeds = rng.choice(n, size=batch_nodes, replace=False)
+        sub = sample_fanout(g, seeds, fanout, rng)
+        ns = min(sub.nodes.shape[0], pad_nodes)
+        ne = min(sub.senders.shape[0], pad_arcs)
+        x = np.zeros((pad_nodes, feats["x"].shape[1]), np.float32)
+        x[:ns] = feats["x"][sub.nodes[:ns]]
+        lab = np.zeros(pad_nodes, np.int32)
+        lab[:ns] = feats["labels"][sub.nodes[:ns]]
+        mask = np.zeros(pad_nodes, np.float32)
+        mask[:sub.n_seeds] = 1.0
+        s = np.full(pad_arcs, pad_nodes - 1, np.int32)
+        r = np.full(pad_arcs, pad_nodes - 1, np.int32)
+        keep = (sub.senders[:ne] < ns) & (sub.receivers[:ne] < ns)
+        s[:ne] = np.where(keep, sub.senders[:ne], pad_nodes - 1)
+        r[:ne] = np.where(keep, sub.receivers[:ne], pad_nodes - 1)
+        deg = np.zeros(pad_nodes, np.float32)
+        np.add.at(deg, s, 1.0)
+        batch = {"x": x, "labels": lab, "label_mask": mask,
+                 "senders": s, "receivers": r,
+                 "edge_weight": np.ones(pad_arcs, np.float32),
+                 "degrees": deg}
+        if "pos" in feats:
+            pos = np.zeros((pad_nodes, 3), np.float32)
+            pos[:ns] = feats["pos"][sub.nodes[:ns]]
+            batch["pos"] = pos
+        yield batch
 
 
 def molecule_batches(n_graphs: int, nodes_per: int, edges_per: int,

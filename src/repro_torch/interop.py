@@ -6,8 +6,8 @@ fields of the reference's ``Graph``, ``TreeTopology`` / ``RoutingTopology``,
 name (duck typing), or the two-tower, GNN and transformer parameter dicts
 as numpy arrays, and build the port's own objects, so a test can give both packages
 the same inputs. Gradients, AdamW moments and compression residuals of
-the transformer map through ``transformer_params_from`` as its parameters
-do.
+the transformer and the GNNs map through ``transformer_params_from`` and
+``gnn_tree_from`` as their parameters do.
 """
 from __future__ import annotations
 
@@ -17,6 +17,7 @@ from typing import Dict
 import numpy as np
 import torch
 
+from repro_torch import tree
 from repro_torch.core.machine import Level, MachineSpec
 from repro_torch.core.partitioner import PartitionConfig
 from repro_torch.core.refine import RefineConfig
@@ -99,27 +100,6 @@ def recsys_params_from(params) -> Dict[str, torch.Tensor]:
     return state
 
 
-def gnn_params_from(params) -> Dict[str, torch.Tensor]:
-    """``GIN`` state dict (CPU tensors, for ``load_state_dict``) from the
-    reference's GIN param dict: ``encode`` / ``decode`` MLPs and the scanned
-    ``layers`` (``mlp.w[i]`` ``[L, h, h]``, ``mlp.b[i]`` ``[L, h]``, ``eps``
-    ``[L]``), unstacked into one entry per layer."""
-    state = {}
-    for head in ("encode", "decode"):
-        for field in ("w", "b"):
-            for i, x in enumerate(params[head][field]):
-                state[f"{head}.{field}.{i}"] = torch.from_numpy(_copy(x))
-    layers = params["layers"]
-    eps = _copy(layers["eps"])
-    for li in range(eps.shape[0]):
-        for field in ("w", "b"):
-            for i, x in enumerate(layers["mlp"][field]):
-                state[f"layers.{li}.mlp.{field}.{i}"] = torch.from_numpy(
-                    _copy(np.asarray(x)[li]))
-        state[f"layers.{li}.eps"] = torch.from_numpy(_copy(eps[li]))
-    return state
-
-
 def _tensor(x) -> torch.Tensor:
     """A CPU tensor of ``x``'s values and type; numpy has no bfloat16 of its
     own, so a bf16 array (``ml_dtypes``) goes through float32, exactly."""
@@ -129,11 +109,48 @@ def _tensor(x) -> torch.Tensor:
     return torch.from_numpy(_copy(x))
 
 
+def _map_leaves(fn, tree):
+    """``fn`` over the leaves of a tree of dicts and lists (the
+    reference's parameter trees), keeping its structure."""
+    if isinstance(tree, dict):
+        return {k: _map_leaves(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_map_leaves(fn, v) for v in tree]
+    return fn(tree)
+
+
 def _unstack(tree, li: int):
     """Layer ``li`` of a stacked subtree: every leaf's row ``li``."""
-    if isinstance(tree, dict):
-        return {k: _unstack(v, li) for k, v in tree.items()}
-    return _tensor(np.asarray(tree)[li])
+    return _map_leaves(lambda a: _tensor(np.asarray(a)[li]), tree)
+
+
+def gnn_tree_from(params) -> Dict:
+    """The port's functional GNN params (``models.gnn.init``'s layout: CPU
+    tensors) from the reference's param dict of any kind: ``encode``,
+    ``decode`` and MeshGraphNet's ``edge_encode`` (``{"w": [...], "b":
+    [...], "ln"?}``) as they are, and the ``layers`` stacked on axis 0
+    (GIN ``mlp`` and ``eps``, PNA ``pre`` and ``post``, MeshGraphNet
+    ``edge`` and ``node``) unstacked into one dict per layer. Any tree of
+    the params' structure maps the same way (gradients, AdamW moments)."""
+    out = {}
+    for key, sub in params.items():
+        if key != "layers":
+            out[key] = _map_leaves(_tensor, sub)
+            continue
+        depths = []
+        _map_leaves(lambda a: depths.append(np.shape(a)[0]), sub)
+        out[key] = [_unstack(sub, li) for li in range(depths[0])]
+    return out
+
+
+def gnn_params_from(params) -> Dict[str, torch.Tensor]:
+    """:func:`gnn_tree_from` flattened to ``"."``-joined names: for GIN the
+    ``GIN`` module's state dict (for ``load_state_dict``), e.g.
+    ``layers.1.mlp.w.0`` and ``layers.1.eps``; for PNA ``layers.0.pre.w.0``
+    and ``layers.0.post.b.0``; for MeshGraphNet ``layers.0.edge.ln`` and
+    ``edge_encode.w.0``."""
+    return {".".join(map(str, path)): leaf
+            for path, leaf in tree.flatten(gnn_tree_from(params))}
 
 
 def transformer_params_from(params) -> Dict:

@@ -201,17 +201,73 @@ def prepare_bsr(n_nodes: int, senders: np.ndarray, receivers: np.ndarray,
         n_nodes=n_nodes)
 
 
-def gnn_aggregate_bsr(layout: _bsr.BsrLayout,
-                      x: torch.Tensor) -> torch.Tensor:
-    """:func:`gnn_aggregate` through the ``bsr_spmm`` kernel on the layout
-    of :func:`prepare_bsr`: ``x [n, F]`` padded with zero rows to the
-    layout's ``n_block_rows * R``, the product sliced back to ``[n, F]``."""
+def arcs_symmetric(senders: np.ndarray, receivers: np.ndarray,
+                   edge_weight: np.ndarray) -> bool:
+    """Whether the multiset of weighted arcs (s, r, w) equals that of
+    (r, s, w): then the adjacency equals its transpose (host check)."""
+    s, r, w = (np.asarray(a) for a in (senders, receivers, edge_weight))
+    fwd = np.lexsort((w, r, s))            # arcs sorted by (s, r, w)
+    bwd = np.lexsort((w, s, r))            # reversed arcs, the same order
+    return bool(np.array_equal(s[fwd], r[bwd])
+                and np.array_equal(r[fwd], s[bwd])
+                and np.array_equal(w[fwd], w[bwd]))
+
+
+def prepare_bsr_pair(n_nodes: int, senders: np.ndarray,
+                     receivers: np.ndarray, edge_weight: np.ndarray,
+                     block: int = 128, device: DeviceLike = None
+                     ) -> Tuple[_bsr.BsrLayout, _bsr.BsrLayout]:
+    """(A, Aᵀ) as :func:`prepare_bsr` layouts, for :func:`gnn_aggregate_bsr`
+    under autograd: Aᵀ is the layout of the reversed arcs, or A itself
+    where :func:`arcs_symmetric` proves the two equal."""
+    lay = prepare_bsr(n_nodes, senders, receivers, edge_weight, block,
+                      device)
+    if arcs_symmetric(senders, receivers, edge_weight):
+        return lay, lay
+    return lay, prepare_bsr(n_nodes, receivers, senders, edge_weight, block,
+                            device)
+
+
+def _bsr_product(layout: _bsr.BsrLayout, x: torch.Tensor) -> torch.Tensor:
+    """``bsr_spmm`` on ``x [n, F]`` padded with zero rows to the layout's
+    ``n_block_rows * R``, the product sliced back to ``[n, F]``."""
     pad = layout.n_block_rows * layout.block - x.shape[0]
     if pad:
         x = torch.nn.functional.pad(x, (0, 0, 0, pad))
     out = _bsr.bsr_spmm(layout.row_ptr, layout.block_cols, layout.blocks,
                         x.contiguous(), layout.occupancy)
     return out[:layout.n_nodes]
+
+
+class BsrAggregate(torch.autograd.Function):
+    """``A @ x`` whose backward is ``Aᵀ @ dout`` through the same kernel on
+    the transposed layout. The blocks take no gradient (GIN's unit
+    weights)."""
+
+    @staticmethod
+    def forward(ctx, x, layout, layout_t):
+        ctx.layout_t = layout_t
+        return _bsr_product(layout, x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _bsr_product(ctx.layout_t, g), None, None
+
+
+def gnn_aggregate_bsr(layout: _bsr.BsrLayout, x: torch.Tensor,
+                      layout_t: Optional[_bsr.BsrLayout] = None
+                      ) -> torch.Tensor:
+    """:func:`gnn_aggregate` through the ``bsr_spmm`` kernel on the layout
+    of :func:`prepare_bsr` (the plain block product for CPU tensors).
+    Where autograd records a gradient for ``x`` it goes through
+    :class:`BsrAggregate`, whose backward runs the kernel on ``layout_t``
+    (:func:`prepare_bsr_pair`), which it then needs."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        if layout_t is None:
+            raise ValueError("gnn_aggregate_bsr: the gradient needs the "
+                             "transposed layout (ops.prepare_bsr_pair)")
+        return BsrAggregate.apply(x, layout, layout_t)
+    return _bsr_product(layout, x)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

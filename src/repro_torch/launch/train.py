@@ -1,5 +1,5 @@
-"""Training CLI of the port: twin of ``repro/launch/train.py`` for the LM
-and recsys families.
+"""Training CLI of the port: twin of ``repro/launch/train.py`` for the LM,
+recsys and message-passing GNN families.
 
     # on the card: Qwen2-1.5B at full width (train_4k's config), random
     # weights from seed 0
@@ -20,9 +20,19 @@ and recsys families.
     PYTHONPATH=src python -m repro_torch.launch.train \\
         --arch two-tower-retrieval --smoke --device cpu --embed-shard \\
         --prefetch 2 [--fault-plan "3:leaf_death:1" --ckpt-dir DIR]
+    PYTHONPATH=src python -m repro_torch.launch.train --arch pna \\
+        --smoke --device cpu --steps 20     # or gin-tu, meshgraphnet
 
 ``--smoke`` runs the reduced config; without it the full config is
 ``make_config`` of the grid's first shape (``train_4k`` for the LMs).
+The GNN family trains only with ``--smoke``, on ``arch.smoke_batch()``
+every step, as the reference CLI does (GIN's batch carries its BSR
+layouts, so it aggregates through ``bsr_spmm`` both ways). Without
+``--smoke`` the reference CLI feeds that batch (``d_feat`` 8) to the
+first shape's config (``full_graph_sm``: ``d_in`` 1,433) and crashes;
+this one refuses the combination. A GNN trains at full width on the
+grid's own batches through ``train.steps.make_train_step`` and
+``train.loop.run`` directly.
 Weights are random, made from seed 0: the real checkpoints are not in the
 repository. The batches are ``data.pipeline.lm_batches`` /
 ``recsys_batches`` (seed 0) and the optimizer is AdamW with the
@@ -48,8 +58,8 @@ failure and runs under ``loop.run_supervised``: the machine model is
 degraded, the newest checkpoint restored, the batch stream replayed from
 its step, and the stitched loss trajectory is the uninterrupted one.
 
-Not ported, because they belong to later slices (ROADMAP Queue 1): the
-GNN family (item 6; its ``--arch`` raises ``NotImplementedError``);
+Not ported, because they belong to later slices (ROADMAP Queue 1):
+``equiformer-v2`` (item 7; its ``--arch`` raises ``NotImplementedError``);
 ``--profile``, ``--topology-aware``, ``--machine``, ``--map-restarts``
 and ``--lint`` (meshes, their mapping search and the sharding lint,
 items 8 and 9). One card has no mesh for them to act on.
@@ -71,12 +81,14 @@ from repro_torch.optim import adamw
 from repro_torch.train import loop
 from repro_torch.train.steps import make_train_step
 
-_LATER = {"gnn": "GNN training waits for ROADMAP Queue 1, item 6"}
+# archs of the reference's registry that the port does not run yet
+_LATER = {"equiformer-v2": "equiformer-v2 (SO(3) equivariant message "
+                           "passing) waits for ROADMAP Queue 1, item 7"}
 
 
 def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
-        description="LM and recsys training on the port.",
+        description="LM, recsys and GNN training on the port.",
         epilog="Not ported from the reference CLI: --profile, "
                "--topology-aware, --machine, --map-restarts and --lint "
                "(meshes and their lint).")
@@ -145,12 +157,15 @@ def make_batches(vocab: int, batch: int, seq: int, device: torch.device,
         yield to_device(b, device)
 
 
-def host_batches(family: str, cfg, batch: int, seq: int,
-                 seed: int = 0) -> Iterator[Dict[str, np.ndarray]]:
+def host_batches(family: str, cfg, batch: int, seq: int, seed: int = 0,
+                 arch=None) -> Iterator[Dict[str, np.ndarray]]:
     """The family's batch stream as host arrays: ``lm_batches`` or
-    ``recsys_batches`` from ``seed``."""
+    ``recsys_batches`` from ``seed``; for a GNN, ``arch.smoke_batch()``
+    every step, as the reference CLI feeds it."""
     if family == "lm":
         return pipeline.lm_batches(cfg.vocab, batch, seq, seed=seed)
+    if family == "gnn":
+        return itertools.repeat(arch.smoke_batch())
     return pipeline.recsys_batches(cfg.n_items, cfg.n_cats, batch,
                                    cfg.hist_len, cfg.d_dense, seed=seed)
 
@@ -215,16 +230,28 @@ class TrainSetup:
 def build(args) -> TrainSetup:
     """Build the model, optimizer, step, loop config and batch stream from
     parsed arguments (printing what the reference CLI prints)."""
+    if args.arch in _LATER:
+        raise NotImplementedError(_LATER[args.arch])
     arch = configs.get(args.arch)
-    if arch.family in _LATER:
-        raise NotImplementedError(_LATER[arch.family])
     cfg = arch.smoke_config() if args.smoke else arch.make_config(
         next(iter(arch.shapes)))
+    if arch.family == "gnn" and not args.smoke:
+        first = next(iter(arch.shapes))
+        raise SystemExit(
+            f"--arch {arch.name} trains with --smoke only: the reference "
+            f"CLI feeds every GNN step arch.smoke_batch() (d_feat "
+            f"{arch.smoke_config().d_in}) while its config is "
+            f"make_config({first!r}) (d_in {cfg.d_in}), and crashes "
+            f"(src/repro/launch/train.py:57-70). Train a GNN at full width "
+            f"on the grid's batches through train.steps.make_train_step "
+            f"and train.loop.run")
     dev = resolve_device(args.device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     if arch.family == "lm":
         from repro_torch.models import transformer as mdl
+    elif arch.family == "gnn":
+        from repro_torch.models import gnn as mdl
     else:
         from repro_torch.models import recsys as mdl
     params = mdl.init(cfg, gen, device=dev)
@@ -292,15 +319,22 @@ def build(args) -> TrainSetup:
                            grad_compress=grad_compress,
                            embed_sparse=ecfg)
 
+    def on_device(b):
+        out = to_device(b, dev)
+        if arch.family == "gnn" and cfg.kind == "gin":
+            from repro_torch.models.gnn import gin_layouts
+            out.update(gin_layouts(b, device=dev))
+        return out
+
     def batches(start: int = 0) -> Iterator:
         host = itertools.islice(
-            host_batches(arch.family, cfg, args.batch, args.seq), start,
-            None)
+            host_batches(arch.family, cfg, args.batch, args.seq, arch=arch),
+            start, None)
         if args.prefetch:
             from repro_torch.embed import PrefetchIterator
             return PrefetchIterator(host, depth=args.prefetch,
-                                    consume=lambda b: to_device(b, dev))
-        return (to_device(b, dev) for b in host)
+                                    consume=on_device)
+        return (on_device(b) for b in host)
 
     return TrainSetup(arch=arch, cfg=cfg, device=dev, params=params,
                       opt=opt, step=step, lcfg=lcfg, batches=batches,

@@ -256,7 +256,9 @@ def test_gin_from_a_seed_runs_on_the_cpu():
 
 @pytest.mark.parametrize("kind", ["pna", "mgn"])
 def test_other_gnn_kinds_raise(kind):
-    with pytest.raises(NotImplementedError, match="later slice"):
+    """The GIN serving module refuses the other kinds, which run through
+    the functional ``init`` / ``forward`` / ``loss_fn``."""
+    with pytest.raises(ValueError, match="GIN runs GNN kind 'gin'"):
         tgnn.GIN(dataclasses.replace(tgin.SMOKE, kind=kind), device="cpu")
 
 

@@ -2,7 +2,9 @@
 version over a sweep of shapes, the wrappers' argument checks, one small
 ``partition()`` per backend through the oracle, and the smoke-width LM
 (prefill through ``flash_attention``, the serving engine) against its CPU
-run. Marked ``gpu``; each
+run, and the GNN training path (the BSR aggregation's transposed-layout
+backward, GIN through the kernel against its plain path, PNA and
+MeshGraphNet steps against the CPU). Marked ``gpu``; each
 test decides in the ``cuda`` fixture whether a card is present and skips
 without one. Imports no JAX (the card's machine has none). Run with
 
@@ -36,14 +38,19 @@ from repro_torch.configs import (deepseek_v2_236b, deepseek_v2_lite_16b,
                                  qwen2_1_5b)
 from repro_torch.models import common as mcommon
 from repro_torch.models import transformer as tr
-from repro_torch.models.gnn import GIN, gin_layout
+from repro_torch import tree
+from repro_torch.configs import meshgraphnet, pna
+from repro_torch.data.pipeline import gnn_features, minibatch_batches
+from repro_torch.models import gnn
+from repro_torch.models.gnn import GIN, gin_layout, gin_layouts
+from repro_torch.train.steps import loss_and_grads
 from repro_torch.serving import EngineConfig, ServingEngine
 from repro_torch.models.recsys import TwoTower
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 from chip_smoke import (  # noqa: E402  (the smoke run's)
-    TRAIN_LSE_TOL, NumpyDraws, _traced, flash_bf16_judge, flash_grad_judge,
-    gapped_graph)
+    TRAIN_LSE_TOL, NumpyDraws, _traced, asymmetric_batch, flash_bf16_judge,
+    flash_grad_judge, gapped_graph)
 
 torch.set_num_threads(1)
 pytestmark = pytest.mark.gpu
@@ -1010,6 +1017,99 @@ def test_gin_on_the_card_matches_its_cpu_plain_path(cuda):
     scale = float(want.abs().max())
     err = (got.cpu() - want).abs()
     assert bool((err <= 1e-5 * (scale + want.abs())).all()), float(err.max())
+
+
+@pytest.mark.parametrize("arcs", ["symmetric", "asymmetric"])
+def test_bsr_aggregate_backward_matches_plain(cuda, arcs):
+    """``gnn_aggregate_bsr``'s autograd Function: one kernel launch forward
+    on A and one backward on Aᵀ (the same layout where the arcs are
+    symmetric), each against the plain block product on its layout, and
+    the backward against ``Aᵀ @ dout`` from the arc list."""
+    batch = next(molecule_batches(64, 30, 64, 16, 2, seed=3))
+    if arcs == "asymmetric":
+        batch = asymmetric_batch(batch)
+    lays = gin_layouts(batch, device=cuda)
+    assert (lays["bsr_t"] is lays["bsr"]) == (arcs == "symmetric")
+    n = batch["x"].shape[0]
+    x = torch.randn(n, 64, generator=_gen(cuda, 1), device=cuda,
+                    requires_grad=True)
+    dout = torch.randn(n, 64, generator=_gen(cuda, 2), device=cuda)
+    before = bsr_spmm.launches
+    out = ops.gnn_aggregate_bsr(lays["bsr"], x, lays["bsr_t"])
+    (dx,) = torch.autograd.grad(out, x, dout)
+    assert bsr_spmm.launches == before + 2
+    for lay, inp, got in ((lays["bsr"], x.detach(), out.detach()),
+                          (lays["bsr_t"], dout, dx)):
+        pad = lay.n_block_rows * lay.block - n
+        args = _bsr_args(lay, torch.nn.functional.pad(inp, (0, 0, 0, pad)))
+        want = bsr_spmm.plain(*args)[:n]
+        tol = bsr_spmm.order_tolerance(*args)[:n]
+        err = (got - want).abs()
+        assert bool((err <= tol + 1e-6 * want.abs()).all()), float(err.max())
+    s = torch.as_tensor(batch["senders"], device=cuda)
+    r = torch.as_tensor(batch["receivers"], device=cuda)
+    want = ops.gnn_aggregate(r, s, torch.ones(s.shape[0], device=cuda), dout,
+                             n)
+    torch.testing.assert_close(dx, want, rtol=1e-5, atol=1e-4)
+
+
+def test_gin_grads_through_the_kernel_match_the_plain_path(cuda):
+    """GIN-TU's molecule config on 64 molecules with a seeded half of one
+    direction of their edges dropped: ``loss_fn``'s loss and every
+    gradient leaf through ``bsr_spmm`` (10 launches) against the plain
+    ``edge_apply`` path on the card (the smoke's gate (a) bands)."""
+    cfg = gin_tu.ARCH.make_config("molecule")
+    batch = asymmetric_batch(next(molecule_batches(64, 30, 64, 16, 2,
+                                                   seed=4)))
+    params = gnn.init(cfg, _gen(cuda, 0), device=cuda)
+    dev_batch = {k: torch.as_tensor(v, device=cuda) for k, v in batch.items()}
+    before = bsr_spmm.launches
+    loss_k, _, grads_k = loss_and_grads(
+        lambda p, b: gnn.loss_fn(p, b, cfg), params,
+        dict(dev_batch, **gin_layouts(batch, device=cuda)))
+    assert bsr_spmm.launches == before + 2 * cfg.n_layers
+    loss_p, _, grads_p = loss_and_grads(
+        lambda p, b: gnn.loss_fn(p, b, cfg, gnn.plain_aggregate(b)), params,
+        dev_batch)
+    assert abs(float(loss_k) - float(loss_p)) <= 1e-5 * abs(float(loss_p))
+    for a, b in zip(tree.leaves(grads_k), tree.leaves(grads_p)):
+        assert float((a - b).norm() / b.norm().clamp_min(1e-30)) <= 1e-4
+
+
+def test_gin_on_the_card_without_layouts_raises(cuda):
+    """A CUDA batch without its BSR layouts never takes the plain
+    aggregation: ``loss_fn`` raises, naming ``gin_layouts``."""
+    cfg = gin_tu.ARCH.make_config("molecule")
+    batch = next(molecule_batches(8, 30, 64, 16, 2, seed=5))
+    params = gnn.init(cfg, _gen(cuda, 0), device=cuda)
+    dev_batch = {k: torch.as_tensor(v, device=cuda) for k, v in batch.items()}
+    with pytest.raises(ValueError, match="gin_layouts"):
+        gnn.loss_fn(params, dev_batch, cfg)
+
+
+@pytest.mark.parametrize("kind", ["pna", "mgn"])
+def test_pna_and_mgn_train_steps_match_the_cpu(cuda, kind):
+    """A smoke-config step of ``loss_fn`` on the card against the CPU on
+    the same params and sampled batch: MeshGraphNet in float32, PNA in
+    float64 (its float32 std is rounding noise where messages nearly
+    coincide; tests/test_torch_gnn_train.py)."""
+    mod = {"pna": pna, "mgn": meshgraphnet}[kind]
+    dtype = torch.float64 if kind == "pna" else torch.float32
+    cfg = dataclasses.replace(mod.SMOKE, dtype=dtype)
+    g = rmat(2000, 12000, seed=1)
+    feats = gnn_features(g, cfg.d_in, cfg.n_classes, seed=0)
+    batch = next(minibatch_batches(g, feats, 64, (5, 3), 1024, 2048, seed=0))
+    params = gnn.init(cfg, torch.Generator().manual_seed(0), device="cpu")
+    loss_c, _, grads_c = loss_and_grads(
+        lambda p, b: gnn.loss_fn(p, b, cfg), params, batch)
+    loss_g, _, grads_g = loss_and_grads(
+        lambda p, b: gnn.loss_fn(p, b, cfg),
+        tree.map_(lambda t: t.to(cuda), params),
+        {k: torch.as_tensor(v, device=cuda) for k, v in batch.items()})
+    assert abs(float(loss_g) - float(loss_c)) <= 1e-5 * abs(float(loss_c))
+    for a, b in zip(tree.leaves(grads_g), tree.leaves(grads_c)):
+        assert float((a.cpu() - b).norm() / b.norm().clamp_min(1e-30)) \
+            <= 1e-4
 
 
 # tests/test_flash_kernel.py's CASES (b, sq, sk, h, kh, d, causal), the LM's
