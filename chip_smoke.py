@@ -2,7 +2,9 @@
 """Drive the PyTorch/CUDA port on one NVIDIA GPU: the partitioner, the
 two-tower retrieval serving path over a partition-sharded item table,
 GIN-TU graph classification through the BSR aggregation kernel, GNN
-training (GIN-TU through the kernel both ways, PNA, MeshGraphNet), the
+training (GIN-TU through the kernel both ways, PNA, MeshGraphNet),
+EquiformerV2 training (plain PyTorch: the reference has no kernel there),
+the
 Qwen2-1.5B prefill through the flash-attention kernel with the paged
 continuous-batching server, DeepSeek-V2-Lite's MoE + MLA prefill and
 absorbed decode, the mesh-mapping search, the paper's C1
@@ -157,6 +159,24 @@ non-zero:
            finite and the loss comes down in every run; (e) ``bsr_spmm`` on
            the transposed layout on step 1's own cotangents against the
            plain product in float64.
+  equiformer  EquiformerV2 at full width (``configs/equiformer_v2.py``
+           BASE at ``molecule``: 12 layers, 128 channels, l_max 6, m_max 2,
+           8 heads; 103.3M parameters) from seed 0 with ``remat``, float32,
+           TF32 off, launch counts set to 0 just before it (no port kernel
+           lies on this path, and none launches): ``GNN_TRAIN_STEPS`` AdamW
+           steps of ``molecule_batches(128, 30, 64, 16, 2, seed=0)`` (3,840
+           nodes, 15,286 arcs and ``pos`` a batch) through ``loop.run`` at
+           lr ``EQ_LR``, with one traced step (idle share, top operations):
+           s a step, molecules/s, model TFLOP/s, peak bytes. Gates at
+           ``EQ_CUT_LAYERS`` layers of full width: (a) finite and the loss
+           comes down; (b) step 1's first 16 molecules, the card's loss
+           and gradients against the CPU's; (c) the chunked arc path
+           (``edge_chunk`` ``EQ_CHUNK``, 4 chunks) against the direct one
+           on step 1's 128 molecules, with each one's seconds and peak
+           bytes; (d) the logits with every position rotated by a seeded
+           rotation, and a planted fault (the value messages rotated back
+           by D, not Dᵀ, by replacing ``models.equiformer._rotate``) that
+           must fail the band by ``EQ_FAULT_TIMES``x.
 
   lm       ``qwen2-1.5b`` at full width (``configs/qwen2_1_5b.py:FULL``:
            28 layers, d_model 1536, 12 query heads on 2 KV heads of 128,
@@ -246,7 +266,8 @@ non-zero:
            the total-cut imbalance under its limit (``C1_*`` below). Every
            ``partition_gain`` output of the run (the first call at each
            level and k) must equal its plain version on the CPU bitwise,
-           and ``total_cut_partition`` with numpy draws on the card must
+           and ``total_cut_partition`` with numpy draws (and
+           ``C1_REPLAY_ROUNDS`` refinement rounds a level) on the card must
            equal the same call on the CPU vertex for vertex. A control,
            the total-cut partition with its refinement off, is reported
            against the band. The rows come from the port's bench twin
@@ -329,7 +350,9 @@ backward, ``train``; ``gather_combine``, ``bag_combine`` (bf16 too),
 ``prefix_split`` its alternation and ``initial_partition_device``'s wall;
 ``bsr_spmm`` its second bound, tile and slabs read, and its rows on the
 gnn_train backward's transposed layouts, ``transposed``).
-Last, the result line ``{"ok": true, "device": {...}}``.
+Just before the kernels line, one line ``{"phase": "timing", ...}``: each
+phase's seconds and the total. Last, the result line ``{"ok": true,
+"device": {...}}``.
 Without a CUDA device it exits 2 and prints no result; it never runs on the
 CPU.
 """
@@ -402,6 +425,33 @@ GNN_TRAIN_CUT_LAYERS = 2
 # gates (a), (c): train (b)'s float32 bands (loss rel, per-leaf rel L2)
 GNN_TRAIN_LOSS_RTOL = 1e-5
 GNN_TRAIN_GRAD_REL_L2 = 1e-4
+
+# The equiformer phase: EquiformerV2 at full width (configs/equiformer_v2.py
+# BASE at the molecule shape: 12 layers, 128 channels, l_max 6, m_max 2, 8
+# heads, d_in 16, 2 classes, graph-level) with remat on (one layer's
+# edge-frame tensors, [arcs, 49, 256] float32, are several GB), float32 with
+# TF32 off, on molecule_batches(128, 30, 64, 16, 2, seed=0): GNN_TRAIN_STEPS
+# AdamW steps at EQ_LR. Gates (b)-(d) cut the depth to EQ_CUT_LAYERS:
+# (b) step 1's first EQ_CPU_GRAPHS molecules, card against CPU in the
+# gnn_train bands; (c) step 1's 128 molecules with edge_chunk EQ_CHUNK
+# against 0 (logits within GNN_RTOL's band); (d) the logits of (c) with
+# every position rotated by a seeded rotation, within EQ_INVARIANCE_TOL of
+# the largest logit (float32; the CPU reads 4.3e-7 at 16 molecules), and the
+# planted fault (value messages rotated back by D, not its transpose) at
+# least EQ_FAULT_TIMES the band (the CPU reads 2.9e-2 there).
+# gnn_train's 1e-3 without warm-up (6 steps) throws the loss up after the
+# first step in both packages on the same params and batches (the reference
+# 1.04 -> 4.47 at 1e-3, 1.04 -> 1.77 at 3e-4, not at 1e-4;
+# scripts/equiformer_lr_reference.py, full width on 16 molecules a step),
+# and the card's run at 1e-3 ends above its first loss (0.704 -> 6.68,
+# ..., 1.13, 0.753: gate (a) fails); scripts/equiformer_lr_card.py reads
+# the card's trajectory at each rate
+EQ_LR = 1e-4
+EQ_CUT_LAYERS = 2
+EQ_CPU_GRAPHS = 16
+EQ_CHUNK = 4096
+EQ_INVARIANCE_TOL = 1e-3
+EQ_FAULT_TIMES = 10
 
 # The LM phase: qwen2-1.5b at full width (configs/qwen2_1_5b.py FULL, bf16,
 # random weights from seed 0). prefill: 4 prompts of 4,096 tokens; its
@@ -592,6 +642,12 @@ C1_SPEEDUP_BAND = {case: (lo / C1_SPEEDUP_SLACK, hi * C1_SPEEDUP_SLACK)
 C1_REF_CUT_IMBALANCE = {"grid2d_64": 0.87890625, "grid3d_16": 0.1640625,
                         "rmat_20000": 0.05280006, "full": 2.23754883}
 C1_IMBALANCE_MARGIN = 0.10
+# The card-against-CPU replay of total_cut_partition (numpy draws on both)
+# runs this many refinement rounds a level, not the method's 64: the CPU's
+# plain rounds took 39.3 s on rmat_20000 (its ELL pads 133x) and 22.8 s on
+# the full cell of the c1 phase's 117 s (measured on one H100); every
+# level's conn, argmax, capacity and thinning still run on both
+C1_REPLAY_ROUNDS = 16
 # The claims phase's bands, from the reference's own rows
 # (scripts/claims_reference_rows.py, jax 0.9.0 on a CPU; PERF.md section
 # 2): the least and the largest of each checked number over seeds 0-3;
@@ -2570,11 +2626,12 @@ def _gnn_device_batch(batch, dev, layouts=False):
     return out
 
 
-def _gnn_train_run(cfg, params, batches, kernel_events):
-    """GNN_TRAIN_STEPS AdamW steps of ``gnn.loss_fn`` through ``loop.run``
-    and ``make_train_step`` with the train CLI's optimizer settings
-    (launches read around it), then one traced step from its end state.
-    Returns the readings and the step."""
+def _gnn_train_run(cfg, params, batches, kernel_events, loss_fn=None,
+                   lr=GNN_TRAIN_LR):
+    """GNN_TRAIN_STEPS AdamW steps of ``loss_fn`` (default ``gnn.loss_fn``
+    on ``cfg``) at ``lr`` through ``loop.run`` and ``make_train_step`` with
+    the train CLI's optimizer settings (launches read around it), then one
+    traced step from its end state. Returns the readings and the step."""
     import dataclasses as dc
 
     import numpy as np
@@ -2586,8 +2643,11 @@ def _gnn_train_run(cfg, params, batches, kernel_events):
     from repro_torch.optim import adamw
     from repro_torch.train import loop
     from repro_torch.train.steps import make_train_step
-    ocfg = tlaunch.optimizer_config(GNN_TRAIN_LR, GNN_TRAIN_STEPS)
-    step = make_train_step(lambda p, b: gnn.loss_fn(p, b, cfg), ocfg)
+    ocfg = tlaunch.optimizer_config(lr, GNN_TRAIN_STEPS)
+    if loss_fn is None:
+        def loss_fn(p, b):
+            return gnn.loss_fn(p, b, cfg)
+    step = make_train_step(loss_fn, ocfg)
     rec = []
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2928,6 +2988,200 @@ def phase_gnn_train(state):
     if failed:
         raise AssertionError(f"gnn_train checks failed: {failed}")
     _require_launched(counts, "gnn_train")
+
+
+def molecules_head(batch, graphs, nodes_per=30):
+    """The first ``graphs`` molecules of a ``molecule_batches`` batch: their
+    nodes, the arcs among them (the batch's adjacency is block-diagonal)
+    and their labels."""
+    import numpy as np
+    n = graphs * nodes_per
+    keep = batch["senders"] < n
+    if not (batch["receivers"][keep] < n).all():
+        raise AssertionError("an arc leaves the first molecules")
+    out = {k: batch[k][:n] for k in ("x", "pos", "degrees", "graph_id")}
+    out.update({k: batch[k][keep] for k in ("senders", "receivers",
+                                            "edge_weight")})
+    out.update({k: batch[k][:graphs] for k in ("labels", "label_mask")})
+    return {k: np.ascontiguousarray(v) for k, v in out.items()}
+
+
+def seeded_rotation(seed):
+    """A proper rotation matrix from a seeded Gaussian's QR."""
+    import numpy as np
+    q, _ = np.linalg.qr(np.random.default_rng(seed).normal(size=(3, 3)))
+    return q * np.linalg.det(q)
+
+
+def _rotated_back_by_d(rotate):
+    """The planted fault of gate (d): ``_rotate`` that applies D where the
+    value messages should be rotated back by its transpose."""
+    def fault(d_blocks, x, l_max, transpose=False):
+        return rotate(d_blocks, x, l_max)
+    return fault
+
+
+def phase_equiformer(state):
+    """EquiformerV2 training on the card at full width (remat), launch
+    counts set to 0 just before it (no port kernel lies on this path):
+    GNN_TRAIN_STEPS steps through ``loop.run`` at EQ_LR with one traced
+    step, then gates
+    (a) progress, (b) card against CPU, (c) the chunked arcs against the
+    direct ones, (d) rotation invariance with a planted fault."""
+    import dataclasses as dc
+    import itertools
+
+    import numpy as np
+    import torch
+
+    from repro_torch import tree
+    from repro_torch.configs import equiformer_v2
+    from repro_torch.data.pipeline import molecule_batches
+    from repro_torch.kernels import ops
+    from repro_torch.models import equiformer
+    from repro_torch.train.steps import loss_and_grads
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    checks, errors = {}, {}
+    allow = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ops.reset_launch_counts()
+
+    # -- (a) full width: GNN_TRAIN_STEPS steps of 128 molecules
+    cfg = dc.replace(equiformer_v2.ARCH.make_config("molecule"), remat=True)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    params = equiformer.init(cfg, gen, device=dev)
+    n_params = sum(t.numel() for t in tree.leaves(params))
+    host = list(itertools.islice(molecule_batches(
+        GNN_REQUEST_GRAPHS, 30, 64, 16, 2, seed=0), GNN_TRAIN_STEPS))
+    batches = [_gnn_device_batch(b, dev) for b in host]
+    run, _ = _gnn_train_run(
+        cfg, params, batches, {},
+        lambda p, b: equiformer.loss_fn(p, b, cfg), lr=EQ_LR)
+    state["launches"]["equiformer"] = ops.launch_counts()
+    flops = equiformer_v2.ARCH.model_flops("molecule")
+    emit("equiformer", step="train", arch="equiformer-v2", config="molecule",
+         layers=cfg.n_layers, channels=cfg.channels, l_max=cfg.l_max,
+         m_max=cfg.m_max, heads=cfg.n_heads, params=n_params,
+         graphs=GNN_REQUEST_GRAPHS, nodes=int(host[0]["x"].shape[0]),
+         arcs=len(host[0]["senders"]), edge_chunk=cfg.edge_chunk,
+         molecules_per_s=GNN_REQUEST_GRAPHS / run["warm_s_p50"],
+         model_flops_per_step=flops,
+         model_tflops_per_s=flops / run["warm_s_p50"] / 1e12,
+         mfu_f32=flops / run["warm_s_p50"] / H100_F32_PER_S,
+         tf32=torch.backends.cuda.matmul.allow_tf32,
+         nvidia_smi=state["smi"], **run)
+    checks["a_progress"] = _progress(run)
+    del params, run
+    torch.cuda.empty_cache()
+
+    # -- (b) the card against the CPU: 2 layers, step 1's first molecules
+    cut = dc.replace(cfg, n_layers=EQ_CUT_LAYERS, remat=False)
+    p_cpu = equiformer.init(cut, torch.Generator().manual_seed(0),
+                            device="cpu")
+    p_dev = tree.map_(lambda t: t.to(dev), p_cpu)
+    names = _leaf_names(p_cpu)
+
+    def grads(p, b, c):
+        return loss_and_grads(lambda pp, bb: equiformer.loss_fn(pp, bb, c),
+                              p, b)
+    small = molecules_head(host[0], EQ_CPU_GRAPHS)
+    t0 = time.perf_counter()
+    card = grads(p_dev, _gnn_device_batch(small, dev), cut)
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu = grads(p_cpu, small, cut)
+    cpu_s = time.perf_counter() - t0
+    l_rel, rel = _grads_against(card, cpu)
+    errors["b_card_vs_cpu"] = dict(
+        layers=EQ_CUT_LAYERS, graphs=EQ_CPU_GRAPHS,
+        nodes=int(small["x"].shape[0]), arcs=len(small["senders"]),
+        loss_card=float(card[0]), loss_cpu=float(cpu[0]), loss_rel=l_rel,
+        worst_leaf_rel_l2=max(rel), worst_leaf=names[int(np.argmax(rel))],
+        seconds=dict(card=card_s, cpu=cpu_s))
+    checks["b_card_vs_cpu"] = (l_rel <= GNN_TRAIN_LOSS_RTOL
+                               and max(rel) <= GNN_TRAIN_GRAD_REL_L2)
+    del card, cpu, p_cpu
+
+    # -- (c) chunked against direct arcs on the card, step 1's molecules
+    chunked = dc.replace(cut, edge_chunk=EQ_CHUNK)
+    b0 = batches[0]
+    readings = {}
+    for label, c in (("direct", cut), ("chunked", chunked)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = grads(p_dev, b0, c)
+        torch.cuda.synchronize()
+        readings[label] = (out, time.perf_counter() - t0,
+                           torch.cuda.max_memory_allocated())
+    with torch.no_grad():
+        lg = equiformer.forward(p_dev, b0, cut)
+        lg_c = equiformer.forward(p_dev, b0, chunked)
+    band = GNN_RTOL * (lg.abs().max() + lg.abs())
+    l_rel, rel = _grads_against(readings["chunked"][0],
+                                readings["direct"][0])
+    errors["c_chunked_vs_direct"] = dict(
+        chunk=EQ_CHUNK, chunks=-(-len(host[0]["senders"]) // EQ_CHUNK),
+        logit_max_abs_err=float((lg_c - lg).abs().max()),
+        logit_share_of_band=float(((lg_c - lg).abs() / band).max()),
+        loss_rel=l_rel, worst_leaf_rel_l2=max(rel),
+        worst_leaf=names[int(np.argmax(rel))],
+        seconds={k: v[1] for k, v in readings.items()},
+        max_memory_allocated={k: v[2] for k, v in readings.items()})
+    checks["c_chunked_vs_direct"] = bool(
+        ((lg_c - lg).abs() <= band).all() and l_rel <= GNN_TRAIN_LOSS_RTOL
+        and max(rel) <= GNN_TRAIN_GRAD_REL_L2)
+    del readings
+
+    # -- (d) rotation invariance on the card, and the planted fault
+    q = torch.as_tensor(seeded_rotation(5), dtype=torch.float32, device=dev)
+    b_rot = dict(b0, pos=b0["pos"] @ q.T)
+
+    def invariance():
+        with torch.no_grad():
+            a = equiformer.forward(p_dev, b0, cut)
+            r = equiformer.forward(p_dev, b_rot, cut)
+        return float((a - r).abs().max() / a.abs().max())
+    inv = invariance()
+    rotate = equiformer._rotate
+    equiformer._rotate = _rotated_back_by_d(rotate)
+    try:
+        planted = invariance()
+    finally:
+        equiformer._rotate = rotate
+    errors["d_invariance"] = dict(
+        l_max=cut.l_max, rel_max_abs_err=inv, band=EQ_INVARIANCE_TOL,
+        planted_rotate_back_by_d=planted,
+        planted_times_the_band=planted / EQ_INVARIANCE_TOL)
+    checks["d_rotation_invariant"] = inv <= EQ_INVARIANCE_TOL
+    checks["d_planted_fault_fails_10x"] = (
+        planted >= EQ_FAULT_TIMES * EQ_INVARIANCE_TOL)
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = \
+        allow
+    del p_dev, batches
+    counts = ops.launch_counts()
+
+    emit("equiformer", step="checks", tolerances=dict(
+        a="finite; mean of the last two losses below the first",
+        b=f"float32, TF32 off, full width at {EQ_CUT_LAYERS} layers, step "
+          f"1's first {EQ_CPU_GRAPHS} molecules: loss rel <= "
+          f"{GNN_TRAIN_LOSS_RTOL}, every gradient leaf's relative L2 <= "
+          f"{GNN_TRAIN_GRAD_REL_L2}, card against CPU",
+        c=f"edge_chunk {EQ_CHUNK} against 0 on step 1's molecules: logits "
+          f"|d| <= {GNN_RTOL} (max|logit| + |logit|), (b)'s loss and "
+          f"gradient bands",
+        d=f"positions rotated by a seeded rotation: max|d logit| <= "
+          f"{EQ_INVARIANCE_TOL} max|logit|; rotating back by D instead of "
+          f"its transpose must read {EQ_FAULT_TIMES}x that or more"),
+        max_abs_err=errors, launches=counts, nvidia_smi=state["smi"],
+        seconds=time.perf_counter() - t_phase, **checks)
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"equiformer checks failed: {failed}")
 
 
 def flash_bf16_judge(q, k, v, got, want, q_chunk, kv_chunk):
@@ -4132,13 +4386,16 @@ def phase_c1(state):
         gain = check_gain_calls(gains)
         if gain["not_bitwise"]:
             bad.append(f"partition_gain differs from plain: {gain}")
+        replay_cfg = dataclasses.replace(cfg, rounds=C1_REPLAY_ROUNDS)
         t0 = time.perf_counter()
-        on_card = baselines.total_cut_partition(g, topo.k, cfg,
+        on_card = baselines.total_cut_partition(g, topo.k, replay_cfg,
                                                 draws=NumpyDraws())
         t1 = time.perf_counter()
-        on_cpu = baselines.total_cut_partition(g, topo.k, cfg, device="cpu",
+        on_cpu = baselines.total_cut_partition(g, topo.k, replay_cfg,
+                                               device="cpu",
                                                draws=NumpyDraws())
-        replay = dict(card_s=t1 - t0, cpu_s=time.perf_counter() - t1,
+        replay = dict(rounds=C1_REPLAY_ROUNDS, card_s=t1 - t0,
+                      cpu_s=time.perf_counter() - t1,
                       differing=int((on_card != on_cpu).sum()))
         if replay["differing"]:
             bad.append(f"total-cut on the card differs from the CPU run at "
@@ -4867,7 +5124,8 @@ def phase_train_recsys(state):
 
 PHASES = (phase_env, phase_build, phase_kernels, phase_kernels_recsys,
           phase_full, phase_small, phase_recsys, phase_kernels_gnn,
-          phase_gnn, phase_gnn_train, phase_kernels_lm, phase_lm,
+          phase_gnn, phase_gnn_train, phase_equiformer, phase_kernels_lm,
+          phase_lm,
           phase_lm_mla, phase_mapping,
           phase_c1,
           phase_claims, phase_train, phase_train_recsys)
@@ -4960,9 +5218,15 @@ def main() -> int:
     import repro_torch  # noqa: F401  (fails here when run outside the repo)
 
     state = {"launches": {}}
+    seconds = {}
+    t_all = time.perf_counter()
     for phase in PHASES:
+        t0 = time.perf_counter()
         phase(state)
         torch.cuda.empty_cache()    # a phase's tensors go with it
+        seconds[phase.__name__[len("phase_"):]] = time.perf_counter() - t0
+    emit("timing", seconds=seconds, total=time.perf_counter() - t_all,
+         nvidia_smi=state["smi"])
     print(json.dumps(kernels_line(state)), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

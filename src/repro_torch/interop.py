@@ -3,7 +3,8 @@
 The port never imports the JAX package. These helpers read the numpy
 fields of the reference's ``Graph``, ``TreeTopology`` / ``RoutingTopology``,
 ``MachineSpec``, ``PartitionConfig``, ``RefineConfig`` and ``ShardPlan`` by
-name (duck typing), or the two-tower, GNN and transformer parameter dicts
+name (duck typing), or the two-tower, GNN (EquiformerV2 too) and
+transformer parameter dicts
 as numpy arrays, and build the port's own objects, so a test can give both packages
 the same inputs. Gradients, AdamW moments and compression residuals of
 the transformer and the GNNs map through ``transformer_params_from`` and
@@ -125,13 +126,15 @@ def _unstack(tree, li: int):
 
 
 def gnn_tree_from(params) -> Dict:
-    """The port's functional GNN params (``models.gnn.init``'s layout: CPU
-    tensors) from the reference's param dict of any kind: ``encode``,
-    ``decode`` and MeshGraphNet's ``edge_encode`` (``{"w": [...], "b":
-    [...], "ln"?}``) as they are, and the ``layers`` stacked on axis 0
-    (GIN ``mlp`` and ``eps``, PNA ``pre`` and ``post``, MeshGraphNet
-    ``edge`` and ``node``) unstacked into one dict per layer. Any tree of
-    the params' structure maps the same way (gradients, AdamW moments)."""
+    """The port's functional GNN params (``models.gnn.init``'s or
+    ``models.equiformer.init``'s layout: CPU tensors) from the reference's
+    param dict of any kind: ``encode``, ``decode`` and MeshGraphNet's
+    ``edge_encode`` (``{"w": [...], "b": [...], "ln"?}``) as they are, and
+    the ``layers`` stacked on axis 0 (GIN ``mlp`` and ``eps``, PNA ``pre``
+    and ``post``, MeshGraphNet ``edge`` and ``node``, EquiformerV2's
+    nested ``conv1`` / ``conv2`` SO(2) dicts, ``rbf_mlp`` and its matrices
+    and norms) unstacked into one dict per layer. Any tree of the params'
+    structure maps the same way (gradients, AdamW moments)."""
     out = {}
     for key, sub in params.items():
         if key != "layers":

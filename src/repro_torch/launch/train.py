@@ -1,5 +1,5 @@
 """Training CLI of the port: twin of ``repro/launch/train.py`` for the LM,
-recsys and message-passing GNN families.
+recsys and GNN families (the message-passing GNNs and EquiformerV2).
 
     # on the card: Qwen2-1.5B at full width (train_4k's config), random
     # weights from seed 0
@@ -21,18 +21,21 @@ recsys and message-passing GNN families.
         --arch two-tower-retrieval --smoke --device cpu --embed-shard \\
         --prefetch 2 [--fault-plan "3:leaf_death:1" --ckpt-dir DIR]
     PYTHONPATH=src python -m repro_torch.launch.train --arch pna \\
-        --smoke --device cpu --steps 20     # or gin-tu, meshgraphnet
+        --smoke --device cpu --steps 20     # or gin-tu, meshgraphnet,
+                                            # equiformer-v2
 
 ``--smoke`` runs the reduced config; without it the full config is
 ``make_config`` of the grid's first shape (``train_4k`` for the LMs).
-The GNN family trains only with ``--smoke``, on ``arch.smoke_batch()``
-every step, as the reference CLI does (GIN's batch carries its BSR
-layouts, so it aggregates through ``bsr_spmm`` both ways). Without
-``--smoke`` the reference CLI feeds that batch (``d_feat`` 8) to the
-first shape's config (``full_graph_sm``: ``d_in`` 1,433) and crashes;
-this one refuses the combination. A GNN trains at full width on the
-grid's own batches through ``train.steps.make_train_step`` and
-``train.loop.run`` directly.
+The GNN family (GIN-TU, PNA, MeshGraphNet and EquiformerV2, whose model
+module is picked by the arch's name, ``models/equiformer.py``, as the
+reference picks it) trains only with ``--smoke``, on
+``arch.smoke_batch()`` every step, as the reference CLI does (GIN's batch
+carries its BSR layouts, so it aggregates through ``bsr_spmm`` both
+ways; EquiformerV2's carries ``pos``). Without ``--smoke`` the reference
+CLI feeds that batch (``d_feat`` 8) to the first shape's config
+(``full_graph_sm``: ``d_in`` 1,433) and crashes; this one refuses the
+combination. A GNN trains at full width on the grid's own batches through
+``train.steps.make_train_step`` and ``train.loop.run`` directly.
 Weights are random, made from seed 0: the real checkpoints are not in the
 repository. The batches are ``data.pipeline.lm_batches`` /
 ``recsys_batches`` (seed 0) and the optimizer is AdamW with the
@@ -59,7 +62,6 @@ degraded, the newest checkpoint restored, the batch stream replayed from
 its step, and the stitched loss trajectory is the uninterrupted one.
 
 Not ported, because they belong to later slices (ROADMAP Queue 1):
-``equiformer-v2`` (item 7; its ``--arch`` raises ``NotImplementedError``);
 ``--profile``, ``--topology-aware``, ``--machine``, ``--map-restarts``
 and ``--lint`` (meshes, their mapping search and the sharding lint,
 items 8 and 9). One card has no mesh for them to act on.
@@ -81,14 +83,10 @@ from repro_torch.optim import adamw
 from repro_torch.train import loop
 from repro_torch.train.steps import make_train_step
 
-# archs of the reference's registry that the port does not run yet
-_LATER = {"equiformer-v2": "equiformer-v2 (SO(3) equivariant message "
-                           "passing) waits for ROADMAP Queue 1, item 7"}
-
-
 def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
-        description="LM, recsys and GNN training on the port.",
+        description="LM, recsys and GNN (EquiformerV2 too) training on "
+                    "the port.",
         epilog="Not ported from the reference CLI: --profile, "
                "--topology-aware, --machine, --map-restarts and --lint "
                "(meshes and their lint).")
@@ -230,8 +228,6 @@ class TrainSetup:
 def build(args) -> TrainSetup:
     """Build the model, optimizer, step, loop config and batch stream from
     parsed arguments (printing what the reference CLI prints)."""
-    if args.arch in _LATER:
-        raise NotImplementedError(_LATER[args.arch])
     arch = configs.get(args.arch)
     cfg = arch.smoke_config() if args.smoke else arch.make_config(
         next(iter(arch.shapes)))
@@ -250,10 +246,12 @@ def build(args) -> TrainSetup:
     gen.manual_seed(0)
     if arch.family == "lm":
         from repro_torch.models import transformer as mdl
-    elif arch.family == "gnn":
-        from repro_torch.models import gnn as mdl
-    else:
+    elif arch.family == "recsys":
         from repro_torch.models import recsys as mdl
+    elif arch.name == "equiformer-v2":
+        from repro_torch.models import equiformer as mdl
+    else:
+        from repro_torch.models import gnn as mdl
     params = mdl.init(cfg, gen, device=dev)
     n_params = sum(int(np.prod(x.shape)) for x in tree.leaves(params))
     print(f"arch={arch.name} params={n_params / 1e6:.1f}M devices=1 "
@@ -321,7 +319,7 @@ def build(args) -> TrainSetup:
 
     def on_device(b):
         out = to_device(b, dev)
-        if arch.family == "gnn" and cfg.kind == "gin":
+        if arch.family == "gnn" and getattr(cfg, "kind", None) == "gin":
             from repro_torch.models.gnn import gin_layouts
             out.update(gin_layouts(b, device=dev))
         return out

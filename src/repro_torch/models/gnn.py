@@ -1,7 +1,7 @@
 """GNN family: GIN, PNA and MeshGraphNet, forward and training. Twin of
 ``repro/models/gnn.py`` (``GNNConfig``, ``edge_apply``, ``segment_agg``,
 ``init``, ``_gin_layer`` / ``_pna_layer`` / ``_mgn_layer``, ``forward`` and
-``loss_fn``); EquiformerV2 is not ported.
+``loss_fn``); EquiformerV2 is ``models/equiformer.py``.
 
 Message passing is ``gather -> message -> index_add_`` over the arc list,
 as the reference's ``segment_sum``, directly or (``cfg.edge_chunk > 0``)

@@ -59,7 +59,10 @@ def test_port_sources_exist():
                  "examples/torch_retrieval_serving.py",
                  "examples/torch_gnn_partitioned_training.py",
                  "src/repro_torch/configs/pna.py",
-                 "src/repro_torch/configs/meshgraphnet.py"):
+                 "src/repro_torch/configs/meshgraphnet.py",
+                 "src/repro_torch/models/so3.py",
+                 "src/repro_torch/models/equiformer.py",
+                 "src/repro_torch/configs/equiformer_v2.py"):
         assert must in names
 
 

@@ -631,12 +631,29 @@ def test_cli_trains_on_the_cpu(capsys, tmp_path):
     assert ckpt.latest_step(str(tmp_path)) == 3
 
 
-def test_cli_refuses_families_that_are_not_ported():
-    """equiformer-v2 is the one arch of the reference's registry the port
-    does not run yet (ROADMAP Queue 1, item 7)."""
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tlaunch.main(["--arch", "equiformer-v2", "--smoke", "--device",
-                      "cpu"])
+def test_cli_refuses_families_that_are_not_ported(capsys):
+    """No arch of the reference's registry is left unported: the port's
+    registry holds every one, and the last of them, equiformer-v2 (its
+    model module picked by name, as the reference picks it), trains on the
+    CPU through the CLI."""
+    assert sorted(tconfigs.REGISTRY) == sorted(jconfigs.REGISTRY)
+    tlaunch.main(["--arch", "equiformer-v2", "--smoke", "--device", "cpu",
+                  "--steps", "2"])
+    out = capsys.readouterr().out
+    assert "arch=equiformer-v2" in out
+    first, last = (float(v) for v in
+                   out.split("steps=2 resumed_from=None loss ")[1].split()[
+                       0:3:2])
+    assert np.isfinite([first, last]).all()
+
+
+def test_cli_refuses_equiformer_without_smoke():
+    """Without ``--smoke`` the CLI refuses EquiformerV2 as it refuses the
+    other GNNs: the reference CLI feeds the smoke batch to the first
+    shape's config and crashes."""
+    with pytest.raises(SystemExit, match=r"d_feat 8\).*d_in 1433"):
+        tlaunch.main(["--arch", "equiformer-v2", "--device", "cpu",
+                      "--steps", "1"])
 
 
 def test_train_entry_points_need_a_card(monkeypatch):
