@@ -22,7 +22,8 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
-from benchmarks.torch_common import TINY, bench_device, emit, timed, tiny
+from benchmarks.torch_common import (TINY, bench_device, emit, public,
+                                     timed, tiny)
 from repro_torch import resolve_device
 from repro_torch.core import baselines, mapping
 from repro_torch.core.machine import resolve
@@ -131,11 +132,6 @@ def vcycle(device, seed: int = 0,
     return rows
 
 
-def _public(row: dict) -> dict:
-    """A row's numbers, without what it scored."""
-    return {k: v for k, v in row.items() if k != "scored"}
-
-
 def run() -> None:
     dev = bench_device()
     out = {"size": [], "k": [], "vcycle": [], "tiny": TINY,
@@ -145,13 +141,13 @@ def run() -> None:
              makespan=round(r["makespan"], 1),
              vs_random=round(r["vs_random"], 2),
              edges_per_sec=int(r["edges_per_sec"]))
-        out["size"].append(_public(r))
+        out["size"].append(public(r))
     for r in scaling_k(dev):
         emit("scaling_k", r["bench_name"], r["seconds"], k=r["k"],
              makespan=round(r["makespan"], 1),
              comp_max=round(r["comp_max"], 1),
              comm_max=round(r["comm_max"], 1))
-        out["k"].append(_public(r))
+        out["k"].append(public(r))
     for r in vcycle(dev):
         for backend in ("host", "device"):
             emit("scaling_vcycle", f"{backend}_m{r['m']}", r[f"{backend}_s"],
@@ -159,7 +155,7 @@ def run() -> None:
                  map_s=round(r[f"{backend}_map_s"], 4),
                  makespan=round(r[f"{backend}_makespan"], 1),
                  bottleneck=round(r[f"{backend}_bottleneck"], 4))
-        out["vcycle"].append(_public(r))
+        out["vcycle"].append(public(r))
     with open("BENCH_torch_scaling.json", "w") as f:
         json.dump(out, f, indent=1)
     best = max(r["speedup"] for r in out["vcycle"])

@@ -34,6 +34,11 @@ def emit(bench: str, name: str, seconds: float, **derived):
     print(f"{bench},{name},{round(seconds * 1e6, 1)},{extras}", flush=True)
 
 
+def public(row: dict) -> dict:
+    """A twin's row without what it scored (``scored``)."""
+    return {k: v for k, v in row.items() if k != "scored"}
+
+
 def spmv_step_time(g, topo: TreeTopology, part, device,
                    t_comp: float = 1.0,
                    t_byte: float = 1.0) -> Dict[str, float]:

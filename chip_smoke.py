@@ -9,7 +9,9 @@ Qwen2-1.5B prefill through the flash-attention kernel with the paged
 continuous-batching server, DeepSeek-V2-Lite's MoE + MLA prefill and
 absorbed decode, the mesh-mapping search, the paper's C1
 comparison against the total-cut baselines, its remaining claims (C2, C3,
-C4, the section 3.1 variants, scaling), and Qwen2-1.5B training.
+C4, the section 3.1 variants, scaling), Qwen2-1.5B training,
+DeepSeek-V2-Lite training at full width (its depth cut), and the twins of
+the placement bench, the serving bench and the 100M-LM example.
 
     python3 chip_smoke.py
 
@@ -310,6 +312,27 @@ non-zero:
            gradients on the card equal to the CPU's bitwise; (f) SMOKE on
            the card: 8 steps straight against 4, a checkpoint and a
            resumed ``loop.run``, bitwise.
+  train_mla  ``deepseek-v2-lite-16b`` at train_4k's config (FULL widths,
+           bf16, remat, capacity factor 1.5) from seed 0, its depth cut to
+           ``TRAIN_MLA_LAYERS`` (1 dense + 4 MoE; the cut is in the run
+           line's ``reduced``). Gates (a) and (d) first, on step 1's
+           params: (a) as train's, on the first and last layers' own q, k,
+           v (D = 192, Dv = 128) and output cotangents; (d) each MoE
+           layer's aux loss above 0 and its dropped share reported. Then
+           ``TRAIN_MLA_STEPS`` AdamW steps of ``lm_batches(102400, 4,
+           4096, seed=0)`` through ``loop.run`` at ``TRAIN_MLA_LR``, launch
+           counts set to 0 just before (2 ``flash_attention`` launches a
+           layer a step, each at (192, 128) in bf16 with its log-sum-exp,
+           recorded by wrapping ``kernels.flash_attention.kernel_fwd``):
+           cold and warm step seconds, tokens/s, ``mfu``, peak bytes (at
+           most ``TRAIN_MLA_PEAK_BYTES``), one traced step; the kernel with
+           and without lse, SDPA and the plain backward on layer 0's
+           inputs. Gates (b): FULL widths at 2 layers in float32, 1 x 512
+           tokens, the MoE layer's expert ids equal on card and CPU, then
+           the card's loss, aux and gradients against the CPU's in train
+           (b)'s bands, and a planted fault (the router's top-k weights
+           detached from autograd, by replacing ``transformer.route``)
+           failing them; (c) finite, and the loss comes down.
   train_recsys  two-tower retrieval at full width (1M x 256 item table)
            through the train CLI's ``build`` with ``TRAIN_RECSYS_CLI``
            (``--embed-shard --embed-machine gpu-superpod
@@ -327,6 +350,39 @@ non-zero:
            resumed from 2; (e) finite, the loss comes down; (f) the
            hot-row cache's invariants, its traffic below the replicated
            baseline, the prefetcher ran ahead.
+  placement  ``benchmarks/torch_bench_placement.py``'s four rows at the
+           full tier (expert placement on a 2 x 8 x 10 tree and on
+           ``tpu-mixed-32``, embedding rows on ``production_tree(2, 4,
+           4)``, BSR locality), launch counts set to 0 just before: each
+           number that the partition seed moves within its
+           ``CLAIMS_REF`` band (the reference's rows over seeds 0-3 with
+           C1's slack), each that no seed moves (the scatter and hash
+           baselines, the unplaced layout's blocks, the fast pod's FLOPs)
+           within rel 1e-6 of the reference's (``CLAIMS_EXACT``), each
+           scorecard against a
+           float64 host re-evaluation at rel 1e-4, the bench's
+           heterogeneous claims (they raise inside the twin).
+  serving_bench  ``benchmarks/torch_bench_serving.py`` at its full tier
+           (32 requests, 8 slots, page 8: continuous, static, placed every
+           8 steps on 4 bins, a leaf death at a third of the steps), launch
+           counts set to 0 just before: at qwen2-1.5b SMOKE from seed 0
+           every schedule field of the three rows without a fault equal to
+           the reference's (``SERVING_REF``), the chaos row reported beside
+           the reference's; then at qwen2-1.5b FULL in bf16 from seed 0,
+           tokens/s recorded. The bench's claims raise inside the twin in
+           both runs. The engine steps through the paged decode, so no
+           ``flash_attention`` launches here; ``map_pages`` runs the
+           partitioner kernels.
+  lm100m   ``flash_attention`` at the example's shape (4 x 128, 8 heads
+           on 4, D = 64, float32) with its log-sum-exp, out and lse held
+           to the plain forward at FLASH_F32_TOL; then
+           ``examples/torch_train_lm_100m.py`` at its defaults (12 x 512
+           float32, 300 steps of 4 x 128, checkpoints every 100) in a
+           process of its own: it exits 0 (its own learned-assert),
+           checkpoints 100, 200 and 300 are written, and the launch counts
+           it prints (its own counters, zeroed before its loop) show one
+           ``flash_attention`` launch a layer a step (float32, D = 64,
+           with lse: the SIMT kernel).
 
 Then one line ``{"kernels": [...]}``: each kernel's launches on the path
 that drives it (``full`` for the partitioner's kernels but
@@ -336,8 +392,9 @@ round as ``match_round`` and the initial split runs as ``prefix_split``,
 with 0 and ``on_path_as``; ``recsys`` for the bag kernels,
 ``gnn`` for ``bsr_spmm``, which also launches on ``gnn_train``, ``lm`` for
 ``flash_attention``, which also
-launches on ``train``; ``serve_chaos`` and ``train_recsys`` are paths
-too), its launches
+launches on ``train``, ``train_mla`` and ``lm100m``; ``serve_chaos``,
+``train_recsys``, ``placement`` and ``serving_bench`` are paths too), its
+launches
 on every path (``serve`` and ``serve_wide`` show which partitioner
 kernels the server reaches; ``mapping``, ``c1`` and ``claims`` that the
 search, the baselines and the claims' twins run ``quotient_link_loads``
@@ -349,7 +406,8 @@ backward, ``train``; ``gather_combine``, ``bag_combine`` (bf16 too),
 ``match_round`` and ``prefix_split`` every shape, ``shapes``, and
 ``prefix_split`` its alternation and ``initial_partition_device``'s wall;
 ``bsr_spmm`` its second bound, tile and slabs read, and its rows on the
-gnn_train backward's transposed layouts, ``transposed``).
+gnn_train backward's transposed layouts, ``transposed``;
+``flash_attention`` its training shapes, ``train`` and ``train_mla``).
 Just before the kernels line, one line ``{"phase": "timing", ...}``: each
 phase's seconds and the total. Last, the result line ``{"ok": true,
 "device": {...}}``.
@@ -358,6 +416,7 @@ CPU.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import json
@@ -584,6 +643,51 @@ TRAIN_RESUME_STEPS = 8
 TRAIN_RESUME_AT = 4
 TRAIN_RESUME_BATCH = (4, 64)
 
+# The train_mla phase: deepseek-v2-lite-16b at train_4k's config (FULL
+# widths, bf16, remat, capacity factor 1.5) from seed 0, its depth cut from
+# 27 layers to TRAIN_MLA_LAYERS (the first dense, the rest MoE): one card
+# holds no more (PERF.md section 4: AdamW's update makes new params and
+# moments beside the old ones, ~23 bytes a parameter at its peak, and a
+# MoE layer holds 584.8M parameters; scripts/mla_train_memory.py read
+# 53.5 / 66.3 / 79.2 GB at 4 / 5 / 6 layers), TRAIN_MLA_STEPS AdamW steps of
+# lm_batches(102400, 4, 4,096, seed=0) at TRAIN_MLA_LR through loop.run;
+# the peak must stay below TRAIN_MLA_PEAK_BYTES.
+TRAIN_MLA_LAYERS = 5
+TRAIN_MLA_BATCH = (4, 4096)
+TRAIN_MLA_STEPS = 6
+TRAIN_MLA_LR = 3e-3
+TRAIN_MLA_PEAK_BYTES = 72e9
+# gate (b): FULL widths cut to 2 layers (1 dense + 1 MoE), float32, TF32
+# off, 1 x 512 tokens: the card's loss, aux and gradients against the
+# CPU's in train (b)'s bands, once the MoE layer's expert ids are equal
+TRAIN_MLA_F32_LAYERS = 2
+TRAIN_MLA_F32_BATCH = (1, 512)
+
+# The serving_bench phase: benchmarks/torch_bench_serving.py's full tier
+# (32 requests, 8 slots, page 8) twice: at qwen2-1.5b SMOKE from seed 0,
+# as the reference bench runs it, where every schedule field of the rows
+# without a fault must equal the reference's full-tier row (python -m
+# benchmarks.bench_serving, jax 0.9.0 on a CPU; the schedule depends on the
+# workload and the scheduler only); and at qwen2-1.5b FULL in bf16 on the
+# same workload shape, where the bench's own claims must hold. The chaos
+# row's retries depend on where placement put the pages, so its schedule
+# is reported beside the reference's and gated by the bench's claims only.
+SERVING_REF = {
+    "continuous_x8": dict(steps=85, tokens_out=271, latency_p50=45.5,
+                          latency_p99=84.69, ttft_p50=38.5, ttft_p99=83.69,
+                          occupancy=0.9353),
+    "static_x8": dict(steps=122, tokens_out=271, latency_p50=65.5,
+                      latency_p99=121.69, ttft_p50=59.0, ttft_p99=120.0,
+                      occupancy=0.6516),
+    "continuous_placed_x8": dict(steps=85, tokens_out=271, latency_p50=45.5,
+                                 latency_p99=84.69, ttft_p50=38.5,
+                                 ttft_p99=83.69, occupancy=0.9353),
+}
+SERVING_REF_CHAOS = dict(steps=100, tokens_out=271, latency_p50=53.0,
+                         latency_p99=99.38, ttft_p50=42.5, ttft_p99=87.0,
+                         occupancy=0.8588, requests_retried=4,
+                         tokens_reprefilled=59)
+
 # serve_chaos: the lm serve stream (LM_SERVE, LM_SERVE_POLICY) with this
 # fault plan, at LM_TEMPERATURE and greedy, on the same weights. Up to step
 # 7 every request's tokens fit its first page, so the measured page
@@ -645,9 +749,10 @@ C1_IMBALANCE_MARGIN = 0.10
 # The card-against-CPU replay of total_cut_partition (numpy draws on both)
 # runs this many refinement rounds a level, not the method's 64: the CPU's
 # plain rounds took 39.3 s on rmat_20000 (its ELL pads 133x) and 22.8 s on
-# the full cell of the c1 phase's 117 s (measured on one H100); every
-# level's conn, argmax, capacity and thinning still run on both
-C1_REPLAY_ROUNDS = 16
+# the full cell of the c1 phase's 117 s at 64, 11.9 s and 14.0 s of its
+# 85 s at 16 (measured on one H100); every level's conn, argmax, capacity
+# and thinning still run on both
+C1_REPLAY_ROUNDS = 4
 # The claims phase's bands, from the reference's own rows
 # (scripts/claims_reference_rows.py, jax 0.9.0 on a CPU; PERF.md section
 # 2): the least and the largest of each checked number over seeds 0-3;
@@ -704,6 +809,38 @@ CLAIMS_TORUS.update({
     'torus_multipath=True': {'makespan': 1072.0, 'max_link': 1072.0, 'total_link': 17785.0},
 })
 # (end of the generated bands)
+# The placement phase: benchmarks/torch_bench_placement.py's full tier on
+# the card, each number the partition seed moves within [min /
+# CLAIMS_SLACK, max * CLAIMS_SLACK] of the reference's rows over partition
+# seeds 0-3 (scripts/placement_reference_rows.py, jax 0.9.0 on a CPU; C1's
+# slack: the port draws other numbers than any reference seed), and each
+# number no seed moves (the baselines score the bench's own draws) in
+# CLAIMS_EXACT: within CLAIMS_EXACT_RTOL of max(|value|, 1), float32 sums
+# in another order
+CLAIMS_EXACT = {}
+CLAIMS_EXACT_RTOL = 1e-6
+# (scripts/placement_reference_rows.py --bands over its rows)
+CLAIMS_REF.update({
+    ('placement', 'bsr_locality_4096', 'block_density_after'): (0.13, 0.2216),
+    ('placement', 'bsr_locality_4096', 'blocks_after'): (1935.0, 2189.0),
+    ('placement', 'embedding_rows_4096', 'hot_device_ours'): (718.1415, 1296.1219),
+    ('placement', 'embedding_rows_4096', 'hot_link_ours'): (5590.0, 6528.0),
+    ('placement', 'hetero_experts_96', 'makespan_ours'): (3214.9274, 3476.4236),
+    ('placement', 'moe_experts_160', 'bottleneck_ours'): (51243.7031, 51316.9063),
+    ('placement', 'moe_experts_160', 'makespan_ours'): (51243.7031, 51316.9063),
+})
+CLAIMS_EXACT.update({
+    ('placement', 'bsr_locality_4096', 'block_density_before'): 0.8896484375,
+    ('placement', 'bsr_locality_4096', 'blocks_before'): 911,
+    ('placement', 'embedding_rows_4096', 'hot_device_hash'): 708.646484375,
+    ('placement', 'embedding_rows_4096', 'hot_link_hash'): 82120.0,
+    ('placement', 'hetero_experts_96', 'fast_pod_flops'): 116.05223149720018,
+    ('placement', 'hetero_experts_96', 'makespan_scatter'): 37114.109375,
+    ('placement', 'hetero_experts_96', 'slow_pod_flops'): 0.0,
+    ('placement', 'moe_experts_160', 'bottleneck_scatter'): 101352.5546875,
+    ('placement', 'moe_experts_160', 'makespan_scatter'): 101352.5546875,
+})
+# (end of the generated placement entries)
 # the scaling rows the smoke runs (the twin's full tier also runs
 # size_400000 and vcycle_1000000, minutes of host work each)
 CLAIMS_SCALING_ROWS = ("size_10000", "size_100000", "k_1x4x4", "k_1x16x16",
@@ -722,7 +859,11 @@ CLAIMS_SCALING_ROWS = ("size_10000", "size_100000", "k_1x4x4", "k_1x16x16",
 # the recsys plan's host V-cycle scores through quotient_link_loads only;
 # the mapping search re-scores through it; the C1 table scores every method
 # through it and the total-cut baselines take their connectivity rows from
-# partition_gain)
+# partition_gain; the placement bench's host V-cycles score through
+# quotient_link_loads and refine their dense levels through
+# partition_gain, and the serving bench's map_pages runs both; training
+# launches flash_attention forward and in the remat recompute, the 100M-LM
+# example once a layer a step)
 KERNEL_INFO = {
     "match_keys": ("src/repro_torch/csrc/match_keys.cu",
                    "src/repro/kernels/match_keys.py:60", ()),
@@ -737,10 +878,12 @@ KERNEL_INFO = {
     "quotient_link_loads": ("src/repro_torch/csrc/quotient_link_loads.cu",
                             "src/repro/kernels/quotient_link_loads.py:99",
                             ("full", "small", "recsys", "mapping", "c1",
-                             "claims", "serve_chaos")),
+                             "claims", "serve_chaos", "placement",
+                             "serving_bench")),
     "partition_gain": ("src/repro_torch/csrc/partition_gain.cu",
                        "src/repro/kernels/partition_gain.py:67",
-                       ("small", "c1", "claims", "serve_chaos")),
+                       ("small", "c1", "claims", "serve_chaos",
+                        "placement", "serving_bench")),
     "bag_combine": ("src/repro_torch/csrc/bag_combine.cu",
                     "src/repro/kernels/bag_combine.py:59",
                     ("recsys", "train_recsys")),
@@ -751,7 +894,8 @@ KERNEL_INFO = {
                  "src/repro/kernels/bsr_spmm.py:94", ("gnn", "gnn_train")),
     "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:115",
-                        ("lm", "train", "lm_mla")),
+                        ("lm", "train", "lm_mla", "train_mla",
+                         "lm100m")),
 }
 
 
@@ -1241,16 +1385,11 @@ def phase_kernels_split(state):
             t0 = time.perf_counter()
             fn()
             walls[name].append((time.perf_counter() - t0) * 1e6)
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        initial_partition_device(coarsest, topo, device=dev)
-        torch.cuda.synchronize()
-    traced = sorted((e for e in prof.events() if _device_work(e)),
-                    key=lambda e: e.time_range.start)
-    events = [e.name for e in traced]
-    # each device event's own duration in the trace, µs
-    event_us = [e.time_range.end - e.time_range.start for e in traced]
+    # one call traced after an untraced one, its device events in order
+    trace = _traced(lambda: initial_partition_device(coarsest, topo,
+                                                     device=dev),
+                    {"prefix_split": ("prefix_split",)}, events=True)
+    events, event_us = trace["device_events"], trace["device_event_us"]
     kernels = [e for e in events if "emcpy" not in e and "emset" not in e]
     stats = {name: dict(zip(("q25_us", "median_us", "q75_us"),
                             map(float, np.percentile(v, [25, 50, 75]))))
@@ -1259,7 +1398,7 @@ def phase_kernels_split(state):
          n=coarsest.n_nodes, k=topo.k, equal_to_before=bool(
              np.array_equal(after, before)), wall=stats,
          rounds=SPLIT_RANKING_ROUNDS, device_events=events,
-         device_event_us=event_us)
+         device_event_us=event_us, trace_attempts=trace["attempts"])
     state["split_initial"] = dict(n=coarsest.n_nodes, wall=stats,
                                   device_events=events,
                                   device_event_us=event_us)
@@ -1931,7 +2070,8 @@ def _wall(fn, reps=1):
     return out, (time.perf_counter() - t0) * 1e3 / reps
 
 
-def _traced(fn, kernel_events, gap_s=TRACE_GAP_S, attempts=TRACE_ATTEMPTS):
+def _traced(fn, kernel_events, gap_s=TRACE_GAP_S, attempts=TRACE_ATTEMPTS,
+            events=False):
     """One run of ``fn`` under torch.profiler, after one warm-up run under
     its schedule that is not recorded and ``gap_s`` idle seconds: wall s,
     device busy s and idle share (busy over that run's wall, profiler
@@ -1941,9 +2081,12 @@ def _traced(fn, kernel_events, gap_s=TRACE_GAP_S, attempts=TRACE_ATTEMPTS):
     those counters counted in the recorded run, or its times miss work: a
     trace that lost events is taken again, up to ``attempts`` traces, and
     then this raises. ``runs`` says how many times ``fn`` ran (two a
-    trace), for callers that count launches around it."""
+    trace), for callers that count launches around it. With ``events``
+    the readings also hold the recorded run's device events in time
+    order, ``device_events`` (names) and ``device_event_us`` (each one's
+    duration, µs)."""
     for attempt in range(1, attempts + 1):
-        out, missing = _trace_once(fn, kernel_events, gap_s)
+        out, missing = _trace_once(fn, kernel_events, gap_s, events)
         out.update(attempts=attempt, runs=2 * attempt)
         if not missing:
             return out
@@ -1951,7 +2094,7 @@ def _traced(fn, kernel_events, gap_s=TRACE_GAP_S, attempts=TRACE_ATTEMPTS):
                          f"{missing} in {attempts} traces: {out}")
 
 
-def _trace_once(fn, kernel_events, gap_s):
+def _trace_once(fn, kernel_events, gap_s, events=False):
     """One trace of ``_traced``: (its readings, the kernel events whose
     traced count differs from the launches counted)."""
     import torch
@@ -1983,6 +2126,11 @@ def _trace_once(fn, kernel_events, gap_s):
                device_idle_share=1.0 - busy / wall, port_launches=launches,
                top_device=[[e.key, e.self_device_time_total / 1e6, e.count]
                            for e in top])
+    if events:
+        ordered = sorted(dev_events, key=lambda e: e.time_range.start)
+        out.update(device_events=[e.name for e in ordered],
+                   device_event_us=[e.time_range.end - e.time_range.start
+                                    for e in ordered])
     return out, {k: v for k, v in launches.items()
                  if v["counted"] != v["traced"]}
 
@@ -4432,17 +4580,23 @@ def phase_c1(state):
 
 def claims_bands(claim, row, bad):
     """Each checked number of ``row`` (a dict of a twin's row) against its
-    band (``CLAIMS_REF``): ``{key: {value, band, inside}}``; a number
+    band in ``CLAIMS_REF`` or its value in ``CLAIMS_EXACT``, keyed by
+    (claim, row name, number): ``{key: {value, band, inside}}``; a number
     outside its band is listed in ``bad``."""
     out = {}
-    for (c, name, key), (lo, hi) in CLAIMS_REF.items():
+    bands = {key: (lo / CLAIMS_SLACK, hi * CLAIMS_SLACK)
+             for key, (lo, hi) in CLAIMS_REF.items()}
+    for key, want in CLAIMS_EXACT.items():
+        tol = CLAIMS_EXACT_RTOL * max(abs(want), 1.0)
+        bands[key] = (want - tol, want + tol)
+    for (c, name, key), band in bands.items():
         if c != claim or name != row["name"]:
             continue
         v = float(row[key])
-        band = [lo / CLAIMS_SLACK, hi * CLAIMS_SLACK]
-        out[key] = dict(value=v, band=band, inside=band[0] <= v <= band[1])
+        out[key] = dict(value=v, band=list(band),
+                        inside=band[0] <= v <= band[1])
         if not out[key]["inside"]:
-            bad.append(f"{claim} {name} {key} {v} outside {band}")
+            bad.append(f"{claim} {name} {key} {v} outside {list(band)}")
     return out
 
 
@@ -4464,11 +4618,6 @@ def claims_host(row, label, bad):
     return rel
 
 
-def _claim_row(row):
-    """A twin's row without what it scored."""
-    return {k: v for k, v in row.items() if k != "scored"}
-
-
 def phase_claims(state):
     """The paper's remaining claims through the port's bench twins at their
     full tier, launch counts set to 0 just before: C2 (every BFS round's
@@ -4484,6 +4633,7 @@ def phase_claims(state):
     from benchmarks import torch_bench_spmspv as c2
     from benchmarks import torch_bench_tradeoff as c3
     from benchmarks import torch_bench_variants as variants
+    from benchmarks.torch_common import public
     from repro_torch.kernels import ops
     dev = "cuda"
     ops.reset_launch_counts()
@@ -4515,7 +4665,7 @@ def phase_claims(state):
 
     t0 = time.perf_counter()
     for row in c3.tradeoff_rows(dev):
-        emit("claims", claim="C3", case=row["name"], **_claim_row(row),
+        emit("claims", claim="C3", case=row["name"], **public(row),
              host_rel_err=claims_host(row, f"C3 {row['name']}", bad),
              bands=claims_bands("tradeoff", row, bad))
     emit("claims", claim="C3", step="seconds",
@@ -4525,7 +4675,7 @@ def phase_claims(state):
     for name, mk_g in c4.CASES:
         g = mk_g()
         row = dict(name=name, **c4.hierarchical_row(g, topo, dev))
-        emit("claims", claim="C4", case=name, **_claim_row(row),
+        emit("claims", claim="C4", case=name, **public(row),
              host_rel_err=claims_host(row, f"C4 {name}", bad),
              bands=claims_bands("hierarchical", row, bad))
 
@@ -4538,14 +4688,14 @@ def phase_claims(state):
             extra["equal_to_reference"] = all(row[k] == v
                                               for k, v in want.items())
             if not extra["equal_to_reference"]:
-                bad.append(f"variants {row['name']} {_claim_row(row)} != "
+                bad.append(f"variants {row['name']} {public(row)} != "
                            f"the reference's {want}")
         if row["name"] == "hetero_speeds" and not (row["fast_load"]
                                                    > row["slow_load"]):
             bad.append(f"hetero_speeds: fast bins' load {row['fast_load']} "
                        f"not above the slow bins' {row['slow_load']}")
         emit("claims", claim="variants", case=row["name"],
-             **_claim_row(row), bands=claims_bands("variants", row, bad),
+             **public(row), bands=claims_bands("variants", row, bad),
              **extra)
     emit("claims", claim="variants", step="seconds",
          seconds=time.perf_counter() - t0)
@@ -4554,7 +4704,7 @@ def phase_claims(state):
     for fn in (scaling.scaling_size, scaling.scaling_k, scaling.vcycle):
         for row in fn(dev, only=only):
             emit("claims", claim="scaling", case=row["name"],
-                 **_claim_row(row),
+                 **public(row),
                  host_rel_err=claims_host(row, f"scaling {row['name']}", bad),
                  bands=claims_bands("scaling", row, bad))
 
@@ -5122,13 +5272,494 @@ def phase_train_recsys(state):
     _require_launched(counts, "train_recsys")
 
 
+@contextlib.contextmanager
+def _patched(module, name, value):
+    """``module.name`` is ``value`` inside the context (the model code looks
+    the name up at call time)."""
+    real = getattr(module, name)
+    setattr(module, name, value)
+    try:
+        yield real
+    finally:
+        setattr(module, name, real)
+
+
+def _recording_moe(record):
+    """A context in which ``transformer.moe_ffn`` appends each call's
+    ``MoEStats``, detached from autograd, to ``record``."""
+    from repro_torch.models import transformer as tr
+    inner = tr.moe_ffn
+
+    def moe_ffn(p, x, cfg):
+        y, st = inner(p, x, cfg)
+        record.append(tr.MoEStats(*(t.detach() for t in st)))
+        return y, st
+    return _patched(tr, "moe_ffn", moe_ffn)
+
+
+def _recording_route(record, detach_weights=False):
+    """A context in which ``transformer.route`` appends each call's expert
+    ids to ``record``; with ``detach_weights`` it also hands back the top-k
+    weights detached from autograd (gate (b)'s planted fault)."""
+    from repro_torch.models import transformer as tr
+    inner = tr.route
+
+    def route(p, x, cfg):
+        probs, top_p, top_i = inner(p, x, cfg)
+        record.append(top_i.detach().cpu())
+        return probs, (top_p.detach() if detach_weights else top_p), top_i
+    return _patched(tr, "route", route)
+
+
+def _mla_f32_gate(cfg, errors, checks):
+    """Train_mla gate (b): ``cfg`` (FULL widths) cut to
+    TRAIN_MLA_F32_LAYERS layers in float32, one batch of
+    TRAIN_MLA_F32_BATCH tokens, the same params on the card and the CPU:
+    first every MoE layer's expert ids equal on both, then the loss, aux
+    and every gradient leaf in train (b)'s bands; the planted fault (the
+    router's top-k weights detached from autograd) must fail them."""
+    import dataclasses as dc
+
+    import numpy as np
+    import torch
+
+    from repro_torch import tree
+    from repro_torch.launch import train as tlaunch
+    from repro_torch.models import transformer as tr
+    from repro_torch.train.steps import loss_and_grads
+    dev = torch.device("cuda")
+    cfg32 = dc.replace(cfg, n_layers=TRAIN_MLA_F32_LAYERS,
+                       dtype=torch.float32)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    params = tr.init(cfg32, gen, device=dev)
+    batch = next(tlaunch.make_batches(cfg32.vocab, *TRAIN_MLA_F32_BATCH,
+                                      dev))
+
+    def run(p, bt, detach=False):
+        ids = []
+        with _recording_route(ids, detach_weights=detach):
+            loss, aux, grads = loss_and_grads(
+                lambda q, c: tr.loss_fn(q, c, cfg32), p, bt)
+        return (float(loss), float(aux["aux"]), tree.leaves(grads),
+                ids[:cfg32.n_layers - cfg32.n_dense_layers])
+    card = run(params, batch)
+    fault = run(params, batch, detach=True)
+    t0 = time.perf_counter()
+    host = run(tree.map_(lambda x: x.cpu(), params),
+               {k: v.cpu() for k, v in batch.items()})
+    cpu_s = time.perf_counter() - t0
+    names = _leaf_names(params)
+    del params
+    same_ids = [bool(torch.equal(a, c)) for a, c in zip(card[3], host[3])]
+
+    def against_cpu(got):
+        rel = [_rel_l2(g.cpu(), w) for g, w in zip(got[2], host[2])]
+        worst = int(np.argmax(rel))
+        return dict(loss_card=got[0], loss_cpu=host[0],
+                    loss_rel=abs(got[0] - host[0]) / abs(host[0]),
+                    aux_card=got[1], aux_cpu=host[1],
+                    aux_rel=abs(got[1] - host[1]) / abs(host[1]),
+                    worst_leaf_rel_l2=rel[worst], worst_leaf=names[worst])
+
+    def inside(r):
+        return (r["loss_rel"] <= TRAIN_F32_LOSS_RTOL
+                and r["aux_rel"] <= TRAIN_F32_LOSS_RTOL
+                and r["worst_leaf_rel_l2"] <= TRAIN_F32_GRAD_REL_L2)
+    errors["b_f32_card_vs_cpu"] = dict(
+        layers=TRAIN_MLA_F32_LAYERS, batch=list(TRAIN_MLA_F32_BATCH),
+        expert_ids_equal=same_ids, cpu_s=cpu_s, **against_cpu(card),
+        planted_router_weights_detached=against_cpu(fault))
+    if not all(same_ids):
+        # the margin of the router probabilities where the ids differ
+        errors["b_f32_card_vs_cpu"]["differing_tokens"] = [
+            int((a != c).any(-1).sum()) for a, c in zip(card[3], host[3])]
+    checks["b_expert_ids_card_equal_cpu"] = all(same_ids)
+    checks["b_f32_card_vs_cpu"] = all(same_ids) and inside(
+        errors["b_f32_card_vs_cpu"])
+    checks["b_planted_router_fault_rejected"] = not inside(
+        errors["b_f32_card_vs_cpu"]["planted_router_weights_detached"])
+
+
+def phase_train_mla(state):
+    """deepseek-v2-lite-16b training at full width on the card, the depth
+    cut to TRAIN_MLA_LAYERS: gates (a) and (d) on step 1's params, then
+    TRAIN_MLA_STEPS AdamW steps of train_4k's config at TRAIN_MLA_BATCH
+    through ``loop.run`` (counted; one more step traced), then gates (b)
+    and (c)."""
+    import dataclasses as dc
+    import itertools
+
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch import configs
+    from repro_torch.configs.common import ShapeSpec, lm_model_flops
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as tlaunch
+    from repro_torch.models import transformer as tr
+    from repro_torch.models.common import flash_attention_bwd
+    from repro_torch.optim import adamw
+    from repro_torch.train import loop
+    from repro_torch.train.steps import make_train_step
+    dev = torch.device("cuda")
+    full = configs.get(MLA_ARCH).make_config("train_4k")
+    cfg = dc.replace(full, n_layers=TRAIN_MLA_LAYERS)
+    b, s = TRAIN_MLA_BATCH
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    t0 = time.perf_counter()
+    params = tr.init(cfg, gen, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    batches = list(itertools.islice(
+        tlaunch.make_batches(cfg.vocab, b, s, dev), TRAIN_MLA_STEPS))
+    ocfg = tlaunch.optimizer_config(TRAIN_MLA_LR, TRAIN_MLA_STEPS)
+    step = make_train_step(lambda p, bt: tr.loss_fn(p, bt, cfg), ocfg)
+    flash_events = {"flash_fwd_": ("flash_attention",)}
+    n_moe = cfg.n_layers - cfg.n_dense_layers
+    checks, errors = {}, {}
+
+    # -- (a), (d) on step 1's params: the first and last layers' own bf16
+    # q, k, v and their attention outputs' cotangents; each MoE layer's
+    # aux loss and dropped share (the forward's calls, not the recompute's)
+    seen, calls, moe_stats = {}, [0], []
+
+    def record(q, k, v, **kw):
+        i = calls[0]
+        calls[0] += 1
+        out = ops.flash_attention(q, k, v, **kw)
+        if i in (0, cfg.n_layers - 1):      # the forward, not the recompute
+            seen[i] = [q.detach(), k.detach(), v.detach(), None]
+            out.register_hook(
+                lambda g, i=i: seen[i].__setitem__(3, g.detach()))
+        return out
+    with _recording_moe(moe_stats):
+        loss_a, grads_a = _loss_and_grads(params, batches[0], cfg, record)
+    del grads_a
+    # the first n_moe calls are the forward's; the recompute's may stop
+    # inside moe_ffn once autograd has what it needs (no stats then)
+    aux = [float(st.aux_loss) for st in moe_stats[:n_moe]]
+    dropped = [float(st.dropped_frac) for st in moe_stats[:n_moe]]
+    ok_a = sorted(seen) == [0, cfg.n_layers - 1] and all(
+        x[3] is not None for x in seen.values())
+    for li, (q, k, v, do) in sorted(seen.items()):
+        passed, readings = flash_grad_judge(q, k, v, do, cfg.q_chunk,
+                                            cfg.kv_chunk)
+        errors[f"a_layer_{li}"] = readings
+        ok_a &= passed
+    checks["a_flash_function_grads_vs_f32"] = ok_a
+    errors["d_moe"] = dict(aux_loss=aux, dropped_frac=dropped,
+                           moe_calls=len(moe_stats))
+    checks["d_aux_positive_at_every_moe_layer"] = (
+        len(aux) == n_moe and all(a > 0 for a in aux))
+    # the kernel with and without lse, the plain backward and SDPA at the
+    # path's own shape (layer 0's inputs): device ms
+    q, k, v, do = seen.pop(0)
+    seen.clear()
+    out, lse = fa.flash_attention(q, k, v, causal=True, return_lse=True)
+    flush = _flush_buffer(state)
+    no_lse, with_lse = alternating_device_ms(
+        [lambda: fa.flash_attention(q, k, v, causal=True),
+         lambda: fa.flash_attention(q, k, v, causal=True, return_lse=True)],
+        rounds=21, flush=flush)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    sdpa_ms = device_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True), iters=10, flush=flush)
+    bwd_ms = device_ms(lambda: flash_attention_bwd(
+        q, k, v, out, lse, do, True, cfg.q_chunk, cfg.kv_chunk), iters=3)
+    h, d, dv = cfg.n_heads, cfg.qk_head_dim, cfg.v_head_dim
+    nbytes, fl = fa.work(b, s, s, h, h, d, True, 2, dv=dv)
+    del q, k, v, do, out, lse, qt, kt, vt
+    torch.cuda.empty_cache()
+
+    # -- the counted run: TRAIN_MLA_STEPS steps through the loop, which
+    # holds the only reference to the initial params (so they go after
+    # step 1); each kernel launch's head dims recorded
+    rec, shapes = [], []
+
+    def shaped_fwd(q, k, v, *rest):
+        shapes.append((q.shape[-1], v.shape[-1], str(q.dtype)))
+        return real_fwd(q, k, v, *rest)
+    run_args = [params, adamw.init(params, ocfg)]
+    del params
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    with _patched(fa, "kernel_fwd", shaped_fwd) as real_fwd:
+        p_end, o_end, result = loop.run(
+            _recording_step(step, rec), run_args.pop(0), run_args.pop(0),
+            iter(batches), loop.LoopConfig(total_steps=TRAIN_MLA_STEPS))
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    state["launches"]["train_mla"] = counts
+    per_step = 2 * cfg.n_layers
+    checks["flash_launches_2_per_layer_per_step"] = (
+        counts["flash_attention"] == per_step * TRAIN_MLA_STEPS)
+    checks["flash_launches_at_192_128_bf16_with_lse"] = (
+        len(shapes) == counts["flash_attention"]
+        and set(shapes) == {(d, dv, "torch.bfloat16")})
+    checks["peak_memory_within_limit"] = peak <= TRAIN_MLA_PEAK_BYTES
+    trace = _traced(lambda: step(p_end, o_end, batches[0]), flash_events)
+    checks["trace_holds_2_flash_launches_per_layer"] = (
+        trace["port_launches"]["flash_fwd_"]["traced"] == per_step)
+    del p_end, o_end
+    torch.cuda.empty_cache()
+    tokens = b * s
+    warm = float(np.median([r["s"] for r in rec[1:]]))
+    flops = lm_model_flops(cfg.n_active_params(), ShapeSpec(
+        "train", "train", {"batch": b, "seq": s}))
+    losses = [r["loss"] for r in rec]
+    norms = [r["grad_norm"] for r in rec]
+    timing = dict(kernel_no_lse=no_lse, kernel_with_lse=with_lse,
+                  sdpa_ms=sdpa_ms,
+                  bound_ms=bound(nbytes + 4 * b * s * h, fl,
+                                 H100_BF16_PER_S)[0],
+                  plain_bwd_ms_per_layer=bwd_ms,
+                  plain_bwd_share_of_traced_device_busy=cfg.n_layers
+                  * bwd_ms / 1e3 / trace["device_busy_s"])
+    state["train_mla_flash"] = dict(
+        shape=[b, s, h, h, d, dv, "bf16", "train_mla"],
+        launches=counts["flash_attention"], per_step=per_step,
+        **{k: timing[k] for k in ("kernel_no_lse", "kernel_with_lse",
+                                  "sdpa_ms", "bound_ms")})
+    emit("train_mla", step="run", arch=MLA_ARCH, config="train_4k",
+         layers=cfg.n_layers, params=cfg.n_params(),
+         active_params=cfg.n_active_params(), init_s=init_s, batch=b,
+         seq=s, reduced=f"depth 27 -> {cfg.n_layers} layers (1 dense + "
+         f"{n_moe} MoE): the full model's 15.7B parameters and AdamW state "
+         f"do not fit one card (PERF.md section 4); train_4k's batch 256 "
+         f"-> 4: one card holds one replica",
+         steps=TRAIN_MLA_STEPS, optimizer=dc.asdict(ocfg), remat=cfg.remat,
+         capacity_factor=cfg.capacity_factor,
+         capacity=tr.capacity(cfg, tokens), cold_s=rec[0]["s"],
+         warm_s_p50=warm, step_s=[r["s"] for r in rec],
+         tokens_per_step=tokens, tokens_per_s=tokens / warm,
+         model_flops_per_step=flops, mfu=flops / warm / H100_BF16_PER_S,
+         max_memory_allocated=peak, peak_limit=TRAIN_MLA_PEAK_BYTES,
+         launches=counts, flash_per_step=counts["flash_attention"]
+         / TRAIN_MLA_STEPS, flash_head_dims=sorted(set(shapes)),
+         losses=losses, grad_norms=norms, lrs=[r["lr"] for r in rec],
+         moe=errors["d_moe"], loop_seconds=result.seconds,
+         nvidia_smi=state["smi"])
+    emit("train_mla", step="trace", traced=trace, **timing)
+    checks["a_step1_loss_equals_the_run"] = loss_a == losses[0]
+    # (c) finite, and the loss comes down
+    checks["c_finite_losses_and_grad_norms"] = bool(
+        np.isfinite(losses).all() and np.isfinite(norms).all())
+    checks["c_last_two_losses_below_the_first"] = (
+        float(np.mean(losses[-2:])) < losses[0])
+
+    # -- (b) float32 at 2 layers: the card against the CPU
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        _mla_f32_gate(cfg, errors, checks)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    torch.cuda.empty_cache()
+
+    emit("train_mla", step="checks", tolerances=dict(
+        a=f"dq, dk, dv: max and rms error against the float32 plain path "
+          f"<= {FLASH_BF16_RATIO}x the bf16 plain path's, the rms also per "
+          f"128-row tile; lse within {TRAIN_LSE_TOL} of the bf16 plain "
+          f"forward's; out bitwise with and without lse; planted faults "
+          f"rejected",
+        b=f"expert ids equal; loss and aux rel <= {TRAIN_F32_LOSS_RTOL}, "
+          f"every gradient leaf's relative L2 <= {TRAIN_F32_GRAD_REL_L2}; "
+          f"the router fault rejected",
+        c="finite; mean of the last two losses below the first",
+        d="aux > 0 at every MoE layer"), max_abs_err=errors, **checks)
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"train_mla checks failed: {failed}")
+    _require_launched(counts, "train_mla")
+
+
+def phase_placement(state):
+    """The placement bench twin's four rows at the full tier on the card,
+    launch counts set to 0 just before: each checked number in its band
+    or at its value (``CLAIMS_REF``, ``CLAIMS_EXACT``), each scorecard
+    against a float64 host re-evaluation at rel 1e-4; the heterogeneous
+    claims raise inside the twin."""
+    from benchmarks import torch_bench_placement as pb
+    from benchmarks.torch_common import public
+    from repro_torch.kernels import ops
+    bad = []
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    rows = [fn("cuda") for fn in pb.ROWS]
+    seconds = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    state["launches"]["placement"] = counts
+    for row in rows:
+        emit("placement", case=row["name"], **public(row),
+             host_rel_err=claims_host(row, f"placement {row['name']}", bad),
+             bands=claims_bands("placement", row, bad))
+    emit("placement", step="launches", seconds=seconds, launches=counts)
+    if bad:
+        raise AssertionError("placement: " + "; ".join(bad))
+    _require_launched(counts, "placement")
+
+
+def phase_serving_bench(state):
+    """The serving bench twin at its full tier on the card, launch counts
+    set to 0 just before: at qwen2-1.5b SMOKE from seed 0 every schedule
+    field of the rows without a fault equal to the reference's
+    (``SERVING_REF``); then at qwen2-1.5b FULL in bf16 from seed 0. The
+    bench's claims raise inside the twin in both runs."""
+    import torch
+
+    from benchmarks import torch_bench_serving as sb
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as tr
+    dev = torch.device("cuda")
+    bad = []
+    ops.reset_launch_counts()
+    cfg, params = sb.default_model(dev)
+    t0 = time.perf_counter()
+    rows = sb.serving_throughput(cfg, params, dev)
+    smoke_s = time.perf_counter() - t0
+    for row in rows:
+        want = SERVING_REF.get(row["name"])
+        got = {k: row[k] for k in sb.SCHEDULE}
+        if want is not None and got != want:
+            bad.append(f"{row['name']}: schedule {got} != the reference's "
+                       f"{want}")
+        emit("serving_bench", config="smoke", **row,
+             reference=want if want is not None else SERVING_REF_CHAOS,
+             schedule_gated=want is not None)
+    del params
+    full = configs.get(LM_ARCH).make_config("decode_32k")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    params = tr.init(full, gen, device=dev)
+    t0 = time.perf_counter()
+    rows_full = sb.serving_throughput(full, params, dev)
+    full_s = time.perf_counter() - t0
+    del params
+    counts = ops.launch_counts()
+    state["launches"]["serving_bench"] = counts
+    for row in rows_full:
+        emit("serving_bench", config="full", dtype="bf16", **row)
+    emit("serving_bench", step="launches", smoke_s=smoke_s, full_s=full_s,
+         launches=counts, nvidia_smi=state["smi"])
+    if bad:
+        raise AssertionError("serving_bench: " + "; ".join(bad))
+    _require_launched(counts, "serving_bench")
+
+
+def _lm100m_example():
+    """``examples/torch_train_lm_100m.py`` as a module (``examples/`` is no
+    package): its ``CFG`` and its flags' defaults."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "torch_train_lm_100m", ROOT / "examples" / "torch_train_lm_100m.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _lm100m_flash_check(state, cfg, args):
+    """``flash_attention`` at the example's shape, float32 on the card
+    (B = batch, S = seq, the model's heads, KV heads and head dim), as its
+    training calls it: the kernel's forward with its log-sum-exp
+    (``kernel_fwd``) against the plain forward on the same random inputs,
+    out and lse both within FLASH_F32_TOL (rtol = atol), out bitwise the
+    same without lse; timed beside the plain version and SDPA."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    dev = torch.device("cuda")
+    b, s, h, kh = args.batch, args.seq, cfg.n_heads, cfg.n_kv_heads
+    d = cfg.d_model // cfg.n_heads
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(6)
+    q, k, v = (torch.randn(b, s, n, d, generator=gen, device=dev)
+               for n in (h, kh, kh))
+    chunks = (True, cfg.q_chunk, cfg.kv_chunk)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+
+    def judge(got, want):
+        _, l_k = fa.kernel_fwd(q, k, v, *chunks)
+        _, l_p = fa.plain_fwd(q, k, v, *chunks)
+
+        def close(a, w):
+            return bool(((a - w).abs() <= FLASH_F32_TOL
+                         + FLASH_F32_TOL * w.abs()).all())
+        same = torch.equal(got, fa.flash_attention(q, k, v, causal=True))
+        readings = dict(lse_max_abs_err=float((l_k - l_p).abs().max()),
+                        out_bitwise_with_and_without_lse=same)
+        return (close(got, want) and close(l_k, l_p) and same,
+                f"out and lse: rtol = atol = {FLASH_F32_TOL}; out bitwise "
+                f"with and without lse", readings)
+    nbytes, flops = fa.work(b, s, s, h, kh, d, True, 4, dv=d)
+    _check_kernel(
+        state, "flash_attention", [b, s, h, kh, d, d, "f32", "lm100m"],
+        lambda: fa.kernel_fwd(q, k, v, *chunks)[0],
+        lambda: fa.plain_fwd(q, k, v, *chunks)[0], exact=False,
+        judge=judge, iters=30,
+        library=lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True),
+        bytes_moved=nbytes + 4 * b * s * h, flops=flops)
+
+
+def phase_lm100m(state):
+    """``examples/torch_train_lm_100m.py`` at its defaults in a process of
+    its own: its learned-assert holds (it exits 0), checkpoints 100, 200
+    and 300 are written, and its ``flash_attention`` launches (the
+    example's own counter, zeroed before its loop) are one a layer a
+    step. First the kernel at the example's shape with its log-sum-exp,
+    held to the plain forward (``_lm100m_flash_check``)."""
+    import os
+    import tempfile
+
+    from repro_torch.kernels import ops
+    ex = _lm100m_example()
+    args = ex.parser().parse_args([])
+    _lm100m_flash_check(state, ex.CFG, args)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, str(ROOT / "examples" / "torch_train_lm_100m.py"),
+             "--ckpt-dir", tmp], env=env, capture_output=True, text=True,
+            timeout=600)
+        seconds = time.perf_counter() - t0
+        ckpts = sorted(os.listdir(tmp))
+    lines = out.stdout.splitlines()
+    counts = {k: 0 for k in ops.launch_counts()}
+    for ln in lines:
+        if ln.startswith("kernel launches:"):
+            counts.update({k: int(v) for k, v in (
+                kv.split("=") for kv in ln.split(":", 1)[1].split())})
+    state["launches"]["lm100m"] = counts
+    want = [f"step_{n:09d}" for n in range(100, args.steps + 1, 100)]
+    checks = dict(
+        exit_0_the_example_learned=out.returncode == 0,
+        checkpoints_100_200_300=ckpts == want,
+        flash_launches_one_per_layer_per_step=(
+            counts["flash_attention"] == args.steps * ex.CFG.n_layers))
+    emit("lm100m", seconds=seconds, returncode=out.returncode,
+         stdout_tail=lines[-4:], stderr_tail=out.stderr[-2000:],
+         checkpoints=ckpts, launches=counts, **checks)
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"lm100m checks failed: {failed}")
+    _require_launched(counts, "lm100m")
+
+
 PHASES = (phase_env, phase_build, phase_kernels, phase_kernels_recsys,
           phase_full, phase_small, phase_recsys, phase_kernels_gnn,
           phase_gnn, phase_gnn_train, phase_equiformer, phase_kernels_lm,
           phase_lm,
           phase_lm_mla, phase_mapping,
           phase_c1,
-          phase_claims, phase_train, phase_train_recsys)
+          phase_claims, phase_train, phase_train_mla, phase_train_recsys,
+          phase_placement, phase_serving_bench, phase_lm100m)
 
 
 def kernels_line(state):
@@ -5206,6 +5837,7 @@ def kernels_line(state):
                                   per_prefill=state["launches"]["lm_mla"][
                                       name] // state["lm_mla_forwards"])
             out[-1]["train"] = state["train_flash"]
+            out[-1]["train_mla"] = state["train_mla_flash"]
     return {"kernels": out}
 
 

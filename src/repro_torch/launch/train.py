@@ -63,8 +63,9 @@ its step, and the stitched loss trajectory is the uninterrupted one.
 
 Not ported, because they belong to later slices (ROADMAP Queue 1):
 ``--profile``, ``--topology-aware``, ``--machine``, ``--map-restarts``
-and ``--lint`` (meshes, their mapping search and the sharding lint,
-items 8 and 9). One card has no mesh for them to act on.
+and ``--lint`` (meshes and their mapping search: Queue 1 item 1; the
+lint, which runs the kernel verifier and the sharding lint: items 1 and
+2). One card has no mesh for them to act on.
 """
 from __future__ import annotations
 

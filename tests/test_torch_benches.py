@@ -17,14 +17,19 @@ import pytest
 ROOT = Path(__file__).resolve().parent.parent
 
 
-def _run(bench, cwd):
+def _run_module(module, cwd, args=(), **env):
     env = dict(os.environ, REPRO_BENCH_DEVICE="cpu", REPRO_BENCH_TINY="1",
-               PYTHONPATH=os.pathsep.join([str(ROOT / "src"), str(ROOT)]))
-    out = subprocess.run([sys.executable, "-m", f"benchmarks.{bench}"],
+               PYTHONPATH=os.pathsep.join([str(ROOT / "src"), str(ROOT)]),
+               **env)
+    out = subprocess.run([sys.executable, "-m", module, *args],
                          cwd=cwd, env=env, capture_output=True, text=True,
                          timeout=300)
     assert out.returncode == 0, out.stderr[-4000:]
     return out.stdout
+
+
+def _run(bench, cwd):
+    return _run_module(f"benchmarks.{bench}", cwd)
 
 
 def _fields(line):
@@ -185,3 +190,151 @@ def test_torch_gnn_partitioned_training_runs_on_the_cpu(tmp_path):
     assert ours < hashed
     first, last = out.stdout.split("placed graph: loss ")[1].split()[0:3:2]
     assert float(last) < float(first)
+
+
+@pytest.fixture(scope="module")
+def placement_twin(tmp_path_factory):
+    """The placement twin's tiny run on the CPU: its JSON."""
+    cwd = tmp_path_factory.mktemp("placement_twin")
+    _run("torch_bench_placement", cwd)
+    return json.loads((cwd / "BENCH_torch_placement.json").read_text())
+
+
+def test_placement_twin_writes_four_rows_and_holds_its_claims(
+        placement_twin):
+    """The four rows on the reference bench's generated inputs; the
+    heterogeneous claims (the fast pod's FLOPs, the placed makespan at most
+    the scatter's) raise inside the twin, and are read back here."""
+    out = placement_twin
+    assert out["tiny"] and out["device"] == "cpu"
+    rows = {r["name"]: r for r in out["placement"]}
+    assert list(rows) == ["moe_experts_32", "hetero_experts_32",
+                          "embedding_rows_512", "bsr_locality_1024"]
+    het = rows["hetero_experts_32"]
+    assert het["fast_pod_flops"] >= het["slow_pod_flops"]
+    assert het["makespan_ours"] <= het["makespan_scatter"]
+    assert rows["moe_experts_32"]["win"] > 1.0
+    assert rows["embedding_rows_512"]["hot_link_ours"] < \
+        rows["embedding_rows_512"]["hot_link_hash"]
+    for r in rows.values():
+        assert all(np.isfinite(v) for v in r.values()
+                   if isinstance(v, float))
+
+
+# the tiny rows' numbers that no partition seed moves: the scatter and
+# hash baselines score the bench's own draws, the unplaced layout's blocks
+# are the graph's, and the reference puts all the experts' FLOPs on the
+# fast pod
+PLACEMENT_INPUT_ONLY = {
+    "moe_experts_32": ("bottleneck_scatter", "makespan_scatter"),
+    "hetero_experts_32": ("makespan_scatter", "fast_pod_flops",
+                          "slow_pod_flops"),
+    "embedding_rows_512": ("hot_device_hash", "hot_link_hash"),
+    "bsr_locality_1024": ("blocks_before", "block_density_before"),
+}
+
+
+def test_placement_twin_inputs_equal_the_reference(placement_twin,
+                                                   tmp_path):
+    """The twin's numbers that no partition seed moves against the
+    reference bench's tiny rows on the CPU (``bench_placement.py`` as a
+    user runs it, its CSV lines rounded to 1 decimal, densities to 4):
+    within half that rounding's unit plus rel 1e-6, so a twin that drew
+    other traffic, frequencies, FLOPs or baselines fails."""
+    out = _run_module("benchmarks.bench_placement", tmp_path,
+                      JAX_PLATFORMS="cpu")
+    ref = {ln.split(",")[1]: _fields(ln) for ln in out.splitlines()
+           if ln.startswith("placement,")}
+    got = {r["name"]: r for r in placement_twin["placement"]}
+    assert sorted(ref) == sorted(got) == sorted(PLACEMENT_INPUT_ONLY)
+    for name, keys in PLACEMENT_INPUT_ONLY.items():
+        for key in keys:
+            want = float(ref[name][key])
+            unit = 1e-4 if key.startswith("block_density") else 0.1
+            assert abs(got[name][key] - want) <= 0.5 * unit + \
+                1e-6 * abs(want), (name, key, got[name][key], want)
+
+
+def _reference_serving_rows():
+    """The reference bench's continuous, static and placed rows at its tiny
+    tier (``bench_serving.py``: 12 requests, 4 slots, prompts up to 8,
+    generations up to 6, page 4), computed by its own ``_workload``,
+    ``_serve`` and ``_row`` on the CPU. Its wall-clock claim is left out:
+    at this size it compares two runs of tens of milliseconds."""
+    import jax
+
+    from benchmarks import bench_serving as ref
+    from repro import configs
+    from repro.dist.sharding import lm_rules
+    from repro.models import transformer as tr
+    cfg = configs.get("qwen2-1.5b").smoke_config()
+    rules = lm_rules(())
+    params, _ = tr.init(jax.random.PRNGKey(0), cfg, rules)
+    work = ref._workload(cfg, 12, 8, 6)
+    max_pages = -(-max(p.shape[0] + g for p, g in work) // 4)
+    kw = dict(n_slots=4, page_size=4, n_pages=max_pages * 4 * 2,
+              max_pages_per_req=max_pages, temperature=0.8, seed=0)
+    runs = {"continuous_x4": {}, "static_x4": dict(static_batching=True),
+            "continuous_placed_x4": dict(replace_every=8, place_devices=4)}
+    return {name: ref._row(name, ref._serve(params, cfg, rules, work,
+                                            **kw, **extra))
+            for name, extra in runs.items()}
+
+
+def test_serving_twin_schedule_equals_the_reference(tmp_path):
+    """The twin (tiny, on the CPU, as a user runs it) against the reference
+    bench's rows on the same stream: the continuous and static rows hold no
+    placement, so every schedule field (steps, tokens, latency and TTFT in
+    steps, occupancy) must be equal; the placed rows' schedules must equal
+    the continuous row's. The chaos row's retries depend on where placement
+    put the pages; the twin's own claims gate it. The twin's subprocess
+    runs one intra-op thread, as the test processes do: its wall-clock
+    claim compares runs of tens of milliseconds."""
+    from benchmarks.torch_bench_serving import SCHEDULE
+    want = _reference_serving_rows()
+    _run_module("benchmarks.torch_bench_serving", tmp_path,
+                OMP_NUM_THREADS="1")
+    got = {r["name"]: r for r in json.loads(
+        (tmp_path / "BENCH_torch_serving.json").read_text())["serving"]}
+    assert list(got) == ["continuous_x4", "static_x4",
+                         "continuous_placed_x4", "chaos_death_x4"]
+    for name in ("continuous_x4", "static_x4"):
+        assert {k: got[name][k] for k in SCHEDULE} == \
+            {k: want[name][k] for k in SCHEDULE}, name
+    for placed in (got, want):
+        assert {k: placed["continuous_placed_x4"][k] for k in SCHEDULE} == \
+            {k: got["continuous_x4"][k] for k in SCHEDULE}
+    chaos = got["chaos_death_x4"]
+    assert chaos["failed"] == 0 and chaos["tokens_out"] == \
+        got["continuous_x4"]["tokens_out"]
+
+
+def test_torch_run_prints_one_header(tmp_path):
+    out = _run_module("benchmarks.torch_run", tmp_path,
+                      ["--only", "placement"])
+    lines = out.splitlines()
+    assert lines.count("bench,name,us_per_call,derived") == 1
+    assert lines[0] == "bench,name,us_per_call,derived"
+    assert [ln.split(",")[1] for ln in lines
+            if ln.startswith("placement,")] == [
+        "moe_experts_32", "hetero_experts_32", "embedding_rows_512",
+        "bsr_locality_1024"]
+    assert lines[-1].startswith("# total ")
+
+
+def test_torch_train_lm_100m_runs_on_the_cpu(tmp_path):
+    """The example at 2 steps of 1 x 16 tokens: the ~97M model's size as
+    the reference prints it, a finite loss (its own learned-assert passes)
+    and the final checkpoint written."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable,
+                          str(ROOT / "examples" / "torch_train_lm_100m.py"),
+                          "--device", "cpu", "--steps", "2", "--batch", "1",
+                          "--seq", "16", "--ckpt-dir", str(tmp_path / "ck")],
+                         cwd=tmp_path, env=env, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-4000:]
+    assert "model: 97.5M params" in out.stdout
+    first, last = out.stdout.split("loss: ")[1].split()[0:3:2]
+    assert np.isfinite([float(first), float(last)]).all()
+    assert (tmp_path / "ck" / "step_000000002").is_dir()

@@ -1,6 +1,7 @@
 """The port stands alone: no module under ``src/repro_torch/``, not
-``chip_smoke.py`` and not the port's benchmark twins
-(``benchmarks/torch_bench_*.py`` and their ``torch_common.py``) imports
+``chip_smoke.py`` and not the port's benchmark twins and examples
+(``benchmarks/torch_bench_*.py``, their ``torch_common.py`` and
+``torch_run.py``, ``examples/torch_*.py``) imports
 ``jax`` or the reference package ``repro`` (the card's machine has no
 JAX), checked on the source's syntax tree."""
 import ast
@@ -11,7 +12,8 @@ import pytest
 ROOT = Path(__file__).resolve().parent.parent
 SOURCES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "time_kernels.py", ROOT / "trace_gap.py",
-    ROOT / "benchmarks" / "torch_common.py"] + sorted(
+    ROOT / "benchmarks" / "torch_common.py",
+    ROOT / "benchmarks" / "torch_run.py"] + sorted(
     (ROOT / "benchmarks").glob("torch_bench_*.py")) + sorted(
     (ROOT / "examples").glob("torch_*.py"))
 FORBIDDEN = ("jax", "jaxlib", "repro")
@@ -62,7 +64,11 @@ def test_port_sources_exist():
                  "src/repro_torch/configs/meshgraphnet.py",
                  "src/repro_torch/models/so3.py",
                  "src/repro_torch/models/equiformer.py",
-                 "src/repro_torch/configs/equiformer_v2.py"):
+                 "src/repro_torch/configs/equiformer_v2.py",
+                 "benchmarks/torch_bench_placement.py",
+                 "benchmarks/torch_bench_serving.py",
+                 "benchmarks/torch_run.py",
+                 "examples/torch_train_lm_100m.py"):
         assert must in names
 
 
