@@ -10,8 +10,10 @@ continuous-batching server, DeepSeek-V2-Lite's MoE + MLA prefill and
 absorbed decode, the mesh-mapping search, the paper's C1
 comparison against the total-cut baselines, its remaining claims (C2, C3,
 C4, the section 3.1 variants, scaling), Qwen2-1.5B training,
-DeepSeek-V2-Lite training at full width (its depth cut), and the twins of
-the placement bench, the serving bench and the 100M-LM example.
+DeepSeek-V2-Lite training at full width (its depth cut), the twins of
+the placement bench, the serving bench and the 100M-LM example, and the
+placement session's trace -> search -> retrace loop over Qwen2-1.5B's
+sharded train step.
 
     python3 chip_smoke.py
 
@@ -309,7 +311,9 @@ non-zero:
            path; (d) finite, and the loss comes down; (e) 3 steps with
            ``--grad-compress-block 256``: the first loss bitwise the
            uncompressed one's, ``compress.roundtrip`` of step 1's
-           gradients on the card equal to the CPU's bitwise; (f) SMOKE on
+           gradients on the card equal to the CPU's bitwise (the CPU's
+           round trip runs on a worker thread beside the 3 compressed
+           steps); (f) SMOKE on
            the card: 8 steps straight against 4, a checkpoint and a
            resumed ``loop.run``, bitwise.
   train_mla  ``deepseek-v2-lite-16b`` at train_4k's config (FULL widths,
@@ -362,6 +366,19 @@ non-zero:
            scorecard against a
            float64 host re-evaluation at rel 1e-4, the bench's
            heterogeneous claims (they raise inside the twin).
+  place    ``PlacementSession.place`` (``recompile=True``) for qwen2-1.5b
+           FULL at train_4k (28 layers, 256 x 4,096, traced on meta
+           DTensors over a fake world) with the 2d, fsdp, sp and expert
+           profiles on ``tpu_v5e-512`` and 2d on ``gpu-superpod``, one
+           child process a cell, the searches on the card, launch counts
+           set to 0 just before each: (a) each search again on the card
+           and on the CPU on the same traffic, the same order or a float64
+           tie, and the card's makespan within rel 1e-4 of the CPU order's
+           float64 score; (b) searched <= identity;
+           (c) an identity -> identity retrace diffs to 0 (two cells); (d)
+           ``lint_traffic`` clean; (e) expert equals 2d; (f)
+           ``quotient_link_loads`` launched. Each cell's ratio and perm
+           beside the reference's ``EXPERIMENTS.md`` row (reported).
   serving_bench  ``benchmarks/torch_bench_serving.py`` at its full tier
            (32 requests, 8 slots, page 8: continuous, static, placed every
            8 steps on 4 bins, a leaf death at a third of the steps), launch
@@ -393,7 +410,8 @@ with 0 and ``on_path_as``; ``recsys`` for the bag kernels,
 ``gnn`` for ``bsr_spmm``, which also launches on ``gnn_train``, ``lm`` for
 ``flash_attention``, which also
 launches on ``train``, ``train_mla`` and ``lm100m``; ``serve_chaos``,
-``train_recsys``, ``placement`` and ``serving_bench`` are paths too), its
+``train_recsys``, ``placement``, ``place`` and ``serving_bench`` are paths
+too), its
 launches
 on every path (``serve`` and ``serve_wide`` show which partitioner
 kernels the server reaches; ``mapping``, ``c1`` and ``claims`` that the
@@ -417,6 +435,7 @@ CPU.
 from __future__ import annotations
 
 import contextlib
+import concurrent.futures
 import dataclasses
 import functools
 import json
@@ -879,7 +898,7 @@ KERNEL_INFO = {
                             "src/repro/kernels/quotient_link_loads.py:99",
                             ("full", "small", "recsys", "mapping", "c1",
                              "claims", "serve_chaos", "placement",
-                             "serving_bench")),
+                             "place", "serving_bench")),
     "partition_gain": ("src/repro_torch/csrc/partition_gain.cu",
                        "src/repro/kernels/partition_gain.py:67",
                        ("small", "c1", "claims", "serve_chaos",
@@ -4144,8 +4163,8 @@ def phase_lm_mla(state):
     moe_inputs, moe_stats = [], []
     inner = tr.moe_ffn
 
-    def recording_moe(p, x, c):
-        y, st = inner(p, x, c)
+    def recording_moe(p, x, c, *rules):
+        y, st = inner(p, x, c, *rules)
         if not moe_inputs:
             moe_inputs.append((p, x))
         moe_stats.append(st)
@@ -4215,8 +4234,8 @@ def phase_lm_mla(state):
     toks64 = torch.as_tensor(rng.integers(0, cfg.vocab, (1, 64)), device=dev)
     drops = []
 
-    def counting_moe(p, x, c):
-        y, st = inner(p, x, c)
+    def counting_moe(p, x, c, *rules):
+        y, st = inner(p, x, c, *rules)
         drops.append(st.dropped_frac)
         return y, st
     tr.moe_ffn = counting_moe
@@ -4982,14 +5001,18 @@ def phase_train(state):
     # bitwise; roundtrip of step 1's gradients equals the CPU's bitwise
     emitted, residual = compress.roundtrip(
         tree.unflatten(params, grads_k), block=TRAIN_COMPRESS_BLOCK)
+    card_out = [a.cpu() for a in tree.leaves((emitted, residual))]
     cpu_grads = tree.unflatten(params, [g.cpu() for g in grads_k])
-    del grads_k
-    t0 = time.perf_counter()
-    cpu_out = compress.roundtrip(cpu_grads, block=TRAIN_COMPRESS_BLOCK)
-    cpu_s = time.perf_counter() - t0
-    diff = sum(not torch.equal(a.cpu(), c) for a, c in zip(
-        tree.leaves((emitted, residual)), tree.leaves(cpu_out)))
-    del emitted, residual, cpu_out, cpu_grads
+    del grads_k, emitted, residual
+
+    def cpu_roundtrip():
+        t0 = time.perf_counter()
+        out = compress.roundtrip(cpu_grads, block=TRAIN_COMPRESS_BLOCK)
+        return out, time.perf_counter() - t0
+    # the CPU's round trip runs on a worker thread (its kernels release the
+    # GIL) while the card runs the compressed steps below
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    cpu_job = pool.submit(cpu_roundtrip)
     crec = []
     cocfg = tlaunch.optimizer_config(TRAIN_LR, TRAIN_COMPRESS_STEPS)
     cstep = make_train_step(lambda p, bt: tr.loss_fn(p, bt, cfg), cocfg,
@@ -5000,6 +5023,11 @@ def phase_train(state):
                                        grad_compress=TRAIN_COMPRESS_BLOCK))
     del p_c, o_c
     torch.cuda.empty_cache()
+    cpu_out, cpu_s = cpu_job.result()
+    pool.shutdown()
+    diff = sum(not torch.equal(a, c) for a, c in zip(
+        card_out, tree.leaves(cpu_out)))
+    del card_out, cpu_out, cpu_grads
     errors["e_compress"] = dict(
         losses=[r["loss"] for r in crec],
         grad_norms=[r["grad_norm"] for r in crec],
@@ -5290,8 +5318,8 @@ def _recording_moe(record):
     from repro_torch.models import transformer as tr
     inner = tr.moe_ffn
 
-    def moe_ffn(p, x, cfg):
-        y, st = inner(p, x, cfg)
+    def moe_ffn(p, x, cfg, *rules):
+        y, st = inner(p, x, cfg, *rules)
         record.append(tr.MoEStats(*(t.detach() for t in st)))
         return y, st
     return _patched(tr, "moe_ffn", moe_ffn)
@@ -5752,6 +5780,251 @@ def phase_lm100m(state):
     _require_launched(counts, "lm100m")
 
 
+# The placement session's cells at full width (qwen2-1.5b FULL, 28 layers,
+# the shape's own batch of 256 x 4,096 on meta tensors), one child process
+# each, all traced side by side.
+PLACE_ARCH, PLACE_SHAPE = "qwen2-1.5b", "train_4k"
+PLACE_CELLS = (("tpu_v5e-512", "2d"), ("tpu_v5e-512", "expert"),
+               ("tpu_v5e-512", "fsdp"), ("tpu_v5e-512", "sp"),
+               ("gpu-superpod", "2d"))
+# the reference's rows for the tpu_v5e-512 cells (EXPERIMENTS.md
+# §Mapping-grid, XLA host compiles): searched / identity makespan, the axis
+# permutation, recompiles
+PLACE_REF = {"2d": (0.631, [1, 0, 2], 1), "fsdp": (0.450, [2, 0, 1], 1),
+             "sp": (1.000, [0, 1, 2], 0), "expert": (0.631, [1, 0, 2], 1)}
+PLACE_REL = 1e-4          # gate (a): the card's makespan vs the float64
+                          # score of the CPU's order, the mapping band
+PLACE_TIE = 1e-9          # rel float64 difference of an exact tie
+PLACE_TIMEOUT_S = 420
+# the cells that also retrace identity under identity for gate (c): the
+# cheapest trace, and a 3-d mesh's
+PLACE_RETRACE = (("gpu-superpod", "2d"), ("tpu_v5e-512", "expert"))
+
+
+def host_map_makespan(traffic, topo, order) -> float:
+    """The F_l-weighted makespan of a device -> bin order on a tree in
+    float64 on the host: link l carries the traffic of every device pair
+    it separates. Tells an exact tie (which the card's float32 atomics and
+    the CPU's float32 sums may break either way) from a real difference."""
+    import numpy as np
+    x = np.asarray(topo.subtree, np.float64)[:, np.asarray(order)]
+    t = np.asarray(traffic, np.float64)
+    xt = x @ t
+    loads = xt.sum(1) - (xt * x).sum(1)
+    return float((np.asarray(topo.F_l, np.float64) * loads).max())
+
+
+def place_child(cell: int, cache_dir: str) -> None:
+    """One cell of ``PLACE_CELLS`` in a process of its own (the fake world
+    is process-global state): ``PlacementSession.place`` with
+    ``recompile=True``, its searches on the card and the launch counts
+    read around it; then a CPU search over the same traces (the disk
+    cache) for gate (a), a fresh identity retrace for (c) in the
+    ``PLACE_RETRACE`` cells, the lint for (d), and for (e) a digest of the
+    record. Prints one JSON line.
+
+    ``quotient_link_loads`` sums with float atomics, so the card's scores
+    vary in their last bits from call to call, and among candidates whose
+    makespans tie exactly the card and the CPU may pick different ones:
+    where the orders differ both are scored in float64 on the host, and
+    they must tie (``PLACE_TIE``). The card's makespan is held to the
+    float64 score of the CPU's order (``PLACE_REL``): the CPU's own float32
+    score cancels terms of the order of all the traffic (the reference's
+    load algebra, which the CPU path keeps) and missed the exact value by
+    1.5e-4 on the sp cell, whose bottleneck link carries a small share of
+    it; it is reported beside (``cpu_f32_makespan_rel``)."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core import mapping
+    from repro_torch.core.machine import MachineSpec
+    from repro_torch.kernels import ops
+    from repro_torch.launch.placement import PlacementSession, schedule_diff
+
+    machine, prof = PLACE_CELLS[cell]
+    spec = MachineSpec.preset(machine)
+    topo = spec.topology()
+    t0 = time.perf_counter()
+    torch.zeros(1, device="cuda")
+    out = {"machine": machine, "profile": prof,
+           "cuda_init_s": time.perf_counter() - t0}
+    card = PlacementSession(cache_dir=cache_dir, device=None)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = card.place(PLACE_ARCH, PLACE_SHAPE, profile=prof, machine=machine,
+                     recompile=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    out["launches"] = ops.launch_counts()
+    rep = res.report
+    traced = {id(r): r for r in (res.record, res.searched_record)
+              if r is not None and not r.cached}
+    trace_s = sum(r.compile_s for r in traced.values())
+    traffic = (res.searched_record or res.record).traffic
+    out.update(
+        trace_s=trace_s, traces=len(traced), search_s=wall - trace_s,
+        collectives=res.record.by_op, n_collectives=res.record.n_collectives,
+        link_bytes=res.record.link, link_by_axis=res.record.link_by_axis,
+        agg_flops=res.record.agg_flops, identity=rep.identity,
+        searched=rep.searched, ratio=rep.makespan_ratio, perm=rep.axis_perm,
+        recompiles=sum(r["recompiled"] for r in rep.rounds),
+        fixed_point=(rep.schedule_diff or {}).get("fixed_point"),
+        n_candidates=rep.n_candidates,
+        host_makespan=host_map_makespan(traffic, topo, rep.device_order))
+
+    # (a): each search place() ran, again on the card and on the CPU on the
+    # same traffic: round 0 on the identity trace, round 1 (warm-started
+    # with the winner) on the retrace
+    t0 = time.perf_counter()
+    rounds_a = []
+    searched = [(res.record.traffic, None)]
+    if res.searched_record is not None and res.searched_record is not \
+            res.record:
+        searched.append((res.searched_record.traffic,
+                         [np.asarray(rep.device_order)]))
+    for t, warm in searched:
+        kw = dict(warm_starts=warm, n_random=card.map_restarts,
+                  recursive=card.recursive, seed=card.seed)
+        g = mapping.search(spec.mesh_shape, topo, t, device=None, **kw)
+        c = mapping.search(spec.mesh_shape, topo, t, device="cpu", **kw)
+        same = np.array_equal(g.device_to_bin, c.device_to_bin)
+        hg = host_map_makespan(t, topo, g.device_to_bin)
+        hc = host_map_makespan(t, topo, c.device_to_bin)
+        tie = 0.0 if same else abs(hg - hc) / hg
+        rel = abs(g.bottleneck - hc) / hc
+        rounds_a.append(dict(order_equal=bool(same), tie_rel_f64=tie,
+                             makespan_rel=rel,
+                             cpu_f32_makespan_rel=abs(
+                                 g.bottleneck - c.bottleneck) / c.bottleneck,
+                             card_perm=list(g.axis_perm),
+                             cpu_perm=list(c.axis_perm),
+                             cpu_order=c.device_to_bin.tolist(),
+                             cpu_makespan=float(c.bottleneck),
+                             ok=(same or tie <= PLACE_TIE)
+                             and rel <= PLACE_REL))
+    out["a"] = dict(rounds=rounds_a, seconds=time.perf_counter() - t0,
+                    ok=all(r["ok"] for r in rounds_a))
+    out["b_searched_le_identity"] = (rep.searched["makespan"]
+                                     <= rep.identity["makespan"])
+    if (machine, prof) in PLACE_RETRACE:
+        ident = np.arange(spec.n_devices)
+        t0 = time.perf_counter()
+        fresh = PlacementSession(cache_dir="", device=card.device).measure(
+            PLACE_ARCH, PLACE_SHAPE, profile=prof, machine=machine)
+        out["c_identity_retrace"] = dict(
+            seconds=time.perf_counter() - t0,
+            max_abs_delta=schedule_diff(res.record, fresh, topo, ident,
+                                        ident, device=card.device)[
+                                            "max_abs_delta"])
+    out["d_lint_errors"] = [f.message for f in card.verify()
+                            if f.severity == "error"]
+    out["d_matrices"] = len(card._mem)
+    h = hashlib.sha256(np.ascontiguousarray(
+        res.record.traffic).tobytes())
+    h.update(json.dumps([res.record.link, res.record.by_op],
+                        sort_keys=True).encode())
+    out["e_record_digest"] = h.hexdigest()
+    print(json.dumps(out), flush=True)
+
+
+def phase_place(state):
+    """The placement session's trace -> search -> retrace loop at full
+    width: ``PLACE_CELLS``, each in a child process (``place_child``), all
+    started together. Gates: (a) each of the card's searches equals a CPU
+    search on the same traffic (the same order, or one tied with it in
+    float64, and the card's makespan within ``PLACE_REL`` of the CPU order's
+    float64 score); (b) searched <= identity on each
+    side's own schedule; (c) an identity -> identity retrace diffs to 0
+    (``PLACE_RETRACE``); (d) ``lint_traffic`` finds no error in any traced
+    matrix; (e) expert equals 2d: the traced records and the CPU searches
+    exactly, the card's orders up to a float64 tie; (f) ``quotient_link_loads`` launched. The
+    ratios and perms stand beside the reference's rows (``PLACE_REF``),
+    reported, not gated."""
+    import os
+    import tempfile
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = [subprocess.Popen(
+            [sys.executable, "-c",
+             f"import chip_smoke; chip_smoke.place_child({i}, {tmp!r})"],
+            cwd=ROOT, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+            for i in range(len(PLACE_CELLS))]
+        outs = []
+        try:
+            for p in procs:
+                stdout, stderr = p.communicate(timeout=PLACE_TIMEOUT_S)
+                lines = [ln for ln in stdout.splitlines()
+                         if ln.startswith("{")]
+                if p.returncode != 0 or not lines:
+                    raise AssertionError(
+                        f"place child failed ({p.returncode}): "
+                        f"{stderr[-3000:]}")
+                outs.append(json.loads(lines[-1]))
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+    place_gates(state, outs)
+
+
+def place_gates(state, outs):
+    """``phase_place``'s lines and gates from its children's outputs."""
+    counts = {}
+    gates = {}
+    by_cell = {}
+    for out in outs:
+        for name, n in out["launches"].items():
+            counts[name] = counts.get(name, 0) + n
+        label = f"{out['machine']}/{out['profile']}"
+        by_cell[label] = out
+        ref = (PLACE_REF.get(out["profile"])
+               if out["machine"] == "tpu_v5e-512" else None)
+        line = {k: v for k, v in out.items()
+                if k not in ("launches", "e_record_digest")}
+        line["a"] = dict(out["a"], rounds=[
+            {k: v for k, v in r.items() if k != "cpu_order"}
+            for r in out["a"]["rounds"]])
+        emit("place", cell=label, **line,
+            reference=None if ref is None else dict(
+                ratio=ref[0], perm=ref[1], recompiles=ref[2],
+                source="EXPERIMENTS.md §Mapping-grid"))
+        gates[f"a_{label}"] = out["a"]["ok"]
+        gates[f"b_{label}"] = out["b_searched_le_identity"]
+        if "c_identity_retrace" in out:
+            gates[f"c_{label}"] = \
+                out["c_identity_retrace"]["max_abs_delta"] == 0
+        gates[f"d_{label}"] = not out["d_lint_errors"]
+    two, ex = by_cell["tpu_v5e-512/2d"], by_cell["tpu_v5e-512/expert"]
+    tie = abs(two["host_makespan"] - ex["host_makespan"]) \
+        / two["host_makespan"]
+    cpu = [[(r["cpu_order"], r["cpu_makespan"]) for r in o["a"]["rounds"]]
+           for o in (two, ex)]
+    expert = dict(
+        records_equal=two["e_record_digest"] == ex["e_record_digest"],
+        cpu_searches_equal=cpu[0] == cpu[1],
+        card_orders_tie_rel_f64=tie,
+        card_makespan_rel=abs(two["searched"]["makespan"]
+                              - ex["searched"]["makespan"])
+        / two["searched"]["makespan"])
+    gates["e_expert_equals_2d"] = (
+        expert["records_equal"] and expert["cpu_searches_equal"]
+        and tie <= PLACE_TIE and expert["card_makespan_rel"] <= PLACE_REL)
+    gates["f_quotient_link_loads_launched"] = \
+        counts.get("quotient_link_loads", 0) > 0
+    state["launches"]["place"] = counts
+    emit("place", step="checks", gates=gates, launches=counts,
+         expert_vs_2d=expert)
+    failed = [k for k, ok in gates.items() if not ok]
+    if failed:
+        raise AssertionError(f"place checks failed: {failed}")
+    _require_launched(counts, "place")
+
+
 PHASES = (phase_env, phase_build, phase_kernels, phase_kernels_recsys,
           phase_full, phase_small, phase_recsys, phase_kernels_gnn,
           phase_gnn, phase_gnn_train, phase_equiformer, phase_kernels_lm,
@@ -5759,7 +6032,8 @@ PHASES = (phase_env, phase_build, phase_kernels, phase_kernels_recsys,
           phase_lm_mla, phase_mapping,
           phase_c1,
           phase_claims, phase_train, phase_train_mla, phase_train_recsys,
-          phase_placement, phase_serving_bench, phase_lm100m)
+          phase_placement, phase_place, phase_serving_bench,
+          phase_lm100m)
 
 
 def kernels_line(state):

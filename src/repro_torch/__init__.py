@@ -11,11 +11,12 @@ table, the hot-row cache, the sparse table optimizer and the prefetching
 sampler), ``serving`` (paged KV cache, scheduler, paged decode, the
 continuous-batching engine with its fault recovery), ``resilience``
 (fault plans, the injector, the chaos harness), ``optim`` (AdamW),
-``dist`` (int8 gradient compression), ``train`` (the train step, the
-fault-tolerant loop and its restart supervisor),
+``dist`` (int8 gradient compression, the sharding rules), ``train`` (the
+train step, the fault-tolerant loop and its restart supervisor),
 ``ckpt`` (checkpoints), ``tree`` (nested parameter trees), ``launch``
-(the serving and training CLIs and the page mapper), ``analysis`` (the
-traffic-matrix lint) and ``kernels``
+(the serving and training CLIs, meshes, the step builders, the collective
+recorder and the placement session with the page mapper), ``analysis``
+(the traffic-matrix and spec-tree lints) and ``kernels``
 (hand-written CUDA kernels for Hopper, each beside its plain PyTorch
 version: the four partitioner kernels, ``bag_combine``,
 ``gather_combine``, ``bsr_spmm`` and ``flash_attention``). The package

@@ -1,8 +1,8 @@
 """Static checks of the port: twin of the parts of ``repro/analysis/`` the
-ported slices use, the :class:`Finding` record and
-``shard_lint.lint_traffic`` (the traffic-matrix lint ``map_pages`` runs).
-The reference's Pallas kernel verifier has no counterpart yet (ROADMAP
-Queue 1, item 16)."""
+ported slices use, the :class:`Finding` record, ``shard_lint.lint_traffic``
+(the traffic-matrix lint ``map_pages`` and the placement session run) and
+``shard_lint.lint_spec_tree``. The reference's Pallas kernel verifier has
+no counterpart yet (ROADMAP Queue 1, item 2)."""
 from __future__ import annotations
 
 import dataclasses

@@ -7,7 +7,8 @@ GQA ``qwen2-1.5b``, ``qwen2-72b`` and ``chatglm3-6b``, and the MoE + MLA
 ``common.ShapeSpec`` / ``ArchDef``.
 
 ``REGISTRY`` / :func:`get` resolve the names the CLIs' ``--arch`` takes
-(twin of ``repro/configs/__init__.py``'s registry: every arch of it)."""
+(twin of ``repro/configs/__init__.py``'s registry: every arch of it);
+:func:`all_cells` is its (arch, shape) grid."""
 from repro_torch.configs import (chatglm3_6b, deepseek_v2_236b,
                                  deepseek_v2_lite_16b, equiformer_v2, gin_tu,
                                  meshgraphnet, pna, qwen2_1_5b, qwen2_72b,
@@ -24,3 +25,9 @@ def get(name: str):
         raise KeyError(f"unknown arch {name!r}; available: "
                        f"{sorted(REGISTRY)}")
     return REGISTRY[name]
+
+
+def all_cells():
+    """Every (arch, shape) pair: the 40-cell grid (skips included)."""
+    return [(arch, shape) for arch in REGISTRY.values()
+            for shape in arch.shapes.values()]

@@ -1,9 +1,13 @@
 """Architecture registry records shared by the port's model configs.
 
-The part of ``repro/configs/common.py`` the ported slices need:
-``ShapeSpec``, ``ArchDef``, the LM, recsys and GNN shape grids, the GNN
-smoke batch and the LM model-FLOPs count (the JAX ``ShapeDtypeStruct``
-input specs of the dry-run are not ported).
+Twin of ``repro/configs/common.py``: ``ShapeSpec``, ``ArchDef``, the
+LM, recsys and GNN shape grids, the GNN smoke batch, the LM model-FLOPs
+count, and the input specs of every family's step. The reference's input
+specs are ``jax.ShapeDtypeStruct``s; the port's (:func:`sds`) are tensors
+on the ``meta`` device, which carry a shape and a dtype and allocate
+nothing. Each input function returns ``(specs, logical)``: the meta
+tensors and the logical axis names of their dims, which
+:func:`logical_to_specs` resolves through a ``dist.sharding.Rules``.
 """
 from __future__ import annotations
 
@@ -11,6 +15,7 @@ import dataclasses
 from typing import Any, Callable, Dict, Tuple
 
 import numpy as np
+import torch
 
 
 @dataclasses.dataclass(frozen=True)
@@ -33,6 +38,98 @@ class ArchDef:
     notes: str = ""
     profiles: Tuple[str, ...] = ("2d",)
 
+
+def sds(shape, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """A meta tensor of ``shape`` and ``dtype``: the input spec of a step
+    (the reference's ``jax.ShapeDtypeStruct``)."""
+    return torch.empty(tuple(shape), dtype=dtype, device="meta")
+
+
+# ---------------------------------------------------------------------------
+# Input specs per family (meta tensors + logical axis names)
+# ---------------------------------------------------------------------------
+
+def lm_train_inputs(batch: int, seq: int):
+    specs = {"tokens": sds((batch, seq), torch.int32),
+             "labels": sds((batch, seq), torch.int32)}
+    logical = {"tokens": ("batch", None), "labels": ("batch", None)}
+    return specs, logical
+
+
+def lm_prefill_inputs(batch: int, seq: int):
+    specs = {"tokens": sds((batch, seq), torch.int32)}
+    logical = {"tokens": ("batch", None)}
+    return specs, logical
+
+
+ROW_PAD = 512   # rows/arcs padded to the multi-pod device count
+
+
+def _pad(n: int, m: int = ROW_PAD) -> int:
+    return (n + m - 1) // m * m
+
+
+def gnn_train_inputs(n: int, arcs: int, d_feat: int, n_labels: int,
+                     with_pos: bool = False, graph_level: bool = False):
+    n_raw = n
+    n, arcs = _pad(n), _pad(arcs)
+    if n_labels == n_raw:
+        n_labels = n
+    specs = {
+        "x": sds((n, d_feat)),
+        "senders": sds((arcs,), torch.int32),
+        "receivers": sds((arcs,), torch.int32),
+        "edge_weight": sds((arcs,)),
+        "degrees": sds((n,)),
+        "labels": sds((n_labels,), torch.int32),
+        "label_mask": sds((n_labels,)),
+    }
+    logical = {
+        "x": ("rows", None), "senders": ("rows",), "receivers": ("rows",),
+        "edge_weight": ("rows",), "degrees": ("rows",),
+        "labels": ("rows",), "label_mask": ("rows",),
+    }
+    if with_pos:
+        specs["pos"] = sds((n, 3))
+        logical["pos"] = ("rows", None)
+    if graph_level:
+        specs["graph_id"] = sds((n,), torch.int32)
+        logical["graph_id"] = ("rows",)
+    return specs, logical
+
+
+def recsys_train_inputs(batch: int, hist: int, d_dense: int):
+    specs = {
+        "user_hist": sds((batch, hist), torch.int32),
+        "user_dense": sds((batch, d_dense)),
+        "item_id": sds((batch,), torch.int32),
+        "item_cat": sds((batch,), torch.int32),
+        "log_q": sds((batch,)),
+    }
+    logical = {k: ("batch",) + (None,) * (len(v.shape) - 1)
+               for k, v in specs.items()}
+    return specs, logical
+
+
+def recsys_retrieve_inputs(hist: int, d_dense: int, n_cand: int,
+                           embed_dim: int):
+    specs = {
+        "user_hist": sds((1, hist), torch.int32),
+        "user_dense": sds((1, d_dense)),
+        "cand_emb": sds((n_cand, embed_dim)),
+    }
+    logical = {"user_hist": (None, None), "user_dense": (None, None),
+               "cand_emb": ("cand", None)}
+    return specs, logical
+
+
+def logical_to_specs(logical: Dict[str, Tuple], rules) -> Dict[str, Any]:
+    return {k: rules.spec(*axes) for k, axes in logical.items()}
+
+
+# ---------------------------------------------------------------------------
+# Shape grids (shared per family)
+# ---------------------------------------------------------------------------
 
 def lm_shape_grid(full_attention: bool = True) -> Dict[str, ShapeSpec]:
     shapes = {

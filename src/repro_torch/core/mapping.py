@@ -514,9 +514,9 @@ def search_mesh_mapping(mesh_shape: Sequence[int],
 
     The batched scorer picks a shortlist (its 8 best, identity and every
     warm start), which the canonical ``makespan_tree`` path re-scores: the
-    two float32 scorers cancel O(total traffic) terms in different orders
-    and can disagree on near-ties, and every consumer sees costs through
-    the canonical path. The first minimum of the re-scores wins.
+    batched scorer cancels O(total traffic) terms in float32 and can
+    misorder near-ties, and every consumer sees costs through the
+    canonical path. The first minimum of the re-scores wins.
     """
     dev = resolve_device(device)
     shape = tuple(mesh_shape)

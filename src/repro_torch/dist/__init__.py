@@ -1,2 +1,3 @@
-"""Distributed-training pieces of the port that one card runs: the int8
-error-feedback gradient round trip (``compress``)."""
+"""Distributed-training pieces of the port: the int8 error-feedback
+gradient round trip (``compress``) and the named-axis sharding rules
+(``sharding``) the placement session traces a mesh with."""

@@ -38,7 +38,9 @@ wrapper with ``lse`` (the kernel on CUDA tensors), its backward the plain
 device. :func:`attention` goes through it where a gradient is wanted.
 
 The plain version is the chunked twin of ``_flash_fwd_impl``
-(``models.common.flash_attention_fwd``); CPU tensors run it. The wrapper's
+(``models.common.flash_attention_fwd``); CPU tensors run it, and so do
+``meta`` tensors (the placement session's trace), for which it returns
+outputs of the right shapes and computes nothing. The wrapper's
 ``q_chunk`` / ``kv_chunk`` are its chunk sizes and do not change the
 kernel's own tiling.
 """
@@ -73,7 +75,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     version for CPU tensors, the CUDA kernel for CUDA tensors."""
     global launches
     dev = q.device
-    if dev.type == "cpu":
+    if dev.type in ("cpu", "meta"):
         out, lse = plain_fwd(q, k, v, causal=causal, q_chunk=q_chunk,
                              kv_chunk=kv_chunk)
         return (out, lse) if return_lse else out

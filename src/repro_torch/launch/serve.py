@@ -25,9 +25,13 @@ Weights are random, made from seed 0 (``models.transformer.init``); the
 full config is ``make_config("decode_32k")``. ``--fault-plan`` injects
 faults into the stream (``resilience.parse_fault_plan``): a leaf death
 drops its pages, requeues their requests and re-places the survivors, and
-every completed request's tokens stay the clean run's. The reference's
-``--profile``, ``--topology-aware`` and ``--map-restarts`` belong to its
-mesh search and are not ported.
+every completed request's tokens stay the clean run's. ``--profile``
+picks the LM sharding profile on the serving mesh's axes
+(``launch.mesh.serving_mesh_spec``; the one-shot decode takes its rules,
+which constrain nothing on plain tensors); ``--map-restarts`` sets the
+placement session's mapping restarts; ``--topology-aware`` (one-shot
+path) maps the decode step when more than one device is local and is a
+no-op on one, as the reference's is.
 """
 from __future__ import annotations
 
@@ -38,15 +42,20 @@ import numpy as np
 import torch
 
 from repro_torch import configs, resolve_device
+from repro_torch.dist.sharding import NO_MESH
 
 
 def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         description="Stream or one-shot LM serving on the port.",
-        epilog="Not ported from the reference CLI: --profile and "
-               "--topology-aware (mesh search) and --map-restarts (mesh "
-               "search restarts).")
+        epilog="--topology-aware is a no-op on one device.")
     ap.add_argument("--arch", required=True)
+    ap.add_argument("--profile", default="2d",
+                    help="lm sharding profile: 2d | fsdp | sp | expert")
+    ap.add_argument("--map-restarts", type=int, default=32)
+    ap.add_argument("--topology-aware", action="store_true",
+                    help="one-shot path: search the decode mesh's device "
+                         "order (a no-op on one device)")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; 'cpu' runs the "
@@ -104,6 +113,15 @@ def _setup(args):
     cfg = arch.smoke_config() if args.smoke else arch.make_config(
         "decode_32k")
     dev = resolve_device(args.device)
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch.steps import rules_for
+    _, axes = mesh_lib.serving_mesh_spec()
+    args.rules = rules_for("lm", axes, profile=args.profile)
+    if args.topology_aware and mesh_lib.local_device_count() > 1 \
+            and dev.type == "cuda":
+        raise SystemExit("--topology-aware on several local devices needs "
+                         "the multi-device server, which is not ported; on "
+                         "one device it is a no-op")
     from repro_torch.models import transformer as tr
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
@@ -152,7 +170,8 @@ def serve_stream(args) -> None:
         from repro_torch.resilience.faults import (FaultInjector,
                                                    parse_fault_plan)
         injector = FaultInjector(parse_fault_plan(args.fault_plan))
-    session = PlacementSession(machine=args.machine, device=dev)
+    session = PlacementSession(machine=args.machine, device=dev,
+                               map_restarts=args.map_restarts)
     engine = ServingEngine(params, cfg, ecfg, session=session,
                            injector=injector, device=dev)
     for p, g in zip(prompts, gens):
@@ -177,7 +196,7 @@ def serve_stream(args) -> None:
 
 
 def oneshot(params, cfg, dev, batch: int, prompt_len: int, gen_len: int,
-            temperature: float, seed: int):
+            temperature: float, seed: int, rules=NO_MESH):
     """The fixed-batch decode: ``batch`` random prompts of ``prompt_len``
     tokens from ``seed``, prefilled by stepping the decode cache (simple,
     exact), then ``gen_len`` sampled tokens (greedy at temperature 0).
@@ -194,7 +213,7 @@ def oneshot(params, cfg, dev, batch: int, prompt_len: int, gen_len: int,
     out = []
     tok = toks[:, :1]
     for pos in range(max_seq - 1):
-        logits, cache = tr.decode_step(params, cache, tok, pos, cfg)
+        logits, cache = tr.decode_step(params, cache, tok, pos, cfg, rules)
         if pos + 1 < prompt_len:
             tok = toks[:, pos + 1: pos + 2]
         else:
@@ -211,7 +230,8 @@ def oneshot(params, cfg, dev, batch: int, prompt_len: int, gen_len: int,
 def serve_oneshot(args) -> None:
     cfg, dev, params = _setup(args)
     gen_toks, dt, _ = oneshot(params, cfg, dev, args.batch, args.prompt_len,
-                              args.gen_len, args.temperature, args.seed)
+                              args.gen_len, args.temperature, args.seed,
+                              args.rules)
     tput = args.batch * gen_toks.shape[1] / dt
     print(f"generated {gen_toks.shape} tokens in {dt:.2f}s "
           f"({tput:.1f} tok/s); sample row: {gen_toks[0][:16].tolist()}")

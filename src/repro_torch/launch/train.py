@@ -61,11 +61,17 @@ failure and runs under ``loop.run_supervised``: the machine model is
 degraded, the newest checkpoint restored, the batch stream replayed from
 its step, and the stitched loss trajectory is the uninterrupted one.
 
-Not ported, because they belong to later slices (ROADMAP Queue 1):
-``--profile``, ``--topology-aware``, ``--machine``, ``--map-restarts``
-and ``--lint`` (meshes and their mapping search: Queue 1 item 1; the
-lint, which runs the kernel verifier and the sharding lint: items 1 and
-2). One card has no mesh for them to act on.
+``--profile`` picks the LM sharding profile (2d | fsdp | sp | expert;
+``launch.steps.rules_for``), whose rules the LM's loss takes; on plain
+tensors they constrain nothing. ``--machine`` names the machine model
+whose mesh the run is laid out on: a machine with more devices than
+there are local ones raises the reference's error (``launch/mesh.py``).
+``--topology-aware`` is a no-op on one device, as the reference's is,
+and is refused on several: the trainer runs on one device, and the
+multi-device trainer that would map its step (``PlacementSession.
+map_step``) is not ported, nor is the reference's ``--map-restarts``
+with it. ``--lint`` is refused: it runs the Pallas kernel verifier,
+which is not ported (ROADMAP Queue 1, item 2).
 """
 from __future__ import annotations
 
@@ -80,6 +86,7 @@ import torch
 
 from repro_torch import configs, resolve_device, tree
 from repro_torch.data import pipeline
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.optim import adamw
 from repro_torch.train import loop
 from repro_torch.train.steps import make_train_step
@@ -88,9 +95,9 @@ def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         description="LM, recsys and GNN (EquiformerV2 too) training on "
                     "the port.",
-        epilog="Not ported from the reference CLI: --profile, "
-               "--topology-aware, --machine, --map-restarts and --lint "
-               "(meshes and their lint).")
+        epilog="Refused: --lint (the kernel verifier is not ported) and "
+               "--topology-aware on several devices (the multi-device "
+               "trainer is not ported).")
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--device", default=None,
@@ -135,6 +142,16 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--prefetch", type=int, default=0, metavar="DEPTH",
                     help="async batch prefetch depth (0 = off; 2 = "
                          "double buffering)")
+    ap.add_argument("--profile", default="2d",
+                    help="LM sharding profile: 2d | fsdp | sp | expert")
+    ap.add_argument("--topology-aware", action="store_true",
+                    help="search the logical -> physical device order of "
+                         "the mesh (a no-op on one device)")
+    ap.add_argument("--machine", default=None,
+                    help="machine-model preset (core.machine registry) "
+                         "whose mesh the run is laid out on")
+    ap.add_argument("--lint", action="store_true",
+                    help="refused: the kernel verifier is not ported")
     return ap
 
 
@@ -207,6 +224,30 @@ def embed_traffic_report(stats, plan, table, cfg, batch: int,
     return cache, rep
 
 
+def layout(args, family: str, n_dev: int):
+    """(machine, mesh axes, rules) of a run on ``n_dev`` local devices:
+    the ``--machine`` model's mesh (refused, with the reference's error,
+    when it has more devices than there are), else a 1-d ``data`` mesh;
+    the rules of ``--profile`` on its axes. ``--lint`` is refused here."""
+    from repro_torch.core import machine as machine_lib
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch.steps import rules_for
+    if args.lint:
+        raise SystemExit("--lint runs the kernel verifier and the sharding "
+                         "lint; the kernel verifier is not ported (ROADMAP "
+                         "Queue 1, item 2)")
+    machine = machine_lib.resolve(args.machine)
+    if machine is not None:
+        shape, axes = machine.mesh_spec()
+        n = int(np.prod(shape))
+        if n_dev < n:
+            raise ValueError(f"mesh shape {tuple(shape)} needs {n} devices, "
+                             f"got {n_dev}")
+    else:
+        axes = ("data",)
+    return machine, axes, rules_for(family, axes, profile=args.profile)
+
+
 @dataclasses.dataclass
 class TrainSetup:
     """What :func:`build` makes of the arguments: the model, its
@@ -224,6 +265,7 @@ class TrainSetup:
     batches: Callable[[int], Iterator]
     loss_fn: Callable
     embed: Optional[Dict[str, Any]] = None
+    rules: Any = None
 
 
 def build(args) -> TrainSetup:
@@ -243,6 +285,8 @@ def build(args) -> TrainSetup:
             f"on the grid's batches through train.steps.make_train_step "
             f"and train.loop.run")
     dev = resolve_device(args.device)
+    n_dev = mesh_lib.local_device_count() if dev.type == "cuda" else 1
+    _, _, rules = layout(args, arch.family, n_dev)
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     if arch.family == "lm":
@@ -255,8 +299,8 @@ def build(args) -> TrainSetup:
         from repro_torch.models import gnn as mdl
     params = mdl.init(cfg, gen, device=dev)
     n_params = sum(int(np.prod(x.shape)) for x in tree.leaves(params))
-    print(f"arch={arch.name} params={n_params / 1e6:.1f}M devices=1 "
-          f"({dev})", flush=True)
+    print(f"arch={arch.name} params={n_params / 1e6:.1f}M "
+          f"devices={n_dev} ({dev})", flush=True)
     grad_compress = args.grad_compress_block or args.grad_compress
     ocfg = optimizer_config(args.lr, args.steps)
     ecfg = False
@@ -309,6 +353,8 @@ def build(args) -> TrainSetup:
                           probe_s=probe_s, plan_s=plan_s, cache_s=cache_s)
     else:
         def loss_fn(p, b):
+            if arch.family == "lm":
+                return mdl.loss_fn(p, b, cfg, rules=rules)
             return mdl.loss_fn(p, b, cfg)
         opt = adamw.init(params, ocfg)
         step = make_train_step(loss_fn, ocfg, grad_compress=grad_compress)
@@ -335,9 +381,13 @@ def build(args) -> TrainSetup:
                                     consume=on_device)
         return (on_device(b) for b in host)
 
+    if args.topology_aware and n_dev > 1:
+        raise SystemExit("--topology-aware on several local devices needs "
+                         "the multi-device trainer, which is not ported; "
+                         "on one device it is a no-op")
     return TrainSetup(arch=arch, cfg=cfg, device=dev, params=params,
                       opt=opt, step=step, lcfg=lcfg, batches=batches,
-                      loss_fn=loss_fn, embed=embed_info)
+                      loss_fn=loss_fn, embed=embed_info, rules=rules)
 
 
 def train(args) -> tuple:

@@ -20,6 +20,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.dist.sharding import _is_dtensor, dense
+
 
 def rms_norm(x: torch.Tensor, gamma: torch.Tensor,
              eps: float = 1e-6) -> torch.Tensor:
@@ -33,7 +35,10 @@ def rms_norm(x: torch.Tensor, gamma: torch.Tensor,
 
 def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
            w_down: torch.Tensor) -> torch.Tensor:
-    return (torch.nn.functional.silu(x @ w_gate) * (x @ w_up)) @ w_down
+    """``(silu(x @ w_gate) * (x @ w_up)) @ w_down``, each product through
+    ``dist.sharding.dense`` (``@`` itself unless x is a DTensor)."""
+    h = torch.nn.functional.silu(dense(x, w_gate)) * dense(x, w_up)
+    return dense(h, w_down)
 
 
 def rope_freqs(d_head: int, max_len: int, theta: float = 1e4,
@@ -80,6 +85,89 @@ def _pad_seq(x: torch.Tensor, n: int, value: float = 0.0) -> torch.Tensor:
                                    value=value)
 
 
+def _placed(x: torch.Tensor, want) -> torch.Tensor:
+    """DTensor ``x`` redistributed to ``want`` (itself if it is so)."""
+    want = tuple(want)
+    return x if tuple(x.placements) == want else x.redistribute(
+        x.device_mesh, want)
+
+
+def _grad_placed(g: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Gradient ``g`` redistributed to the placements of its input ``x``,
+    replicated where ``x`` is partial (each share of a sum has the sum's
+    gradient), as DTensor places the gradient of a redistribution."""
+    from torch.distributed.tensor import Replicate
+    return _placed(g, [Replicate() if p.is_partial() else p
+                       for p in x.placements])
+
+
+def _attn_layout(q: torch.Tensor, k: torch.Tensor):
+    """The placements the chunked attention needs of DTensors q and k (v
+    as k): ``(q's, k's, k's gradient's)``. None is partial (the softmax is
+    not linear); k and v are whole along the sequence (each query row
+    reads every key: the sequence gather of sequence parallelism); k and v
+    stay sharded on the batch or the heads only on a mesh dim where q is
+    sharded alike and their heads divide it (a device's query rows and
+    heads read its own keys), else they are gathered there. q keeps its
+    batch, sequence and head shards; where q is sharded and k is whole, a
+    device's k gradient is its share of a sum (``Partial``)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh = q.device_mesh
+    qp = [p if isinstance(p, Shard) and p.dim % 4 in (0, 1, 2)
+          else Replicate() for p in q.placements]
+    kp = [p if (isinstance(p, Shard) and p.dim % 4 in (0, 2)
+                and qp[i] == p and k.shape[p.dim % 4] % mesh.size(i) == 0)
+          else Replicate() for i, p in enumerate(k.placements)]
+    gp = [Partial() if isinstance(a, Replicate) and isinstance(b, Shard)
+          else a for a, b in zip(kp, qp)]
+    return qp, kp, gp
+
+
+def _meta_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+    """``(out [B, Sq, H, Dv], lse [B, Sq, H])`` of meta inputs: empty. On
+    DTensors, q, k and v are first redistributed to
+    :func:`_attn_layout`'s placements, so a trace records the collectives
+    the plain path implies, and the outputs are placed like that q."""
+    dv = v.shape[-1]
+    if _is_dtensor(q):
+        qp, kp, _ = _attn_layout(q, k)
+        q, k, v = _placed(q, qp), _placed(k, kp), _placed(v, kp)
+    out = torch.empty_like(q if dv == q.shape[-1] else q[..., :dv])
+    return out, torch.empty_like(q[..., 0], dtype=torch.float32)
+
+
+def _meta_empty(shape, dtype, mesh, placements) -> torch.Tensor:
+    """An empty meta DTensor of global ``shape`` on ``placements`` (a
+    ``Partial`` holds a whole-size share); the local shard is rank 0's,
+    the fake world's rank."""
+    from torch.distributed.tensor import DTensor, Shard
+    local = list(shape)
+    for i, p in enumerate(placements):
+        if isinstance(p, Shard):
+            d = p.dim % len(local)
+            local[d] = -(-local[d] // mesh.size(i))
+    return DTensor.from_local(
+        torch.empty(local, dtype=dtype, device="meta"), mesh, placements,
+        run_check=False, shape=torch.Size(shape),
+        stride=torch.empty(shape, device="meta").stride())
+
+
+def _meta_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              do: torch.Tensor):
+    """``(dq, dk, dv)`` of meta inputs: empty, shaped and placed like q, k
+    and v. On DTensors the output's gradient ``do`` is first placed like
+    the forward's q, and each gradient is formed on :func:`_attn_layout`'s
+    placements and redistributed back to its input's (the transpose of
+    :func:`_meta_fwd`'s gathers: a partial k gradient is reduced)."""
+    if not _is_dtensor(q):
+        return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    qp, _, gp = _attn_layout(q, k)
+    _placed(do, qp)
+    return tuple(
+        _grad_placed(_meta_empty(x.shape, x.dtype, x.device_mesh, p), x)
+        for x, p in ((q, qp), (k, gp), (v, gp)))
+
+
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         causal: bool = True, q_chunk: int = 512,
                         kv_chunk: int = 512):
@@ -96,7 +184,14 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     are float32 (the reference's ``preferred_element_type``: the products
     of the working type are formed in float32); P is rounded to v's dtype
     before the PV product. A chunk of 0 means the full length.
+
+    On ``meta`` tensors (the placement session's DTensor trace) it returns
+    empty outputs and computes nothing, as XLA's lowering on host devices
+    computes nothing; DTensor inputs are first redistributed as the plain
+    path needs them (:func:`_meta_fwd`).
     """
+    if q.device.type == "meta":
+        return _meta_fwd(q, k, v)
     b, sq, h, d = q.shape
     _, sk, kh, _ = k.shape
     dv = v.shape[-1]
@@ -165,7 +260,11 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     float32 products of upcast operands here, with the reference's
     roundings: ``do`` goes to v's dtype for ``dp``, ``ds`` to k's dtype
     for dq and to q's for dk; ``dv`` takes ``p`` and ``do`` in float32.
+    On ``meta`` tensors it returns empty gradients like q, k and v, with
+    the reductions the plain path implies on DTensors (:func:`_meta_bwd`).
     """
+    if q.device.type == "meta":
+        return _meta_bwd(q, k, v, do)
     b, sq, h, d = q.shape
     _, sk, kh, _ = k.shape
     dv = v.shape[-1]
@@ -241,6 +340,55 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 CE_ROWS = 2048
 
 
+def _nll_layout(logits: torch.Tensor):
+    """``(logits', rows', vocab dims)``: the placements the chunked loss
+    needs of DTensor logits (none partial: the log-sum-exp is not linear),
+    those of its per-token rows (the logits' batch and sequence shards,
+    whole over the vocab) and the mesh dims that shard the vocab."""
+    from torch.distributed.tensor import Replicate, Shard
+    nd = logits.dim()
+    lp = [Replicate() if p.is_partial() else p for p in logits.placements]
+    vocab = [i for i, p in enumerate(lp)
+             if isinstance(p, Shard) and p.dim % nd == nd - 1]
+    rows = [Replicate() if i in vocab else p for i, p in enumerate(lp)]
+    return lp, rows, vocab
+
+
+def _meta_nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """The per-token loss of meta logits: empty, float32, shaped like the
+    labels. On DTensors, logits and labels are first redistributed as the
+    plain path needs them (:func:`_nll_layout`), and where the vocab is
+    sharded the three per-token reductions of a vocab-parallel loss are
+    recorded: the row max (``Partial("max")``), the sum of exponentials
+    and the gold logit (each device holds its vocab slice's share)."""
+    if not _is_dtensor(logits):
+        return torch.empty(labels.shape, dtype=torch.float32, device="meta")
+    from torch.distributed.tensor import Partial
+    mesh = logits.device_mesh
+    lp, rows, vocab = _nll_layout(logits)
+    _placed(logits, lp)
+    labels = _placed(labels, rows)
+    for op in ("max", "sum", "sum"):
+        _placed(_meta_empty(labels.shape, torch.float32, mesh,
+                            [Partial(op) if i in vocab else p
+                             for i, p in enumerate(rows)]), rows)
+    return torch.empty_like(labels, dtype=torch.float32)
+
+
+def _meta_nll_grad(logits: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """The logits' gradient of :func:`_meta_nll`: empty, placed like the
+    logits. On DTensors the incoming gradient is first placed like the
+    per-token rows; each device then forms its own vocab slice's gradient
+    (the log-sum-exp is whole on every device), which is redistributed to
+    the logits' own placements."""
+    if not _is_dtensor(logits):
+        return torch.empty_like(logits)
+    lp, rows, _ = _nll_layout(logits)
+    _placed(g, rows)
+    return _grad_placed(_meta_empty(logits.shape, logits.dtype,
+                                    logits.device_mesh, lp), logits)
+
+
 class _TokenNLL(torch.autograd.Function):
     """``nll[t] = logsumexp(x[t]) - x[t, label[t]]`` in float32 over row
     chunks of the logits. Autograd through the whole-tensor expression
@@ -249,10 +397,21 @@ class _TokenNLL(torch.autograd.Function):
     tokens of a 151,936-word vocabulary. This keeps the logits in their own
     type and recomputes each chunk's float32 rows in the backward, with the
     same operations autograd would run: ``g * exp(x - lse)``, then ``-g``
-    added at the gold column."""
+    added at the gold column.
+
+    On ``meta`` tensors (the placement session's DTensor trace) both
+    directions return empty results and compute nothing: the loop's row
+    slices and its gold gather over a vocab-sharded DTensor cannot be
+    traced on meta tensors (DTensor's masked-gather reduction compares
+    buffers with ``aten::equal``, which has no meta kernel). On DTensors
+    they record the collectives the plain path implies
+    (:func:`_meta_nll`)."""
 
     @staticmethod
     def forward(ctx, logits, labels):
+        if logits.device.type == "meta":
+            ctx.save_for_backward(logits)
+            return _meta_nll(logits, labels)
         x = logits.reshape(-1, logits.shape[-1])
         lab = labels.reshape(-1, 1).long()
         lse = torch.empty(x.shape[0], dtype=torch.float32, device=x.device)
@@ -267,6 +426,8 @@ class _TokenNLL(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
+        if g.device.type == "meta":
+            return _meta_nll_grad(ctx.saved_tensors[0], g), None
         logits, lab, lse = ctx.saved_tensors
         x = logits.reshape(-1, logits.shape[-1])
         g = g.reshape(-1, 1).to(torch.float32)

@@ -41,8 +41,13 @@ Parameters are a plain dict of tensors in the reference's ``[in, out]``
 orientation (``x @ w``), with the reference's per-layer stacks
 (``dense_layers``, then ``moe_layers``) unrolled into ``params["layers"]``,
 a list of one dict per layer (``interop.transformer_params_from`` carries
-the reference's across). One card has no mesh, so the reference's
-``Rules`` sharding annotations have no counterpart and are ignored.
+the reference's across). :func:`param_specs` / :func:`cache_specs` are the
+reference's spec trees in that layout, and the functions take the
+reference's ``rules`` (``dist.sharding.Rules``) with its constraint sites
+(``rules.shard``): the attention output, the embedding, the logits and
+the MoE buffers. Their default, ``sharding.NO_MESH``, resolves every name
+to nothing, and ``rules.shard`` returns a plain tensor itself, so only a
+DTensor trace on a mesh (``launch/placement.py``) sees them act.
 """
 from __future__ import annotations
 
@@ -54,6 +59,9 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import DeviceLike, resolve_device
+from repro_torch.dist.sharding import (NO_MESH, Rules, Spec, dense,
+                                       embed_rows, merge_last, split_dim,
+                                       split_last)
 from repro_torch.kernels import ops
 from repro_torch.models.common import (cross_entropy, rms_norm, rope_freqs,
                                       rope_tables, rotate, swiglu)
@@ -255,6 +263,57 @@ def init(cfg: TransformerConfig, generator: torch.Generator,
                        for li in range(cfg.n_layers)]}
 
 
+def _attn_specs(cfg: TransformerConfig, rules: Rules) -> Dict[str, Spec]:
+    """The reference's ``_attn_init`` specs."""
+    if cfg.mla:
+        s = ({"w_dq": rules.spec("fsdp", "model"), "q_norm": rules.spec(None),
+              "w_uq": rules.spec("fsdp", "model")} if cfg.q_lora_rank
+             else {"w_q": rules.spec("fsdp", "model")})
+        s.update(w_dkv=rules.spec("fsdp", None), kv_norm=rules.spec(None),
+                 w_kr=rules.spec("fsdp", None),
+                 w_uk=rules.spec(None, "model"),
+                 w_uv=rules.spec(None, "model"),
+                 w_o=rules.spec("model", "fsdp"))
+        return s
+    s = {"w_q": rules.spec("fsdp", "model"), "w_k": rules.spec("fsdp", "model"),
+         "w_v": rules.spec("fsdp", "model"), "w_o": rules.spec("model", "fsdp")}
+    if cfg.qkv_bias:
+        s.update(b_q=rules.spec("model"), b_k=rules.spec("model"),
+                 b_v=rules.spec("model"))
+    return s
+
+
+def _ffn_specs(cfg: TransformerConfig, rules: Rules,
+               moe_layer: bool) -> Dict[str, Spec]:
+    """The reference's ``_ffn_init`` specs."""
+    if not moe_layer:
+        return {"w_gate": rules.spec("fsdp", "model"),
+                "w_up": rules.spec("fsdp", "model"),
+                "w_down": rules.spec("model", "fsdp")}
+    s = {"router": rules.spec("fsdp", None),
+         "w_gate": rules.spec("expert", None, "fsdp"),
+         "w_up": rules.spec("expert", None, "fsdp"),
+         "w_down": rules.spec("expert", "fsdp", None)}
+    if cfg.n_shared:
+        s.update(ws_gate=rules.spec("fsdp", "model"),
+                 ws_up=rules.spec("fsdp", "model"),
+                 ws_down=rules.spec("model", "fsdp"))
+    return s
+
+
+def param_specs(cfg: TransformerConfig, rules: Rules) -> Params:
+    """The spec tree of :func:`init`'s params, leaf for leaf: the
+    reference's ``init`` specs with its per-layer stacks unrolled (a
+    stacked leaf's ``Spec(None, *s)`` is layer ``li``'s ``Spec(*s)``)."""
+    return {"embed": rules.spec("vocab", "fsdp"),
+            "unembed": rules.spec("fsdp", "vocab"),
+            "ln_f": rules.spec(None),
+            "layers": [{"attn": _attn_specs(cfg, rules),
+                        "ffn": _ffn_specs(cfg, rules, cfg.moe_layer(li)),
+                        "ln1": rules.spec(None), "ln2": rules.spec(None)}
+                       for li in range(cfg.n_layers)]}
+
+
 # ---------------------------------------------------------------------------
 # MoE dispatch (sort-based, fixed capacity)
 # ---------------------------------------------------------------------------
@@ -308,8 +367,8 @@ def combine(weighted: torch.Tensor, order: torch.Tensor, t: int,
         weighted.dtype)
 
 
-def moe_ffn(p: Params, x: torch.Tensor, cfg: TransformerConfig
-            ) -> Tuple[torch.Tensor, MoEStats]:
+def moe_ffn(p: Params, x: torch.Tensor, cfg: TransformerConfig,
+            rules: Rules = NO_MESH) -> Tuple[torch.Tensor, MoEStats]:
     """Routed top-k experts + shared experts. x: [T, D] -> [T, D].
 
     The reference's local path: pairs sorted by expert id, the
@@ -326,10 +385,11 @@ def moe_ffn(p: Params, x: torch.Tensor, cfg: TransformerConfig
 
     buf = x.new_zeros((e * cap + 1, d))
     buf[slot] = x[tok_of]
-    buf = buf[: e * cap].view(e, cap, d)
+    buf = rules.shard(buf[: e * cap].view(e, cap, d), "expert", None, None)
     h = (torch.nn.functional.silu(torch.bmm(buf, p["w_gate"]))
          * torch.bmm(buf, p["w_up"]))
-    out = torch.bmm(h, p["w_down"]).view(e * cap, d)
+    out = rules.shard(torch.bmm(h, p["w_down"]), "expert", None,
+                      None).view(e * cap, d)
     gathered = torch.where(valid[:, None],
                            out[torch.clamp_max(slot, e * cap - 1)], 0.0)
     weight = top_p.reshape(-1)[order].to(x.dtype)
@@ -349,11 +409,12 @@ def moe_ffn(p: Params, x: torch.Tensor, cfg: TransformerConfig
 
 
 def ffn(p: Params, x: torch.Tensor, cfg: TransformerConfig,
-        moe_layer: bool) -> Tuple[torch.Tensor, Optional[MoEStats]]:
+        moe_layer: bool, rules: Rules = NO_MESH
+        ) -> Tuple[torch.Tensor, Optional[MoEStats]]:
     """A layer's FFN on x [..., D]: ``moe_ffn`` over the flattened tokens
     for a MoE layer (with its stats), else the dense SwiGLU (stats None)."""
     if moe_layer:
-        y, stats = moe_ffn(p, x.reshape(-1, x.shape[-1]), cfg)
+        y, stats = moe_ffn(p, x.reshape(-1, x.shape[-1]), cfg, rules)
         return y.reshape(x.shape), stats
     return swiglu(x, p["w_gate"], p["w_up"], p["w_down"]), None
 
@@ -390,30 +451,29 @@ def _partial_rope(x: torch.Tensor, angles: torch.Tensor,
 
 
 def _qkv(p: Params, x: torch.Tensor, cfg: TransformerConfig):
-    q = x @ p["w_q"]
-    kk = x @ p["w_k"]
-    v = x @ p["w_v"]
+    q = dense(x, p["w_q"])
+    kk = dense(x, p["w_k"])
+    v = dense(x, p["w_v"])
     if cfg.qkv_bias:
         q, kk, v = q + p["b_q"], kk + p["b_k"], v + p["b_v"]
     return q, kk, v
 
 
 def gqa_attention(p: Params, x: torch.Tensor, cfg: TransformerConfig,
-                  tables, attend: Attend = ops.flash_attention
-                  ) -> torch.Tensor:
+                  tables, attend: Attend = ops.flash_attention,
+                  rules: Rules = NO_MESH) -> torch.Tensor:
     """x [B, S, D] -> [B, S, D] with the forward's RoPE ``tables``;
     ``attend`` is the attention forward (``ops.flash_attention``: the
     kernel on CUDA tensors)."""
     b, sq, _ = x.shape
     h, kh, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q, kk, v = _qkv(p, x, cfg)
-    q = _rotate_partial(q.reshape(b, sq, h, dh), tables, cfg.rope_fraction)
-    kk = _rotate_partial(kk.reshape(b, sq, kh, dh), tables,
-                         cfg.rope_fraction)
-    v = v.reshape(b, sq, kh, dh)
+    q = _rotate_partial(split_last(q, h, dh), tables, cfg.rope_fraction)
+    kk = _rotate_partial(split_last(kk, kh, dh), tables, cfg.rope_fraction)
+    v = split_last(v, kh, dh)
     o = attend(q.contiguous(), kk.contiguous(), v.contiguous(), causal=True,
                q_chunk=cfg.q_chunk or sq, kv_chunk=cfg.kv_chunk or sq)
-    return o.reshape(b, sq, h * dh) @ p["w_o"]
+    return rules.shard(dense(merge_last(o), p["w_o"]), "batch", "seq", None)
 
 
 def _mla_q(p: Params, x: torch.Tensor,
@@ -426,8 +486,8 @@ def _mla_q(p: Params, x: torch.Tensor,
 
 
 def mla_attention(p: Params, x: torch.Tensor, cfg: TransformerConfig,
-                  tables, attend: Attend = ops.flash_attention
-                  ) -> torch.Tensor:
+                  tables, attend: Attend = ops.flash_attention,
+                  rules: Rules = NO_MESH) -> torch.Tensor:
     """Training/prefill MLA: per-head K and V materialised from ``c_kv``,
     attention over the concatenated ``[nope | rope]`` dims (D = dn + dr,
     Dv = dv). x [B, S, D] -> [B, S, D]; decode runs the absorbed path
@@ -445,7 +505,8 @@ def mla_attention(p: Params, x: torch.Tensor, cfg: TransformerConfig,
     k_cat = torch.cat([k_nope, k_rope.expand(b, s, h, dr)], dim=-1)
     o = attend(q_cat, k_cat, v.contiguous(), causal=True,
                q_chunk=cfg.q_chunk or s, kv_chunk=cfg.kv_chunk or s)
-    return o.reshape(b, s, h * dv) @ p["w_o"]
+    return rules.shard(o.reshape(b, s, h * dv) @ p["w_o"], "batch", "seq",
+                       None)
 
 
 # ---------------------------------------------------------------------------
@@ -453,19 +514,22 @@ def mla_attention(p: Params, x: torch.Tensor, cfg: TransformerConfig,
 # ---------------------------------------------------------------------------
 
 def _layer_fwd(p: Params, x: torch.Tensor, cfg: TransformerConfig,
-               tables, attend: Attend, moe_layer: bool):
+               tables, attend: Attend, moe_layer: bool,
+               rules: Rules = NO_MESH):
     """One layer: (x [B, S, D], its aux loss: a float32 scalar, 0 for a
     dense FFN)."""
     attn = mla_attention if cfg.mla else gqa_attention
-    x = x + attn(p["attn"], rms_norm(x, p["ln1"]), cfg, tables, attend)
-    y, stats = ffn(p["ffn"], rms_norm(x, p["ln2"]), cfg, moe_layer)
+    x = x + attn(p["attn"], rms_norm(x, p["ln1"]), cfg, tables, attend,
+                 rules)
+    y, stats = ffn(p["ffn"], rms_norm(x, p["ln2"]), cfg, moe_layer, rules)
     aux = (stats.aux_loss if stats is not None
            else torch.zeros((), device=x.device))
     return x + y, aux
 
 
 def forward_core(params: Params, tokens: torch.Tensor,
-                 cfg: TransformerConfig, attend: Attend = ops.flash_attention
+                 cfg: TransformerConfig, attend: Attend = ops.flash_attention,
+                 rules: Rules = NO_MESH
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens [B, S] -> (logits [B, S, V], aux_loss: the float32 sum of
     the MoE layers', 0 for dense), differentiable, with the attention
@@ -476,51 +540,55 @@ def forward_core(params: Params, tokens: torch.Tensor,
     _, s = tokens.shape
     tables = _rope_tables(rope_freqs(cfg.rope_dim, s, cfg.rope_theta,
                                      device=tokens.device), cfg)
-    x = params["embed"][tokens.long()]
+    x = rules.shard(embed_rows(params["embed"], tokens.long()), "batch",
+                    "seq", None)
     aux_total = torch.zeros((), device=tokens.device)
     remat = cfg.remat and torch.is_grad_enabled()
     for li, layer in enumerate(params["layers"]):
         if remat:
             x, aux = checkpoint(_layer_fwd, layer, x, cfg, tables, attend,
-                                cfg.moe_layer(li), use_reentrant=False)
+                                cfg.moe_layer(li), rules, use_reentrant=False)
         else:
             x, aux = _layer_fwd(layer, x, cfg, tables, attend,
-                                cfg.moe_layer(li))
+                                cfg.moe_layer(li), rules)
         aux_total = aux_total + aux
     x = rms_norm(x, params["ln_f"])
-    return x @ params["unembed"], aux_total
+    return (rules.shard(dense(x, params["unembed"]), "batch", None, "vocab"),
+            aux_total)
 
 
 @torch.no_grad()
 def forward_with(params: Params, tokens: torch.Tensor,
-                 cfg: TransformerConfig,
-                 attend: Attend) -> Tuple[torch.Tensor, torch.Tensor]:
+                 cfg: TransformerConfig, attend: Attend,
+                 rules: Rules = NO_MESH
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """:func:`forward` with the attention forward ``attend`` in every layer
     (the checks hold the kernel against its plain version through it)."""
-    return forward_core(params, tokens, cfg, attend)
+    return forward_core(params, tokens, cfg, attend, rules)
 
 
-def forward(params: Params, tokens: torch.Tensor,
-            cfg: TransformerConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+def forward(params: Params, tokens: torch.Tensor, cfg: TransformerConfig,
+            rules: Rules = NO_MESH) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens [B, S] -> (logits [B, S, V], aux_loss scalar: 0 for dense)."""
-    return forward_with(params, tokens, cfg, ops.flash_attention)
+    return forward_with(params, tokens, cfg, ops.flash_attention, rules)
 
 
 def loss_fn(params: Params, batch: Dict[str, torch.Tensor],
-            cfg: TransformerConfig, attend: Attend = ops.flash_attention
+            cfg: TransformerConfig, attend: Attend = ops.flash_attention,
+            rules: Rules = NO_MESH
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """``(ce + aux, {"ce", "aux"})`` over ``batch["tokens"]`` /
     ``["labels"]`` (and an optional ``["mask"]``): the reference's
     ``loss_fn``, differentiable through :func:`forward_core`."""
-    logits, aux = forward_core(params, batch["tokens"], cfg, attend)
+    logits, aux = forward_core(params, batch["tokens"], cfg, attend, rules)
     ce = cross_entropy(logits, batch["labels"], batch.get("mask"))
     return ce + aux, {"ce": ce, "aux": aux}
 
 
-def prefill(params: Params, tokens: torch.Tensor,
-            cfg: TransformerConfig) -> torch.Tensor:
+def prefill(params: Params, tokens: torch.Tensor, cfg: TransformerConfig,
+            rules: Rules = NO_MESH) -> torch.Tensor:
     """Prefill forward — logits for every position."""
-    logits, _ = forward(params, tokens, cfg)
+    logits, _ = forward(params, tokens, cfg, rules)
     return logits
 
 
@@ -546,6 +614,17 @@ def init_cache(cfg: TransformerConfig, batch: int, max_seq: int,
             "v": torch.zeros(shape, dtype=cfg.dtype, device=dev)}
 
 
+def cache_specs(cfg: TransformerConfig, rules: Rules) -> Params:
+    """The spec tree of :func:`init_cache`'s cache (the reference's
+    ``init_cache`` specs): the sequence axis over ``kv_seq``, so at 32k
+    context the cache, not the weights, scales with the devices."""
+    if cfg.mla:
+        s = rules.spec(None, "batch", "kv_seq", None)
+        return {"c_kv": s, "k_rope": s}
+    s = rules.spec(None, "batch", "kv_seq", None, None)
+    return {"k": s, "v": s}
+
+
 def decode_attn(q: torch.Tensor, k_cache: torch.Tensor,
                 v_cache: torch.Tensor, mask: torch.Tensor,
                 cfg: TransformerConfig) -> torch.Tensor:
@@ -558,7 +637,7 @@ def decode_attn(q: torch.Tensor, k_cache: torch.Tensor,
     b = q.shape[0]
     h, kh, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     f32 = torch.float32
-    qh = q.reshape(b, kh, h // kh, dh).to(f32)
+    qh = split_dim(q[:, 0], 1, kh, h // kh).to(f32)
     s = qh @ k_cache.to(f32).permute(0, 2, 3, 1) / float(np.sqrt(dh))
     s = torch.where(mask, s, -torch.inf)                  # [B, kh, g, max_s]
     e = torch.exp(s - s.amax(dim=-1, keepdim=True))
@@ -577,10 +656,10 @@ def _decode_attn_gqa(p: Params, x: torch.Tensor, k_cache: torch.Tensor,
     b = x.shape[0]
     h, kh, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q, kk, v = _qkv(p, x, cfg)
-    q = _rotate_partial(q.reshape(b, 1, h, dh), tables, cfg.rope_fraction)
-    kk = _rotate_partial(kk.reshape(b, 1, kh, dh), tables, cfg.rope_fraction)
+    q = _rotate_partial(split_last(q, h, dh), tables, cfg.rope_fraction)
+    kk = _rotate_partial(split_last(kk, kh, dh), tables, cfg.rope_fraction)
     k_cache[:, pos] = kk[:, 0]
-    v_cache[:, pos] = v.reshape(b, kh, dh)
+    v_cache[:, pos] = split_last(v, kh, dh)[:, 0]
     return decode_attn(q, k_cache, v_cache, mask[None, None, None, :],
                        cfg) @ p["w_o"]
 
@@ -622,7 +701,8 @@ def _decode_attn_mla(p: Params, x: torch.Tensor, c_cache: torch.Tensor,
 
 def decode_layers(params: Params, x: torch.Tensor, cfg: TransformerConfig,
                   attn_fn: Callable[[int, Params, torch.Tensor],
-                                    torch.Tensor]) -> torch.Tensor:
+                                    torch.Tensor],
+                  rules: Rules = NO_MESH) -> torch.Tensor:
     """The decode stack shared with the paged step: x [B, 1, D] through
     every layer with ``attn_fn(layer_index, attn_params, normed_x)`` and
     the layer's FFN (``moe_ffn`` over the B tokens of a MoE layer), then
@@ -630,14 +710,14 @@ def decode_layers(params: Params, x: torch.Tensor, cfg: TransformerConfig,
     for li, layer in enumerate(params["layers"]):
         x = x + attn_fn(li, layer["attn"], rms_norm(x, layer["ln1"]))
         x = x + ffn(layer["ffn"], rms_norm(x, layer["ln2"]), cfg,
-                    cfg.moe_layer(li))[0]
+                    cfg.moe_layer(li), rules)[0]
     x = rms_norm(x, params["ln_f"])
-    return x[:, 0] @ params["unembed"]
+    return rules.shard(x[:, 0] @ params["unembed"], "batch", "vocab")
 
 
 @torch.no_grad()
 def decode_step(params: Params, cache: Params, tokens: torch.Tensor,
-                pos: int, cfg: TransformerConfig
+                pos: int, cfg: TransformerConfig, rules: Rules = NO_MESH
                 ) -> Tuple[torch.Tensor, Params]:
     """One decode step. tokens [B, 1] int; ``pos`` the current length (one
     for the whole batch). Returns (logits [B, V], the cache, updated in
@@ -648,7 +728,8 @@ def decode_step(params: Params, cache: Params, tokens: torch.Tensor,
     angles = rope_freqs(cfg.rope_dim, max_seq, cfg.rope_theta, device=dev)
     tables = _rope_tables(angles[pos:pos + 1], cfg)
     mask = torch.arange(max_seq, device=dev) <= pos
-    x = params["embed"][tokens.long()]
+    x = rules.shard(embed_rows(params["embed"], tokens.long()), "batch",
+                    None, None)
     if cfg.mla:
         def attn(li, p, hn):
             return _decode_attn_mla(p, hn, cache["c_kv"][li],
@@ -658,4 +739,4 @@ def decode_step(params: Params, cache: Params, tokens: torch.Tensor,
         def attn(li, p, hn):
             return _decode_attn_gqa(p, hn, cache["k"][li], cache["v"][li],
                                     pos, cfg, tables, mask)
-    return decode_layers(params, x, cfg, attn), cache
+    return decode_layers(params, x, cfg, attn, rules), cache

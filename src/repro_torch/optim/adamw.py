@@ -1,6 +1,6 @@
 """AdamW with global-norm clipping and a cosine schedule: twin of
 ``repro/optim/adamw.py`` over the port's parameter trees (``repro_torch.
-tree``). One card has no mesh, so ``state_specs`` has no counterpart.
+tree``); :func:`state_specs` is the state's spec tree for a mesh trace.
 
 ``bf16_state=True`` keeps first moments in bf16; second moments stay
 float32. The step count, the learning rate and the clip scale stay on the
@@ -65,6 +65,13 @@ def init(params: Any, cfg: AdamWConfig) -> OptState:
     dev = tree.leaves(params)[0].device
     return OptState(step=torch.zeros((), dtype=torch.int32, device=dev),
                     mu=mu, nu=nu)
+
+
+def state_specs(param_specs: Any) -> OptState:
+    """The spec tree of :class:`OptState` given the params' spec tree: the
+    step replicated, both moments sharded like their parameters."""
+    from repro_torch.dist.sharding import Spec
+    return OptState(step=Spec(), mu=param_specs, nu=param_specs)
 
 
 def global_norm(grads: Any) -> torch.Tensor:

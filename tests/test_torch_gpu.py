@@ -1819,3 +1819,33 @@ def test_smoke_recsys_step_on_the_card_matches_its_cpu_run(cuda):
     np.testing.assert_allclose(lg, lc, rtol=1e-5)
     for a, b in zip(tree.leaves((pg, eg)), tree.leaves((pc, ec))):
         torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-5)
+
+
+def test_place_on_the_card_equals_the_cpu_search(cuda, tmp_path):
+    """``PlacementSession.place`` on qwen2-1.5b at the reference's tiny
+    overrides on ``tpu-mixed-32``'s (2, 4, 4) mesh: the searches run on the
+    card (``quotient_link_loads`` launched) and find the CPU's order, or
+    one tied with it in float64 on the host, and makespans within rel
+    1e-4 (the mapping band); searched <= identity."""
+    from chip_smoke import host_map_makespan
+    from repro_torch.kernels import quotient_link_loads
+    from repro_torch.launch.placement import PlacementSession
+    tiny = {"n_layers": 1, "batch": 4, "seq": 8}
+    kw = dict(machine="tpu-mixed-32", overrides=tiny, recompile=True)
+    before = quotient_link_loads.launches
+    card = PlacementSession(cache_dir=str(tmp_path), device=None).place(
+        "qwen2-1.5b", "train_4k", **kw)
+    assert quotient_link_loads.launches > before
+    cpu = PlacementSession(cache_dir=str(tmp_path), device="cpu").place(
+        "qwen2-1.5b", "train_4k", **kw)
+    a, b = card.report, cpu.report
+    topo = MachineSpec.preset("tpu-mixed-32").topology()
+    if a.device_order != b.device_order:
+        t = card.record.traffic
+        ha = host_map_makespan(t, topo, a.device_order)
+        hb = host_map_makespan(t, topo, b.device_order)
+        assert abs(ha - hb) <= 1e-9 * hb
+    for side in ("identity", "searched"):
+        assert a.__dict__[side]["makespan"] == pytest.approx(
+            b.__dict__[side]["makespan"], rel=1e-4)
+    assert a.searched["makespan"] <= a.identity["makespan"]

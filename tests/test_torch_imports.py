@@ -68,7 +68,13 @@ def test_port_sources_exist():
                  "benchmarks/torch_bench_placement.py",
                  "benchmarks/torch_bench_serving.py",
                  "benchmarks/torch_run.py",
-                 "examples/torch_train_lm_100m.py"):
+                 "examples/torch_train_lm_100m.py",
+                 "src/repro_torch/dist/sharding.py",
+                 "src/repro_torch/launch/mesh.py",
+                 "src/repro_torch/launch/steps.py",
+                 "src/repro_torch/launch/collectives.py",
+                 "src/repro_torch/launch/placement.py",
+                 "src/repro_torch/analysis/shard_lint.py"):
         assert must in names
 
 

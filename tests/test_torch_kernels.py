@@ -301,29 +301,39 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
                                     "prefix_split"]}
 
 
-@pytest.mark.parametrize("call", [
-    lambda t: match_keys.match_keys(t, t, t),
-    lambda t: bucket_assign.bucket_assign(t, t, 2),
-    lambda t: partition_gain.partition_gain(t.int(), t.int()[:, None],
-                                            t[:, None], 2),
-    lambda t: quotient_link_loads.quotient_link_loads(
-        t.int(), t.int(), t.int(), t, t[None, :], t[:1], 4),
-    lambda t: bag_combine.bag_combine(t.view(1, 2, 2), t.view(2, 2)[:1]),
-    lambda t: gather_combine.gather_combine(t.view(2, 2), t.int().view(2, 2),
-                                            t.view(2, 2)),
-    lambda t: bsr_spmm.bsr_spmm(t.int()[:2], t.int()[:1], t.view(1, 2, 2),
-                                t.view(2, 2), t.int().view(1, 1, 4)[..., :1]),
-    lambda t: flash_attention.flash_attention(
-        t.view(1, 2, 1, 2), t.view(1, 2, 1, 2), t.view(1, 2, 1, 2)),
-    lambda t: bucket_assign.prefix_split(t, t[:1], 2),
+@pytest.mark.parametrize("call,refused", [
+    (lambda t: match_keys.match_keys(t, t, t), True),
+    (lambda t: bucket_assign.bucket_assign(t, t, 2), True),
+    (lambda t: partition_gain.partition_gain(t.int(), t.int()[:, None],
+                                             t[:, None], 2), True),
+    (lambda t: quotient_link_loads.quotient_link_loads(
+        t.int(), t.int(), t.int(), t, t[None, :], t[:1], 4), True),
+    (lambda t: bag_combine.bag_combine(t.view(1, 2, 2), t.view(2, 2)[:1]),
+     True),
+    (lambda t: gather_combine.gather_combine(t.view(2, 2),
+                                             t.int().view(2, 2),
+                                             t.view(2, 2)), True),
+    (lambda t: bsr_spmm.bsr_spmm(t.int()[:2], t.int()[:1], t.view(1, 2, 2),
+                                 t.view(2, 2), t.int().view(1, 1, 4)[..., :1]),
+     True),
+    (lambda t: flash_attention.flash_attention(
+        t.view(1, 2, 1, 2), t.view(1, 2, 1, 2), t.view(1, 2, 1, 2)), False),
+    (lambda t: bucket_assign.prefix_split(t, t[:1], 2), True),
 ], ids=["match_keys", "bucket_assign", "partition_gain",
         "quotient_link_loads", "bag_combine", "gather_combine", "bsr_spmm",
         "flash_attention", "prefix_split"])
-def test_wrappers_refuse_devices_without_a_kernel(call):
+def test_wrappers_refuse_devices_without_a_kernel(call, refused):
     """Dispatch is by the tensor's device: no silent plain path on a
-    device other than the CPU (here ``meta``)."""
-    with pytest.raises(ValueError, match="no kernel for device"):
-        call(torch.zeros(4, device="meta"))
+    device other than the CPU (here ``meta``). The one exception is
+    ``flash_attention``, whose plain version takes meta tensors for the
+    placement session's trace: it returns an empty output of the right
+    shape on meta and computes nothing."""
+    if refused:
+        with pytest.raises(ValueError, match="no kernel for device"):
+            call(torch.zeros(4, device="meta"))
+    else:
+        out = call(torch.zeros(4, device="meta"))
+        assert out.device.type == "meta" and tuple(out.shape) == (1, 2, 1, 2)
 
 
 def _bf16_bag_inputs(b, d, f, v):

@@ -138,8 +138,8 @@ def _record_stats(monkeypatch):
     stats = []
     inner = ttr.moe_ffn
 
-    def moe_ffn(p, x, cfg):
-        y, st = inner(p, x, cfg)
+    def moe_ffn(p, x, cfg, *rules):
+        y, st = inner(p, x, cfg, *rules)
         stats.append(float(st.dropped_frac))
         return y, st
     monkeypatch.setattr(ttr, "moe_ffn", moe_ffn)
