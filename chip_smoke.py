@@ -366,19 +366,24 @@ non-zero:
            scorecard against a
            float64 host re-evaluation at rel 1e-4, the bench's
            heterogeneous claims (they raise inside the twin).
-  place    ``PlacementSession.place`` (``recompile=True``) for qwen2-1.5b
-           FULL at train_4k (28 layers, 256 x 4,096, traced on meta
-           DTensors over a fake world) with the 2d, fsdp, sp and expert
-           profiles on ``tpu_v5e-512`` and 2d on ``gpu-superpod``, one
-           child process a cell, the searches on the card, launch counts
-           set to 0 just before each: (a) each search again on the card
-           and on the CPU on the same traffic, the same order or a float64
-           tie, and the card's makespan within rel 1e-4 of the CPU order's
-           float64 score; (b) searched <= identity;
+  place    ``PlacementSession.place`` (``recompile=True``) at full width,
+           traced on meta DTensors over a fake world: qwen2-1.5b FULL at
+           train_4k (28 layers, 256 x 4,096) and DeepSeek-V2-Lite FULL
+           (27 layers, MoE + MLA) with the 2d, fsdp, sp and expert
+           profiles on ``tpu_v5e-512``; qwen2 2d on ``gpu-superpod``; PNA
+           at minibatch_lg and the two-tower model at train_batch on
+           ``tpu_v5e-512``; qwen2's decode_32k on ``gpu-superpod``. One
+           child process a cell, at most 8 at a time, the searches on the
+           card, launch counts set to 0 just before each: (a) each search
+           again on the card and on the CPU on the same traffic, the same
+           order or a float64 tie, and the card's makespan within rel 1e-4
+           of the CPU order's float64 score; (b) searched <= identity;
            (c) an identity -> identity retrace diffs to 0 (two cells); (d)
-           ``lint_traffic`` clean; (e) expert equals 2d; (f)
-           ``quotient_link_loads`` launched. Each cell's ratio and perm
-           beside the reference's ``EXPERIMENTS.md`` row (reported).
+           ``lint_traffic`` clean; (e) expert equals 2d on qwen2; (f)
+           ``quotient_link_loads`` launched; the kernel at the largest call
+           of the DeepSeek expert searches timed against its plain
+           version. Each train_4k cell's ratio and perm beside the
+           reference's ``EXPERIMENTS.md`` row (reported).
   serving_bench  ``benchmarks/torch_bench_serving.py`` at its full tier
            (32 requests, 8 slots, page 8: continuous, static, placed every
            8 steps on 4 bins, a leaf death at a third of the steps), launch
@@ -5780,25 +5785,58 @@ def phase_lm100m(state):
     _require_launched(counts, "lm100m")
 
 
-# The placement session's cells at full width (qwen2-1.5b FULL, 28 layers,
-# the shape's own batch of 256 x 4,096 on meta tensors), one child process
-# each, all traced side by side.
-PLACE_ARCH, PLACE_SHAPE = "qwen2-1.5b", "train_4k"
-PLACE_CELLS = (("tpu_v5e-512", "2d"), ("tpu_v5e-512", "expert"),
-               ("tpu_v5e-512", "fsdp"), ("tpu_v5e-512", "sp"),
-               ("gpu-superpod", "2d"))
-# the reference's rows for the tpu_v5e-512 cells (EXPERIMENTS.md
+# The placement session's cells at full width, one child process each, at
+# most PLACE_PARALLEL at a time: qwen2-1.5b FULL (28 layers, the shape's
+# own batch of 256 x 4,096 on meta tensors) under every profile, and
+# DeepSeek-V2-Lite FULL (27 layers: 1 dense + 26 MoE) likewise, on
+# tpu_v5e-512; qwen2 2d on gpu-superpod; the GNN and two-tower cells the
+# gnn_train and train_recsys phases train (pna minibatch_lg, the
+# two-tower's train_batch); and qwen2's decode_32k (128 x 32,768 of cache).
+PLACE_CELLS = (
+    ("qwen2-1.5b", "train_4k", "tpu_v5e-512", "2d"),
+    ("qwen2-1.5b", "train_4k", "tpu_v5e-512", "expert"),
+    ("qwen2-1.5b", "train_4k", "tpu_v5e-512", "fsdp"),
+    ("qwen2-1.5b", "train_4k", "tpu_v5e-512", "sp"),
+    ("qwen2-1.5b", "train_4k", "gpu-superpod", "2d"),
+    ("deepseek-v2-lite-16b", "train_4k", "tpu_v5e-512", "2d"),
+    ("deepseek-v2-lite-16b", "train_4k", "tpu_v5e-512", "fsdp"),
+    ("deepseek-v2-lite-16b", "train_4k", "tpu_v5e-512", "sp"),
+    ("deepseek-v2-lite-16b", "train_4k", "tpu_v5e-512", "expert"),
+    ("pna", "minibatch_lg", "tpu_v5e-512", "2d"),
+    ("two-tower-retrieval", "train_batch", "tpu_v5e-512", "2d"),
+    ("qwen2-1.5b", "decode_32k", "gpu-superpod", "2d"),
+)
+PLACE_PARALLEL = 8        # children at a time: the host's 8 cores
+# the reference's rows for the tpu_v5e-512 train_4k cells (EXPERIMENTS.md
 # §Mapping-grid, XLA host compiles): searched / identity makespan, the axis
 # permutation, recompiles
-PLACE_REF = {"2d": (0.631, [1, 0, 2], 1), "fsdp": (0.450, [2, 0, 1], 1),
-             "sp": (1.000, [0, 1, 2], 0), "expert": (0.631, [1, 0, 2], 1)}
+PLACE_REF = {("qwen2-1.5b", "2d"): (0.631, [1, 0, 2], 1),
+             ("qwen2-1.5b", "fsdp"): (0.450, [2, 0, 1], 1),
+             ("qwen2-1.5b", "sp"): (1.000, [0, 1, 2], 0),
+             ("qwen2-1.5b", "expert"): (0.631, [1, 0, 2], 1),
+             ("deepseek-v2-lite-16b", "2d"): (1.000, [0, 1, 2], 0),
+             ("deepseek-v2-lite-16b", "fsdp"): (0.040, [2, 0, 1], 1),
+             ("deepseek-v2-lite-16b", "sp"): (1.000, [0, 1, 2], 0),
+             ("deepseek-v2-lite-16b", "expert"): (0.001, [2, 1, 0], 1)}
 PLACE_REL = 1e-4          # gate (a): the card's makespan vs the float64
                           # score of the CPU's order, the mapping band
 PLACE_TIE = 1e-9          # rel float64 difference of an exact tie
 PLACE_TIMEOUT_S = 420
 # the cells that also retrace identity under identity for gate (c): the
 # cheapest trace, and a 3-d mesh's
-PLACE_RETRACE = (("gpu-superpod", "2d"), ("tpu_v5e-512", "expert"))
+PLACE_RETRACE = (("qwen2-1.5b", "train_4k", "gpu-superpod", "2d"),
+                 ("qwen2-1.5b", "train_4k", "tpu_v5e-512", "expert"))
+# gate (e): expert equals 2d on the dense arch (on DeepSeek the profiles
+# shard the experts differently)
+PLACE_EXPERT_PAIR = (("qwen2-1.5b", "train_4k", "tpu_v5e-512", "2d"),
+                     ("qwen2-1.5b", "train_4k", "tpu_v5e-512", "expert"))
+# the cell whose searches' own quotient_link_loads inputs are timed
+PLACE_QLL_CELL = ("deepseek-v2-lite-16b", "train_4k", "tpu_v5e-512",
+                  "expert")
+
+
+def place_label(cell) -> str:
+    return "/".join(cell)
 
 
 def host_map_makespan(traffic, topo, order) -> float:
@@ -5821,7 +5859,9 @@ def place_child(cell: int, cache_dir: str) -> None:
     read around it; then a CPU search over the same traces (the disk
     cache) for gate (a), a fresh identity retrace for (c) in the
     ``PLACE_RETRACE`` cells, the lint for (d), and for (e) a digest of the
-    record. Prints one JSON line.
+    record; in ``PLACE_QLL_CELL`` the kernel timed on the largest call of
+    the searches' own inputs against its plain version. Prints one JSON
+    line.
 
     ``quotient_link_loads`` sums with float atomics, so the card's scores
     vary in their last bits from call to call, and among candidates whose
@@ -5834,6 +5874,7 @@ def place_child(cell: int, cache_dir: str) -> None:
     1.5e-4 on the sp cell, whose bottleneck link carries a small share of
     it; it is reported beside (``cpu_f32_makespan_rel``)."""
     import hashlib
+    import resource
 
     import numpy as np
     import torch
@@ -5841,23 +5882,43 @@ def place_child(cell: int, cache_dir: str) -> None:
     from repro_torch.core import mapping
     from repro_torch.core.machine import MachineSpec
     from repro_torch.kernels import ops
+    from repro_torch.kernels import quotient_link_loads as qll
     from repro_torch.launch.placement import PlacementSession, schedule_diff
 
-    machine, prof = PLACE_CELLS[cell]
+    arch, shape, machine, prof = PLACE_CELLS[cell]
     spec = MachineSpec.preset(machine)
     topo = spec.topology()
     t0 = time.perf_counter()
     torch.zeros(1, device="cuda")
-    out = {"machine": machine, "profile": prof,
-           "cuda_init_s": time.perf_counter() - t0}
+    out = {"arch": arch, "shape": shape, "machine": machine,
+           "profile": prof, "cuda_init_s": time.perf_counter() - t0}
     card = PlacementSession(cache_dir=cache_dir, device=None)
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    res = card.place(PLACE_ARCH, PLACE_SHAPE, profile=prof, machine=machine,
-                     recompile=True)
+    held = []
+
+    def run():
+        held.append(card.place(arch, shape, profile=prof, machine=machine,
+                               recompile=True))
+    qll_inputs = (record_qll_inputs(run) if PLACE_CELLS[cell] == PLACE_QLL_CELL
+                  else run())
+    res = held[0]
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     out["launches"] = ops.launch_counts()
+    if qll_inputs:
+        args = max(qll_inputs.values(), key=lambda a: a[1].shape[0])
+        flush = _flush_buffer({})
+        out["qll_at_search"] = dict(
+            arcs=int(args[1].shape[0]), vertices=int(args[0].shape[0]),
+            k=int(args[6]), links=int(args[4].shape[0]),
+            calls=out["launches"].get("quotient_link_loads", 0),
+            ms=device_ms(lambda: qll.quotient_link_loads(*args), 30,
+                         flush=flush),
+            plain_ms=device_ms(lambda: qll.plain(*args), 30, flush=flush),
+            max_abs_err=float((qll.quotient_link_loads(*args)
+                               - qll.plain(*args)).abs().max()),
+            max_plain=float(qll.plain(*args).abs().max()))
     rep = res.report
     traced = {id(r): r for r in (res.record, res.searched_record)
               if r is not None and not r.cached}
@@ -5908,11 +5969,11 @@ def place_child(cell: int, cache_dir: str) -> None:
                     ok=all(r["ok"] for r in rounds_a))
     out["b_searched_le_identity"] = (rep.searched["makespan"]
                                      <= rep.identity["makespan"])
-    if (machine, prof) in PLACE_RETRACE:
+    if PLACE_CELLS[cell] in PLACE_RETRACE:
         ident = np.arange(spec.n_devices)
         t0 = time.perf_counter()
         fresh = PlacementSession(cache_dir="", device=card.device).measure(
-            PLACE_ARCH, PLACE_SHAPE, profile=prof, machine=machine)
+            arch, shape, profile=prof, machine=machine)
         out["c_identity_retrace"] = dict(
             seconds=time.perf_counter() - t0,
             max_abs_delta=schedule_diff(res.record, fresh, topo, ident,
@@ -5926,46 +5987,71 @@ def place_child(cell: int, cache_dir: str) -> None:
     h.update(json.dumps([res.record.link, res.record.by_op],
                         sort_keys=True).encode())
     out["e_record_digest"] = h.hexdigest()
+    out["max_rss_gb"] = resource.getrusage(
+        resource.RUSAGE_SELF).ru_maxrss / 2**20
     print(json.dumps(out), flush=True)
 
 
 def phase_place(state):
     """The placement session's trace -> search -> retrace loop at full
-    width: ``PLACE_CELLS``, each in a child process (``place_child``), all
-    started together. Gates: (a) each of the card's searches equals a CPU
-    search on the same traffic (the same order, or one tied with it in
-    float64, and the card's makespan within ``PLACE_REL`` of the CPU order's
-    float64 score); (b) searched <= identity on each
-    side's own schedule; (c) an identity -> identity retrace diffs to 0
-    (``PLACE_RETRACE``); (d) ``lint_traffic`` finds no error in any traced
-    matrix; (e) expert equals 2d: the traced records and the CPU searches
-    exactly, the card's orders up to a float64 tie; (f) ``quotient_link_loads`` launched. The
-    ratios and perms stand beside the reference's rows (``PLACE_REF``),
-    reported, not gated."""
+    width: ``PLACE_CELLS``, each in a child process (``place_child``), at
+    most ``PLACE_PARALLEL`` at a time. Gates: (a) each of the card's
+    searches equals a CPU search on the same traffic (the same order, or
+    one tied with it in float64, and the card's makespan within
+    ``PLACE_REL`` of the CPU order's float64 score); (b) searched <=
+    identity on each side's own schedule; (c) an identity -> identity
+    retrace diffs to 0 (``PLACE_RETRACE``); (d) ``lint_traffic`` finds no
+    error in any traced matrix; (e) expert equals 2d on the dense arch
+    (``PLACE_EXPERT_PAIR``): the traced records and the CPU searches
+    exactly, the card's orders up to a float64 tie; (f)
+    ``quotient_link_loads`` launched. The ratios and perms stand beside the
+    reference's rows (``PLACE_REF``), reported, not gated."""
     import os
     import tempfile
 
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    outs = [None] * len(PLACE_CELLS)
     with tempfile.TemporaryDirectory() as tmp:
-        procs = [subprocess.Popen(
-            [sys.executable, "-c",
-             f"import chip_smoke; chip_smoke.place_child({i}, {tmp!r})"],
-            cwd=ROOT, env=env, stdout=subprocess.PIPE,
-            stderr=subprocess.PIPE, text=True)
-            for i in range(len(PLACE_CELLS))]
-        outs = []
+        pending = list(range(len(PLACE_CELLS)))
+        running = {}
         try:
-            for p in procs:
-                stdout, stderr = p.communicate(timeout=PLACE_TIMEOUT_S)
-                lines = [ln for ln in stdout.splitlines()
-                         if ln.startswith("{")]
-                if p.returncode != 0 or not lines:
-                    raise AssertionError(
-                        f"place child failed ({p.returncode}): "
-                        f"{stderr[-3000:]}")
-                outs.append(json.loads(lines[-1]))
+            while pending or running:
+                while pending and len(running) < PLACE_PARALLEL:
+                    i = pending.pop(0)
+                    running[i] = (subprocess.Popen(
+                        [sys.executable, "-c",
+                         f"import chip_smoke; chip_smoke.place_child({i}, "
+                         f"{tmp!r})"],
+                        cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                        stderr=subprocess.PIPE, text=True),
+                        time.perf_counter())
+                done = [i for i, (p, _) in running.items()
+                        if p.poll() is not None]
+                for i, (p, t0) in running.items():
+                    if i not in done and \
+                            time.perf_counter() - t0 > PLACE_TIMEOUT_S:
+                        raise AssertionError(
+                            f"place child {place_label(PLACE_CELLS[i])} "
+                            f"ran past {PLACE_TIMEOUT_S} s")
+                for i in done:
+                    p, t0 = running.pop(i)
+                    stdout, stderr = p.communicate()
+                    lines = [ln for ln in stdout.splitlines()
+                             if ln.startswith("{")]
+                    if p.returncode != 0 or not lines:
+                        raise AssertionError(
+                            f"place child {place_label(PLACE_CELLS[i])} "
+                            f"failed ({p.returncode}): {stderr[-3000:]}")
+                    outs[i] = dict(json.loads(lines[-1]),
+                                   wall_s=time.perf_counter() - t0)
+                    emit("place", step="child",
+                         cell=place_label(PLACE_CELLS[i]),
+                         wall_s=outs[i]["wall_s"],
+                         trace_s=outs[i]["trace_s"],
+                         ratio=outs[i]["ratio"])
+                time.sleep(0.2)
         finally:
-            for p in procs:
+            for p, _ in running.values():
                 if p.poll() is None:
                     p.kill()
                     p.wait()
@@ -5977,29 +6063,30 @@ def place_gates(state, outs):
     counts = {}
     gates = {}
     by_cell = {}
-    for out in outs:
+    for cell, out in zip(PLACE_CELLS, outs):
         for name, n in out["launches"].items():
             counts[name] = counts.get(name, 0) + n
-        label = f"{out['machine']}/{out['profile']}"
-        by_cell[label] = out
-        ref = (PLACE_REF.get(out["profile"])
-               if out["machine"] == "tpu_v5e-512" else None)
+        label = place_label(cell)
+        by_cell[cell] = out
+        ref = (PLACE_REF.get((out["arch"], out["profile"]))
+               if out["machine"] == "tpu_v5e-512"
+               and out["shape"] == "train_4k" else None)
         line = {k: v for k, v in out.items()
                 if k not in ("launches", "e_record_digest")}
         line["a"] = dict(out["a"], rounds=[
             {k: v for k, v in r.items() if k != "cpu_order"}
             for r in out["a"]["rounds"]])
         emit("place", cell=label, **line,
-            reference=None if ref is None else dict(
-                ratio=ref[0], perm=ref[1], recompiles=ref[2],
-                source="EXPERIMENTS.md §Mapping-grid"))
+             reference=None if ref is None else dict(
+                 ratio=ref[0], perm=ref[1], recompiles=ref[2],
+                 source="EXPERIMENTS.md §Mapping-grid"))
         gates[f"a_{label}"] = out["a"]["ok"]
         gates[f"b_{label}"] = out["b_searched_le_identity"]
         if "c_identity_retrace" in out:
             gates[f"c_{label}"] = \
                 out["c_identity_retrace"]["max_abs_delta"] == 0
         gates[f"d_{label}"] = not out["d_lint_errors"]
-    two, ex = by_cell["tpu_v5e-512/2d"], by_cell["tpu_v5e-512/expert"]
+    two, ex = (by_cell[c] for c in PLACE_EXPERT_PAIR)
     tie = abs(two["host_makespan"] - ex["host_makespan"]) \
         / two["host_makespan"]
     cpu = [[(r["cpu_order"], r["cpu_makespan"]) for r in o["a"]["rounds"]]
@@ -6017,8 +6104,10 @@ def place_gates(state, outs):
     gates["f_quotient_link_loads_launched"] = \
         counts.get("quotient_link_loads", 0) > 0
     state["launches"]["place"] = counts
+    state["place_qll"] = by_cell[PLACE_QLL_CELL]["qll_at_search"]
     emit("place", step="checks", gates=gates, launches=counts,
-         expert_vs_2d=expert)
+         expert_vs_2d=expert, qll_at_search=state["place_qll"],
+         concurrency=PLACE_PARALLEL)
     failed = [k for k, ok in gates.items() if not ok]
     if failed:
         raise AssertionError(f"place checks failed: {failed}")
@@ -6094,6 +6183,8 @@ def kernels_line(state):
                 "bound_ms", "bound_by", "max_abs_err",
                 "equal_to_forward_layout")}
                 for r in rows if "transposed" in r["shape"][-1]]
+        if name == "quotient_link_loads":  # at a DeepSeek expert search
+            out[-1]["place_search"] = state["place_qll"]
         if name in ("quotient_link_loads", "partition_gain"):
             # every shape: CSR-local partitions, the serve pools
             out[-1]["shapes"] = [{k: r.get(k) for k in (

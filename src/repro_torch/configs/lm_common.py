@@ -1,6 +1,7 @@
 """Shared ArchDef builder for the LM-family transformers (twin of
-``repro/configs/lm_common.py``). One card has no mesh, so the port's LM
-archs carry no sharding profiles."""
+``repro/configs/lm_common.py``). Every LM traces under all four sharding
+profiles (``dist.sharding.LM_PROFILES``), as in the reference: ``expert``
+moves only a MoE arch's expert dim, so on a dense arch it is ``2d``."""
 from __future__ import annotations
 
 import dataclasses
@@ -9,6 +10,7 @@ from typing import Dict
 import numpy as np
 
 from repro_torch.configs import common as cc
+from repro_torch.dist.sharding import LM_PROFILES
 from repro_torch.models.transformer import TransformerConfig
 
 
@@ -31,4 +33,4 @@ def make_lm_archdef(full: TransformerConfig, smoke: TransformerConfig,
     return cc.ArchDef(
         name=full.name, family="lm", make_config=make_config, shapes=shapes,
         smoke_config=lambda: smoke, smoke_batch=smoke_batch,
-        model_flops=model_flops, notes=notes)
+        model_flops=model_flops, notes=notes, profiles=LM_PROFILES)

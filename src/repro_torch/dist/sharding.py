@@ -306,7 +306,9 @@ def split_dim(x: torch.Tensor, dim: int, *sizes: int) -> torch.Tensor:
     DTensor refuses a split that cannot keep its shards whole (12 heads
     over a 16-way ``model`` axis), where GSPMD gathers on its own; a
     DTensor whose ``dim`` is sharded over mesh dims whose size product
-    does not divide ``sizes[0]`` is first gathered on those dims. A plain
+    does not divide ``sizes[0]`` is first gathered on those dims, and its
+    gradient is merged back with :func:`merge_dims` (autograd's own view
+    backward would refuse a gradient sharded on an inner dim). A plain
     tensor is reshaped as it is."""
     dim %= x.dim()
     shape = tuple(x.shape[:dim]) + tuple(sizes) + tuple(x.shape[dim + 1:])
@@ -319,7 +321,23 @@ def split_dim(x: torch.Tensor, dim: int, *sizes: int) -> torch.Tensor:
     if on and sizes[0] % ways:
         x = x.redistribute(x.device_mesh, [
             Replicate() if i in on else p for i, p in enumerate(x.placements)])
-    return x.reshape(shape)
+    if len(sizes) != 2:
+        return x.reshape(shape)
+    return _SplitDim.apply(x, dim, shape)
+
+
+class _SplitDim(torch.autograd.Function):
+    """A DTensor's dim split in two, whose gradient is merged back with
+    :func:`merge_dims`."""
+
+    @staticmethod
+    def forward(ctx, x, dim, shape):
+        ctx.dim = dim
+        return x.reshape(shape)
+
+    @staticmethod
+    def backward(ctx, g):
+        return merge_dims(g, ctx.dim), None, None
 
 
 def split_last(x: torch.Tensor, *sizes: int) -> torch.Tensor:
@@ -328,28 +346,85 @@ def split_last(x: torch.Tensor, *sizes: int) -> torch.Tensor:
     return split_dim(x, -1, *sizes)
 
 
-class _MergeLast(torch.autograd.Function):
-    """A DTensor's two last dims merged, whose gradient is split back with
-    :func:`split_last` (autograd's own view backward would refuse the
-    uneven split)."""
+def _merged(shape, dim: int):
+    return tuple(shape[:dim]) + (-1,) + tuple(shape[dim + 2:])
+
+
+class _MergeDims(torch.autograd.Function):
+    """A DTensor's dims ``dim`` and ``dim + 1`` merged, whose gradient is
+    split back with :func:`split_dim` (autograd's own view backward would
+    refuse the uneven split)."""
 
     @staticmethod
-    def forward(ctx, x):
-        ctx.sizes = tuple(x.shape[-2:])
-        return x.reshape(tuple(x.shape[:-2]) + (-1,))
+    def forward(ctx, x, dim):
+        ctx.dim, ctx.sizes = dim, tuple(x.shape[dim:dim + 2])
+        return _gather_dims(x, (dim + 1,)).reshape(_merged(x.shape, dim))
 
     @staticmethod
     def backward(ctx, g):
-        return split_last(g, *ctx.sizes)
+        return split_dim(g, ctx.dim, *ctx.sizes), None
+
+
+def merge_dims(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """``x`` with dims ``dim`` and ``dim + 1`` merged into one (a heads
+    merge, tokens flattened), the inverse of :func:`split_dim`. A DTensor
+    sharded on the inner of the two is first gathered there (DTensor
+    refuses that flatten; GSPMD gathers on its own); a plain tensor is
+    reshaped as it is."""
+    dim %= x.dim()
+    if not _is_dtensor(x):
+        return x.reshape(_merged(x.shape, dim))
+    return _MergeDims.apply(x, dim)
 
 
 def merge_last(x: torch.Tensor) -> torch.Tensor:
     """``x [..., a, b]`` reshaped to ``[..., a·b]`` (the heads merge before
     an attention's output projection), the inverse of :func:`split_last`;
     a plain tensor is reshaped as it is."""
+    return merge_dims(x, -2)
+
+
+def _gather_dims(x: torch.Tensor, dims) -> torch.Tensor:
+    """A DTensor replicated on every mesh dim that shards one of its tensor
+    dims ``dims``."""
+    from torch.distributed.tensor import Replicate, Shard
+    on = [isinstance(p, Shard) and p.dim % x.dim() in dims
+          for p in x.placements]
+    if not any(on):
+        return x
+    return x.redistribute(x.device_mesh, [
+        Replicate() if o else p for o, p in zip(on, x.placements)])
+
+
+def whole_local(x: torch.Tensor):
+    """``(value, wrap)``: ``x``'s whole value as a plain tensor and the way
+    back. A DTensor is gathered (and reduced) on every mesh dim, and
+    ``wrap(t)`` makes a plain tensor computed from that value a DTensor
+    replicated on x's mesh: the twin of GSPMD replicating an operation it
+    cannot partition (a sort, a scatter with global indices). A plain
+    ``x`` is its own value and ``wrap`` the identity. Both ways are
+    differentiable: each device holds the whole gradient of a replicated
+    value, so the way back to a shard is a local chunk."""
     if not _is_dtensor(x):
-        return x.reshape(tuple(x.shape[:-2]) + (-1,))
-    return _MergeLast.apply(x)
+        return x, lambda t: t
+    from torch.distributed.tensor import DTensor, Replicate
+    mesh = x.device_mesh
+    rep = [Replicate()] * mesh.ndim
+    return (x.redistribute(mesh, rep).to_local(),
+            lambda t: DTensor.from_local(t, mesh, rep, run_check=False))
+
+
+def placed_like(y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``y`` redistributed to the shards of ``x`` (replicated where x is
+    partial: y is not a share of a sum) where both are DTensors; otherwise
+    ``y`` itself."""
+    if not (_is_dtensor(y) and _is_dtensor(x)):
+        return y
+    from torch.distributed.tensor import Replicate
+    want = tuple(Replicate() if p.is_partial() else p for p in x.placements)
+    if tuple(y.placements) == want:
+        return y
+    return y.redistribute(x.device_mesh, want)
 
 
 class _VocabParallelEmbed(torch.autograd.Function):
@@ -360,10 +435,12 @@ class _VocabParallelEmbed(torch.autograd.Function):
     the next redistribution to sum; the backward adds each row's gradient
     into its device's slice and reduces it to the table's placements. The
     vocab-parallel lookup GSPMD lowers a gather of a vocab-sharded table
-    to."""
+    to. With ``weights`` (shaped like the ids) the rows are summed over the
+    ids' last dim with those weights (an embedding bag) before they leave
+    the device, still partial."""
 
     @staticmethod
-    def forward(ctx, table, ids):
+    def forward(ctx, table, ids, weights=None):
         from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
         mesh = table.device_mesh
         vocab = [i for i, p in enumerate(table.placements)
@@ -371,9 +448,9 @@ class _VocabParallelEmbed(torch.autograd.Function):
         table_g = table.redistribute(mesh, [
             p if i in vocab else Replicate()
             for i, p in enumerate(table.placements)])
-        ids_r = ids.redistribute(mesh, [
-            Replicate() if i in vocab else p
-            for i, p in enumerate(ids.placements)])
+        i_pl = [Replicate() if i in vocab else p
+                for i, p in enumerate(ids.placements)]
+        ids_r = ids.redistribute(mesh, i_pl)
         t_loc, i_loc = table_g.to_local(), ids_r.to_local()
         rows = t_loc.shape[0]
         coord = mesh.get_coordinate()
@@ -383,13 +460,20 @@ class _VocabParallelEmbed(torch.autograd.Function):
         local_ids = (i_loc - index * rows).long()
         hit = (local_ids >= 0) & (local_ids < rows)
         local_ids = local_ids.clamp(0, rows - 1)
-        out = t_loc[local_ids] * hit[..., None].to(t_loc.dtype)
-        out_pl = [Partial() if i in vocab else p
-                  for i, p in enumerate(ids_r.placements)]
-        ctx.save_for_backward(local_ids, hit)
-        ctx.meta = (mesh, vocab, tuple(table.placements), tuple(table.shape),
-                    tuple(table.stride()), tuple(ids_r.placements), rows)
+        scale = hit.to(t_loc.dtype)
         shape = tuple(ids.shape) + (table.shape[1],)
+        if weights is not None:
+            scale = scale * _as_dtensor(weights, mesh).redistribute(
+                mesh, i_pl).to_local().to(t_loc.dtype)
+            shape = shape[:-2] + shape[-1:]
+        out = t_loc[local_ids] * scale[..., None]
+        if weights is not None:
+            out = out.sum(-2)
+        out_pl = [Partial() if i in vocab else p for i, p in enumerate(i_pl)]
+        ctx.save_for_backward(local_ids, scale)
+        ctx.meta = (mesh, vocab, tuple(table.placements), tuple(table.shape),
+                    tuple(table.stride()), tuple(i_pl), rows,
+                    weights is not None)
         return DTensor.from_local(out, mesh, out_pl, run_check=False,
                                   shape=shape,
                                   stride=torch.empty(shape,
@@ -398,32 +482,39 @@ class _VocabParallelEmbed(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
-        mesh, vocab, t_pl, t_shape, t_stride, i_pl, rows = ctx.meta
-        local_ids, hit = ctx.saved_tensors
+        mesh, vocab, t_pl, t_shape, t_stride, i_pl, rows, bag = ctx.meta
+        local_ids, scale = ctx.saved_tensors
         g = g.redistribute(mesh, [Replicate() if i in vocab else p
                                   for i, p in enumerate(i_pl)])
         g_loc = g.to_local()
+        if bag:
+            g_loc = g_loc.unsqueeze(-2)
         d = g_loc.shape[-1]
         grad = g_loc.new_zeros((rows, d)).index_add_(
             0, local_ids.reshape(-1),
-            (g_loc * hit[..., None].to(g_loc.dtype)).reshape(-1, d))
+            (g_loc * scale[..., None].to(g_loc.dtype)).reshape(-1, d))
         grad_pl = [Shard(0) if i in vocab
                    else Partial() if isinstance(p, Shard) else Replicate()
                    for i, p in enumerate(i_pl)]
         grad = DTensor.from_local(grad, mesh, grad_pl, run_check=False,
                                   shape=t_shape, stride=t_stride)
-        return grad.redistribute(mesh, t_pl), None
+        return grad.redistribute(mesh, t_pl), None, None
 
 
-def embed_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    """``table[ids]``: the embedding lookup. A DTensor table takes the
-    vocab-parallel lookup (``_VocabParallelEmbed``): DTensor's own indexing
-    refuses ids sharded over two mesh dims, and its masked vocab-sharded
-    gather cannot run on meta tensors. A plain table is indexed as it
-    is."""
+def embed_rows(table: torch.Tensor, ids: torch.Tensor,
+               weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``table[ids]``: the embedding lookup, or with ``weights`` (shaped
+    like ``ids``) the bag ``sum(weights[..., None] * table[ids], -2)``. A
+    DTensor table takes the vocab-parallel lookup (``_VocabParallelEmbed``):
+    DTensor's own indexing refuses ids sharded over two mesh dims, and its
+    masked vocab-sharded gather cannot run on meta tensors. A plain table
+    is indexed as it is."""
     if not _is_dtensor(table):
-        return table[ids]
-    return _VocabParallelEmbed.apply(table, ids)
+        rows = table[ids]
+        if weights is None:
+            return rows
+        return (rows * weights[..., None].to(rows.dtype)).sum(-2)
+    return _VocabParallelEmbed.apply(table, ids, weights)
 
 
 def _gather_mid(x: torch.Tensor) -> torch.Tensor:
@@ -464,7 +555,178 @@ def dense(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     profile's sequence under the batch). A DTensor ``x`` is first gathered
     on such dims, as sequence parallelism gathers the sequence before a
     projection, and so is the gradient in the backward. A plain ``x``
-    multiplies as it is."""
-    if not _is_dtensor(x) or x.dim() < 3:
+    multiplies as it is. A DTensor ``x`` of rows ``[N, D]`` multiplies
+    placed so that the product is local (:func:`_fsdp_gathered`)."""
+    if not _is_dtensor(x):
+        return x @ w
+    if x.dim() < 3:
+        x, w = _fsdp_gathered(w, x)
         return x @ w
     return _Dense.apply(_gather_mid(x), w)
+
+
+def _fsdp_gathered(w: torch.Tensor, x: torch.Tensor):
+    """``(x, w)`` of a DTensor product ``x [N, D] @ w [D, F]`` placed so
+    that it is local on every mesh dim: where a mesh dim shards x's rows
+    and w's ``D``, w is gathered there (the FSDP gather); where it shards
+    x's ``D`` but not w's, x is gathered there; where it shards both ``D``s
+    (row-parallel tensor parallelism) both stay and the product is
+    partial. Left to DTensor, the card's torch would plan to turn x's row
+    shards into a partial sum, a redistribution it cannot run."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    def on(t, i, d):
+        p = t.placements[i]
+        return isinstance(p, Shard) and p.dim % t.dim() == d
+    if not _is_dtensor(w):
+        return x, w
+    wp = [Replicate() if on(w, i, 0) and on(x, i, 0) else p
+          for i, p in enumerate(w.placements)]
+    xp = [Replicate() if on(x, i, 1) and not on(w, i, 0) else p
+          for i, p in enumerate(x.placements)]
+    if wp != list(w.placements):
+        w = w.redistribute(w.device_mesh, wp)
+    if xp != list(x.placements):
+        x = x.redistribute(x.device_mesh, xp)
+    return x, w
+
+
+# ---------------------------------------------------------------------------
+# Row gathers and segment reductions over an arc list (the GNN families)
+# ---------------------------------------------------------------------------
+
+def _as_dtensor(t: torch.Tensor, mesh) -> torch.Tensor:
+    """A plain tensor as a DTensor replicated on ``mesh``; a DTensor as it
+    is."""
+    if _is_dtensor(t):
+        return t
+    from torch.distributed.tensor import DTensor, Replicate
+    return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
+
+
+def _contiguous_stride(shape) -> Tuple[int, ...]:
+    return torch.empty(tuple(shape), device="meta").stride()
+
+
+def gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``x[idx]`` along dim 0 (``index_select``). A DTensor ``x`` whose rows
+    are sharded is first gathered on those mesh dims (and on every mesh dim
+    that shards the ids: the output takes their shards), each device picks
+    the rows of its own ids, and the gradient is each device's share of a
+    sum over its ids, reduced back to x's shards: GSPMD's gather of a
+    row-sharded operand by sharded indices. A plain ``x`` with plain ids
+    is ``index_select`` itself."""
+    if not (_is_dtensor(x) or _is_dtensor(idx)):
+        return torch.index_select(x, 0, idx)
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    mesh = (x if _is_dtensor(x) else idx).device_mesh
+    x, idx = _as_dtensor(x, mesh), _as_dtensor(idx, mesh)
+    ip = [p if isinstance(p, Shard) else Replicate() for p in idx.placements]
+    if tuple(ip) != tuple(idx.placements):
+        idx = idx.redistribute(mesh, ip)
+    xp = [Replicate() if isinstance(ip[i], Shard) or p.is_partial()
+          or (isinstance(p, Shard) and p.dim % x.dim() == 0) else p
+          for i, p in enumerate(x.placements)]
+    grad = [Partial() if isinstance(ip[i], Shard) else p
+            for i, p in enumerate(xp)]
+    out = [Shard(0) if isinstance(ip[i], Shard) else p
+           for i, p in enumerate(xp)]
+    xr = x if tuple(xp) == tuple(x.placements) else x.redistribute(mesh, xp)
+    local = torch.index_select(xr.to_local(grad_placements=grad), 0,
+                               idx.to_local())
+    shape = (idx.shape[0],) + tuple(x.shape[1:])
+    return DTensor.from_local(local, mesh, out, run_check=False,
+                              shape=torch.Size(shape),
+                              stride=_contiguous_stride(shape))
+
+
+def segment_reduce(values: torch.Tensor, segments: torch.Tensor, n: int,
+                   reduce: str = "sum") -> torch.Tensor:
+    """``values`` [E, ...] reduced into ``n`` rows by ``segments`` [E]: a
+    sum from zeros (``index_add_``), or ``"amax"`` / ``"amin"`` from the
+    empty-segment identity ``-inf`` / ``+inf`` (``scatter_reduce``, the
+    start included, as ``segment_max`` starts). On DTensors each device
+    reduces its own share of the arcs into a whole ``[n, ...]`` block, left
+    partial (sum, max or min) over the mesh dims that shard the arcs, for
+    the next redistribution to reduce: a scatter-add under GSPMD is a
+    partial sum and a reduce-scatter. The gradient of a partial block is
+    whole on each device, so the backward gathers it, and each device
+    takes its own arcs' rows. Plain tensors take the op itself."""
+    shape = (n,) + tuple(values.shape[1:])
+    if not (_is_dtensor(values) or _is_dtensor(segments)):
+        return _segment_local(values, segments, shape, reduce)
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    mesh = (values if _is_dtensor(values) else segments).device_mesh
+    values = _as_dtensor(values, mesh)
+    if reduce != "sum" and any(p.is_partial() for p in values.placements):
+        values = values.redistribute(mesh, [
+            Replicate() if p.is_partial() else p for p in values.placements])
+    vp = list(values.placements)
+    on_arcs = [isinstance(p, Shard) and p.dim % values.dim() == 0
+               for p in vp]
+    segments = _as_dtensor(segments, mesh)
+    sp = [Shard(0) if a else Replicate() for a in on_arcs]
+    if tuple(sp) != tuple(segments.placements):
+        segments = segments.redistribute(mesh, sp)
+    op = {"sum": "sum", "amax": "max", "amin": "min"}[reduce]
+    out = [Partial(op) if a else p for a, p in zip(on_arcs, vp)]
+    local = _segment_local(values.to_local(), segments.to_local(),
+                           (n,) + tuple(values.to_local().shape[1:]), reduce)
+    return DTensor.from_local(local, mesh, out, run_check=False,
+                              shape=torch.Size(shape),
+                              stride=_contiguous_stride(shape))
+
+
+def _segment_local(values: torch.Tensor, segments: torch.Tensor, shape,
+                   reduce: str) -> torch.Tensor:
+    if reduce == "sum":
+        return values.new_zeros(shape).index_add_(0, segments, values)
+    idx = segments.reshape((-1,) + (1,) * (values.dim() - 1))
+    start = values.new_full(shape, -torch.inf if reduce == "amax"
+                            else torch.inf)
+    return start.scatter_reduce(0, idx.expand_as(values), values, reduce)
+
+
+def select(x: torch.Tensor, dim: int, idx: torch.Tensor) -> torch.Tensor:
+    """``x.index_select(dim, idx)`` with plain ``idx``. A DTensor selects
+    on each shard locally (gathered first on the mesh dims that shard
+    ``dim``), so its backward is a local ``index_add``: the card's DTensor
+    has no sharding rule for a DTensor ``index_add``. A plain ``x`` is
+    ``index_select`` itself."""
+    if not _is_dtensor(x):
+        return x.index_select(dim, idx)
+    from torch.distributed.tensor import DTensor
+    dim %= x.dim()
+    x = _gather_dims(x, (dim,))
+    local = x.to_local().index_select(dim, idx)
+    shape = list(x.shape)
+    shape[dim] = idx.shape[0]
+    return DTensor.from_local(local, x.device_mesh, x.placements,
+                              run_check=False, shape=torch.Size(shape),
+                              stride=_contiguous_stride(shape))
+
+
+def rowwise(fn, x: torch.Tensor):
+    """``fn(x)`` for a function that acts on each row of ``x`` (dim 0) on
+    its own and returns a tensor or a list of tensors with those rows
+    first. A DTensor ``x`` sharded on its rows only is mapped shard by
+    shard (the card's torch has no sharding rule for some per-row ops,
+    such as ``linalg_cross``), the outputs placed as x is; a plain ``x`` is
+    ``fn(x)`` itself."""
+    if not _is_dtensor(x):
+        return fn(x)
+    from torch.distributed.tensor import DTensor, Replicate
+    mesh = x.device_mesh
+    x = _gather_dims(x, tuple(range(1, x.dim())))
+    if any(p.is_partial() for p in x.placements):
+        x = x.redistribute(mesh, [Replicate() if p.is_partial() else p
+                                  for p in x.placements])
+    out = fn(x.to_local())
+
+    def wrap(t):
+        shape = (x.shape[0],) + tuple(t.shape[1:])
+        return DTensor.from_local(t, mesh, x.placements, run_check=False,
+                                  shape=torch.Size(shape),
+                                  stride=_contiguous_stride(shape))
+    return [wrap(t) for t in out] if isinstance(out, list) else wrap(out)

@@ -3,7 +3,9 @@
 
 ``PlacementSession`` owns the trace -> measure -> search -> retrace loop:
 
-1. **trace** one ``(arch x shape x profile)`` cell on the identity mesh:
+1. **trace** one ``(arch x shape x profile)`` cell on the identity mesh
+   (any non-skip cell of ``configs.all_cells()``, under any profile of its
+   arch, with or without ``grad_compress``):
    a ``fake`` process group of the machine's size (``launch/mesh.
    fake_world``, the twin of the reference's 512 placeholder host
    devices), a ``DeviceMesh`` in the given device order, the cell's step

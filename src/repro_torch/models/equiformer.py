@@ -33,7 +33,12 @@ row n; under autograd the chunk loop keeps every chunk's residuals, as the
 reference's ``lax.scan`` does. ``cfg.remat`` recomputes each layer in the
 backward (``torch.utils.checkpoint``). Index tensors and the Wigner tables
 are made once per device, not per layer. Everything is plain PyTorch: the
-reference has no kernel here either.
+reference has no kernel here either. :func:`param_specs` is the
+reference's spec tree, and ``forward`` / ``loss_fn`` take its ``rules``
+(default ``NO_MESH``, the plain path bitwise). On DTensors (the placement
+trace) the direct path's gathers and segment reductions go through
+``dist.sharding``, and the chunked path runs replicated, as GSPMD
+partitions the reference's scan.
 """
 from __future__ import annotations
 
@@ -46,10 +51,13 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch import DeviceLike, resolve_device
+from repro_torch import DeviceLike, resolve_device, tree
+from repro_torch.dist.sharding import (NO_MESH, Rules, _is_dtensor,
+                                       merge_dims, rowwise, segment_reduce,
+                                       select, split_dim, whole_local)
 from repro_torch.models import so3
 from repro_torch.models.common import cross_entropy
-from repro_torch.models.gnn import _mlp, _rows, _segment_sum
+from repro_torch.models.gnn import _mlp, _mlp_spec, _rows, _segment_sum
 from repro_torch.models.mlp import mlp_apply
 
 Params = Dict[str, Any]
@@ -165,18 +173,18 @@ def so2_apply(p: Params, x: torch.Tensor, cfg: EquiformerConfig,
     ix = _indices(cfg.l_max, cfg.m_max, x.device)
     e = x.shape[0]
     rows0 = ix["rows0"]
-    x0 = x.index_select(1, rows0).reshape(e, -1)
-    blocks = [(x0 @ p["w0"]).reshape(e, rows0.shape[0], c_out)]
+    x0 = merge_dims(select(x, 1, rows0), 1)
+    blocks = [split_dim(x0 @ p["w0"], 1, rows0.shape[0], c_out)]
     for m in range(1, cfg.m_max + 1):
         rp, rn = ix["rows_pos"][m - 1], ix["rows_neg"][m - 1]
         nm = rp.shape[0]
-        xp = x.index_select(1, rp).reshape(e, -1)
-        xn = x.index_select(1, rn).reshape(e, -1)
+        xp = merge_dims(select(x, 1, rp), 1)
+        xn = merge_dims(select(x, 1, rn), 1)
         yp = xp @ p[f"w{m}_r"] - xn @ p[f"w{m}_i"]
         yn = xp @ p[f"w{m}_i"] + xn @ p[f"w{m}_r"]
-        blocks += [yp.reshape(e, nm, c_out), yn.reshape(e, nm, c_out)]
+        blocks += [split_dim(yp, 1, nm, c_out), split_dim(yn, 1, nm, c_out)]
     blocks.append(x.new_zeros((e, 1, c_out)))
-    return torch.cat(blocks, 1).index_select(1, ix["place"])
+    return select(torch.cat(blocks, 1), 1, ix["place"])
 
 
 # ---------------------------------------------------------------------------
@@ -195,7 +203,7 @@ def equi_layer_norm(x: torch.Tensor, gamma: torch.Tensor,
     mean_sq = l_sum.mean(-1) / l_cnt                     # [N, L+1]
     denom = torch.rsqrt(mean_sq + 1e-6)
     l_of = _indices(l_max, 0, x.device)["l_of"]
-    return x * denom.index_select(1, l_of)[..., None] * gamma
+    return x * select(denom, 1, l_of)[..., None] * gamma
 
 
 def gate_act(x: torch.Tensor, w_gate: torch.Tensor) -> torch.Tensor:
@@ -244,6 +252,38 @@ def init(cfg: EquiformerConfig, generator: Optional[torch.Generator] = None,
     return p
 
 
+def _so2_specs(cfg: EquiformerConfig, rules: Rules) -> Params:
+    s = {"w0": rules.spec("fsdp", "model")}
+    for m in range(1, cfg.m_max + 1):
+        s[f"w{m}_r"] = rules.spec("fsdp", "model")
+        s[f"w{m}_i"] = rules.spec("fsdp", "model")
+    return s
+
+
+def param_specs(cfg: EquiformerConfig, rules: Rules) -> Params:
+    """The spec tree of :func:`init`'s params, leaf for leaf: the
+    reference's ``init`` / ``so2_init`` specs with its stacked layers
+    unrolled (a stacked leaf's ``Spec(None, *s)`` is each layer's
+    ``Spec(*s)``)."""
+    def mlp(n_dense):
+        return _mlp_spec({"w": [None] * n_dense, "b": [None] * n_dense},
+                         rules)
+    return {
+        "encode": mlp(1),
+        "layers": [{
+            "ln1": rules.spec(None), "conv1": _so2_specs(cfg, rules),
+            "conv2": _so2_specs(cfg, rules),
+            "rbf_mlp": mlp(2),
+            "attn_w": rules.spec(None, "model"),
+            "gate_w": rules.spec(None, "model"),
+            "proj": rules.spec("model", None), "ln2": rules.spec(None),
+            "ffn_in": rules.spec("fsdp", "model"),
+            "ffn_gate": rules.spec(None, "model"),
+            "ffn_out": rules.spec("model", "fsdp")}
+            for _ in range(cfg.n_layers)],
+        "decode": mlp(2)}
+
+
 # ---------------------------------------------------------------------------
 # Forward
 # ---------------------------------------------------------------------------
@@ -282,7 +322,8 @@ def _edge_hidden(lp: Params, xn: torch.Tensor, pos: torch.Tensor,
     c = cfg.channels
     vec = _rows(pos, rl) - _rows(pos, sl)
     dist = torch.linalg.vector_norm(vec, dim=-1)
-    d_blocks = so3.wigner_d_stack(so3.edge_rotation(vec), cfg.l_max)
+    d_blocks = rowwise(lambda v: so3.wigner_d_stack(so3.edge_rotation(v),
+                                                    cfg.l_max), vec)
     cat = torch.cat([_rows(xn, sl), _rows(xn, rl)], dim=-1)   # [e, M, 2C]
     cat = _rotate(d_blocks, cat, cfg.l_max)
     hid = so2_apply(lp["conv1"], cat, cfg, c)                 # [e, M, C]
@@ -321,48 +362,25 @@ def _attn_layer(lp: Params, x: torch.Tensor, senders: torch.Tensor,
         val = _edge_values(lp, d_blocks, hid, cfg)
         # segment softmax over destination (senders = dst in arc layout),
         # its max from the empty-segment identity -inf
-        idx = senders[:, None].expand_as(logits)
-        lmax_seg = logits.new_full((n, h), -torch.inf).scatter_reduce(
-            0, idx, logits, "amax")
+        lmax_seg = segment_reduce(logits, senders, n, "amax")
         lmax_seg = torch.where(torch.isfinite(lmax_seg), lmax_seg, 0.0)
         ex = torch.exp(logits - _rows(lmax_seg, senders))
         den = _segment_sum(ex, senders, n)
         alpha = ex / torch.maximum(_rows(den, senders), ex.new_tensor(1e-9))
-        val_h = val.reshape(e, m_dim, h, ch) * alpha[:, None, :, None]
-        agg = _segment_sum(val_h.reshape(e, m_dim, c), senders, n)
+        val_h = split_dim(val, 2, h, ch) * alpha[:, None, :, None]
+        agg = _segment_sum(merge_dims(val_h, 2), senders, n)
+    elif _is_dtensor(xn):
+        # GSPMD replicates the chunked scan: every device walks every arc
+        # block over the whole node set and weights, so the loop moves
+        # nothing; the gathers (and, backward, the gradient chunks) are
+        # outside it
+        local = [whole_local(t)
+                 for t in (xn, pos, senders, receivers)]
+        lp_w = {k: tree.map_(lambda w: whole_local(w)[0], lp[k])
+                for k in ("conv1", "conv2", "rbf_mlp", "attn_w")}
+        agg = local[0][1](_chunked_agg(lp_w, *(v for v, _ in local), cfg))
     else:
-        # two-pass chunked: (1) accumulate the segment max of the logits,
-        # (2) weighted message accumulation. Arc blocks padded to n (dump).
-        n_blocks = (e + chunk - 1) // chunk
-        pad = n_blocks * chunk - e
-        s_p = torch.nn.functional.pad(senders, (0, pad), value=n)
-        r_p = torch.nn.functional.pad(receivers, (0, pad), value=0)
-        s_c = torch.clamp_max(s_p, n - 1)
-        valid = (s_p < n)[:, None]
-        blocks = [slice(i * chunk, (i + 1) * chunk) for i in range(n_blocks)]
-
-        mx = x.new_full((n + 1, h), -torch.inf)
-        for b in blocks:
-            _, _, logits = _edge_hidden(lp, xn, pos, s_c[b], r_p[b], cfg)
-            logits = torch.where(valid[b], logits, -torch.inf)
-            mx = mx.scatter_reduce(0, s_p[b][:, None].expand_as(logits),
-                                   logits, "amax")
-        mx = torch.where(torch.isfinite(mx), mx, 0.0)
-
-        num = x.new_zeros((n + 1, m_dim, c))
-        den = x.new_zeros((n + 1, h))
-        for b in blocks:
-            d_blocks, hid, logits = _edge_hidden(lp, xn, pos, s_c[b], r_p[b],
-                                                 cfg)
-            val = _edge_values(lp, d_blocks, hid, cfg)
-            ex = torch.exp(logits - _rows(mx, s_p[b]))
-            ex = torch.where(valid[b], ex, 0.0)
-            vh = val.reshape(chunk, m_dim, h, ch) * ex[:, None, :, None]
-            num = num.index_add(0, s_p[b], vh.reshape(chunk, m_dim, c))
-            den = den.index_add(0, s_p[b], ex)
-        den_c = torch.repeat_interleave(
-            torch.maximum(den[:n], den.new_tensor(1e-9)), ch, dim=-1)
-        agg = num[:n] / den_c[:, None, :]
+        agg = _chunked_agg(lp, xn, pos, senders, receivers, cfg)
 
     agg = gate_act(agg, lp["gate_w"])
     x = x + agg @ lp["proj"]
@@ -373,12 +391,57 @@ def _attn_layer(lp: Params, x: torch.Tensor, senders: torch.Tensor,
     return x + hmid @ lp["ffn_out"]
 
 
-def forward(params: Params, batch: Dict, cfg: EquiformerConfig
-            ) -> torch.Tensor:
+def _chunked_agg(lp: Params, xn: torch.Tensor, pos: torch.Tensor,
+                 senders: torch.Tensor, receivers: torch.Tensor,
+                 cfg: EquiformerConfig) -> torch.Tensor:
+    """The attention's aggregation over fixed arc blocks, two passes."""
+    n, m_dim, c = xn.shape
+    h = cfg.n_heads
+    ch = c // h
+    e = senders.shape[0]
+    chunk = cfg.edge_chunk
+    # two-pass chunked: (1) accumulate the segment max of the logits,
+    # (2) weighted message accumulation. Arc blocks padded to n (dump).
+    n_blocks = (e + chunk - 1) // chunk
+    pad = n_blocks * chunk - e
+    s_p = torch.nn.functional.pad(senders, (0, pad), value=n)
+    r_p = torch.nn.functional.pad(receivers, (0, pad), value=0)
+    s_c = torch.clamp_max(s_p, n - 1)
+    valid = (s_p < n)[:, None]
+    blocks = [slice(i * chunk, (i + 1) * chunk) for i in range(n_blocks)]
+
+    mx = xn.new_full((n + 1, h), -torch.inf)
+    for b in blocks:
+        _, _, logits = _edge_hidden(lp, xn, pos, s_c[b], r_p[b], cfg)
+        logits = torch.where(valid[b], logits, -torch.inf)
+        mx = mx.scatter_reduce(0, s_p[b][:, None].expand_as(logits),
+                               logits, "amax")
+    mx = torch.where(torch.isfinite(mx), mx, 0.0)
+
+    num = xn.new_zeros((n + 1, m_dim, c))
+    den = xn.new_zeros((n + 1, h))
+    for b in blocks:
+        d_blocks, hid, logits = _edge_hidden(lp, xn, pos, s_c[b], r_p[b],
+                                             cfg)
+        val = _edge_values(lp, d_blocks, hid, cfg)
+        ex = torch.exp(logits - _rows(mx, s_p[b]))
+        ex = torch.where(valid[b], ex, 0.0)
+        vh = val.reshape(chunk, m_dim, h, ch) * ex[:, None, :, None]
+        num = num.index_add(0, s_p[b], vh.reshape(chunk, m_dim, c))
+        den = den.index_add(0, s_p[b], ex)
+    den_c = torch.repeat_interleave(
+        torch.maximum(den[:n], den.new_tensor(1e-9)), ch, dim=-1)
+    return num[:n] / den_c[:, None, :]
+
+
+def forward(params: Params, batch: Dict, cfg: EquiformerConfig,
+            rules: Rules = NO_MESH) -> torch.Tensor:
     """-> logits: [N, n_classes] (node-level) or [G, n_classes] (graph).
     The batch (``x``, ``pos``, ``senders``, ``receivers``; ``graph_id`` and
     ``labels`` when graph-level) may be numpy or tensors, moved to the
-    parameters' device; ``pos`` is taken in ``cfg.dtype``."""
+    parameters' device; ``pos`` is taken in ``cfg.dtype``. ``rules``
+    constrains the irreps to ``rows`` after the embedding and after each
+    layer (the reference's ``rules.shard`` sites)."""
     dev = params["decode"]["w"][0].device
 
     def t(key):
@@ -387,6 +450,7 @@ def forward(params: Params, batch: Dict, cfg: EquiformerConfig
     n = scal.shape[0]
     x = torch.cat([scal[:, None], scal.new_zeros(
         (n, cfg.m_dim - 1, cfg.channels))], dim=1)       # l=0 init
+    x = rules.shard(x, "rows", None, None)
     senders, receivers = t("senders").long(), t("receivers").long()
     pos = t("pos").to(cfg.dtype)
 
@@ -397,6 +461,7 @@ def forward(params: Params, batch: Dict, cfg: EquiformerConfig
             x = checkpoint(layer, lp, x, use_reentrant=False)
         else:
             x = layer(lp, x)
+        x = rules.shard(x, "rows", None, None)
 
     scalars = x[:, 0]                                     # invariant readout
     if cfg.graph_level:
@@ -410,11 +475,11 @@ def forward(params: Params, batch: Dict, cfg: EquiformerConfig
     return mlp_apply(params["decode"], scalars)
 
 
-def loss_fn(params: Params, batch: Dict, cfg: EquiformerConfig
-            ) -> Tuple[torch.Tensor, Dict]:
+def loss_fn(params: Params, batch: Dict, cfg: EquiformerConfig,
+            rules: Rules = NO_MESH) -> Tuple[torch.Tensor, Dict]:
     """Masked mean cross-entropy of :func:`forward`'s logits:
     ``(ce, {"ce": ce})``."""
-    logits = forward(params, batch, cfg)
+    logits = forward(params, batch, cfg, rules)
     dev = logits.device
     mask = batch.get("label_mask")
     ce = cross_entropy(logits, torch.as_tensor(batch["labels"], device=dev),

@@ -23,8 +23,11 @@ with one dict per layer, ``edge_encode`` for MeshGraphNet, ``decode``), so
 (every per-layer weight and bias, not GIN's ``eps``). ``cfg.remat``
 recomputes each layer in the backward (``torch.utils.checkpoint``), as the
 reference's ``jax.checkpoint`` does. :class:`GIN` is the serving module
-(no autograd) over the same functions. On one card every sharding rule of
-the reference resolves to no constraint, so the port has no ``Rules``.
+(no autograd) over the same functions. :func:`param_specs` is the
+reference's spec tree, and ``forward`` / ``loss_fn`` take its ``rules``
+(default ``NO_MESH``: no constraint, the plain path bitwise); on DTensors
+(the placement trace) the gathers and segment sums go through
+``dist.sharding.gather_rows`` / ``segment_reduce``.
 
 Batch dict convention: x [N, F] node feats; senders/receivers [E] int32
 (symmetric arcs); edge_weight [E]; degrees [N]; labels [N] or [G] int32;
@@ -42,6 +45,8 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import DeviceLike, resolve_device, tree
+from repro_torch.dist.sharding import (NO_MESH, Rules, gather_rows,
+                                       segment_reduce)
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.bsr_spmm import BsrLayout
 from repro_torch.models.common import cross_entropy
@@ -75,8 +80,9 @@ def _rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     (float atomics on the card). Autograd's backward of ``x[idx]`` is the
     sorted ``index_put_``, which sums each row's run in one warp and
     serialises on a sampled batch's sink node (46,600 padding arcs at
-    minibatch_lg): 0.98 of MeshGraphNet's 1.19 s traced step on the H100."""
-    return torch.index_select(x, 0, idx)
+    minibatch_lg): 0.98 of MeshGraphNet's 1.19 s traced step on the H100.
+    DTensors take ``sharding.gather_rows``."""
+    return gather_rows(x, idx)
 
 
 def edge_apply(senders: torch.Tensor, receivers: torch.Tensor,
@@ -95,8 +101,7 @@ def edge_apply(senders: torch.Tensor, receivers: torch.Tensor,
     if chunk <= 0 or e <= chunk:
         xd, xs = _rows(x, senders), _rows(x, receivers)
         m = msg_fn(xd, xs) if extra is None else msg_fn(xd, xs, extra)
-        return torch.zeros((n_nodes,) + tuple(m.shape[1:]), dtype=m.dtype,
-                           device=m.device).index_add_(0, senders, m)
+        return segment_reduce(m, senders, n_nodes)
 
     n_blocks = (e + chunk - 1) // chunk
     pad = n_blocks * chunk - e
@@ -121,8 +126,7 @@ def edge_apply(senders: torch.Tensor, receivers: torch.Tensor,
 
 def _segment_sum(values: torch.Tensor, segments: torch.Tensor,
                  n: int) -> torch.Tensor:
-    return values.new_zeros((n,) + tuple(values.shape[1:])).index_add_(
-        0, segments, values)
+    return segment_reduce(values, segments, n)
 
 
 def segment_agg(values: torch.Tensor, segments: torch.Tensor, n: int,
@@ -142,11 +146,8 @@ def segment_agg(values: torch.Tensor, segments: torch.Tensor, n: int,
         s = _segment_sum(values, segments, n)
         return s / torch.clamp_min(degrees, 1.0)[:, None]
     if kind in ("max", "min"):
-        idx = segments[:, None].expand_as(values)
-        start = values.new_full((n,) + tuple(values.shape[1:]),
-                                -torch.inf if kind == "max" else torch.inf)
-        m = start.scatter_reduce(0, idx, values,
-                                 "amax" if kind == "max" else "amin")
+        m = segment_reduce(values, segments, n,
+                           "amax" if kind == "max" else "amin")
         return torch.where(torch.isfinite(m), m, 0.0)
     if kind == "std":
         d = torch.clamp_min(degrees, 1.0)[:, None]
@@ -228,6 +229,32 @@ def init(cfg: GNNConfig, generator: Optional[torch.Generator] = None,
     return p
 
 
+def _mlp_spec(p: Params, rules: Rules) -> Params:
+    """The reference's ``_mlp_spec``: weights ``(fsdp, model)``, biases
+    ``(model,)``, a LayerNorm scale replicated."""
+    spec = {"w": [rules.spec("fsdp", "model") for _ in p["w"]],
+            "b": [rules.spec("model") for _ in p["b"]]}
+    if "ln" in p:
+        spec["ln"] = rules.spec(None)
+    return spec
+
+
+def param_specs(cfg: GNNConfig, rules: Rules) -> Params:
+    """The spec tree of :func:`init`'s params, leaf for leaf: the
+    reference's ``init`` specs with its stacked layers unrolled (a stacked
+    leaf's ``Spec(None, *s)`` is each layer's ``Spec(*s)``); every MLP
+    through :func:`_mlp_spec`, GIN's ``eps`` replicated."""
+    def spec(node):
+        if isinstance(node, dict) and "w" in node:
+            return _mlp_spec(node, rules)
+        if isinstance(node, dict):
+            return {k: spec(v) for k, v in node.items()}
+        if isinstance(node, list):
+            return [spec(v) for v in node]
+        return rules.spec()
+    return spec(init(cfg, None, device="meta"))
+
+
 # ---------------------------------------------------------------------------
 # layers and the model
 # ---------------------------------------------------------------------------
@@ -301,6 +328,10 @@ def plain_aggregate(batch: Dict, chunk: int = 0) -> Callable:
     def aggregate(x):
         s = torch.as_tensor(batch["senders"], device=x.device).long()
         r = torch.as_tensor(batch["receivers"], device=x.device).long()
+        if chunk <= 0 or s.shape[0] <= chunk:
+            # edge_apply's direct path without its unread gather of the
+            # senders' rows (XLA drops it; a DTensor trace would record it)
+            return segment_reduce(_rows(x, r), s, x.shape[0])
         return edge_apply(s, r, lambda xd, xs: xs, x, x.shape[0], x.shape[1],
                           chunk=chunk)
     return aggregate
@@ -325,16 +356,20 @@ def _gin_aggregate(batch: Dict, n: int, cfg: GNNConfig,
 
 
 def forward(params: Params, batch: Dict, cfg: GNNConfig,
-            aggregate: Optional[Callable] = None) -> torch.Tensor:
+            aggregate: Optional[Callable] = None,
+            rules: Rules = NO_MESH) -> torch.Tensor:
     """-> logits: [N, n_classes] (node-level) or [G, n_classes] (graph).
     The batch's arrays may be numpy or tensors (moved to the parameters'
     device). ``aggregate(x) -> A @ x`` replaces GIN's own aggregation
-    (a hook on the layers' inputs, a check against another path)."""
+    (a hook on the layers' inputs, a check against another path).
+    ``rules`` constrains the node features to ``rows`` after the encoder
+    and after each layer, the reference's ``rules.shard`` sites."""
     dev = params["decode"]["w"][0].device
 
     def t(key):
         return torch.as_tensor(batch[key], device=dev)
-    x = mlp_apply(params["encode"], t("x").to(cfg.dtype))
+    x = rules.shard(mlp_apply(params["encode"], t("x").to(cfg.dtype)),
+                    "rows", None)
     n = x.shape[0]
     if cfg.kind != "gin":
         senders, receivers = t("senders").long(), t("receivers").long()
@@ -350,15 +385,17 @@ def forward(params: Params, batch: Dict, cfg: GNNConfig,
         e = mlp_apply(params["edge_encode"], e_in)
         for lp in params["layers"]:
             x, e = run(_mgn_layer, lp, x, e, senders, receivers)
+            x = rules.shard(x, "rows", None)
     elif cfg.kind == "pna":
         deg = t("degrees").to(cfg.dtype)
         for lp in params["layers"]:
-            x = run(lambda lp, x: _pna_layer(lp, x, senders, receivers, deg,
-                                             cfg), lp, x)
+            x = rules.shard(run(lambda lp, x: _pna_layer(
+                lp, x, senders, receivers, deg, cfg), lp, x), "rows", None)
     elif cfg.kind == "gin":
         agg = aggregate or _gin_aggregate(batch, n, cfg, dev)
         for lp in params["layers"]:
-            x = run(lambda lp, x: _gin_layer(lp, x, agg), lp, x)
+            x = rules.shard(run(lambda lp, x: _gin_layer(lp, x, agg), lp, x),
+                            "rows", None)
     else:
         raise ValueError(cfg.kind)
 
@@ -374,11 +411,11 @@ def forward(params: Params, batch: Dict, cfg: GNNConfig,
 
 
 def loss_fn(params: Params, batch: Dict, cfg: GNNConfig,
-            aggregate: Optional[Callable] = None
-            ) -> Tuple[torch.Tensor, Dict]:
+            aggregate: Optional[Callable] = None,
+            rules: Rules = NO_MESH) -> Tuple[torch.Tensor, Dict]:
     """Masked mean cross-entropy of :func:`forward`'s logits:
     ``(ce, {"ce": ce})``."""
-    logits = forward(params, batch, cfg, aggregate)
+    logits = forward(params, batch, cfg, aggregate, rules)
     dev = logits.device
     mask = batch.get("label_mask")
     ce = cross_entropy(logits, torch.as_tensor(batch["labels"], device=dev),

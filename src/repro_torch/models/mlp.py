@@ -16,6 +16,7 @@ import torch
 from torch import nn
 
 from repro_torch import DeviceLike, resolve_device
+from repro_torch.dist.sharding import dense
 
 
 class MLP(nn.Module):
@@ -55,7 +56,7 @@ def mlp_apply(p: Dict[str, Any], x: torch.Tensor) -> torch.Tensor:
     LayerNorm: the MLP over a ``{"w", "b", "ln"?}`` dict, differentiable."""
     n = len(p["w"])
     for i, (w, b) in enumerate(zip(p["w"], p["b"])):
-        x = x @ w + b
+        x = dense(x, w) + b
         if i < n - 1:
             x = torch.relu(x)
     if p.get("ln") is not None:

@@ -3,8 +3,8 @@
 
 Ported: ``TransformerConfig`` (with ``n_params`` / ``n_active_params``),
 ``init``, ``_partial_rope``, ``gqa_attention``, ``mla_attention``,
-``MoEStats`` and ``moe_ffn`` (the local path), ``_layer_fwd``,
-``forward``, ``loss_fn``, ``prefill``, ``init_cache``,
+``MoEStats`` and ``moe_ffn`` (the local and expert-parallel paths),
+``_layer_fwd``, ``forward``, ``loss_fn``, ``prefill``, ``init_cache``,
 ``_decode_attn_gqa``, ``_decode_attn_mla`` (the absorbed decode over the
 rank-compressed ``{c_kv, k_rope}`` cache) and ``decode_step``. Every
 layer's attention runs the hand-written ``flash_attention`` CUDA kernel on
@@ -21,9 +21,11 @@ capacity sent to a dump row, the expert SwiGLU as batched products over
 ``[T, k, D]`` through the inverse permutation and sums over ``k`` in
 float32, rounded once to x's dtype: no atomics, so two calls on the card
 are bitwise equal (the reference's ``segment_sum`` rounds after each add
-in bf16). The reference's ``_moe_routed_shardmap`` is its mesh path; one
-card has no mesh, and the reference falls through to the local path when
-no mesh has a ``model`` axis, as the port does for ``ep_shard_map``.
+in bf16). With ``ep_shard_map`` on a DTensor whose mesh has a ``model``
+axis dividing the experts, ``moe_ffn`` takes the twin of the reference's
+``_moe_routed_shardmap`` (``_moe_expert_parallel``, under ``local_map``);
+elsewhere (one card, no such axis) it falls through to the local path, as
+the reference does.
 
 Training: :func:`forward_core` is differentiable and ``loss_fn`` runs it.
 The attention's backward is the reference's ``_flash_bwd`` recompute in
@@ -59,9 +61,10 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import DeviceLike, resolve_device
-from repro_torch.dist.sharding import (NO_MESH, Rules, Spec, dense,
-                                       embed_rows, merge_last, split_dim,
-                                       split_last)
+from repro_torch.dist.sharding import (NO_MESH, Rules, Spec, _is_dtensor,
+                                       dense, embed_rows, merge_dims,
+                                       merge_last, placed_like, split_dim,
+                                       split_last, whole_local)
 from repro_torch.kernels import ops
 from repro_torch.models.common import (cross_entropy, rms_norm, rope_freqs,
                                       rope_tables, rotate, swiglu)
@@ -367,31 +370,34 @@ def combine(weighted: torch.Tensor, order: torch.Tensor, t: int,
         weighted.dtype)
 
 
-def moe_ffn(p: Params, x: torch.Tensor, cfg: TransformerConfig,
-            rules: Rules = NO_MESH) -> Tuple[torch.Tensor, MoEStats]:
-    """Routed top-k experts + shared experts. x: [T, D] -> [T, D].
-
-    The reference's local path: pairs sorted by expert id, the
-    within-expert position ``arange - start(expert)``, pairs beyond the
-    capacity dropped; the experts as batched products over ``[E, cap, D]``
-    in x's dtype; the Switch aux loss ``E·sum(me·ce)·coef`` and the share
-    of dropped pairs."""
+def _routed(p: Params, x: torch.Tensor, cfg: TransformerConfig,
+            experts: Callable[[torch.Tensor], torch.Tensor],
+            e_off: int = 0, e_l: Optional[int] = None):
+    """The routed experts over the tokens x [T, D]: ``(y [T, D], aux,
+    dropped share)``. Pairs sorted by expert id, the within-expert
+    position ``arange - start(expert)``, pairs beyond the capacity
+    dropped; of the experts only ``[e_off, e_off + e_l)`` (default all)
+    are dispatched, into a ``[e_l, cap, D]`` buffer that ``experts`` maps
+    to their outputs; the other pairs contribute zero (the expert-parallel
+    body's share). The Switch aux loss ``E·sum(me·ce)·coef`` counts every
+    pair."""
     t, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
+    e_l = e if e_l is None else e_l
     cap = capacity(cfg, t)
     probs, top_p, top_i = route(p, x, cfg)
-    order, _, starts, _, valid, slot = dispatch(top_i, e, cap)
+    order, sorted_e, starts, pos, valid, slot = dispatch(top_i, e, cap)
     tok_of = order // k
+    dropped = 1.0 - valid.to(torch.float32).mean()
+    if e_l != e:
+        valid = valid & (sorted_e >= e_off) & (sorted_e < e_off + e_l)
+        slot = torch.where(valid, (sorted_e - e_off) * cap + pos, e_l * cap)
 
-    buf = x.new_zeros((e * cap + 1, d))
+    buf = x.new_zeros((e_l * cap + 1, d))
     buf[slot] = x[tok_of]
-    buf = rules.shard(buf[: e * cap].view(e, cap, d), "expert", None, None)
-    h = (torch.nn.functional.silu(torch.bmm(buf, p["w_gate"]))
-         * torch.bmm(buf, p["w_up"]))
-    out = rules.shard(torch.bmm(h, p["w_down"]), "expert", None,
-                      None).view(e * cap, d)
+    out = experts(buf[: e_l * cap].view(e_l, cap, d)).view(e_l * cap, d)
     gathered = torch.where(valid[:, None],
-                           out[torch.clamp_max(slot, e * cap - 1)], 0.0)
+                           out[torch.clamp_max(slot, e_l * cap - 1)], 0.0)
     weight = top_p.reshape(-1)[order].to(x.dtype)
     y = combine(gathered * weight[:, None], order, t, k)
 
@@ -401,11 +407,133 @@ def moe_ffn(p: Params, x: torch.Tensor, cfg: TransformerConfig,
     counts = torch.diff(starts, append=starts.new_full((1,), t * k))
     ce = counts.to(torch.float32) / (t * k)
     aux = e * torch.sum(me * ce) * cfg.aux_loss_coef
-    stats = MoEStats(aux_loss=aux,
-                     dropped_frac=1.0 - valid.to(torch.float32).mean())
+    return y, aux, dropped
+
+
+def _expert_swiglu(buf: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
+                   wd: torch.Tensor) -> torch.Tensor:
+    """The experts' SwiGLU as batched products: buf [E, cap, D] ->
+    [E, cap, D]."""
+    h = torch.nn.functional.silu(torch.bmm(buf, wg)) * torch.bmm(buf, wu)
+    return torch.bmm(h, wd)
+
+
+def _ep_mesh(x: torch.Tensor, cfg: TransformerConfig):
+    """The mesh of the expert-parallel route, or None: ``cfg.ep_shard_map``
+    set, x a DTensor whose mesh has a ``model`` axis dividing the experts
+    (the reference's condition on its ambient mesh)."""
+    if not cfg.ep_shard_map or not _is_dtensor(x):
+        return None
+    mesh = x.device_mesh
+    names = tuple(mesh.mesh_dim_names or ())
+    if "model" not in names or cfg.n_experts % mesh.size(
+            names.index("model")):
+        return None
+    return mesh
+
+
+def moe_ffn(p: Params, x: torch.Tensor, cfg: TransformerConfig,
+            rules: Rules = NO_MESH) -> Tuple[torch.Tensor, MoEStats]:
+    """Routed top-k experts + shared experts. x: [T, D] -> [T, D].
+
+    The reference's local path (:func:`_routed`): the experts as batched
+    products over ``[E, cap, D]`` in x's dtype, the buffer and their
+    outputs constrained to the ``expert`` axis. On a DTensor the routing,
+    the sort and the scatters run on the whole token set, replicated, as
+    GSPMD partitions none of them and replicates the dispatch buffers
+    (:func:`sharding.whole_local`); only the expert products stay sharded.
+    With ``cfg.ep_shard_map`` on a mesh with a ``model`` axis dividing the
+    experts it takes the expert-parallel route instead
+    (:func:`_moe_expert_parallel`)."""
+    mesh = _ep_mesh(x, cfg)
+    if mesh is not None:
+        y, stats = _moe_expert_parallel(p, x, cfg, mesh)
+        y = placed_like(y, x)
+    else:
+        xw, wrap = whole_local(x)
+        router, _ = whole_local(p["router"])
+
+        def experts(buf):
+            out = _expert_swiglu(rules.shard(wrap(buf), "expert", None, None),
+                                 p["w_gate"], p["w_up"], p["w_down"])
+            return whole_local(rules.shard(out, "expert", None, None))[0]
+        y, aux, dropped = _routed(dict(p, router=router), xw, cfg, experts)
+        y = placed_like(wrap(y), x)
+        stats = MoEStats(aux_loss=wrap(aux), dropped_frac=wrap(dropped))
     if cfg.n_shared:
         y = y + swiglu(x, p["ws_gate"], p["ws_up"], p["ws_down"])
     return y, stats
+
+
+class _SumOver(torch.autograd.Function):
+    """``psum`` over one process group, its gradient summed over it again
+    (the reference's ``psum`` transpose under ``check_rep=False``)."""
+
+    @staticmethod
+    def forward(ctx, y, group):
+        from torch.distributed import _functional_collectives as fc
+        ctx.group = group
+        return fc.wait_tensor(fc.all_reduce(y, "sum", group))
+
+    @staticmethod
+    def backward(ctx, g):
+        from torch.distributed import _functional_collectives as fc
+        return fc.wait_tensor(fc.all_reduce(g.contiguous(), "sum",
+                                            ctx.group)), None
+
+
+def _moe_expert_parallel(p: Params, x: torch.Tensor, cfg: TransformerConfig,
+                         mesh) -> Tuple[torch.Tensor, MoEStats]:
+    """Twin of the reference's ``_moe_routed_shardmap``: the routed experts
+    expert-parallel under ``local_map`` over the reference's in/out specs.
+    Tokens stay on their data shard (replicated over ``model``), so the
+    dispatch moves nothing: each ``model`` rank routes its shard's tokens,
+    dispatches only the pairs of its own ``E / |model|`` experts, all-gathers
+    their FFN weights over ``data`` (explicit FSDP; the gradient is
+    reduce-scattered back) and one all-reduce of y over ``model`` sums the
+    top-k partial outputs. The collectives are functional ops, dispatched
+    (not DTensor redistributions), so the trace's recorder sees them. Its
+    capacity is the local shard's, ``ceil8(ceil(cf·t_l·k/E))``."""
+    from torch.distributed import _functional_collectives as fc
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    names = tuple(mesh.mesh_dim_names)
+    dp = [i for i, a in enumerate(names) if a in ("pod", "data")]
+    ep = names.index("model")
+    fsdp = names.index("data") if "data" in names else None
+    e_l = cfg.n_experts // mesh.size(ep)
+
+    def pl(on: Dict[int, int]):
+        return tuple(Shard(on[i]) if i in on else Replicate()
+                     for i in range(mesh.ndim))
+    batch = pl({i: 0 for i in dp})
+    rep = pl({})
+    w_in = pl({ep: 0, **({} if fsdp is None else {fsdp: 2})})
+    w_down = pl({ep: 0, **({} if fsdp is None else {fsdp: 1})})
+
+    def body(x_l, router, wg, wu, wd):
+        if fsdp is not None:
+            group = (mesh, fsdp)
+            wg = fc.all_gather_tensor_autograd(wg, 2, group)
+            wu = fc.all_gather_tensor_autograd(wu, 2, group)
+            wd = fc.all_gather_tensor_autograd(wd, 1, group)
+        y, aux, dropped = _routed(
+            {"router": router}, x_l, cfg,
+            lambda buf: _expert_swiglu(buf, wg, wu, wd),
+            e_off=mesh.get_local_rank(ep) * e_l, e_l=e_l)
+        y = _SumOver.apply(y, mesh.get_group(ep))
+        return y, aux[None], dropped[None]
+
+    ins = [(x, batch), (p["router"], rep), (p["w_gate"], w_in),
+           (p["w_up"], w_in), (p["w_down"], w_down)]
+    args = [t.redistribute(mesh, want) if tuple(t.placements) != want else t
+            for t, want in ins]
+    y, aux, dropped = local_map(
+        body, out_placements=(batch, batch, batch),
+        in_placements=tuple(want for _, want in ins),
+        device_mesh=mesh)(*args)
+    return y, MoEStats(aux_loss=aux.mean(), dropped_frac=dropped.mean())
 
 
 def ffn(p: Params, x: torch.Tensor, cfg: TransformerConfig,
@@ -414,7 +542,12 @@ def ffn(p: Params, x: torch.Tensor, cfg: TransformerConfig,
     """A layer's FFN on x [..., D]: ``moe_ffn`` over the flattened tokens
     for a MoE layer (with its stats), else the dense SwiGLU (stats None)."""
     if moe_layer:
-        y, stats = moe_ffn(p, x.reshape(-1, x.shape[-1]), cfg, rules)
+        tokens = x
+        while tokens.dim() > 2:
+            tokens = merge_dims(tokens, 0)
+        y, stats = moe_ffn(p, tokens, cfg, rules)
+        if x.dim() == 3:
+            return split_dim(y, 0, *x.shape[:2]), stats
         return y.reshape(x.shape), stats
     return swiglu(x, p["w_gate"], p["w_up"], p["w_down"]), None
 
@@ -481,8 +614,8 @@ def _mla_q(p: Params, x: torch.Tensor,
     """MLA's query projection: ``w_q``, or ``rms_norm(x @ w_dq, q_norm) @
     w_uq`` with a ``q_lora_rank``."""
     if cfg.q_lora_rank:
-        return rms_norm(x @ p["w_dq"], p["q_norm"]) @ p["w_uq"]
-    return x @ p["w_q"]
+        return dense(rms_norm(dense(x, p["w_dq"]), p["q_norm"]), p["w_uq"])
+    return dense(x, p["w_q"])
 
 
 def mla_attention(p: Params, x: torch.Tensor, cfg: TransformerConfig,
@@ -495,18 +628,18 @@ def mla_attention(p: Params, x: torch.Tensor, cfg: TransformerConfig,
     b, s, _ = x.shape
     h = cfg.n_heads
     dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
-    q = _mla_q(p, x, cfg).reshape(b, s, h, dn + dr)
+    q = split_last(_mla_q(p, x, cfg), h, dn + dr)
     q_rope = rotate(q[..., dn:], *tables)
-    c_kv = rms_norm(x @ p["w_dkv"], p["kv_norm"])          # [B, S, r]
-    k_rope = rotate((x @ p["w_kr"])[:, :, None, :], *tables)  # [B, S, 1, dr]
-    k_nope = (c_kv @ p["w_uk"]).reshape(b, s, h, dn)
-    v = (c_kv @ p["w_uv"]).reshape(b, s, h, dv)
+    c_kv = rms_norm(dense(x, p["w_dkv"]), p["kv_norm"])    # [B, S, r]
+    k_rope = rotate(dense(x, p["w_kr"])[:, :, None, :],
+                    *tables)                               # [B, S, 1, dr]
+    k_nope = split_last(dense(c_kv, p["w_uk"]), h, dn)
+    v = split_last(dense(c_kv, p["w_uv"]), h, dv)
     q_cat = torch.cat([q[..., :dn], q_rope], dim=-1)
     k_cat = torch.cat([k_nope, k_rope.expand(b, s, h, dr)], dim=-1)
     o = attend(q_cat, k_cat, v.contiguous(), causal=True,
                q_chunk=cfg.q_chunk or s, kv_chunk=cfg.kv_chunk or s)
-    return rules.shard(o.reshape(b, s, h * dv) @ p["w_o"], "batch", "seq",
-                       None)
+    return rules.shard(dense(merge_last(o), p["w_o"]), "batch", "seq", None)
 
 
 # ---------------------------------------------------------------------------
@@ -634,7 +767,6 @@ def decode_attn(q: torch.Tensor, k_cache: torch.Tensor,
     exponentials' sum in f32, the exponentials rounded to the cache's type
     for the value product, which is summed in f32. Written as two batched
     products over (batch, KV head) so a step launches few kernels."""
-    b = q.shape[0]
     h, kh, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     f32 = torch.float32
     qh = split_dim(q[:, 0], 1, kh, h // kh).to(f32)
@@ -642,8 +774,8 @@ def decode_attn(q: torch.Tensor, k_cache: torch.Tensor,
     s = torch.where(mask, s, -torch.inf)                  # [B, kh, g, max_s]
     e = torch.exp(s - s.amax(dim=-1, keepdim=True))
     num = e.to(v_cache.dtype).to(f32) @ v_cache.to(f32).transpose(1, 2)
-    return (num / e.sum(dim=-1, keepdim=True)).to(q.dtype).reshape(
-        b, 1, h * dh)
+    o = (num / e.sum(dim=-1, keepdim=True)).to(q.dtype)   # [B, kh, g, dh]
+    return merge_dims(merge_dims(o, 1), 1)[:, None]
 
 
 def _decode_attn_gqa(p: Params, x: torch.Tensor, k_cache: torch.Tensor,
@@ -653,7 +785,6 @@ def _decode_attn_gqa(p: Params, x: torch.Tensor, k_cache: torch.Tensor,
     """x [B, 1, D]; writes this token's K/V at ``pos`` of the layer's
     caches [B, max_s, kh, dh] in place (the reference returns updated
     copies) and attends over positions ``<= pos`` (``mask`` [max_s])."""
-    b = x.shape[0]
     h, kh, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q, kk, v = _qkv(p, x, cfg)
     q = _rotate_partial(split_last(q, h, dh), tables, cfg.rope_fraction)
@@ -676,15 +807,14 @@ def _decode_attn_mla(p: Params, x: torch.Tensor, c_cache: torch.Tensor,
     (q_eff, the value projection) in that type, the scores and the
     context in float32, P rounded to the cache's type, the context to x's
     before ``w_uv``."""
-    b = x.shape[0]
-    h, r = cfg.n_heads, cfg.kv_lora_rank
+    h = cfg.n_heads
     dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
     f32 = torch.float32
-    q = _mla_q(p, x, cfg).reshape(b, h, dn + dr)
+    q = split_last(_mla_q(p, x, cfg), h, dn + dr)[:, 0]    # [B, h, dn + dr]
     q_rope = rotate(q[:, None, :, dn:], *tables)[:, 0]      # [B, h, dr]
     # absorb W_uk: q_eff[b, h, r] so scores dot against c_kv directly
     q_eff = torch.einsum("bhn,rhn->bhr", q[..., :dn],
-                         p["w_uk"].reshape(r, h, dn))
+                         split_last(p["w_uk"], h, dn))
     c_cache[:, pos] = rms_norm(x @ p["w_dkv"], p["kv_norm"])[:, 0]
     kr_cache[:, pos] = rotate((x @ p["w_kr"])[:, :, None, :],
                               *tables)[:, 0, 0]
@@ -695,8 +825,8 @@ def _decode_attn_mla(p: Params, x: torch.Tensor, c_cache: torch.Tensor,
     pr = torch.softmax(s, dim=-1)
     ctx = pr.to(c_cache.dtype).to(f32) @ c_cache.to(f32)     # [B, h, r]
     o = torch.einsum("bhr,rhv->bhv", ctx.to(x.dtype),
-                     p["w_uv"].reshape(r, h, dv))
-    return o.reshape(b, 1, h * dv) @ p["w_o"]
+                     split_last(p["w_uv"], h, dv))
+    return merge_last(o)[:, None] @ p["w_o"]
 
 
 def decode_layers(params: Params, x: torch.Tensor, cfg: TransformerConfig,

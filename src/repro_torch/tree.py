@@ -89,14 +89,34 @@ def map_(fn: Callable, tree, *rest) -> Any:
                             for i, x in enumerate(flat)])
 
 
+def _layer_runs(layers) -> List[Tuple[int, int]]:
+    """``[(start, stop)]`` of the runs of consecutive layers of one
+    structure: the reference's stacks (a MoE arch's ``dense_layers``, then
+    its ``moe_layers``)."""
+    runs: List[Tuple[int, int]] = []
+    sig = None
+    for i, layer in enumerate(layers):
+        s = tuple(path for path, _ in flatten(layer))
+        if s != sig:
+            runs.append((i, i + 1))
+            sig = s
+        else:
+            runs[-1] = (runs[-1][0], i + 1)
+    return runs
+
+
 def stack_layers(tree) -> Any:
     """The reference's layout of a port tree: ``tree["layers"]`` (a list
-    of per-layer trees of one structure) stacked on a new axis 0 into one
-    tree. Trees without ``"layers"`` come back as they are."""
+    of per-layer trees) stacked on a new axis 0, one stacked tree for
+    each run of consecutive layers of one structure (the reference's
+    stacks), into a list of those. Trees without ``"layers"`` come back as
+    they are."""
     if not (isinstance(tree, dict) and LAYERS in tree):
         return tree
     out = dict(tree)
-    out[LAYERS] = map_(lambda *xs: torch.stack(xs), *tree[LAYERS])
+    layers = tree[LAYERS]
+    out[LAYERS] = [map_(lambda *xs: torch.stack(xs), *layers[a:b])
+                   for a, b in _layer_runs(layers)]
     return out
 
 
@@ -106,9 +126,10 @@ def unstack_layers(tree, like) -> Any:
     if not (isinstance(like, dict) and LAYERS in like):
         return tree
     out = dict(tree)
-    stacked = tree[LAYERS]
     out[LAYERS] = [map_(lambda x, i=i: x[i], stacked)
-                   for i in range(len(like[LAYERS]))]
+                   for (a, b), stacked in zip(_layer_runs(like[LAYERS]),
+                                              tree[LAYERS])
+                   for i in range(b - a)]
     return out
 
 

@@ -1849,3 +1849,19 @@ def test_place_on_the_card_equals_the_cpu_search(cuda, tmp_path):
         assert a.__dict__[side]["makespan"] == pytest.approx(
             b.__dict__[side]["makespan"], rel=1e-4)
     assert a.searched["makespan"] <= a.identity["makespan"]
+
+
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "deepseek-v2-lite-16b"])
+def test_decode_cells_trace_under_the_cards_torch(cuda, arch):
+    """The decode cells through the placement trace under the card's torch
+    (meta DTensors; the card only selects the machine) at tiny overrides on
+    a (2, 4) fake world: the decode attention's heads merge
+    (``sharding.merge_dims``) and MLA's heads split and merge, whose
+    DTensor flatten the card's torch refused."""
+    from repro_torch.launch.placement import PlacementSession
+    s = PlacementSession(cache_dir="", device="cpu")
+    rec = s.measure(arch, "decode_32k", mesh_shape=(2, 4),
+                    axes=("data", "model"),
+                    overrides={"n_layers": 2, "batch": 2, "seq": 16})
+    assert rec.n_collectives > 0 and rec.traffic.shape == (8, 8)
+    assert s.verify() == []

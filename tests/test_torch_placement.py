@@ -300,18 +300,6 @@ def test_verify_lints_traffic_and_refuses_the_kernel_verifier():
         s.verify(kernels=True)
 
 
-def test_unported_cells_raise_naming_the_roadmap():
-    s = pl.PlacementSession(cache_dir="", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-        _tiny(s, grad_compress=True)
-    for arch in ("deepseek-v2-lite-16b", "gin-tu", "two-tower-retrieval"):
-        shape = next(iter(__import__("repro_torch.configs", fromlist=["x"])
-                          .get(arch).shapes))
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-            s.measure(arch, shape, mesh_shape=(2, 4),
-                      axes=("data", "model"))
-
-
 @pytest.mark.parametrize("kind", ["prefill_32k", "decode_32k"])
 def test_prefill_and_decode_cells_trace(kind):
     s = pl.PlacementSession(cache_dir="", device="cpu")
