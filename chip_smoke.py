@@ -13,7 +13,8 @@ C4, the section 3.1 variants, scaling), Qwen2-1.5B training,
 DeepSeek-V2-Lite training at full width (its depth cut), the twins of
 the placement bench, the serving bench and the 100M-LM example, and the
 placement session's trace -> search -> retrace loop over Qwen2-1.5B's
-sharded train step.
+sharded train step, and the dry-run's roofline terms over those traces,
+anchored to a real Qwen2-1.5B step.
 
     python3 chip_smoke.py
 
@@ -384,6 +385,30 @@ non-zero:
            of the DeepSeek expert searches timed against its plain
            version. Each train_4k cell's ratio and perm beside the
            reference's ``EXPERIMENTS.md`` row (reported).
+  dryrun   the dry-run CLI (``launch/dryrun.py``) over its cost model
+           (``launch/op_cost.py``) on the cells ``place`` traced, read from
+           its trace cache (nothing is traced again): (a) ``python -m
+           repro_torch.launch.dryrun --mapping-grid`` for qwen2-1.5b and
+           DeepSeek-V2-Lite (one child each) and ``run_cell`` on
+           ``place``'s four other cells: each ``status: ok`` with the
+           reference's result keys, finite counts, FLOPs and tight bytes
+           above 0, perm and ratio those of ``place``'s first search (or
+           an order tied with it in float64), ``quotient_link_loads``
+           launched; (b) the anchor: qwen2-1.5b FULL train_4k at the train
+           phase's batch on a (1, 1) mesh, its meta record against the same
+           step run once on the card under the same recorder (FLOPs,
+           bytes, tight bytes, transcendentals within rel 1e-9), the
+           predicted peak within [0.85, 1.15] of ``max_memory_allocated``,
+           ``step_time_bound_s`` at gpu-superpod's capacities at most 1.05x
+           the median of 3 warm steps, the attention declared
+           n_layers x (1 + remat) times forward and n_layers times
+           backward at ``attention_cost``, and two planted faults (frees
+           ignored; the attention site off), recorded on the same card
+           step, failing; (c) ``lint_cell`` on the grid's eight cells (two
+           children, one trace an arch): no error. One line per cell: the
+           three terms, the dominant one, the useful ratio, per-device
+           FLOPs, tight bytes and peak bytes; the bound of
+           ``quotient_link_loads`` at ``place``'s largest search call.
   serving_bench  ``benchmarks/torch_bench_serving.py`` at its full tier
            (32 requests, 8 slots, page 8: continuous, static, placed every
            8 steps on 4 bins, a leaf death at a third of the steps), launch
@@ -399,9 +424,10 @@ non-zero:
            on 4, D = 64, float32) with its log-sum-exp, out and lse held
            to the plain forward at FLASH_F32_TOL; then
            ``examples/torch_train_lm_100m.py`` at its defaults (12 x 512
-           float32, 300 steps of 4 x 128, checkpoints every 100) in a
+           float32, 4 x 128, checkpoints every 100) but 100 steps, not
+           300 (``LM100M_STEPS``: the smoke's time limit), in a
            process of its own: it exits 0 (its own learned-assert),
-           checkpoints 100, 200 and 300 are written, and the launch counts
+           its checkpoint at step 100 is written, and the launch counts
            it prints (its own counters, zeroed before its loop) show one
            ``flash_attention`` launch a layer a step (float32, D = 64,
            with lse: the SIMT kernel).
@@ -415,8 +441,8 @@ with 0 and ``on_path_as``; ``recsys`` for the bag kernels,
 ``gnn`` for ``bsr_spmm``, which also launches on ``gnn_train``, ``lm`` for
 ``flash_attention``, which also
 launches on ``train``, ``train_mla`` and ``lm100m``; ``serve_chaos``,
-``train_recsys``, ``placement``, ``place`` and ``serving_bench`` are paths
-too), its
+``train_recsys``, ``placement``, ``place``, ``dryrun`` and ``serving_bench``
+are paths too), its
 launches
 on every path (``serve`` and ``serve_wide`` show which partitioner
 kernels the server reaches; ``mapping``, ``c1`` and ``claims`` that the
@@ -903,7 +929,7 @@ KERNEL_INFO = {
                             "src/repro/kernels/quotient_link_loads.py:99",
                             ("full", "small", "recsys", "mapping", "c1",
                              "claims", "serve_chaos", "placement",
-                             "place", "serving_bench")),
+                             "place", "dryrun", "serving_bench")),
     "partition_gain": ("src/repro_torch/csrc/partition_gain.cu",
                        "src/repro/kernels/partition_gain.py:67",
                        ("small", "c1", "claims", "serve_chaos",
@@ -919,7 +945,7 @@ KERNEL_INFO = {
     "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:115",
                         ("lm", "train", "lm_mla", "train_mla",
-                         "lm100m")),
+                         "lm100m", "dryrun")),
 }
 
 
@@ -4947,6 +4973,21 @@ def phase_train(state):
         errors[f"a_layer_{li}"] = readings
         ok_a &= passed
     checks["a_flash_function_grads_vs_f32"] = ok_a
+    # (e)'s round trip of these gradients, on the card now and on the CPU
+    # on a worker thread (its kernels release the GIL) while the card runs
+    # the timings, (c) and the compressed steps
+    emitted, residual = compress.roundtrip(
+        tree.unflatten(params, grads_k), block=TRAIN_COMPRESS_BLOCK)
+    card_out = [a.cpu() for a in tree.leaves((emitted, residual))]
+    cpu_grads = tree.unflatten(params, [g.cpu() for g in grads_k])
+    del emitted, residual
+
+    def cpu_roundtrip():
+        t0 = time.perf_counter()
+        out = compress.roundtrip(cpu_grads, block=TRAIN_COMPRESS_BLOCK)
+        return out, time.perf_counter() - t0
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    cpu_job = pool.submit(cpu_roundtrip)
     # the kernel with and without lse, and the plain backward, at the
     # path's own shape (layer 0's inputs): device ms, alternating
     q, k, v, do = seen[0]
@@ -5004,20 +5045,8 @@ def phase_train(state):
 
     # -- (e) compression: its first loss is the uncompressed first loss
     # bitwise; roundtrip of step 1's gradients equals the CPU's bitwise
-    emitted, residual = compress.roundtrip(
-        tree.unflatten(params, grads_k), block=TRAIN_COMPRESS_BLOCK)
-    card_out = [a.cpu() for a in tree.leaves((emitted, residual))]
-    cpu_grads = tree.unflatten(params, [g.cpu() for g in grads_k])
-    del grads_k, emitted, residual
-
-    def cpu_roundtrip():
-        t0 = time.perf_counter()
-        out = compress.roundtrip(cpu_grads, block=TRAIN_COMPRESS_BLOCK)
-        return out, time.perf_counter() - t0
-    # the CPU's round trip runs on a worker thread (its kernels release the
-    # GIL) while the card runs the compressed steps below
-    pool = concurrent.futures.ThreadPoolExecutor(1)
-    cpu_job = pool.submit(cpu_roundtrip)
+    # (the CPU's, started after (a), has run beside the card's work)
+    del grads_k
     crec = []
     cocfg = tlaunch.optimizer_config(TRAIN_LR, TRAIN_COMPRESS_STEPS)
     cstep = make_train_step(lambda p, bt: tr.loss_fn(p, bt, cfg), cocfg,
@@ -5740,26 +5769,33 @@ def _lm100m_flash_check(state, cfg, args):
         bytes_moved=nbytes + 4 * b * s * h, flops=flops)
 
 
+# lm100m's depth: the example's defaults but its steps, 300 cut to 100
+# (one checkpoint; ~22 s of the smoke's 1,200 s limit on a normal host)
+LM100M_STEPS = 100
+
+
 def phase_lm100m(state):
-    """``examples/torch_train_lm_100m.py`` at its defaults in a process of
-    its own: its learned-assert holds (it exits 0), checkpoints 100, 200
-    and 300 are written, and its ``flash_attention`` launches (the
-    example's own counter, zeroed before its loop) are one a layer a
-    step. First the kernel at the example's shape with its log-sum-exp,
-    held to the plain forward (``_lm100m_flash_check``)."""
+    """``examples/torch_train_lm_100m.py`` at its defaults but
+    ``--steps LM100M_STEPS``, in a process of its own: its learned-assert
+    holds (it exits 0), a checkpoint every 100 steps is written, and its
+    ``flash_attention`` launches (the example's own counter, zeroed before
+    its loop) are one a layer a step. First the kernel at the example's
+    shape with its log-sum-exp, held to the plain forward
+    (``_lm100m_flash_check``)."""
     import os
     import tempfile
 
     from repro_torch.kernels import ops
     ex = _lm100m_example()
-    args = ex.parser().parse_args([])
+    args = ex.parser().parse_args(["--steps", str(LM100M_STEPS)])
     _lm100m_flash_check(state, ex.CFG, args)
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
         out = subprocess.run(
             [sys.executable, str(ROOT / "examples" / "torch_train_lm_100m.py"),
-             "--ckpt-dir", tmp], env=env, capture_output=True, text=True,
+             "--steps", str(args.steps), "--ckpt-dir", tmp], env=env,
+            capture_output=True, text=True,
             timeout=600)
         seconds = time.perf_counter() - t0
         ckpts = sorted(os.listdir(tmp))
@@ -5773,7 +5809,7 @@ def phase_lm100m(state):
     want = [f"step_{n:09d}" for n in range(100, args.steps + 1, 100)]
     checks = dict(
         exit_0_the_example_learned=out.returncode == 0,
-        checkpoints_100_200_300=ckpts == want,
+        checkpoints_every_100=ckpts == want,
         flash_launches_one_per_layer_per_step=(
             counts["flash_attention"] == args.steps * ex.CFG.n_layers))
     emit("lm100m", seconds=seconds, returncode=out.returncode,
@@ -5792,16 +5828,18 @@ def phase_lm100m(state):
 # tpu_v5e-512; qwen2 2d on gpu-superpod; the GNN and two-tower cells the
 # gnn_train and train_recsys phases train (pna minibatch_lg, the
 # two-tower's train_batch); and qwen2's decode_32k (128 x 32,768 of cache).
+# (longest first: the four DeepSeek children, ~65 s each, start with the
+# first eight, and the short ones fill the slots the qwen2 ones free)
 PLACE_CELLS = (
+    ("deepseek-v2-lite-16b", "train_4k", "tpu_v5e-512", "2d"),
+    ("deepseek-v2-lite-16b", "train_4k", "tpu_v5e-512", "fsdp"),
+    ("deepseek-v2-lite-16b", "train_4k", "tpu_v5e-512", "sp"),
+    ("deepseek-v2-lite-16b", "train_4k", "tpu_v5e-512", "expert"),
     ("qwen2-1.5b", "train_4k", "tpu_v5e-512", "2d"),
     ("qwen2-1.5b", "train_4k", "tpu_v5e-512", "expert"),
     ("qwen2-1.5b", "train_4k", "tpu_v5e-512", "fsdp"),
     ("qwen2-1.5b", "train_4k", "tpu_v5e-512", "sp"),
     ("qwen2-1.5b", "train_4k", "gpu-superpod", "2d"),
-    ("deepseek-v2-lite-16b", "train_4k", "tpu_v5e-512", "2d"),
-    ("deepseek-v2-lite-16b", "train_4k", "tpu_v5e-512", "fsdp"),
-    ("deepseek-v2-lite-16b", "train_4k", "tpu_v5e-512", "sp"),
-    ("deepseek-v2-lite-16b", "train_4k", "tpu_v5e-512", "expert"),
     ("pna", "minibatch_lg", "tpu_v5e-512", "2d"),
     ("two-tower-retrieval", "train_batch", "tpu_v5e-512", "2d"),
     ("qwen2-1.5b", "decode_32k", "gpu-superpod", "2d"),
@@ -5930,6 +5968,9 @@ def place_child(cell: int, cache_dir: str) -> None:
         link_bytes=res.record.link, link_by_axis=res.record.link_by_axis,
         agg_flops=res.record.agg_flops, identity=rep.identity,
         searched=rep.searched, ratio=rep.makespan_ratio, perm=rep.axis_perm,
+        device_order=rep.device_order,
+        round0_ratio=rep.rounds[0]["makespan"] / rep.identity["makespan"],
+        moved_after_round0=any(r["order_changed"] for r in rep.rounds[1:]),
         recompiles=sum(r["recompiled"] for r in rep.rounds),
         fixed_point=(rep.schedule_diff or {}).get("fixed_point"),
         n_candidates=rep.n_candidates,
@@ -6006,55 +6047,61 @@ def phase_place(state):
     exactly, the card's orders up to a float64 tie; (f)
     ``quotient_link_loads`` launched. The ratios and perms stand beside the
     reference's rows (``PLACE_REF``), reported, not gated."""
+    import atexit
     import os
+    import shutil
     import tempfile
 
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     outs = [None] * len(PLACE_CELLS)
-    with tempfile.TemporaryDirectory() as tmp:
-        pending = list(range(len(PLACE_CELLS)))
-        running = {}
-        try:
-            while pending or running:
-                while pending and len(running) < PLACE_PARALLEL:
-                    i = pending.pop(0)
-                    running[i] = (subprocess.Popen(
-                        [sys.executable, "-c",
-                         f"import chip_smoke; chip_smoke.place_child({i}, "
-                         f"{tmp!r})"],
-                        cwd=ROOT, env=env, stdout=subprocess.PIPE,
-                        stderr=subprocess.PIPE, text=True),
-                        time.perf_counter())
-                done = [i for i, (p, _) in running.items()
-                        if p.poll() is not None]
-                for i, (p, t0) in running.items():
-                    if i not in done and \
-                            time.perf_counter() - t0 > PLACE_TIMEOUT_S:
-                        raise AssertionError(
-                            f"place child {place_label(PLACE_CELLS[i])} "
-                            f"ran past {PLACE_TIMEOUT_S} s")
-                for i in done:
-                    p, t0 = running.pop(i)
-                    stdout, stderr = p.communicate()
-                    lines = [ln for ln in stdout.splitlines()
-                             if ln.startswith("{")]
-                    if p.returncode != 0 or not lines:
-                        raise AssertionError(
-                            f"place child {place_label(PLACE_CELLS[i])} "
-                            f"failed ({p.returncode}): {stderr[-3000:]}")
-                    outs[i] = dict(json.loads(lines[-1]),
-                                   wall_s=time.perf_counter() - t0)
-                    emit("place", step="child",
-                         cell=place_label(PLACE_CELLS[i]),
-                         wall_s=outs[i]["wall_s"],
-                         trace_s=outs[i]["trace_s"],
-                         ratio=outs[i]["ratio"])
-                time.sleep(0.2)
-        finally:
-            for p, _ in running.values():
-                if p.poll() is None:
-                    p.kill()
-                    p.wait()
+    # the trace cache outlives the phase: the dryrun phase reads the same
+    # records (it removes the directory)
+    tmp = tempfile.mkdtemp(prefix="place_cache_")
+    atexit.register(shutil.rmtree, tmp, True)
+    state["place_cache"] = tmp
+    pending = list(range(len(PLACE_CELLS)))
+    running = {}
+    try:
+        while pending or running:
+            while pending and len(running) < PLACE_PARALLEL:
+                i = pending.pop(0)
+                running[i] = (subprocess.Popen(
+                    [sys.executable, "-c",
+                     f"import chip_smoke; chip_smoke.place_child({i}, "
+                     f"{tmp!r})"],
+                    cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                    stderr=subprocess.PIPE, text=True),
+                    time.perf_counter())
+            done = [i for i, (p, _) in running.items()
+                    if p.poll() is not None]
+            for i, (p, t0) in running.items():
+                if i not in done and \
+                        time.perf_counter() - t0 > PLACE_TIMEOUT_S:
+                    raise AssertionError(
+                        f"place child {place_label(PLACE_CELLS[i])} "
+                        f"ran past {PLACE_TIMEOUT_S} s")
+            for i in done:
+                p, t0 = running.pop(i)
+                stdout, stderr = p.communicate()
+                lines = [ln for ln in stdout.splitlines()
+                         if ln.startswith("{")]
+                if p.returncode != 0 or not lines:
+                    raise AssertionError(
+                        f"place child {place_label(PLACE_CELLS[i])} "
+                        f"failed ({p.returncode}): {stderr[-3000:]}")
+                outs[i] = dict(json.loads(lines[-1]),
+                               wall_s=time.perf_counter() - t0)
+                emit("place", step="child",
+                     cell=place_label(PLACE_CELLS[i]),
+                     wall_s=outs[i]["wall_s"],
+                     trace_s=outs[i]["trace_s"],
+                     ratio=outs[i]["ratio"])
+            time.sleep(0.2)
+    finally:
+        for p, _ in running.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
     place_gates(state, outs)
 
 
@@ -6072,7 +6119,7 @@ def place_gates(state, outs):
                if out["machine"] == "tpu_v5e-512"
                and out["shape"] == "train_4k" else None)
         line = {k: v for k, v in out.items()
-                if k not in ("launches", "e_record_digest")}
+                if k not in ("launches", "e_record_digest", "device_order")}
         line["a"] = dict(out["a"], rounds=[
             {k: v for k, v in r.items() if k != "cpu_order"}
             for r in out["a"]["rounds"]])
@@ -6105,6 +6152,9 @@ def place_gates(state, outs):
         counts.get("quotient_link_loads", 0) > 0
     state["launches"]["place"] = counts
     state["place_qll"] = by_cell[PLACE_QLL_CELL]["qll_at_search"]
+    state["place_reports"] = {c: {k: o[k] for k in (
+        "round0_ratio", "perm", "device_order", "moved_after_round0")}
+        for c, o in by_cell.items()}
     emit("place", step="checks", gates=gates, launches=counts,
          expert_vs_2d=expert, qll_at_search=state["place_qll"],
          concurrency=PLACE_PARALLEL)
@@ -6112,6 +6162,463 @@ def place_gates(state, outs):
     if failed:
         raise AssertionError(f"place checks failed: {failed}")
     _require_launched(counts, "place")
+
+# The dryrun phase: the dry-run CLI's roofline terms over the cells place
+# traced (read from place's trace cache: nothing is traced twice), anchored
+# to a real step on the card. (a) the mapping grid (qwen2-1.5b and
+# DeepSeek-V2-Lite at train_4k on tpu_v5e-512, every profile) through
+# ``python -m repro_torch.launch.dryrun --mapping-grid``, one child per
+# arch, and ``run_cell`` on place's other cells in a third child;
+# (b) the anchor: qwen2-1.5b FULL train_4k at the train phase's batch on a
+# (1, 1) mesh, its meta trace's record against the same step run once on
+# the card under the same recorder; (c) ``lint_cell`` on the grid's cells.
+DRYRUN_OTHER = (("pna", "minibatch_lg", "tpu_v5e-512", "2d"),
+                ("two-tower-retrieval", "train_batch", "tpu_v5e-512", "2d"),
+                ("qwen2-1.5b", "train_4k", "gpu-superpod", "2d"),
+                ("qwen2-1.5b", "decode_32k", "gpu-superpod", "2d"))
+DRYRUN_GRID_ARCHS = ("qwen2-1.5b", "deepseek-v2-lite-16b")
+DRYRUN_ANCHOR = ("qwen2-1.5b", "train_4k", {"batch": TRAIN_BATCH[0]})
+DRYRUN_COUNT_REL = 1e-9   # (b): the card step's counts against the trace's
+DRYRUN_MEM_BAND = (0.85, 1.15)   # predicted peak / max_memory_allocated
+DRYRUN_BOUND_SHARE = 1.05        # step_time_bound_s / median warm step
+DRYRUN_WARM_STEPS = 3
+DRYRUN_TIMEOUT_S = 300
+# the reference's result keys of run_cell (src/repro/launch/dryrun.py),
+# with "mapping" where the cell was searched
+DRYRUN_KEYS = ("arch", "shape", "mesh", "machine", "kind", "tag", "profile",
+               "status", "chips", "compile_s", "calibrate_s", "cache_hit",
+               "per_device", "total", "agg_once", "hlo_cost",
+               "memory_analysis", "model_flops", "useful_ratio",
+               "roofline_terms", "dominant", "step_time_bound_s",
+               "roofline_fraction", "scan_lengths")
+
+
+def lm_attention_sites(cfg, b: int, s: int) -> dict:
+    """The attention declarations of one train step on one device holding
+    the whole batch: per layer the forward (twice with remat: the
+    checkpoint's recompute) and the backward, each at
+    ``cost_sites.attention_cost`` of the cell's shapes: ``{count,
+    flops}``. A record whose attention site was not counted differs."""
+    import torch
+
+    from repro_torch.kernels.cost_sites import attention_cost
+    d = dv = cfg.head_dim
+    if cfg.mla:
+        d = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
+        dv = cfg.v_head_dim
+    args = (b, s, s, cfg.n_heads, cfg.n_kv_heads, d, dv,
+            torch.empty((), dtype=cfg.dtype).element_size(), cfg.q_chunk,
+            cfg.kv_chunk)
+    n_fwd = cfg.n_layers * (2 if cfg.remat else 1)
+    return {"count": n_fwd + cfg.n_layers,
+            "flops": n_fwd * attention_cost(*args)["flops"]
+            + cfg.n_layers * attention_cost(*args, True)["flops"]}
+
+
+def lm_product_flops(cfg, b: int, s: int, devices: int = 1,
+                     early_stop: bool = False) -> float:
+    """The closed form of a dense LM train step's product FLOPs on one of
+    ``devices`` devices that split every product evenly (the sp profile):
+    2 per parameter and token forward, 4 backward, and with remat the
+    layers' forward once more; the attention's own products are a declared
+    kernel site, not products here. ``early_stop``: torch's non-reentrant
+    checkpoint stops a layer's recompute once every tensor its backward
+    saved is back, so on plain tensors the down projection's product (its
+    output is saved by nobody) is not recomputed; on DTensors it is."""
+    d, h, kh, dh, f = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                       cfg.head_dim, cfg.d_ff)
+    layer = d * h * dh + 2 * d * kh * dh + h * dh * d + 3 * d * f
+    mm = cfg.n_layers * layer + d * cfg.vocab
+    tokens = float(b) * s
+    remat = cfg.n_layers * (layer - (f * d if early_stop else 0)) \
+        if cfg.remat else 0
+    return 2.0 * tokens * (3.0 * mm + remat) / devices
+
+
+def dryrun_grid_child(arch: str, cache_dir: str, out_dir: str) -> None:
+    """One arch's mapping grid through the dry-run CLI (its entry point;
+    the searches on the identity trace, no retrace), with the launch
+    counts set to 0 just before it; prints one JSON line: the counts and
+    the seconds."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
+    torch.zeros(1, device="cuda")
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    dryrun.main(["--mapping-grid", "--arch", arch, "--cache-dir", cache_dir,
+                 "--out", out_dir, "--lint"])
+    torch.cuda.synchronize()
+    print(json.dumps({"launches": ops.launch_counts(),
+                      "seconds": time.perf_counter() - t0}), flush=True)
+
+
+def dryrun_cells_child(cache_dir: str, out_dir: str) -> None:
+    """``run_cell`` on ``DRYRUN_OTHER`` (searched, from the trace cache),
+    the launch counts set to 0 just before; the results go to
+    ``out_dir`` (``_emit``'s files) and one JSON line of the counts, the
+    seconds and the traces is printed."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.placement import PlacementSession
+    torch.zeros(1, device="cuda")
+    session = PlacementSession(cache_dir=cache_dir, device=None)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    for arch, shape, machine, prof in DRYRUN_OTHER:
+        dryrun.run_cell(arch, shape, False, out_dir, profile=prof,
+                        topology_aware=True, session=session,
+                        machine=machine)
+    torch.cuda.synchronize()
+    print(json.dumps({"launches": ops.launch_counts(),
+                      "seconds": time.perf_counter() - t0,
+                      "traces": session.n_compiles}), flush=True)
+
+
+def dryrun_lint_child(arch: str) -> None:
+    """``lint_cell`` on every profile of ``arch`` at train_4k (the spec
+    trees, then the upcasts of the step traced on one device); prints one
+    JSON line per cell's findings."""
+    from repro_torch import configs
+    from repro_torch.analysis import counts, shard_lint
+    out = {}
+    for prof in configs.get(arch).profiles:
+        t0 = time.perf_counter()
+        f = shard_lint.lint_cell(arch, "train_4k", profile=prof)
+        out[prof] = dict(counts=counts(f), seconds=time.perf_counter() - t0,
+                         errors=[x.message for x in f
+                                 if x.severity == "error"],
+                         warnings=[x.message[:160] for x in f
+                                   if x.severity == "warning"])
+    print(json.dumps(out), flush=True)
+
+
+def _dryrun_line(r) -> dict:
+    """The per-cell line: the three terms, the dominant one, the useful
+    ratio, and per device the FLOPs, tight bytes and peak bytes."""
+    mem = r["memory_analysis"]
+    return dict(terms=r["roofline_terms"], dominant=r["dominant"],
+                useful_ratio=r["useful_ratio"],
+                flops_per_device=r["per_device"]["flops"],
+                bytes_tight_per_device=r["per_device"]["bytes"],
+                peak_bytes_per_device=mem["argument_bytes"]
+                + mem["temp_bytes"],
+                memory=mem, step_time_bound_s=r["step_time_bound_s"],
+                cache_hit=r["cache_hit"], hlo_cost=r["hlo_cost"])
+
+
+def _dryrun_cell_ok(r) -> bool:
+    """Status ok, the reference's keys, finite counts, FLOPs and tight
+    bytes above 0."""
+    import math
+    cal = r.get("hlo_cost", {})
+    return (r.get("status") == "ok" and all(k in r for k in DRYRUN_KEYS)
+            and all(math.isfinite(v) for v in cal.values())
+            and cal.get("flops", 0) > 0 and cal.get("bytes_tight", 0) > 0)
+
+
+def _mapping_matches_place(state, cell, report, traffic, topo) -> dict:
+    """A dry-run mapping report (the search on the identity trace) against
+    place's round 0 for the same cell, the same search on the same record:
+    the ratio within ``PLACE_REL``, and the perm equal, or the two orders
+    tied in float64 on the host (the card's float atomics break exact ties
+    either way, as place's gate (a) allows). Where place's retrace moved
+    the order after round 0, only the ratio is compared."""
+    ref = state.get("place_reports", {}).get(cell)
+    if ref is None:
+        return dict(compared=False, ok=True)
+    want = ref["round0_ratio"]
+    rel = abs(report["makespan_ratio"] - want) / max(want, 1e-30)
+    same = list(report["axis_perm"]) == list(ref["perm"])
+    tie = 0.0
+    if not same and not ref["moved_after_round0"]:
+        a = host_map_makespan(traffic, topo, report["device_order"])
+        b = host_map_makespan(traffic, topo, ref["device_order"])
+        tie = abs(a - b) / max(b, 1e-30)
+    return dict(compared=True, ratio=report["makespan_ratio"],
+                place_round0_ratio=want, ratio_rel=rel,
+                perm=report["axis_perm"], place_perm=ref["perm"],
+                perm_equal=same, tie_rel_f64=tie,
+                ok=rel <= PLACE_REL and (same or tie <= PLACE_TIE
+                                         or ref["moved_after_round0"]))
+
+
+def _planted_recorders():
+    """The two planted faults of anchor (b), as recorders: one that never
+    frees a storage, and one that drops the attention site's
+    declarations."""
+    from repro_torch.launch.op_cost import OpCostRecorder
+
+    class FreesIgnored(OpCostRecorder):
+        def _free(self, key):
+            pass
+
+    class AttentionUncounted(OpCostRecorder):
+        def _declare(self, site, declared):
+            if site != "flash_attention":
+                super()._declare(site, declared)
+    return FreesIgnored(), AttentionUncounted()
+
+
+def _anchor(state, checks) -> dict:
+    """(b): the (1, 1) meta record of ``DRYRUN_ANCHOR`` against its step
+    run once on the card under the same recorder (params from ``init``,
+    seed 0), the memory band, the bound share over the median of
+    ``DRYRUN_WARM_STEPS`` warm steps, the attention's declarations
+    (``lm_attention_sites``), and the two planted faults, recorded on the
+    same card step beside the true recorder."""
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.core.machine import MachineSpec
+    from repro_torch.launch import dryrun, op_cost
+    from repro_torch.launch.placement import PlacementSession
+    arch_name, shape_name, over = DRYRUN_ANCHOR
+    arch = configs.get(arch_name)
+    session = PlacementSession(cache_dir="", device=None)
+    t0 = time.perf_counter()
+    meta = session.measure(arch_name, shape_name, mesh_shape=(1, 1),
+                           axes=("data", "model"), overrides=over)
+    meta_s = time.perf_counter() - t0
+    cell, args = dryrun.lm_train_args(arch_name, shape_name, over,
+                                      device=None, seed=0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    card = op_cost.OpCostRecorder()
+    no_frees, no_attention = _planted_recorders()
+    for rec in (card, no_frees, no_attention):
+        rec.arguments(*args)
+    t0 = time.perf_counter()
+    with card, no_frees, no_attention:
+        out = cell["step"](*args)
+    torch.cuda.synchronize()
+    recorded_s = time.perf_counter() - t0
+    for rec in (card, no_frees, no_attention):
+        rec.outputs(out)
+    peak = torch.cuda.max_memory_allocated()
+    del out
+    warm = []
+    for _ in range(DRYRUN_WARM_STEPS):
+        t0 = time.perf_counter()
+        out = cell["step"](*args)
+        torch.cuda.synchronize()
+        warm.append(time.perf_counter() - t0)
+        del out
+    del args
+    torch.cuda.empty_cache()
+    keys = ("flops", "bytes", "bytes_tight", "transcendentals")
+    rel = {k: abs(card.totals[k] - meta.hlo_cal[k])
+           / max(abs(meta.hlo_cal[k]), 1.0) for k in keys}
+    checks["b_counts_agree"] = max(rel.values()) <= DRYRUN_COUNT_REL
+    mem = meta.memory
+    predicted = mem["argument_bytes"] + mem["temp_bytes"]
+    share_mem = predicted / peak
+    checks["b_memory_band"] = (DRYRUN_MEM_BAND[0] <= share_mem
+                               <= DRYRUN_MEM_BAND[1])
+    spec = MachineSpec.preset("gpu-superpod")
+    compute_s = meta.hlo_cal["flops"] / float(spec.peak_flops.max())
+    memory_s = meta.hlo_cal["bytes_tight"] / float(spec.hbm_bw.max())
+    bound = max(compute_s, memory_s)
+    median = float(np.median(warm))
+    share = bound / median
+    checks["b_bound_share"] = share <= DRYRUN_BOUND_SHARE
+    cfg = arch.make_config(shape_name)
+    b, s = over["batch"], arch.shapes[shape_name].meta["seq"]
+    closed = lm_attention_sites(cfg, b, s)
+
+    def declared(sites):
+        site = sites.get("flash_attention", {})
+        return (site.get("count", 0) == closed["count"]
+                and abs(site.get("flops", 0.0) - closed["flops"])
+                <= DRYRUN_COUNT_REL * closed["flops"])
+    attn = meta.ops["sites"].get("flash_attention", {})
+    checks["b_attention_declarations"] = declared(meta.ops["sites"])
+
+    # the planted faults, recorded on the same card step: the recorder
+    # ignoring frees, and the attention site's count switched off
+    bad_mem = no_frees.memory()
+    bad_share = (bad_mem["argument_bytes"] + bad_mem["temp_bytes"]) / peak
+    bad_attn = no_attention.sites.get("flash_attention", {})
+    checks["b_planted_frees_ignored_fails_band"] = not (
+        DRYRUN_MEM_BAND[0] <= bad_share <= DRYRUN_MEM_BAND[1])
+    checks["b_planted_site_off_fails_declarations"] = not declared(
+        no_attention.sites)
+    return dict(cell=f"{arch_name}/{shape_name}", overrides=over,
+                mesh=[1, 1], meta_trace_s=meta_s, recorded_step_s=recorded_s,
+                warm_step_s=warm, warm_step_median_s=median,
+                counts_meta={k: meta.hlo_cal[k] for k in keys},
+                counts_card={k: card.totals[k] for k in keys},
+                counts_rel=rel, memory_predicted=mem,
+                predicted_peak_bytes=predicted,
+                max_memory_allocated=peak, memory_share=share_mem,
+                step_time_bound_s=bound,
+                terms={"compute_s": compute_s, "memory_s": memory_s},
+                bound_share=share, capacities=dict(
+                    machine="gpu-superpod",
+                    peak_flops=float(spec.peak_flops.max()),
+                    hbm_bw=float(spec.hbm_bw.max())),
+                attention=attn, attention_closed_form=closed,
+                sites=meta.ops["sites"], unclassified=meta.ops[
+                    "unclassified"],
+                planted=dict(frees_ignored_memory_share=bad_share,
+                             site_off_attention=bad_attn))
+
+
+def phase_dryrun(state):
+    """The dry-run CLI's roofline terms (``launch/dryrun.py`` over the
+    op-cost recorder, ``launch/op_cost.py``), anchored to a real step on
+    the card. (a) the mapping grid in two children of the CLI and
+    ``run_cell`` on place's other cells (``DRYRUN_OTHER``) in a third, all
+    from place's trace cache (nothing traced): each ``status: ok`` with the
+    reference's keys, finite counts, FLOPs and tight bytes above 0, its
+    perm and ratio those of place's round 0 for the same cell (up to a
+    float64 tie), and ``quotient_link_loads`` launched; (b) ``_anchor``'s
+    gates, run while the children work (its step launches
+    ``flash_attention``); (c) ``lint_cell`` on the grid's cells (two more
+    children): no error. The launch counts are set to 0 before (b) and
+    read after (a); the children count their own."""
+    import os
+    import re
+    import tempfile
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.core.machine import MachineSpec
+    from repro_torch.kernels import ops
+    from repro_torch.launch.placement import PlacementSession
+    cache = state.get("place_cache") or tempfile.mkdtemp(prefix="dryrun_")
+    out_dir = tempfile.mkdtemp(prefix="dryrun_out_")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    checks = {}
+    children = {}
+    t_phase = time.perf_counter()
+    children[("grid", "other")] = subprocess.Popen(
+        [sys.executable, "-c", f"import chip_smoke; chip_smoke."
+         f"dryrun_cells_child({cache!r}, {out_dir!r})"],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+    for arch in DRYRUN_GRID_ARCHS:
+        children[("grid", arch)] = subprocess.Popen(
+            [sys.executable, "-c", f"import chip_smoke; chip_smoke."
+             f"dryrun_grid_child({arch!r}, {cache!r}, {out_dir!r})"],
+            cwd=ROOT, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+        children[("lint", arch)] = subprocess.Popen(
+            [sys.executable, "-c",
+             f"import chip_smoke; chip_smoke.dryrun_lint_child({arch!r})"],
+            cwd=ROOT, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+    results = {}
+    try:
+        # (b) the card anchor while the children trace and search (their
+        # host work shares the cores with its warm steps, whose time the
+        # bound is held under)
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        anchor = _anchor(state, checks)
+        anchor_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        outs = {}
+        for key, p in children.items():
+            try:
+                stdout, stderr = p.communicate(timeout=DRYRUN_TIMEOUT_S)
+            except subprocess.TimeoutExpired:
+                raise AssertionError(f"dryrun child {key} ran past "
+                                     f"{DRYRUN_TIMEOUT_S} s")
+            lines = [ln for ln in stdout.splitlines() if ln.startswith("{")]
+            if p.returncode != 0 or not lines:
+                raise AssertionError(f"dryrun child {key} failed "
+                                     f"({p.returncode}): {stderr[-3000:]}"
+                                     f"{stdout[-2000:]}")
+            outs[key] = json.loads(lines[-1])
+            if key[0] == "grid" and key[1] != "other":
+                outs[key]["traces"] = sum(int(h) for h in re.findall(
+                    r"\[CACHE\] compiles=(\d+)", stdout))
+    finally:
+        for p in children.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    children_s = time.perf_counter() - t_phase
+    grid = ("other",) + DRYRUN_GRID_ARCHS
+    for arch in grid:
+        for name, n in outs[("grid", arch)]["launches"].items():
+            counts[name] = counts.get(name, 0) + n
+    for arch, shape, machine, prof in DRYRUN_OTHER:
+        tag = (machine if machine not in ("tpu_v5e-256", "tpu_v5e-512")
+               else "2x16x16")
+        with open(os.path.join(out_dir, f"{arch}__{shape}__{tag}.json")) as f:
+            results[(arch, shape, machine, prof)] = json.load(f)
+    for arch in DRYRUN_GRID_ARCHS:
+        for prof in configs.get(arch).profiles:
+            path = os.path.join(out_dir, f"{arch}__train_4k__2x16x16"
+                                         f"__map_{prof}.json")
+            with open(path) as f:
+                results[(arch, "train_4k", "tpu_v5e-512", prof)] = \
+                    json.load(f)
+    reader = PlacementSession(cache_dir=cache, device=None)
+    for cell, r in results.items():
+        label = place_label(cell)
+        arch, shape, machine, prof = cell
+        spec = MachineSpec.preset(machine)
+        rec = reader.measure(arch, shape, profile=prof, machine=machine)
+        match = _mapping_matches_place(state, cell, r["mapping"],
+                                       rec.traffic, spec.topology())
+        checks[f"a_{label}"] = _dryrun_cell_ok(r) and match["ok"]
+        emit("dryrun", cell=label, **_dryrun_line(r), mapping=match,
+             unclassified=rec.ops.get("unclassified"))
+    # nothing is traced: every record comes from place's cache
+    traces = {place_label(c): r["mapping"]["n_compiles"]
+              for c, r in results.items()}
+    checks["a_no_trace_twice"] = (reader.n_compiles == 0 and not any(
+        traces.values()) and not any(outs[("grid", a)]["traces"]
+                                     for a in grid))
+    state["launches"]["dryrun"] = counts
+    checks["a_quotient_link_loads_launched"] = \
+        counts.get("quotient_link_loads", 0) > 0
+
+    # (c) lint_cell on the grid's cells
+    lint = {}
+    for arch in DRYRUN_GRID_ARCHS:
+        for prof, v in outs[("lint", arch)].items():
+            lint[f"{arch}/train_4k/{prof}"] = v
+            checks[f"c_{arch}/{prof}_no_error"] = not v["errors"]
+
+    qll = state.get("place_qll")
+    qll_bound = None
+    if qll:
+        topo = MachineSpec.preset("tpu_v5e-512").topology()
+        import numpy as np
+        nnz = float(np.count_nonzero(topo.subtree))
+        m, n, k, links = qll["arcs"], qll["vertices"], qll["k"], qll["links"]
+        qbytes = 12.0 * m + 4.0 * n + 4.0 * links * k + 8.0 * links
+        qflops = float(m) + 4.0 * k * nnz + 2.0 * links
+        qll_bound = dict(arcs=m, vertices=n, k=k, links=links,
+                         bytes=qbytes, flops=qflops,
+                         bound_ms=1e3 * max(qbytes / H100_BYTES_PER_S,
+                                            qflops / H100_F32_PER_S),
+                         bound_by=("bytes" if qbytes / H100_BYTES_PER_S
+                                   >= qflops / H100_F32_PER_S
+                                   else "operations"),
+                         ms=qll["ms"])
+    emit("dryrun", step="checks", checks=checks, launches=counts,
+         anchor=anchor, lint=lint, qll_at_search_bound=qll_bound,
+         grid_children={a: outs[("grid", a)]["seconds"] for a in grid},
+         grid_traces={a: outs[("grid", a)]["traces"] for a in grid},
+         traces_by_cell=traces,
+         children_s=children_s, anchor_s=anchor_s,
+         budget_s=90, nvidia_smi=state["smi"])
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"dryrun checks failed: {failed}")
+    _require_launched(counts, "dryrun")
+
 
 
 PHASES = (phase_env, phase_build, phase_kernels, phase_kernels_recsys,
@@ -6121,7 +6628,7 @@ PHASES = (phase_env, phase_build, phase_kernels, phase_kernels_recsys,
           phase_lm_mla, phase_mapping,
           phase_c1,
           phase_claims, phase_train, phase_train_mla, phase_train_recsys,
-          phase_placement, phase_place, phase_serving_bench,
+          phase_placement, phase_place, phase_dryrun, phase_serving_bench,
           phase_lm100m)
 
 

@@ -271,8 +271,10 @@ def sanitize_tree(tree: Any, specs: Any, mesh, *,
 def placements(mesh, spec: Optional[Sequence]) -> Tuple:
     """The DTensor placements of ``spec`` on ``mesh`` (a ``DeviceMesh``
     with named dims): ``Shard(d)`` on each mesh dim that tensor dim ``d``
-    names, ``Replicate()`` on every other. A dim named over several mesh
-    axes must name them in the mesh's order (outermost first, as JAX nests
+    names, ``Replicate()`` on every other and on a mesh dim of size 1 (a
+    shard over one device is the whole tensor, and DTensor refuses to
+    flatten a dim it calls sharded). A dim named over several mesh axes
+    must name them in the mesh's order (outermost first, as JAX nests
     them; see the module docstring)."""
     from torch.distributed.tensor import Replicate, Shard
     names = tuple(mesh.mesh_dim_names)
@@ -285,7 +287,8 @@ def placements(mesh, spec: Optional[Sequence]) -> Tuple:
                              f"the mesh's order {names}: DTensor nests "
                              f"shards in mesh-dim order")
         for i in idx:
-            out[i] = Shard(d)
+            if mesh.size(i) > 1:
+                out[i] = Shard(d)
     return tuple(out)
 
 
@@ -476,8 +479,7 @@ class _VocabParallelEmbed(torch.autograd.Function):
                     weights is not None)
         return DTensor.from_local(out, mesh, out_pl, run_check=False,
                                   shape=shape,
-                                  stride=torch.empty(shape,
-                                                     device="meta").stride())
+                                  stride=_contiguous_stride(shape))
 
     @staticmethod
     def backward(ctx, g):
@@ -606,7 +608,13 @@ def _as_dtensor(t: torch.Tensor, mesh) -> torch.Tensor:
 
 
 def _contiguous_stride(shape) -> Tuple[int, ...]:
-    return torch.empty(tuple(shape), device="meta").stride()
+    """A contiguous tensor's strides, computed without allocating one (a
+    meta tensor of a global shape would count in a trace's memory)."""
+    out, step = [], 1
+    for n in reversed(tuple(shape)):
+        out.append(step)
+        step *= max(int(n), 1)
+    return tuple(reversed(out))
 
 
 def gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

@@ -4,7 +4,9 @@ One module per kernel, each holding the wrapper that launches
 ``csrc/<name>.cu`` on CUDA tensors, the plain PyTorch version that CPU
 tensors run, a launch counter (``launches``) and a note on the TPU kernel it
 replaces. ``ops.py`` is the public API; ``build.py`` compiles the sources
-with ``nvcc`` at first use and loads them with ``ctypes``.
+with ``nvcc`` at first use and loads them with ``ctypes``;
+``cost_sites.py`` declares what a kernel site costs to the dry-run's
+op-cost recorder (``launch/op_cost.py``), which cannot see a launch.
 
 Kernels (the partitioner's main path):
   * ``match_keys`` — jittered masked arc keys of device heavy-edge matching,

@@ -40,7 +40,11 @@ device. :func:`attention` goes through it where a gradient is wanted.
 The plain version is the chunked twin of ``_flash_fwd_impl``
 (``models.common.flash_attention_fwd``); CPU tensors run it, and so do
 ``meta`` tensors (the placement session's trace), for which it returns
-outputs of the right shapes and computes nothing. The wrapper's
+outputs of the right shapes and computes nothing. On every device a
+call counts on an op-cost recorder by declaration
+(``kernels/cost_sites.attention_cost``), the same for the kernel (a launch
+the recorder cannot see) and the plain version, whose ops are not
+counted. The wrapper's
 ``q_chunk`` / ``kv_chunk`` are its chunk sizes and do not change the
 kernel's own tiling.
 """
@@ -52,7 +56,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, cost_sites
 from repro_torch.models.common import flash_attention_bwd as plain_bwd
 from repro_torch.models.common import flash_attention_fwd as plain_fwd
 
@@ -109,6 +113,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 raise ValueError(f"flash_attention {name}: base pointer not "
                                  f"16-byte aligned (TMA reads aligned "
                                  f"bases only)")
+    cost_sites.declare_attention((b, sq, h, d), (b, sk, kh, d), dv,
+                                 q.element_size(), q_chunk, kv_chunk, False)
     out = torch.empty((b, sq, h, dv), dtype=q.dtype, device=dev)
     lse = (torch.empty((b, sq, h), dtype=torch.float32, device=dev)
            if return_lse else None)

@@ -150,17 +150,21 @@ class CollectiveRecorder(TorchDispatchMode):
         op = _OP_NAMES.get(func._opname) if func.namespace in (
             "_c10d_functional", "_dtensor") else None
         if op is not None:
-            group = [a for a in args if isinstance(a, str)][-1]
-            if group not in self._groups:
-                self._groups[group] = self._logical[groups_of(self.mesh,
-                                                              group)]
-            dims = self._dims.get(group, ())
-            self.records.append({
-                "op": op, "bytes": int(out.numel()) * out.element_size(),
-                "dtype": str(out.dtype).replace("torch.", ""),
-                "group": group, "groups": self._groups[group],
-                "axis": "x".join(self.mesh.mesh_dim_names[d] for d in dims)})
+            from repro_torch.kernels.cost_sites import paused
+            with paused():
+                self._record(op, out, args)
         return out
+
+    def _record(self, op: str, out: torch.Tensor, args) -> None:
+        group = [a for a in args if isinstance(a, str)][-1]
+        if group not in self._groups:
+            self._groups[group] = self._logical[groups_of(self.mesh, group)]
+        dims = self._dims.get(group, ())
+        self.records.append({
+            "op": op, "bytes": int(out.numel()) * out.element_size(),
+            "dtype": str(out.dtype).replace("torch.", ""),
+            "group": group, "groups": self._groups[group],
+            "axis": "x".join(self.mesh.mesh_dim_names[d] for d in dims)})
 
     def _patch(self):
         from torch.distributed.tensor import (_api, _dispatch,

@@ -30,15 +30,23 @@ overrides, device order, machine, torch's version, the world size and a
 content hash of the ``repro_torch`` sources.
 
 Differences from the reference's records: ``compile_s`` is the trace's
-seconds; ``agg_flops`` is ``torch.utils.flop_counter.FlopCounterMode``'s
-count over the same trace divided by the device count (DTensor ops are
-counted at their global shapes, so this is the per-device share of the
-mesh's work; the meta attention and cross-entropy compute nothing and
-count nothing); ``agg_bytes``, ``memory``, ``hlo_cal`` and ``bytes_deep``
-wait for the dry-run's roofline slice and stay empty. ``link_bf16``
-equals ``link`` (see ``launch/collectives.py``). Two fields are the
-port's own: ``by_op`` (the collectives counted by op) and ``link_by_axis``
-(link bytes by mesh axis and op).
+seconds. The trace runs under the op-cost recorder too
+(``launch/op_cost.py``, the twin of ``hlo_cost.py``), which counts every
+op as one device runs it, on its local shards: ``hlo_cal`` holds its six
+per-device totals (FLOPs, bytes, fused, tight and float32-tight bytes,
+transcendentals), with no float32 halving (the traced dtypes are the real
+ones); ``agg_flops`` / ``agg_bytes`` are the same per-device FLOPs and
+bytes (the reference's are XLA's ``cost_analysis``, which counts a while
+body once; the port's layers are unrolled); ``memory`` is the recorder's
+per-device peak count (``argument_bytes``, ``output_bytes``,
+``temp_bytes``); ``bytes_deep`` is 0, since the attention counts as its
+fused kernel's I/O and its interior never enters the record; and
+``calibrate_s`` is the seconds taken to fold the record. ``link_bf16``
+equals ``link`` (see ``launch/collectives.py``). Three fields are the
+port's own: ``by_op`` (the collectives counted by op), ``link_by_axis``
+(link bytes by mesh axis and op) and ``ops`` (the recorder's declared
+kernel sites, the op names it could not classify, the bf16 -> float32
+conversions by shape, the op count).
 
 ``map_pages`` places the pages of the serving engine's paged KV pool as
 the rows of a graph with the port's ``partition()``: the paper's makespan
@@ -64,6 +72,7 @@ from repro_torch.core import machine as machine_lib
 from repro_torch.core import mapping, topology
 from repro_torch.core.machine import MachineSpec
 from repro_torch.launch import mesh as mesh_lib
+from repro_torch.launch import op_cost
 from repro_torch.launch.collectives import CollectiveRecorder, parse_collectives
 
 # Disk cache location: override with REPRO_PLACEMENT_CACHE; an empty value
@@ -121,16 +130,17 @@ class CellRecord:
     operand: Dict[str, float]
     link_bf16: Dict[str, float]      # = link (no XLA:CPU upcasts here)
     n_collectives: int
-    agg_flops: float                 # FlopCounterMode total / devices
+    agg_flops: float                 # op-cost recorder, per device
     agg_bytes: float
     memory: Dict[str, Optional[int]]
-    hlo_cal: Dict[str, float]
-    bytes_deep: float
+    hlo_cal: Dict[str, float]        # the recorder's six totals
+    bytes_deep: float                # 0: attention counts as kernel I/O
     traffic: Any = None              # [D, D] np.ndarray device-pair bytes
     cached: bool = False             # served from cache, not traced
     by_op: Dict[str, int] = dataclasses.field(default_factory=dict)
     link_by_axis: Dict[str, Dict[str, float]] = dataclasses.field(
         default_factory=dict)        # mesh axis -> op -> link bytes
+    ops: Dict[str, Any] = dataclasses.field(default_factory=dict)
 
 
 def _json_sides(d: Dict[str, float]) -> Dict[str, float]:
@@ -289,12 +299,17 @@ def schedule_diff(identity_rec: CellRecord, searched_rec: CellRecord,
 def meta_dtensors(tree_: Any, specs: Any, mesh) -> Any:
     """The tensors of ``tree_`` (meta tensors of global shapes) as DTensors
     on ``mesh`` placed by their sanitized ``specs``, their local shards
-    ``meta`` tensors; anything else (a Python scalar) passes through."""
+    ``meta`` tensors; anything else (a Python scalar) passes through. On a
+    one-device mesh the local shard is the whole tensor: ``tree_`` is
+    returned as it is, so the step runs the plain path a single device
+    runs (the card's own step, op for op)."""
     from torch.distributed.tensor import DTensor
 
     from repro_torch import tree as tree_lib
     from repro_torch.dist import sharding
 
+    if mesh.size() == 1:
+        return tree_
     out = []
     for x, spec in sharding.spec_leaves(tree_, specs):
         if not isinstance(x, torch.Tensor):
@@ -324,20 +339,38 @@ def _quiet():
         log.setLevel(level)
 
 
-def trace_step(step, args: Sequence[Any], mesh) -> Tuple[CollectiveRecorder,
-                                                         float, float]:
+def trace_step(step, args: Sequence[Any], mesh, *,
+               cost: Optional[op_cost.OpCostRecorder] = None
+               ) -> Tuple[CollectiveRecorder, float, op_cost.OpCostRecorder]:
     """Run ``step(*args)`` once on ``mesh`` under the collective recorder
-    and a flop counter: (recorder, seconds, total flops). Plain tensors
+    and an op-cost recorder (``cost``, a new one by default): (collective
+    recorder, seconds, op-cost recorder), the latter with the step's
+    arguments and outputs registered for its memory count. Plain tensors
     among the step's operands (rope tables, scalars) act as replicated."""
     from torch.distributed.tensor.experimental import implicit_replication
-    from torch.utils.flop_counter import FlopCounterMode
 
     rec = CollectiveRecorder(mesh)
-    flops = FlopCounterMode(display=False)
+    cost = cost if cost is not None else op_cost.OpCostRecorder()
+    cost.arguments(*args)
     t0 = time.perf_counter()
-    with _quiet(), implicit_replication(), flops, rec:
-        step(*args)
-    return rec, time.perf_counter() - t0, float(flops.get_total_flops())
+    with _quiet(), implicit_replication(), rec, cost:
+        out = step(*args)
+    cost.outputs(out)
+    return rec, time.perf_counter() - t0, cost
+
+
+def fold_costs(cost: op_cost.OpCostRecorder) -> Dict[str, Any]:
+    """The :class:`CellRecord` fields of one op-cost recorder:
+    ``hlo_cal``, ``agg_flops``, ``agg_bytes``, ``memory``, ``bytes_deep``
+    (0), ``ops`` and ``calibrate_s`` (this fold's seconds)."""
+    t0 = time.perf_counter()
+    r = cost.record()
+    cal = r["hlo_cal"]
+    return dict(hlo_cal=cal, agg_flops=cal["flops"], agg_bytes=cal["bytes"],
+                memory=r["memory"], bytes_deep=0.0,
+                ops={k: r[k] for k in ("sites", "unclassified", "upcasts",
+                                       "n_ops")},
+                calibrate_s=round(time.perf_counter() - t0, 4))
 
 
 # ---------------------------------------------------------------------------
@@ -536,19 +569,20 @@ class PlacementSession:
                               overrides=overrides)
             args = tuple(meta_dtensors(a, s, mesh) for a, s in
                          zip(cell["args"], cell["args_specs"]))
-            rec, trace_s, flops = trace_step(cell["step"], args, mesh)
+            scan_lengths = cell["scan_lengths"]
+            rec, trace_s, cost = trace_step(cell["step"], args, mesh)
+            del args, cell
         coll = parse_collectives(rec.records, n, traffic=True)
         return CellRecord(
             arch=arch_name, shape=shape_name, mesh_shape=tuple(mesh_shape),
             axes=tuple(axes), profile=profile,
             device_order=None if order is None else order.tolist(),
-            compile_s=round(trace_s, 2), calibrate_s=0.0,
-            scan_lengths=list(cell["scan_lengths"]),
+            compile_s=round(trace_s, 2),
+            scan_lengths=list(scan_lengths),
             link=coll["link"], operand=coll["operand"],
             link_bf16=coll["link_bf16"], n_collectives=coll["count"],
-            agg_flops=flops / n, agg_bytes=0.0, memory={}, hlo_cal={},
-            bytes_deep=0.0, traffic=coll["traffic"], by_op=rec.by_op(),
-            link_by_axis=coll["link_by_axis"])
+            traffic=coll["traffic"], by_op=rec.by_op(),
+            link_by_axis=coll["link_by_axis"], **fold_costs(cost))
 
     # -- place: the full searched-placement loop --------------------------
 

@@ -20,7 +20,9 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.dist.sharding import _is_dtensor, dense
+from repro_torch.dist.sharding import _contiguous_stride, _is_dtensor, dense
+from repro_torch.kernels.cost_sites import (declare_attention,
+                                            declare_token_nll, opaque)
 
 
 def rms_norm(x: torch.Tensor, gamma: torch.Tensor,
@@ -123,15 +125,35 @@ def _attn_layout(q: torch.Tensor, k: torch.Tensor):
     return qp, kp, gp
 
 
-def _meta_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+def _local_dims(x: torch.Tensor, placements=None):
+    """The shape of one device's shard of ``x`` on ``placements`` (its
+    own when None; rank 0's, the largest, where a dim does not divide),
+    without moving it; a plain tensor's own shape."""
+    if not _is_dtensor(x):
+        return tuple(x.shape)
+    from torch.distributed.tensor import Shard
+    shape = list(x.shape)
+    for i, p in enumerate(x.placements if placements is None
+                          else placements):
+        if isinstance(p, Shard):
+            d = p.dim % len(shape)
+            shape[d] = -(-shape[d] // x.device_mesh.size(i))
+    return tuple(shape)
+
+
+def _meta_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              q_chunk: int = 0, kv_chunk: int = 0):
     """``(out [B, Sq, H, Dv], lse [B, Sq, H])`` of meta inputs: empty. On
     DTensors, q, k and v are first redistributed to
     :func:`_attn_layout`'s placements, so a trace records the collectives
-    the plain path implies, and the outputs are placed like that q."""
+    the plain path implies, and the outputs are placed like that q. The
+    call counts by declaration on the shards it runs on."""
     dv = v.shape[-1]
     if _is_dtensor(q):
         qp, kp, _ = _attn_layout(q, k)
         q, k, v = _placed(q, qp), _placed(k, kp), _placed(v, kp)
+    declare_attention(_local_dims(q), _local_dims(k), dv, q.element_size(),
+                      q_chunk, kv_chunk, False)
     out = torch.empty_like(q if dv == q.shape[-1] else q[..., :dv])
     return out, torch.empty_like(q[..., 0], dtype=torch.float32)
 
@@ -149,19 +171,24 @@ def _meta_empty(shape, dtype, mesh, placements) -> torch.Tensor:
     return DTensor.from_local(
         torch.empty(local, dtype=dtype, device="meta"), mesh, placements,
         run_check=False, shape=torch.Size(shape),
-        stride=torch.empty(shape, device="meta").stride())
+        stride=_contiguous_stride(shape))
 
 
 def _meta_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-              do: torch.Tensor):
+              do: torch.Tensor, q_chunk: int = 0, kv_chunk: int = 0):
     """``(dq, dk, dv)`` of meta inputs: empty, shaped and placed like q, k
     and v. On DTensors the output's gradient ``do`` is first placed like
     the forward's q, and each gradient is formed on :func:`_attn_layout`'s
     placements and redistributed back to its input's (the transpose of
-    :func:`_meta_fwd`'s gathers: a partial k gradient is reduced)."""
+    :func:`_meta_fwd`'s gathers: a partial k gradient is reduced). The
+    call counts by declaration on the forward's shards."""
     if not _is_dtensor(q):
+        declare_attention(tuple(q.shape), tuple(k.shape), v.shape[-1],
+                          q.element_size(), q_chunk, kv_chunk, True)
         return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    qp, _, gp = _attn_layout(q, k)
+    qp, kp, gp = _attn_layout(q, k)
+    declare_attention(_local_dims(q, qp), _local_dims(k, kp), v.shape[-1],
+                      q.element_size(), q_chunk, kv_chunk, True)
     _placed(do, qp)
     return tuple(
         _grad_placed(_meta_empty(x.shape, x.dtype, x.device_mesh, p), x)
@@ -188,10 +215,19 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     On ``meta`` tensors (the placement session's DTensor trace) it returns
     empty outputs and computes nothing, as XLA's lowering on host devices
     computes nothing; DTensor inputs are first redistributed as the plain
-    path needs them (:func:`_meta_fwd`).
+    path needs them (:func:`_meta_fwd`). On every device the call counts
+    on an op-cost recorder by declaration, as the kernel it stands for
+    (``kernels/cost_sites.py``), and its ops are not counted.
     """
     if q.device.type == "meta":
-        return _meta_fwd(q, k, v)
+        return _meta_fwd(q, k, v, q_chunk, kv_chunk)
+    declare_attention(tuple(q.shape), tuple(k.shape), v.shape[-1],
+                      q.element_size(), q_chunk, kv_chunk, False)
+    with opaque():
+        return _plain_fwd(q, k, v, causal, q_chunk, kv_chunk)
+
+
+def _plain_fwd(q, k, v, causal, q_chunk, kv_chunk):
     b, sq, h, d = q.shape
     _, sk, kh, _ = k.shape
     dv = v.shape[-1]
@@ -262,9 +298,17 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     for dq and to q's for dk; ``dv`` takes ``p`` and ``do`` in float32.
     On ``meta`` tensors it returns empty gradients like q, k and v, with
     the reductions the plain path implies on DTensors (:func:`_meta_bwd`).
+    On every device it counts by declaration, as the forward does.
     """
     if q.device.type == "meta":
-        return _meta_bwd(q, k, v, do)
+        return _meta_bwd(q, k, v, do, q_chunk, kv_chunk)
+    declare_attention(tuple(q.shape), tuple(k.shape), v.shape[-1],
+                      q.element_size(), q_chunk, kv_chunk, True)
+    with opaque():
+        return _plain_bwd(q, k, v, out, lse, do, causal, q_chunk, kv_chunk)
+
+
+def _plain_bwd(q, k, v, out, lse, do, causal, q_chunk, kv_chunk):
     b, sq, h, d = q.shape
     _, sk, kh, _ = k.shape
     dv = v.shape[-1]
@@ -362,11 +406,13 @@ def _meta_nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     recorded: the row max (``Partial("max")``), the sum of exponentials
     and the gold logit (each device holds its vocab slice's share)."""
     if not _is_dtensor(logits):
+        declare_token_nll(tuple(logits.shape), logits.element_size(), False)
         return torch.empty(labels.shape, dtype=torch.float32, device="meta")
     from torch.distributed.tensor import Partial
     mesh = logits.device_mesh
     lp, rows, vocab = _nll_layout(logits)
-    _placed(logits, lp)
+    declare_token_nll(_local_dims(_placed(logits, lp)),
+                      logits.element_size(), False)
     labels = _placed(labels, rows)
     for op in ("max", "sum", "sum"):
         _placed(_meta_empty(labels.shape, torch.float32, mesh,
@@ -382,8 +428,10 @@ def _meta_nll_grad(logits: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     (the log-sum-exp is whole on every device), which is redistributed to
     the logits' own placements."""
     if not _is_dtensor(logits):
+        declare_token_nll(tuple(logits.shape), logits.element_size(), True)
         return torch.empty_like(logits)
     lp, rows, _ = _nll_layout(logits)
+    declare_token_nll(_local_dims(logits, lp), logits.element_size(), True)
     _placed(g, rows)
     return _grad_placed(_meta_empty(logits.shape, logits.dtype,
                                     logits.device_mesh, lp), logits)
@@ -405,40 +453,47 @@ class _TokenNLL(torch.autograd.Function):
     traced on meta tensors (DTensor's masked-gather reduction compares
     buffers with ``aten::equal``, which has no meta kernel). On DTensors
     they record the collectives the plain path implies
-    (:func:`_meta_nll`)."""
+    (:func:`_meta_nll`). On every device both directions count on an
+    op-cost recorder by declaration (``kernels/cost_sites.token_nll_cost``),
+    and their ops are not counted."""
 
     @staticmethod
     def forward(ctx, logits, labels):
         if logits.device.type == "meta":
             ctx.save_for_backward(logits)
             return _meta_nll(logits, labels)
-        x = logits.reshape(-1, logits.shape[-1])
-        lab = labels.reshape(-1, 1).long()
-        lse = torch.empty(x.shape[0], dtype=torch.float32, device=x.device)
-        gold = torch.empty_like(lse)
-        for r in range(0, x.shape[0], CE_ROWS):
-            xf = x[r:r + CE_ROWS].to(torch.float32)
-            lse[r:r + CE_ROWS] = torch.logsumexp(xf, dim=-1)
-            gold[r:r + CE_ROWS] = torch.take_along_dim(
-                xf, lab[r:r + CE_ROWS], dim=-1)[:, 0]
-        ctx.save_for_backward(logits, lab, lse)
-        return (lse - gold).reshape(labels.shape)
+        declare_token_nll(tuple(logits.shape), logits.element_size(), False)
+        with opaque():
+            x = logits.reshape(-1, logits.shape[-1])
+            lab = labels.reshape(-1, 1).long()
+            lse = torch.empty(x.shape[0], dtype=torch.float32,
+                              device=x.device)
+            gold = torch.empty_like(lse)
+            for r in range(0, x.shape[0], CE_ROWS):
+                xf = x[r:r + CE_ROWS].to(torch.float32)
+                lse[r:r + CE_ROWS] = torch.logsumexp(xf, dim=-1)
+                gold[r:r + CE_ROWS] = torch.take_along_dim(
+                    xf, lab[r:r + CE_ROWS], dim=-1)[:, 0]
+            ctx.save_for_backward(logits, lab, lse)
+            return (lse - gold).reshape(labels.shape)
 
     @staticmethod
     def backward(ctx, g):
         if g.device.type == "meta":
             return _meta_nll_grad(ctx.saved_tensors[0], g), None
         logits, lab, lse = ctx.saved_tensors
-        x = logits.reshape(-1, logits.shape[-1])
-        g = g.reshape(-1, 1).to(torch.float32)
-        grad = torch.empty_like(x)
-        for r in range(0, x.shape[0], CE_ROWS):
-            rows = slice(r, r + CE_ROWS)
-            gx = g[rows] * torch.exp(x[rows].to(torch.float32)
-                                     - lse[rows, None])
-            gx.scatter_add_(-1, lab[rows], -g[rows])
-            grad[rows] = gx.to(grad.dtype)
-        return grad.reshape(logits.shape), None
+        declare_token_nll(tuple(logits.shape), logits.element_size(), True)
+        with opaque():
+            x = logits.reshape(-1, logits.shape[-1])
+            g = g.reshape(-1, 1).to(torch.float32)
+            grad = torch.empty_like(x)
+            for r in range(0, x.shape[0], CE_ROWS):
+                rows = slice(r, r + CE_ROWS)
+                gx = g[rows] * torch.exp(x[rows].to(torch.float32)
+                                         - lse[rows, None])
+                gx.scatter_add_(-1, lab[rows], -g[rows])
+                grad[rows] = gx.to(grad.dtype)
+            return grad.reshape(logits.shape), None
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,

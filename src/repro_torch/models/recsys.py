@@ -39,6 +39,7 @@ from torch import nn
 from repro_torch import DeviceLike, resolve_device, tree
 from repro_torch.dist.sharding import (NO_MESH, Rules, _is_dtensor,
                                        embed_rows, placed_like)
+from repro_torch.kernels import bag_combine
 from repro_torch.kernels import ops as kops
 from repro_torch.models.gnn import _mlp_spec
 from repro_torch.models.mlp import MLP, mlp_apply
@@ -112,6 +113,11 @@ def _bag_lookup(table: torch.Tensor, ids: torch.Tensor,
     w = valid.to(table.dtype) / lens.to(table.dtype)
     if _is_dtensor(table):
         return placed_like(embed_rows(table, safe, w), safe)
+    if table.device.type == "meta":
+        # a trace's shapes (a one-device cell): no kernel runs on meta, so
+        # the plain bag of the CPU path
+        rows = kops.take_rows(table, safe)
+        return bag_combine.plain(rows, w.to(rows.dtype))
     return kops.embedding_bag(table, safe, w)
 
 

@@ -636,7 +636,11 @@ def mla_attention(p: Params, x: torch.Tensor, cfg: TransformerConfig,
     k_nope = split_last(dense(c_kv, p["w_uk"]), h, dn)
     v = split_last(dense(c_kv, p["w_uv"]), h, dv)
     q_cat = torch.cat([q[..., :dn], q_rope], dim=-1)
-    k_cat = torch.cat([k_nope, k_rope.expand(b, s, h, dr)], dim=-1)
+    # the shared rope key placed like k_nope before the concatenation: left
+    # to DTensor, torch 2.13 plans the cat through a shard-to-partial move
+    # it cannot run once the sequence passes 32 tokens
+    k_cat = torch.cat([k_nope, placed_like(k_rope.expand(b, s, h, dr),
+                                           k_nope)], dim=-1)
     o = attend(q_cat, k_cat, v.contiguous(), causal=True,
                q_chunk=cfg.q_chunk or s, kv_chunk=cfg.kv_chunk or s)
     return rules.shard(dense(merge_last(o), p["w_o"]), "batch", "seq", None)

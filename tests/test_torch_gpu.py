@@ -1865,3 +1865,56 @@ def test_decode_cells_trace_under_the_cards_torch(cuda, arch):
                     overrides={"n_layers": 2, "batch": 2, "seq": 16})
     assert rec.n_collectives > 0 and rec.traffic.shape == (8, 8)
     assert s.verify() == []
+
+
+
+# the tiny dense LM cell of tests/test_torch_dryrun.py's closed forms
+DRYRUN_TINY = {"n_layers": 2, "batch": 4, "seq": 32, "d_model": 64,
+               "n_heads": 4, "n_kv_heads": 2, "d_ff": 128, "vocab": 512}
+
+
+def test_dryrun_counts_under_the_cards_torch(cuda):
+    """The op-cost recorder under the card's torch, whose DTensor
+    dispatches its ops otherwise than the CPU tests' torch: a tiny qwen2
+    train cell traced on a (2, 4) fake world under the sp profile counts
+    one device's product FLOPs at the closed form (every product split
+    eight ways; ``chip_smoke.lm_product_flops``, the CPU test's) and
+    leaves no op unclassified; on one device (plain meta tensors) its
+    attention declarations are ``chip_smoke.lm_attention_sites`` and its
+    counts are the card's step's, op for op (``dryrun.lm_train_args``)."""
+    import dataclasses as dc
+
+    from chip_smoke import lm_attention_sites, lm_product_flops
+    from repro_torch import configs
+    from repro_torch.launch import dryrun, op_cost
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch.placement import PlacementSession
+    arch = configs.get("qwen2-1.5b")
+    cfg = dc.replace(arch.make_config("train_4k"),
+                     **{k: v for k, v in DRYRUN_TINY.items()
+                        if k not in ("batch", "seq")})
+    b, s = DRYRUN_TINY["batch"], DRYRUN_TINY["seq"]
+    with mesh_lib.fake_world(8):
+        mesh = mesh_lib.make_mapped_mesh((2, 4), ("data", "model"))
+        _, cost, _ = dryrun._trace(arch, arch.shapes["train_4k"], mesh,
+                                   DRYRUN_TINY, profile="sp")
+    assert cost.unclassified == []
+    products = sum(v["flops"] for k, v in cost.by_op.items()
+                   if k in ("mm", "bmm", "addmm", "baddbmm"))
+    assert products == lm_product_flops(cfg, b, s, 8)  # DTensor: no early stop
+    one = PlacementSession(cache_dir="", device="cpu").measure(
+        "qwen2-1.5b", "train_4k", mesh_shape=(1, 1), axes=("data", "model"),
+        overrides=DRYRUN_TINY)
+    site, want = one.ops["sites"]["flash_attention"], lm_attention_sites(
+        cfg, b, s)
+    assert site["count"] == want["count"]
+    assert site["flops"] == pytest.approx(want["flops"], rel=1e-12)
+    cell, args = dryrun.lm_train_args("qwen2-1.5b", "train_4k",
+                                      DRYRUN_TINY, device=cuda)
+    card = op_cost.OpCostRecorder()
+    card.arguments(*args)
+    with card:
+        out = cell["step"](*args)
+    card.outputs(out)
+    for k in ("flops", "bytes", "bytes_tight", "transcendentals"):
+        assert card.totals[k] == pytest.approx(one.hlo_cal[k], rel=1e-9), k

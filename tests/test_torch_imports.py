@@ -1,7 +1,7 @@
 """The port stands alone: no module under ``src/repro_torch/``, not
-``chip_smoke.py`` and not the port's benchmark twins and examples
-(``benchmarks/torch_bench_*.py``, their ``torch_common.py`` and
-``torch_run.py``, ``examples/torch_*.py``) imports
+``chip_smoke.py`` and not the port's benchmark twins, examples and
+scripts (``benchmarks/torch_bench_*.py``, their ``torch_common.py`` and
+``torch_run.py``, ``examples/torch_*.py``, ``scripts/torch_*.py``) imports
 ``jax`` or the reference package ``repro`` (the card's machine has no
 JAX), checked on the source's syntax tree."""
 import ast
@@ -15,7 +15,8 @@ SOURCES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "benchmarks" / "torch_common.py",
     ROOT / "benchmarks" / "torch_run.py"] + sorted(
     (ROOT / "benchmarks").glob("torch_bench_*.py")) + sorted(
-    (ROOT / "examples").glob("torch_*.py"))
+    (ROOT / "examples").glob("torch_*.py")) + sorted(
+    (ROOT / "scripts").glob("torch_*.py"))
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -74,7 +75,10 @@ def test_port_sources_exist():
                  "src/repro_torch/launch/steps.py",
                  "src/repro_torch/launch/collectives.py",
                  "src/repro_torch/launch/placement.py",
-                 "src/repro_torch/analysis/shard_lint.py"):
+                 "src/repro_torch/analysis/shard_lint.py",
+                 "src/repro_torch/launch/op_cost.py",
+                 "src/repro_torch/launch/dryrun.py",
+                 "scripts/torch_diag_cell.py"):
         assert must in names
 
 
