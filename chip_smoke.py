@@ -13,8 +13,9 @@ C4, the section 3.1 variants, scaling), Qwen2-1.5B training,
 DeepSeek-V2-Lite training at full width (its depth cut), the twins of
 the placement bench, the serving bench and the 100M-LM example, and the
 placement session's trace -> search -> retrace loop over Qwen2-1.5B's
-sharded train step, and the dry-run's roofline terms over those traces,
-anchored to a real Qwen2-1.5B step.
+sharded train step, the dry-run's roofline terms over those traces,
+anchored to a real Qwen2-1.5B step, and the static verifier's launch
+plans held against the card.
 
     python3 chip_smoke.py
 
@@ -431,6 +432,19 @@ non-zero:
            it prints (its own counters, zeroed before its loop) show one
            ``flash_attention`` launch a layer a step (float32, D = 64,
            with lse: the SIMT kernel).
+  kernel_plans  the launch plans (``kernels/plan.py``) every launch is
+           built from, in this process (``phase_kernel_plans``; under 15
+           s): (a) every plan the paths above launched, read from the plan
+           caches, the full-width ones among them, verifies with no error
+           or warning under the card's own ``DeviceModel``
+           (``analysis.kernels``); (b) each kernel instance's
+           ``cudaFuncGetAttributes`` against its plans, and each
+           cooperative plan's residency on the card at least the static
+           check's; (c) every registered example plan launched into
+           sentinel-filled outputs: none left, bitwise the public
+           wrapper, within the kernels phase's band of the plain version;
+           (d) two planted faults, each failing statically and on the
+           card; (e) ``python -m repro_torch.analysis`` in a child.
 
 Then one line ``{"kernels": [...]}``: each kernel's launches on the path
 that drives it (``full`` for the partitioner's kernels but
@@ -5786,6 +5800,7 @@ def phase_lm100m(state):
     import tempfile
 
     from repro_torch.kernels import ops
+    start_analysis_cli(state)    # kernel_plans (e), on the idle host
     ex = _lm100m_example()
     args = ex.parser().parse_args(["--steps", str(LM100M_STEPS)])
     _lm100m_flash_check(state, ex.CFG, args)
@@ -6621,6 +6636,434 @@ def phase_dryrun(state):
 
 
 
+# the full-width plans the kernel_plans phase must find among those this
+# process launched: (kernel module, a predicate on the plan)
+KERNEL_PLANS_FULL_WIDTH = {
+    "flash 4 x 4,096 at D = 128": ("flash_attention", lambda p: (
+        p.operands[0].shape[:2] == (4, 4096) and p.operands[0].shape[3] == 128
+        and p.args["path"] == "wgmma")),
+    "flash at (192, 128)": ("flash_attention", lambda p: (
+        p.operands[0].shape[3] == 192 and p.operands[2].shape[3] == 128)),
+    "bsr_spmm bulk layout": ("bsr_spmm", lambda p: (
+        p.outputs[0].shape[0] == GNN_BULK_BLOCK_ROWS * 128)),
+    "gather_combine serve_bulk": ("gather_combine", lambda p: (
+        p.outputs[0].shape[0] == 262_144)),
+    "quotient_link_loads k = 512": ("quotient_link_loads", lambda p: (
+        p.operands[4].shape[1] == 512)),
+}
+GNN_BULK_BLOCK_ROWS = 3840
+
+
+def _sentinel(shape, dtype, dev):
+    """An output filled with a sentinel no kernel writes: NaN, or the int32
+    minimum for integer outputs."""
+    import torch
+    if dtype.is_floating_point:
+        return torch.full(shape, float("nan"), dtype=dtype, device=dev)
+    return torch.full(shape, torch.iinfo(dtype).min, dtype=dtype, device=dev)
+
+
+def _left(t) -> int:
+    """Sentinel elements left in ``t``."""
+    import torch
+    if t.dtype.is_floating_point:
+        return int(torch.isnan(t).sum())
+    return int((t == torch.iinfo(t.dtype).min).sum())
+
+
+def plan_case(p, dev, gen):
+    """Inputs at example plan ``p``'s shapes and three callables: ``launch
+    (outs)`` launches ``p`` itself into the given outputs, ``wrapper()`` the
+    public wrapper on the same inputs, ``plain()`` the plain version; and
+    ``band(got, want)`` -> (ok, tolerance) against the plain version (the
+    kernels phase's bands). Returns (outputs' (shape, dtype), launch,
+    wrapper, plain, band, bitwise): ``bitwise`` False where the wrapper
+    may differ in the last bits (float atomics)."""
+    import torch
+
+    from repro_torch.kernels import (bag_combine, bsr_spmm, bucket_assign,
+                                     flash_attention, gather_combine,
+                                     match_keys, partition_gain,
+                                     quotient_link_loads)
+    dt = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+          "int32": torch.int32}
+    shapes = [(o.shape, dt[o.dtype]) for o in p.outputs]
+
+    def rnd(*shape, dtype=torch.float32):
+        return torch.rand(shape, generator=gen, device=dev).to(dtype)
+
+    def ints(hi, *shape):
+        return torch.randint(0, hi, shape, generator=gen, device=dev,
+                             dtype=torch.int32)
+
+    def close(rtol, atol):
+        def band(got, want):
+            err = (got.double() - want.double()).abs()
+            lim = atol + rtol * want.double().abs()
+            return bool((err <= lim).all()), f"rtol {rtol}, atol {atol}"
+        return band
+
+    def exact(got, want):
+        return torch.equal(got, want), "bitwise"
+
+    e = p.entry
+    if e == "partition_gain":
+        (n, d), k = p.operands[1].shape, p.outputs[0].shape[1]
+        part, idx, w = ints(k, n), ints(n + 1, n, d), rnd(n, d)
+        w = torch.where(idx == n, torch.zeros_like(w), w)
+        return (shapes, lambda o: partition_gain.launch(p, part, idx, w, *o),
+                lambda: partition_gain.partition_gain(part, idx, w, k),
+                lambda: partition_gain.plain(part, idx, w, k),
+                close(1e-5, 1e-5), True)
+    if e == "quotient_link_loads":
+        n, m = p.operands[0].shape[0], p.operands[1].shape[0]
+        nl, k = p.operands[4].shape
+        part, s, r = ints(k, n), ints(n, m), ints(n, m)
+        w, sub, fl = rnd(m), (rnd(nl, k) > 0.5).float(), rnd(nl)
+        work = torch.zeros(2 * k * k + 2, device=dev)
+
+        def wrapper():
+            out, W = quotient_link_loads.loads_and_quotient(part, s, r, w,
+                                                            sub, fl, k)
+            return W.reshape(-1), out
+
+        def plain():
+            out, W = quotient_link_loads._plain_with_quotient(
+                part, s, r, w, sub, fl, k)
+            return W.reshape(-1), out
+        return (shapes, lambda o: quotient_link_loads.launch(
+                    p, part, s, r, w, sub, fl, *o, work, 0),
+                wrapper, plain, close(1e-4, 1e-3), False)
+    if e == "match_keys":
+        m = p.operands[0].shape[0]
+        w, u, mask = rnd(m), rnd(m), (rnd(m) > 0.4).float()
+        return (shapes, lambda o: match_keys.launch(p, w, u, mask, *o),
+                lambda: match_keys.match_keys(w, u, mask),
+                lambda: match_keys.plain(w, u, mask), exact, True)
+    if e == "match_round":
+        m, n = p.operands[0].shape[0], p.operands[4].shape[0]
+        s = torch.sort(ints(n, m))[0]
+        r, w, u = ints(n, m), rnd(m) - 0.1, rnd(m)
+        matched = rnd(n) > 0.8
+        words = torch.zeros(max(n, 1024) + 1, dtype=torch.int64, device=dev)
+        return (shapes, lambda o: match_keys.launch_round(
+                    p, s, r, w, u, matched, *o, words),
+                lambda: match_keys.match_round(s, r, w, u, matched),
+                lambda: match_keys.match_round_plain(s, r, w, u, matched),
+                exact, True)
+    if e == "bucket_assign":
+        n, nb = p.operands[0].shape[0], p.operands[1].shape[0]
+        cum, bounds = rnd(n) * nb, torch.sort(rnd(nb) * nb)[0]
+        return (shapes, lambda o: bucket_assign.launch(p, cum, bounds, *o,
+                                                       nb + 1),
+                lambda: bucket_assign.bucket_assign(cum, bounds, nb + 1),
+                lambda: bucket_assign.plain(cum, bounds, nb + 1), exact, True)
+    if e == "prefix_split":
+        n, nb = p.operands[0].shape[0], p.operands[1].shape[0]
+        nw = torch.randint(1, 9, (n,), generator=gen, device=dev).float()
+        bounds = torch.sort(rnd(nb) * float(nw.sum()))[0]
+        work = torch.zeros(p.operands[2].shape, dtype=torch.int32,
+                           device=dev)
+        return (shapes, lambda o: bucket_assign.launch_split(
+                    p, nw, bounds, *o, work, nb + 1),
+                lambda: bucket_assign.prefix_split(nw, bounds, nb + 1),
+                lambda: bucket_assign.prefix_split_plain(nw, bounds, nb + 1),
+                exact, True)
+    if e in ("bag_combine", "gather_combine"):
+        b, f = p.outputs[0].shape
+        d = p.operands[-1].shape[1]
+        dtype = dt[p.outputs[0].dtype]
+        if e == "bag_combine":
+            rows, w = rnd(b, d, f, dtype=dtype), rnd(b, d, dtype=dtype)
+            launch = (lambda o: bag_combine.launch(p, rows, w, *o))
+            wrapper = (lambda: bag_combine.bag_combine(rows, w))
+            plain = (lambda: bag_combine.plain(rows, w))
+            tol = bag_combine.order_tolerance(rows.float(), w.float())
+        else:
+            table = rnd(p.operands[0].shape[0], f, dtype=dtype)
+            idx, w = ints(table.shape[0], b, d), rnd(b, d)
+            launch = (lambda o: gather_combine.launch(p, table, idx, w, *o))
+            wrapper = (lambda: gather_combine.gather_combine(table, idx, w))
+            plain = (lambda: gather_combine.plain(table, idx, w))
+            tol = bag_combine.order_tolerance(table[idx].float(), w)
+
+        def band(got, want):
+            lim = tol + 1e-6 * want.double().abs()
+            if dtype == torch.bfloat16:
+                lim = lim + bf16_ulp(want)
+            ok = bool(((got.double() - want.double()).abs() <= lim).all())
+            return ok, (BF16_BAG_TOLERANCE if dtype == torch.bfloat16
+                        else BAG_TOLERANCE)
+        return shapes, launch, wrapper, plain, band, True
+    if e == "bsr_spmm":
+        nbr = p.operands[0].shape[0] - 1
+        nnzb, r, _ = p.operands[3].shape
+        nbc = p.operands[4].shape[0] // r
+        counts = torch.full((nbr,), nnzb // nbr, dtype=torch.int64)
+        counts[:nnzb % nbr] += 1
+        row_ptr = torch.zeros(nbr + 1, dtype=torch.int32)
+        row_ptr[1:] = torch.cumsum(counts, 0).int()
+        cols = torch.cat([(torch.arange(c) * 7 + i) % nbc
+                          for i, c in enumerate(counts.tolist())])
+        cols = torch.cat([torch.sort(cols[a:b])[0] for a, b in zip(
+            row_ptr[:-1].tolist(), row_ptr[1:].tolist())]).int()
+        row_ptr, cols = row_ptr.to(dev), cols.to(dev)
+        blocks = rnd(nnzb, r, r) * (rnd(nnzb, r, r) > 0.9)
+        occ = bsr_spmm.slab_occupancy(blocks)
+        x = rnd(nbc * r, p.outputs[0].shape[1])
+        args = (row_ptr, cols, blocks, x)
+        tol = bsr_spmm.order_tolerance(*args)
+
+        def band(got, want):
+            lim = tol + 1e-6 * want.double().abs()
+            return (bool(((got.double() - want.double()).abs()
+                          <= lim).all()), BSR_TOLERANCE)
+        return (shapes, lambda o: bsr_spmm.launch(p, row_ptr, cols, occ,
+                                                  blocks, x, *o),
+                lambda: bsr_spmm.bsr_spmm(row_ptr, cols, blocks, x, occ),
+                lambda: bsr_spmm.plain(*args), band, True)
+    if e == "flash_attention":
+        dtype = dt[p.operands[0].dtype]
+        q, k, v = (torch.randn(a.shape, generator=gen, device=dev).to(dtype)
+                   for a in p.operands)
+        lse = len(p.outputs) > 1
+        from repro_torch.models.common import flash_attention_fwd
+
+        def launch(o):
+            flash_attention.launch(p, q, k, v, o[0], o[1] if lse else None,
+                                   True)
+
+        def wrapper():
+            got = flash_attention.flash_attention(q, k, v, causal=True,
+                                                  return_lse=lse)
+            return got if lse else (got,)
+
+        def plain():
+            out, l_ = flash_attention_fwd(q, k, v, causal=True)
+            return (out, l_) if lse else (out,)
+
+        def band(got, want):
+            if dtype == torch.float32:
+                return close(FLASH_F32_TOL, FLASH_F32_TOL)(got, want)
+            if got.dim() == 3:          # bf16 inputs' log-sum-exp
+                return close(1e-2, 1e-2)(got, want)
+            ok, tol, _ = flash_bf16_judge(q, k, v, got, want, 512, 512)
+            return ok, tol
+        return shapes, launch, wrapper, plain, band, True
+    raise ValueError(f"kernel_plans: no case for entry {e!r}")
+
+
+def start_analysis_cli(state):
+    """``python -m repro_torch.analysis --suite all --no-trace --json`` in a
+    child process, for ``kernel_plans`` (e); started where the host is idle
+    (lm100m's example trains on the card in a process of its own), as it
+    takes ~20 s of host time on the card's machine, and waited for in
+    ``kernel_plans``. Returns the child; ``state['analysis_cli']`` holds
+    it with its JSON path and log."""
+    import os
+    import tempfile
+    out_dir = tempfile.mkdtemp(prefix="kernel_plans_")
+    log = open(os.path.join(out_dir, "analysis.log"), "w")
+    path = os.path.join(out_dir, "analysis.json")
+    child = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.analysis", "--suite", "all",
+         "--no-trace", "--json", path, "--quiet"], stdout=log,
+        stderr=subprocess.STDOUT,
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+    state["analysis_cli"] = (child, path, log, time.perf_counter())
+    return child
+
+
+def stop_analysis_cli(state):
+    """Kill the analysis child if it still runs and close its log."""
+    got = state.pop("analysis_cli", None)
+    if got is not None:
+        child, _, log, _ = got
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+        log.close()
+
+
+def phase_kernel_plans(state):
+    """The launch plans (``kernels/plan.py``) checked against the card.
+    (a) every distinct plan this process built on its paths, read from the
+    plan caches (the full-width ones among them, ``KERNEL_PLANS_FULL_WIDTH``),
+    verifies under the card's own ``DeviceModel`` with no error and no
+    warning; (b) each kernel instance's ``cudaFuncGetAttributes``:
+    static + dynamic shared memory within the card's opt-in limit at every
+    plan, threads within its maximum, and every cooperative plan's
+    residency on the card at least what the static ``co-residency`` check
+    assumed; (c) every registered example plan launched into outputs
+    filled with a sentinel (NaN, or the int32 minimum): none left,
+    bitwise the public wrapper's output (``quotient_link_loads``, whose
+    float atomics sum in any order: within its band) and within the
+    kernels phase's band of the plain version; (d) two planted faults,
+    each failing both ways: ``partition_gain``'s example one block short
+    (the static ``coverage`` error; sentinels left on the card) and a
+    cooperative ``quotient_link_loads`` plan one block past the card's
+    residency (the static ``co-residency`` error; the launcher refuses it,
+    nothing clipped); (e) ``python -m repro_torch.analysis --suite all
+    --no-trace --json`` in a child process (``start_analysis_cli``, from
+    lm100m's start when the phases run in order; the sharding suite's
+    meta traces are the dryrun phase's ``lint_cell`` children's already),
+    exit 0."""
+    import collections
+
+    import torch
+
+    from repro_torch.analysis import kernels as akernels
+    from repro_torch.kernels import KERNEL_REGISTRY, build
+    from repro_torch.kernels import plan as plan_lib
+    from repro_torch.kernels import quotient_link_loads as qll
+    dev = torch.device("cuda")
+    model = plan_lib.device_model(dev)
+    t0 = time.perf_counter()
+    if "analysis_cli" not in state:
+        start_analysis_cli(state)
+    cli, cli_json, _, cli_t0 = state["analysis_cli"]
+    try:
+        bad = []
+        # (a) the plans this process launched
+        launched = plan_lib.cached_plans()
+        by_kernel = collections.Counter(p.name for p in launched)
+        for label, (name, pred) in KERNEL_PLANS_FULL_WIDTH.items():
+            if not any(p.name == name and pred(p) for p in launched):
+                bad.append(f"(a) no {label} plan among those launched")
+        worst = collections.Counter()
+        for p in launched:
+            for f in akernels.verify_plan(p, device=model):
+                if f.severity != "info":
+                    worst[f.severity] += 1
+                    bad.append(f"(a) {f.format()}")
+                elif f.check == "grid-sampled":
+                    worst["sampled"] += 1
+        emit("kernel_plans", step="launched", plans=len(launched),
+             by_kernel=dict(by_kernel), errors=worst["error"],
+             warnings=worst["warning"], sampled=worst["sampled"],
+             device_model=dataclasses.asdict(model),
+             seconds=time.perf_counter() - t0)
+        # (b) the card's own answers about every kernel instance
+        examples = {n: f() for n, f in KERNEL_REGISTRY.items()}
+        every = launched + [p for ps in examples.values() for p in ps]
+        attrs, residency = {}, []
+        for p in every:
+            key = (p.entry, p.kernel)
+            if key not in attrs:
+                attrs[key] = build.func_attributes(*key)
+            a = attrs[key]
+            if a["static_smem"] + p.dyn_smem > model.smem_block_optin:
+                bad.append(f"(b) {p.kernel}: {a['static_smem']} + "
+                           f"{p.dyn_smem} B of shared memory")
+            if p.block_threads > a["max_threads"]:
+                bad.append(f"(b) {p.kernel}: {p.block_threads} threads, at "
+                           f"most {a['max_threads']}")
+            if p.cooperative:
+                have = build.occupancy(p.entry, p.kernel, p.block_threads,
+                                       p.dyn_smem)
+                want = model.resident_blocks(p.block_threads, p.dyn_smem,
+                                             p.min_blocks_per_sm)
+                residency.append(dict(kernel=p.kernel, grid=list(p.grid),
+                                      threads=p.block_threads,
+                                      smem=p.dyn_smem, card_per_sm=have,
+                                      assumed_per_sm=want))
+                if have < want:
+                    bad.append(f"(b) {p.kernel}: {have} blocks an SM on the "
+                               f"card, the static check assumed {want}")
+        emit("kernel_plans", step="attributes",
+             kernels={f"{e}:{k}": a for (e, k), a in attrs.items()},
+             residency=[json.loads(r) for r in sorted(
+                 {json.dumps(r, sort_keys=True) for r in residency})],
+             seconds=time.perf_counter() - t0)
+        # (c) every example plan on the card, outputs filled with sentinels
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        rows = []
+        for name, plans in examples.items():
+            for p in plans:
+                shapes, launch, wrapper, plain, band, bitwise = plan_case(
+                    p, dev, gen)
+                outs = [_sentinel(s_, d_, dev) for s_, d_ in shapes]
+                launch(outs)
+                torch.cuda.synchronize()
+                left = sum(_left(o) for o in outs)
+                ref = wrapper()
+                ref = ref if isinstance(ref, tuple) else (ref,)
+                want = plain()
+                want = want if isinstance(want, tuple) else (want,)
+                same = all(torch.equal(o.reshape(r.shape), r)
+                           for o, r in zip(outs, ref)) if bitwise else None
+                wrap_ok = same if bitwise else all(
+                    band(o.reshape(r.shape), r)[0] for o, r in zip(outs, ref))
+                in_band = [band(o.reshape(w.shape), w) for o, w in
+                           zip(outs, want)]
+                ok = left == 0 and wrap_ok and all(b for b, _ in in_band)
+                rows.append(dict(kernel=name, entry=p.entry,
+                                 instance=p.kernel, grid=list(p.grid),
+                                 threads=list(p.threads), smem=p.dyn_smem,
+                                 sentinels_left=left, bitwise_wrapper=same,
+                                 band=in_band[0][1], ok=ok))
+                if not ok:
+                    bad.append(f"(c) {p.kernel} at grid {p.grid}: "
+                               f"{left} sentinels left, wrapper "
+                               f"{'equal' if wrap_ok else 'differs'}, band "
+                               f"{[b for b, _ in in_band]}")
+        emit("kernel_plans", step="coverage", plans=len(rows),
+             failed=[r for r in rows if not r["ok"]],
+             seconds=time.perf_counter() - t0)
+        # (d) two planted faults, each failing both ways
+        pg = examples["partition_gain"][0]
+        short = dataclasses.replace(pg, grid=(pg.grid[0] - 1,))
+        static_short = [f.check for f in akernels.verify_plan(
+            short, device=model) if f.severity == "error"]
+        shapes, launch, *_ = plan_case(short, dev, gen)
+        outs = [_sentinel(s_, d_, dev) for s_, d_ in shapes]
+        launch(outs)
+        torch.cuda.synchronize()
+        short_left = sum(_left(o) for o in outs)
+        big = next(p for p in examples["quotient_link_loads"]
+                   if p.blocks > 1)
+        per_sm = build.occupancy(big.entry, big.kernel, big.block_threads,
+                                 big.dyn_smem)
+        m, n = big.operands[1].shape[0], big.operands[0].shape[0]
+        nl, k = big.operands[4].shape
+        past = qll._plan(m, n, k, nl, dev, blocks=per_sm * model.sms + 1)
+        static_past = [f.check for f in akernels.verify_plan(
+            past, device=model) if f.severity == "error"]
+        shapes, launch, *_ = plan_case(past, dev, gen)
+        outs = [_sentinel(s_, d_, dev) for s_, d_ in shapes]
+        try:
+            launch(outs)
+            torch.cuda.synchronize()
+            refused = None
+        except RuntimeError as e:
+            refused = str(e)
+        emit("kernel_plans", step="planted",
+             short_grid=dict(grid=list(short.grid), static=static_short,
+                             sentinels_left=short_left),
+             past_residency=dict(grid=list(past.grid), card_per_sm=per_sm,
+                                 static=static_past, refused=refused))
+        if "coverage" not in static_short or short_left == 0:
+            bad.append(f"(d) the short grid: static {static_short}, "
+                       f"{short_left} sentinels left")
+        if "co-residency" not in static_past or refused is None:
+            bad.append(f"(d) past residency: static {static_past}, launch "
+                       f"{'refused' if refused else 'ran'}")
+        # (e) the CLI
+        rc = cli.wait(timeout=600)
+        with open(cli_json) as f:
+            doc = json.load(f)
+        emit("kernel_plans", step="cli", rc=rc, counts=doc["counts"],
+             gate=doc["gate"], seconds=time.perf_counter() - t0,
+             child_started_s_before=t0 - cli_t0)
+        if rc != 0 or doc["gate"]["failed"]:
+            bad.append(f"(e) python -m repro_torch.analysis exited {rc}")
+        if bad:
+            raise AssertionError("kernel_plans: " + "; ".join(bad[:20]))
+    finally:
+        stop_analysis_cli(state)
+
+
 PHASES = (phase_env, phase_build, phase_kernels, phase_kernels_recsys,
           phase_full, phase_small, phase_recsys, phase_kernels_gnn,
           phase_gnn, phase_gnn_train, phase_equiformer, phase_kernels_lm,
@@ -6629,7 +7072,7 @@ PHASES = (phase_env, phase_build, phase_kernels, phase_kernels_recsys,
           phase_c1,
           phase_claims, phase_train, phase_train_mla, phase_train_recsys,
           phase_placement, phase_place, phase_dryrun, phase_serving_bench,
-          phase_lm100m)
+          phase_lm100m, phase_kernel_plans)
 
 
 def kernels_line(state):
@@ -6724,11 +7167,15 @@ def main() -> int:
     state = {"launches": {}}
     seconds = {}
     t_all = time.perf_counter()
-    for phase in PHASES:
-        t0 = time.perf_counter()
-        phase(state)
-        torch.cuda.empty_cache()    # a phase's tensors go with it
-        seconds[phase.__name__[len("phase_"):]] = time.perf_counter() - t0
+    try:
+        for phase in PHASES:
+            t0 = time.perf_counter()
+            phase(state)
+            torch.cuda.empty_cache()    # a phase's tensors go with it
+            seconds[phase.__name__[len("phase_"):]] = (time.perf_counter()
+                                                       - t0)
+    finally:
+        stop_analysis_cli(state)    # a phase failed before kernel_plans
     emit("timing", seconds=seconds, total=time.perf_counter() - t_all,
          nvidia_smi=state["smi"])
     print(json.dumps(kernels_line(state)), flush=True)

@@ -1,13 +1,21 @@
-"""Static checks of the port: twin of the parts of ``repro/analysis/`` the
-ported slices use, the :class:`Finding` record and its helpers
-(:func:`severity_rank`, :func:`max_severity`, :func:`at_least`,
-:func:`counts`, :func:`to_json`, :func:`format_findings`: the same
-strings and JSON as the reference's), ``shard_lint.lint_traffic`` (the
-traffic-matrix lint ``map_pages`` and the placement session run),
-``shard_lint.lint_spec_tree``, ``shard_lint.lint_ops`` (the bf16 ->
-float32 upcasts of a traced step) and ``shard_lint.lint_cell``. The
-reference's Pallas kernel verifier has no counterpart yet (ROADMAP Queue
-1, item 2)."""
+"""Static checks of the port: twin of ``repro/analysis/``.
+
+  * ``analysis.kernels`` — verifies every registered CUDA launch plan
+    (``repro_torch.kernels.KERNEL_REGISTRY``): grid and block limits, read
+    and write tiles in bounds, output coverage, write races, shared memory,
+    cooperative co-residency, TMA descriptors, 16-byte vector alignment.
+  * ``analysis.shard_lint`` — ``lint_traffic`` (the traffic matrices
+    ``map_pages`` and the placement session produce), ``lint_spec_tree``,
+    ``lint_ops`` (the bf16 -> float32 upcasts of a traced step) and
+    ``lint_cell``.
+
+Entry points: ``python -m repro_torch.analysis`` (the CLI and its JSON
+findings), ``PlacementSession.verify()``, and ``--lint`` on the dry-run and
+train launchers. Every check emits :class:`Finding` records with a
+severity from :data:`SEVERITIES`, with the helpers (:func:`severity_rank`,
+:func:`max_severity`, :func:`at_least`, :func:`counts`, :func:`to_json`,
+:func:`format_findings`) giving the same strings and JSON as the
+reference's."""
 from __future__ import annotations
 
 import dataclasses

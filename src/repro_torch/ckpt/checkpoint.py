@@ -1,7 +1,7 @@
 """Checkpoints of the port's training state: twin of
 ``repro/ckpt/checkpoint.py`` (manifest + one ``.npy`` per leaf, atomic,
-asynchronous). ``restore_sharded`` waits for the sharding slice (ROADMAP
-Queue 1, item 10): one card has no mesh.
+asynchronous), with the elastic ``restore_sharded``: the host leaves
+placed as DTensors on whatever ``DeviceMesh`` is current.
 
 Layout of a checkpoint directory, the reference's::
 
@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from repro_torch import tree
+from repro_torch.dist import sharding
 
 _BITS = {torch.bfloat16: torch.int16}
 _DTYPES = {str(d).removeprefix("torch."): d for d in (
@@ -40,8 +41,14 @@ def _name(dtype: torch.dtype) -> str:
     return str(dtype).removeprefix("torch.")
 
 
+def _host(leaf) -> torch.Tensor:
+    """The leaf as one whole tensor (a DTensor gathered from its mesh)."""
+    t = torch.as_tensor(leaf).detach()
+    return t.full_tensor() if sharding._is_dtensor(t) else t
+
+
 def _to_numpy(leaf) -> np.ndarray:
-    t = torch.as_tensor(leaf).detach().cpu()
+    t = _host(leaf).cpu()
     if t.dtype in _BITS:
         t = t.view(_BITS[t.dtype])
     return t.numpy()
@@ -63,7 +70,7 @@ def save(root: str, step: int, state: Any) -> str:
     manifest = {"step": step, "treedef": _describe(state),
                 "n_leaves": len(flat), "leaves": []}
     for i, (path, leaf) in enumerate(flat):
-        t = torch.as_tensor(leaf)
+        t = _host(leaf)
         np.save(os.path.join(tmp, f"leaf_{i:05d}.npy"), _to_numpy(t))
         manifest["leaves"].append({"path": list(map(str, path)),
                                    "shape": list(t.shape),
@@ -84,8 +91,8 @@ class AsyncSaver:
 
     def save(self, root: str, step: int, state: Any) -> None:
         self.join()
-        host = tree.map_(lambda t: torch.as_tensor(t).detach().to(
-            "cpu", copy=True), state)                  # snapshot on caller
+        host = tree.map_(lambda t: _host(t).to("cpu", copy=True),
+                         state)                        # snapshot on caller
         self._thread = threading.Thread(target=save, args=(root, step, host),
                                         daemon=True)
         self._thread.start()
@@ -142,6 +149,22 @@ def restore(root: str, like: Any, step: Optional[int] = None
                              f"{tuple(ref.shape)}")
         out.append(t.to(ref.device))
     return tree.unflatten(like, out), step
+
+
+def restore_sharded(root: str, like: Any, spec_tree: Any, mesh,
+                    step: Optional[int] = None) -> Tuple[Any, int]:
+    """Restore, then place every leaf on the current ``mesh`` (a
+    ``DeviceMesh`` of the current process group) with the placements of
+    its spec in ``spec_tree`` (``dist.sharding.placements``; a ``None``
+    spec replicates): the elastic re-shard, whatever layout the checkpoint
+    was saved from. The leaves must lie on the mesh's device type."""
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.dist import sharding
+    host, step = restore(root, like, step)
+    placed = [distribute_tensor(x, mesh, sharding.placements(mesh, spec))
+              for x, spec in sharding.spec_leaves(host, spec_tree)]
+    return tree.unflatten(host, placed), step
 
 
 def prune(root: str, keep: int = 3) -> None:

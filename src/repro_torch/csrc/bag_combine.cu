@@ -13,20 +13,29 @@
 // widened as they are read, summed in float32 and rounded once to bf16.
 #include "bag_reduce.cuh"
 
+// The launch of kernels/bag_combine.py's plan; path: BagPath (no kWide).
 REPRO_EXPORT int bag_combine_launch(const void* g, const void* w, void* out,
                                     long long n_bags, int d, int f, int vec,
-                                    int elem, int sms, void* stream) {
+                                    int elem, int path,
+                                    REPRO_LAUNCH_PARAMS) {
+  ReproLaunch L;
+  if (!repro_launch_dims(gx, gy, gz, bx, by, bz, smem_bytes, 1024, &L) ||
+      path == kWide)
+    return REPRO_BAD_LAUNCH;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (elem == 2)
     return bag_reduce_launch<false, __nv_bfloat16, __nv_bfloat16>(
-        g, nullptr, w, out, n_bags, d, f, vec, sms, stream);
-  return bag_reduce_launch<false>(g, nullptr, w, out, n_bags, d, f, vec, sms,
-                                  stream);
+        g, nullptr, w, out, n_bags, d, f, vec, path, L, s);
+  return bag_reduce_launch<false>(g, nullptr, w, out, n_bags, d, f, vec, path,
+                                  L, s);
 }
 
-// Whether both bag kernels take the small-grid path at this shape on a card
-// of sms multiprocessors (1) or not (0): the launchers' own rule, exported
-// for the card tests.
-REPRO_EXPORT int bag_reduce_small_grid(long long n_bags, int f, int vec,
-                                       int sms) {
-  return bag_small_grid(n_bags, f, vec, sms) ? 1 : 0;
+REPRO_EXPORT const void* bag_combine_kernel_of(const char* name) {
+  const void* fn =
+      bag_kernel_named<false, float, float4, float>(name, "float", "float4",
+                                                     "float");
+  if (fn == nullptr)
+    fn = bag_kernel_named<false, __nv_bfloat16, Bf16x8, __nv_bfloat16>(
+        name, "bf16", "bf16x8", "bf16");
+  return fn;
 }

@@ -1,4 +1,6 @@
-// The weighted bag reduction shared by bag_combine.cu and gather_combine.cu:
+// The weighted bag reduction shared by bag_combine.cu and gather_combine.cu
+// (its launch rules, the paths below, are kernels/gather_combine.py's
+// bag_plan):
 //
 //     out[b, f] = sum over slots d of w[b, d] * row(b, d)[f]
 //
@@ -27,8 +29,8 @@
 // in float32 the same way, and the sum is rounded once to bf16 as it is
 // stored.
 //
-// A grid that cannot fill the card (fewer blocks than the multiprocessors
-// the wrapper passes; one retrieve query is one bag) takes a third path that
+// A grid that cannot fill the card (fewer blocks than the card's
+// multiprocessors; one retrieve query is one bag) takes a third path that
 // spreads F over more blocks: one warp per block over 32 float columns of
 // one bag, so one bag of F = 256 runs on 8 multiprocessors instead of one.
 // The warp reads a chunk's weights (and ids) in one coalesced load per 32
@@ -43,14 +45,14 @@
 #include <cuda_bf16.h>
 
 #include <algorithm>
+#include <cstdio>
+#include <cstring>
 
 #include "common.cuh"
 
 constexpr int kBagChunk = 64;    // slots staged per pass
 constexpr int kBagMaxRows = 8;   // bags per block at most
 constexpr int kBagDepth = 16;    // rows loaded ahead of the sum per thread
-// grids of at most this many threads load kBagDepth rows ahead
-constexpr long long kBagDeepMaxThreads = 1 << 16;
 // slots in flight per thread on the small-grid path: kBagSmallChunk, or
 // kBagSmallShort where d is at most that (a shorter add chain)
 constexpr int kBagSmallChunk = 64;
@@ -258,100 +260,108 @@ bag_reduce_small_kernel(const E* __restrict__ src,
   if (active) BagCol<E>::store(out + b * f + col, acc);
 }
 
+// The launch paths of the bag kernels (kernels/gather_combine.py:
+// BAG_PATHS): the small grid with 16 or 64 slots in flight a thread, the
+// usual row walk with kBagDepth rows loaded ahead (grids of at most
+// BAG_DEEP_MAX_THREADS threads) or one (larger grids), and, for
+// gather_combine only, the wide row walk (gather_combine.cu).
+enum BagPath { kSmall16 = 0, kSmall64 = 1, kDeep = 2, kFlat = 3, kWide = 4 };
+
+// The usual path's kernel for V columns at `path` (kDeep or kFlat).
 template <typename V, bool kGather, typename W>
-static void bag_reduce_run(dim3 grid, dim3 block, cudaStream_t s, bool deep,
+static void bag_reduce_run(const ReproLaunch& L, cudaStream_t s, int path,
                            const void* src, const int* idx, const W* w,
                            void* out, long long n_bags, int d, int cols) {
-  if (deep) {
-    bag_reduce_kernel<V, kGather, kBagDepth, W><<<grid, block, 0, s>>>(
+  if (path == kDeep) {
+    bag_reduce_kernel<V, kGather, kBagDepth, W><<<L.grid, L.block, 0, s>>>(
         src, idx, w, out, n_bags, d, cols);
   } else {
-    bag_reduce_kernel<V, kGather, 1, W><<<grid, block, 0, s>>>(
+    bag_reduce_kernel<V, kGather, 1, W><<<L.grid, L.block, 0, s>>>(
         src, idx, w, out, n_bags, d, cols);
   }
 }
 
-// The usual path's launch shape for n_bags bags of cols columns of V:
-// 128 threads a block, one block row per bag.
-struct BagGeometry {
-  dim3 block, grid;
-};
-
-static BagGeometry bag_geometry(long long n_bags, int cols) {
-  const int tx = std::min((cols + 31) / 32 * 32, 256);
-  const int ty = std::max(1, std::min(kBagMaxRows, 128 / tx));
-  return {dim3(tx, ty), dim3(static_cast<unsigned>((n_bags + ty - 1) / ty),
-                             (cols + tx - 1) / tx)};
-}
-
-// Whether a launch takes the small-grid path: the usual grid has fewer
-// blocks than the card's sms multiprocessors, and the bags fit the small
-// grid's second axis.
-static bool bag_small_grid(long long n_bags, int f, int vec, int sms) {
-  const dim3 g = bag_geometry(n_bags, f / vec).grid;
-  return static_cast<long long>(g.x) * g.y < sms && n_bags <= 65535;
-}
-
-// The vec the small-grid rule reads: the launch's own for float32, float4
-// columns (where f % 4 == 0) for bf16.
-template <typename E>
-static int bag_rule_vec(int f, int vec) {
-  if constexpr (sizeof(E) == 2) return f % 4 == 0 ? 4 : 1;
-  return vec;
-}
-
-// The small-grid path, for E = float or __nv_bfloat16.
-template <typename E, bool kGather, typename W>
-static void bag_reduce_small_run(cudaStream_t s, const void* src,
-                                 const int* idx, const W* w, void* out,
-                                 long long n_bags, int d, int f) {
-  const dim3 grid((f + 31) / 32, static_cast<unsigned>(n_bags));
-  const E* src_e = static_cast<const E*>(src);
-  E* out_e = static_cast<E*>(out);
-  if (d <= kBagSmallShort)
-    bag_reduce_small_kernel<E, kGather, kBagSmallShort, W>
-        <<<grid, 32, 0, s>>>(src_e, idx, w, out_e, d, f);
-  else
-    bag_reduce_small_kernel<E, kGather, kBagSmallChunk, W>
-        <<<grid, 32, 0, s>>>(src_e, idx, w, out_e, d, f);
-}
-
-// Launch over n_bags bags of d slots and f elements on a card of sms
-// multiprocessors. E = float: vec is 4 (float4 rows, f % 4 == 0 and
-// 16-byte aligned pointers, checked by the wrapper) or 1; E =
-// __nv_bfloat16: vec is 8 (16-byte rows of eight, likewise) or 1. The
-// small-grid rule reads the grid of float4 columns (vec 4 where f % 4 ==
-// 0) for either type, so a bf16 call takes the path a float32 one of the
-// same shape takes. W, the weights' type: float, or __nv_bfloat16 with a
-// bf16 E (bag_combine's bf16 rows), widened as they are read.
+// The launch of a bag plan over n_bags bags of d slots and f elements
+// (kernels/gather_combine.py: bag_plan). E = float: vec is 4 (float4 rows,
+// f % 4 == 0 and 16-byte aligned pointers, checked by the wrapper) or 1;
+// E = __nv_bfloat16: vec is 8 (16-byte rows of eight, likewise) or 1. W,
+// the weights' type: float, or __nv_bfloat16 with a bf16 E (bag_combine's
+// bf16 rows), widened as they are read. The small grid takes blocks of 32
+// threads (its __launch_bounds__), the row walk at most kBagMaxRows block
+// rows (its shared staging); anything else is refused.
 template <bool kGather, typename E = float, typename W = float>
 static int bag_reduce_launch(const void* src, const void* idx, const void* w,
                              void* out, long long n_bags, int d, int f,
-                             int vec, int sms, void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+                             int vec, int path, const ReproLaunch& L,
+                             cudaStream_t s) {
   const int* idx_i = static_cast<const int*>(idx);
   const W* w_f = static_cast<const W*>(w);
-  if (bag_small_grid(n_bags, f, bag_rule_vec<E>(f, vec), sms)) {
-    bag_reduce_small_run<E, kGather>(s, src, idx_i, w_f, out, n_bags, d, f);
+  const dim3 b = L.block;
+  if (L.smem != 0 || L.grid.z != 1 || b.z != 1) return REPRO_BAD_LAUNCH;
+  if (path == kSmall16 || path == kSmall64) {
+    if (b.x != 32 || b.y != 1) return REPRO_BAD_LAUNCH;
+    const E* src_e = static_cast<const E*>(src);
+    E* out_e = static_cast<E*>(out);
+    if (path == kSmall16)
+      bag_reduce_small_kernel<E, kGather, kBagSmallShort, W>
+          <<<L.grid, L.block, 0, s>>>(src_e, idx_i, w_f, out_e, d, f);
+    else
+      bag_reduce_small_kernel<E, kGather, kBagSmallChunk, W>
+          <<<L.grid, L.block, 0, s>>>(src_e, idx_i, w_f, out_e, d, f);
     return static_cast<int>(cudaGetLastError());
   }
+  const int wide_vec = sizeof(E) == 2 ? 8 : 4;
+  if ((path != kDeep && path != kFlat) || b.y > kBagMaxRows ||
+      (vec != 1 && vec != wide_vec) || f % vec != 0)
+    return REPRO_BAD_LAUNCH;
   const int cols = f / vec;
-  const BagGeometry geo = bag_geometry(n_bags, cols);
-  const bool deep = n_bags * cols <= kBagDeepMaxThreads;
   if constexpr (sizeof(E) == 2) {
     if (vec == 8)
-      bag_reduce_run<Bf16x8, kGather>(geo.grid, geo.block, s, deep, src,
-                                      idx_i, w_f, out, n_bags, d, cols);
+      bag_reduce_run<Bf16x8, kGather>(L, s, path, src, idx_i, w_f, out,
+                                      n_bags, d, cols);
     else
-      bag_reduce_run<__nv_bfloat16, kGather>(geo.grid, geo.block, s, deep,
-                                             src, idx_i, w_f, out, n_bags, d,
-                                             cols);
+      bag_reduce_run<__nv_bfloat16, kGather>(L, s, path, src, idx_i, w_f,
+                                             out, n_bags, d, cols);
   } else if (vec == 4) {
-    bag_reduce_run<float4, kGather>(geo.grid, geo.block, s, deep, src, idx_i,
-                                    w_f, out, n_bags, d, cols);
+    bag_reduce_run<float4, kGather>(L, s, path, src, idx_i, w_f, out, n_bags,
+                                    d, cols);
   } else {
-    bag_reduce_run<float, kGather>(geo.grid, geo.block, s, deep, src, idx_i,
-                                   w_f, out, n_bags, d, cols);
+    bag_reduce_run<float, kGather>(L, s, path, src, idx_i, w_f, out, n_bags,
+                                   d, cols);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// The bag kernel instance of this source named `name`, as a plan's
+// `kernel` names it: bag_reduce_kernel<V,G,DEPTH,W> with V the column type
+// (e: one element, e16: a 16-byte column), G 0 or 1 (kGather), DEPTH 1 or
+// kBagDepth, W the weights' type; bag_reduce_small_kernel<E,G,CHUNK,W>.
+template <bool kGather, typename E, typename V16, typename W>
+static const void* bag_kernel_named(const char* name, const char* e,
+                                    const char* e16, const char* wn) {
+  const int g = kGather ? 1 : 0;
+  char buf[96];
+  const void* fns[6] = {
+      reinterpret_cast<const void*>(bag_reduce_kernel<E, kGather, 1, W>),
+      reinterpret_cast<const void*>(
+          bag_reduce_kernel<E, kGather, kBagDepth, W>),
+      reinterpret_cast<const void*>(bag_reduce_kernel<V16, kGather, 1, W>),
+      reinterpret_cast<const void*>(
+          bag_reduce_kernel<V16, kGather, kBagDepth, W>),
+      reinterpret_cast<const void*>(
+          bag_reduce_small_kernel<E, kGather, kBagSmallShort, W>),
+      reinterpret_cast<const void*>(
+          bag_reduce_small_kernel<E, kGather, kBagSmallChunk, W>)};
+  const char* vs[4] = {e, e, e16, e16};
+  for (int i = 0; i < 4; ++i) {
+    std::snprintf(buf, sizeof buf, "bag_reduce_kernel<%s,%d,%d,%s>", vs[i], g,
+                  i % 2 ? kBagDepth : 1, wn);
+    if (std::strcmp(buf, name) == 0) return fns[i];
+  }
+  for (int i = 0; i < 2; ++i) {
+    std::snprintf(buf, sizeof buf, "bag_reduce_small_kernel<%s,%d,%d,%s>", e,
+                  g, i ? kBagSmallChunk : kBagSmallShort, wn);
+    if (std::strcmp(buf, name) == 0) return fns[4 + i];
+  }
+  return nullptr;
 }

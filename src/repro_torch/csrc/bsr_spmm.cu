@@ -315,30 +315,35 @@ bsr_spmm_kernel(const int* __restrict__ row_ptr,
 }
 
 template <int BM, int BN, int TM, int TN>
-static void bsr_spmm_enqueue(const int* row_ptr, const int* cols,
-                             const int* occ, const float* blocks,
-                             const float* x, float* out, int n_block_rows,
-                             int r, int f, bool vec, cudaStream_t stream) {
+static int bsr_spmm_enqueue(const ReproLaunch& L, const int* row_ptr,
+                            const int* cols, const int* occ,
+                            const float* blocks, const float* x, float* out,
+                            int r, int f, bool vec, cudaStream_t stream) {
   const int m_tiles = (r + BM - 1) / BM;
-  const dim3 grid(static_cast<unsigned>(n_block_rows) * m_tiles,
-                  (f + BN - 1) / BN);
-  const int nt = (BM / TM) * (BN / TN);
+  if (L.block.x != (BM / TM) * (BN / TN) || L.block.y != 1 ||
+      L.block.z != 1 || L.grid.z != 1 || L.smem != 0)
+    return REPRO_BAD_LAUNCH;
   if (vec)
-    bsr_spmm_kernel<BM, BN, TM, TN, true><<<grid, nt, 0, stream>>>(
+    bsr_spmm_kernel<BM, BN, TM, TN, true><<<L.grid, L.block, 0, stream>>>(
         row_ptr, cols, occ, blocks, x, out, r, f, m_tiles);
   else
-    bsr_spmm_kernel<BM, BN, TM, TN, false><<<grid, nt, 0, stream>>>(
+    bsr_spmm_kernel<BM, BN, TM, TN, false><<<L.grid, L.block, 0, stream>>>(
         row_ptr, cols, occ, blocks, x, out, r, f, m_tiles);
+  return static_cast<int>(cudaGetLastError());
 }
 
-// wide != 0: the 32 x 64 tile, else the 16 x 64 one (the wrapper picks);
-// vec != 0: R and F multiples of 4 and 16-byte aligned bases.
+// The launch of kernels/bsr_spmm.py's plan: grid (block rows x row tiles,
+// feature tiles), one thread per 4 x 4 outputs of the tile. wide != 0: the
+// 32 x 64 tile, else the 16 x 64 one; vec != 0: R and F multiples of 4 and
+// 16-byte aligned bases. A block that disagrees with the tile is refused.
 REPRO_EXPORT int bsr_spmm_launch(const void* row_ptr, const void* cols,
                                  const void* occ, const void* blocks,
                                  const void* x, void* out, int n_block_rows,
                                  int r, int f, int wide, int vec,
-                                 void* stream) {
-  if (n_block_rows == 0 || f == 0) return static_cast<int>(cudaGetLastError());
+                                 REPRO_LAUNCH_PARAMS) {
+  ReproLaunch L;
+  if (!repro_launch_dims(gx, gy, gz, bx, by, bz, smem_bytes, 128, &L))
+    return REPRO_BAD_LAUNCH;
   auto s = static_cast<cudaStream_t>(stream);
   auto rp = static_cast<const int*>(row_ptr);
   auto cl = static_cast<const int*>(cols);
@@ -348,10 +353,21 @@ REPRO_EXPORT int bsr_spmm_launch(const void* row_ptr, const void* cols,
   auto o = static_cast<float*>(out);
   const bool v = vec != 0;
   if (wide)
-    bsr_spmm_enqueue<32, 64, 4, 4>(rp, cl, oc, bl, xx, o, n_block_rows, r,
-                                      f, v, s);
-  else
-    bsr_spmm_enqueue<16, 64, 4, 4>(rp, cl, oc, bl, xx, o, n_block_rows, r,
-                                      f, v, s);
-  return static_cast<int>(cudaGetLastError());
+    return bsr_spmm_enqueue<32, 64, 4, 4>(L, rp, cl, oc, bl, xx, o, r, f, v,
+                                          s);
+  return bsr_spmm_enqueue<16, 64, 4, 4>(L, rp, cl, oc, bl, xx, o, r, f, v, s);
+}
+
+REPRO_EXPORT const void* bsr_spmm_kernel_of(const char* name) {
+  if (std::strcmp(name, "bsr_spmm_kernel<32,64,4,4,1>") == 0)
+    return reinterpret_cast<const void*>(bsr_spmm_kernel<32, 64, 4, 4, true>);
+  if (std::strcmp(name, "bsr_spmm_kernel<32,64,4,4,0>") == 0)
+    return reinterpret_cast<const void*>(
+        bsr_spmm_kernel<32, 64, 4, 4, false>);
+  if (std::strcmp(name, "bsr_spmm_kernel<16,64,4,4,1>") == 0)
+    return reinterpret_cast<const void*>(bsr_spmm_kernel<16, 64, 4, 4, true>);
+  if (std::strcmp(name, "bsr_spmm_kernel<16,64,4,4,0>") == 0)
+    return reinterpret_cast<const void*>(
+        bsr_spmm_kernel<16, 64, 4, 4, false>);
+  return nullptr;
 }

@@ -42,13 +42,17 @@ __global__ void bucket_assign_kernel(const float* __restrict__ cum,
   }
 }
 
+// The launch of kernels/bucket_assign.py's plan: a 1-d grid-stride grid,
+// the boundaries in dynamic shared memory (at least nb floats).
 REPRO_EXPORT int bucket_assign_launch(const void* cum, const void* bounds,
                                       void* out, long long n, int n_bounds,
-                                      int k, int n_sm, void* stream) {
-  const int threads = 256;
-  int blocks = repro_blocks_for(n, threads, n_sm * 8);
-  size_t smem = static_cast<size_t>(n_bounds > 0 ? n_bounds : 1) * sizeof(float);
-  bucket_assign_kernel<<<blocks, threads, smem,
+                                      int k, REPRO_LAUNCH_PARAMS) {
+  ReproLaunch L;
+  if (!repro_launch_dims(gx, gy, gz, bx, by, bz, smem_bytes, 1024, &L) ||
+      gy != 1 || gz != 1 || by != 1 || bz != 1 ||
+      smem_bytes < static_cast<long long>(n_bounds) * sizeof(float))
+    return REPRO_BAD_LAUNCH;
+  bucket_assign_kernel<<<L.grid, L.block, L.smem,
                          static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(cum), static_cast<const float*>(bounds),
       static_cast<int*>(out), n, n_bounds, k);
@@ -317,51 +321,27 @@ prefix_split_kernel(const float* __restrict__ w,
   }
 }
 
-// Dynamic shared memory of a block of `threads`: its tile's bins and the
-// boundaries, beyond the 48 KB a kernel gets without asking; the kernel is
-// allowed it before every query and launch.
-static size_t split_smem(int threads, int nb, bool coop) {
-  const size_t bytes = static_cast<size_t>(threads) * kSplitItems *
-                           sizeof(int) +
-                       static_cast<size_t>(nb > 0 ? nb : 1) * sizeof(float);
-  if (coop)
-    cudaFuncSetAttribute(prefix_split_kernel<true>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         static_cast<int>(bytes));
-  else
-    cudaFuncSetAttribute(prefix_split_kernel<false>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         static_cast<int>(bytes));
-  return bytes;
-}
-
-// Blocks of a launch over n vertices: 1 (one tile) or the tiles, cut to
-// the blocks the card holds at once; -1 if the occupancy query fails.
-static int split_blocks(long long n, int nb, int n_sm) {
-  const long long tile = static_cast<long long>(kSplitThreads) * kSplitItems;
-  if (n <= tile) return 1;
-  int per_sm = 0;
-  const size_t smem = split_smem(kSplitThreads, nb, true);
-  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, prefix_split_kernel<true>, kSplitThreads, smem) !=
-      cudaSuccess)
-    return -1;
-  const long long tiles = (n + tile - 1) / tile;
-  const long long cap = static_cast<long long>(per_sm > 0 ? per_sm : 1) * n_sm;
-  return static_cast<int>(tiles < cap ? tiles : cap);
-}
-
-// The blocks a launch over n vertices takes (1: the one-block path).
-REPRO_EXPORT int prefix_split_blocks(long long n, int nb, int n_sm) {
-  return split_blocks(n, nb, n_sm);
-}
-
-// `work`: two barrier words, zero before the first call (every call leaves
-// them ready), then room for one float per tile of 16,384 vertices; unused
-// where n fits one tile.
+// The launch of kernels/bucket_assign.py's split plan. coop = 0: one block
+// of bx threads over n <= bx * kSplitItems vertices; coop = 1: one
+// cooperative launch of gx blocks (a grid the card cannot hold at once is
+// refused by the launch, never cut). Either way the dynamic shared memory
+// is the tile's bins and the boundaries, bx * kSplitItems * 4 + max(nb, 1)
+// * 4 bytes (refused if the plan's differs). `work`: two barrier words,
+// zero before the first call (every call leaves them ready), then room for
+// one float per tile; unused by the one-block path.
 REPRO_EXPORT int prefix_split_launch(const void* w, const void* bounds,
                                      void* out, void* work, long long n,
-                                     int nb, int k, int n_sm, void* stream) {
+                                     int nb, int k, int coop,
+                                     REPRO_LAUNCH_PARAMS) {
+  ReproLaunch L;
+  const long long want = static_cast<long long>(bx) * kSplitItems * 4 +
+                         static_cast<long long>(nb > 0 ? nb : 1) * 4;
+  if (!repro_launch_dims(gx, gy, gz, bx, by, bz, smem_bytes, kSplitThreads,
+                         &L) ||
+      gy != 1 || gz != 1 || by != 1 || bz != 1 || bx % 32 != 0 ||
+      smem_bytes != want ||
+      (!coop && (gx != 1 || n > static_cast<long long>(bx) * kSplitItems)))
+    return REPRO_BAD_LAUNCH;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   int vec = (reinterpret_cast<uintptr_t>(w) % 16 == 0 &&
              reinterpret_cast<uintptr_t>(out) % 16 == 0) ? 1 : 0;
@@ -370,23 +350,33 @@ REPRO_EXPORT int prefix_split_launch(const void* w, const void* bounds,
   int* p_out = static_cast<int*>(out);
   unsigned* p_bar = static_cast<unsigned*>(work);
   float* p_tot = static_cast<float*>(work) + 2;
-  const int blocks = split_blocks(n, nb, n_sm);
-  if (blocks < 0) return static_cast<int>(cudaGetLastError());
-  if (blocks == 1 && n <= static_cast<long long>(kSplitThreads) * kSplitItems) {
-    // one block of as many warps as the vertices need
-    long long need = (n + kSplitItems - 1) / kSplitItems;
-    int threads = static_cast<int>((need + 31) / 32 * 32);
-    if (threads < 32) threads = 32;
-    const size_t smem = split_smem(threads, nb, false);
-    prefix_split_kernel<false><<<1, threads, smem, s>>>(
+  if (!coop) {
+    cudaError_t e = repro_smem_optin(prefix_split_kernel<false>, L.smem);
+    if (e != cudaSuccess) return repro_fail(e);
+    prefix_split_kernel<false><<<L.grid, L.block, L.smem, s>>>(
         p_w, p_b, p_out, p_tot, p_bar, n, nb, k, vec);
     return static_cast<int>(cudaGetLastError());
   }
+  cudaError_t e = repro_smem_optin(prefix_split_kernel<true>, L.smem);
+  if (e != cudaSuccess) return repro_fail(e);
   void* args[] = {&p_w, &p_b, &p_out, &p_tot, &p_bar, &n, &nb, &k, &vec};
-  const size_t smem = split_smem(kSplitThreads, nb, true);
-  cudaError_t e = cudaLaunchCooperativeKernel(
-      reinterpret_cast<void*>(prefix_split_kernel<true>), dim3(blocks),
-      dim3(kSplitThreads), args, smem, s);
-  if (e != cudaSuccess) return static_cast<int>(e);
+  e = cudaLaunchCooperativeKernel(
+      reinterpret_cast<void*>(prefix_split_kernel<true>), L.grid, L.block,
+      args, L.smem, s);
+  if (e != cudaSuccess) return repro_fail(e);
   return static_cast<int>(cudaGetLastError());
+}
+
+REPRO_EXPORT const void* bucket_assign_kernel_of(const char* name) {
+  return std::strcmp(name, "bucket_assign_kernel") == 0
+             ? reinterpret_cast<const void*>(bucket_assign_kernel)
+             : nullptr;
+}
+
+REPRO_EXPORT const void* prefix_split_kernel_of(const char* name) {
+  if (std::strcmp(name, "prefix_split_kernel<true>") == 0)
+    return reinterpret_cast<const void*>(prefix_split_kernel<true>);
+  if (std::strcmp(name, "prefix_split_kernel<false>") == 0)
+    return reinterpret_cast<const void*>(prefix_split_kernel<false>);
+  return nullptr;
 }

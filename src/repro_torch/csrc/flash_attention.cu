@@ -69,6 +69,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <cstdio>
+
 // Internal linkage without an anonymous namespace, so the kernel keeps a
 // plain mangled name in nvcc's -Xptxas -v report.
 constexpr int BQ = 64;          // q rows per block
@@ -300,61 +302,50 @@ static constexpr size_t smem_bytes(int dm) {
   return sizeof(float) * (2 * dm * LD + BK * LD + 4 * BQ * 2 + 2 * BQ);
 }
 
+// The SIMT kernel's instance <T, DM, DVM> on the plan's launch: a block of
+// THREADS threads a (batch, head, BQ-row q tile), smem_bytes(DM) of
+// dynamic shared memory (refused if the plan's differs).
 template <typename T, int DM, int DVM>
-static int launch(const void* q, const void* k, const void* v, void* o,
-                  float* lse, int b, int sq, int sk, int h, int kh, int d,
-                  int dv, float scale, int causal, cudaStream_t stream) {
-  const size_t smem = smem_bytes(DM);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, DM, DVM>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int n_bh = b * h;
+static int launch(const ReproLaunch& L, const void* q, const void* k,
+                  const void* v, void* o, float* lse, int b, int sq, int sk,
+                  int h, int kh, int d, int dv, float scale, int causal,
+                  cudaStream_t stream) {
+  if (L.block.x != THREADS || L.block.y != 1 || L.block.z != 1 ||
+      L.grid.y != 1 || L.grid.z != 1 || L.smem != smem_bytes(DM) ||
+      d > DM || dv > DVM)
+    return REPRO_BAD_LAUNCH;
+  cudaError_t err = repro_smem_optin(flash_fwd_kernel<T, DM, DVM>, L.smem);
+  if (err != cudaSuccess) return repro_fail(err);
   const int n_qtiles = (sq + BQ - 1) / BQ;
-  const long long blocks = static_cast<long long>(n_bh) * n_qtiles;
-  flash_fwd_kernel<T, DM, DVM><<<static_cast<unsigned>(blocks), THREADS,
-                                 smem, stream>>>(
+  flash_fwd_kernel<T, DM, DVM><<<L.grid, L.block, L.smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), lse, n_bh, sq, sk, h, kh,
+      static_cast<const T*>(v), static_cast<T*>(o), lse, b * h, sq, sk, h, kh,
       d, dv, n_qtiles, scale, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The output width's instance for a padded q/k width DM >= dv
-template <typename T, int DM>
-static int launch_dv(const void* q, const void* k, const void* v, void* o,
-                     float* lse, int b, int sq, int sk, int h, int kh, int d,
-                     int dv, float scale, int causal, cudaStream_t stream) {
-  if (dv <= 32)
-    return launch<T, DM, 32>(q, k, v, o, lse, b, sq, sk, h, kh, d, dv, scale,
-                             causal, stream);
-  if constexpr (DM >= 64) {
-    if (dv <= 64)
-      return launch<T, DM, 64>(q, k, v, o, lse, b, sq, sk, h, kh, d, dv,
-                               scale, causal, stream);
-  }
-  if constexpr (DM >= 128)
-    return launch<T, DM, 128>(q, k, v, o, lse, b, sq, sk, h, kh, d, dv,
-                              scale, causal, stream);
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
+// The SIMT instance the plan names by its padded widths (dm, dvm): DM in
+// 32, 64, 128, 192 and DVM in 32, 64, 128, at most DM.
 template <typename T>
-static int launch_d(const void* q, const void* k, const void* v, void* o,
-                    float* lse, int b, int sq, int sk, int h, int kh, int d,
-                    int dv, float scale, int causal, cudaStream_t stream) {
-  const int dm = d > dv ? d : dv;
-  if (dm <= 32)
-    return launch_dv<T, 32>(q, k, v, o, lse, b, sq, sk, h, kh, d, dv, scale,
-                            causal, stream);
-  if (dm <= 64)
-    return launch_dv<T, 64>(q, k, v, o, lse, b, sq, sk, h, kh, d, dv, scale,
-                            causal, stream);
-  if (dm <= 128)
-    return launch_dv<T, 128>(q, k, v, o, lse, b, sq, sk, h, kh, d, dv, scale,
-                             causal, stream);
-  return launch_dv<T, 192>(q, k, v, o, lse, b, sq, sk, h, kh, d, dv, scale,
-                           causal, stream);
+static int launch_simt(const ReproLaunch& L, int dm, int dvm, const void* q,
+                       const void* k, const void* v, void* o, float* lse,
+                       int b, int sq, int sk, int h, int kh, int d, int dv,
+                       float scale, int causal, cudaStream_t s) {
+#define REPRO_FLASH_SIMT(DM, DVM)                                          \
+  if (dm == DM && dvm == DVM)                                               \
+    return launch<T, DM, DVM>(L, q, k, v, o, lse, b, sq, sk, h, kh, d, dv, \
+                              scale, causal, s);
+  REPRO_FLASH_SIMT(32, 32)
+  REPRO_FLASH_SIMT(64, 32)
+  REPRO_FLASH_SIMT(64, 64)
+  REPRO_FLASH_SIMT(128, 32)
+  REPRO_FLASH_SIMT(128, 64)
+  REPRO_FLASH_SIMT(128, 128)
+  REPRO_FLASH_SIMT(192, 32)
+  REPRO_FLASH_SIMT(192, 64)
+  REPRO_FLASH_SIMT(192, 128)
+#undef REPRO_FLASH_SIMT
+  return REPRO_BAD_LAUNCH;
 }
 
 // ---------------------------------------------------------------------------
@@ -1038,12 +1029,19 @@ static bool encode_bsnd(EncodeTiled encode, CUtensorMap* map, const void* ptr,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// The Hopper kernel's instance <D, DV> on the plan's launch: persistent
+// CTAs of WG_THREADS threads (the plan's grid, min(tiles, SMs) on the path)
+// and T::SMEM bytes of dynamic shared memory (refused if the plan's
+// differs).
 template <int D, int DV>
-static int launch_wgmma(const void* q, const void* k, const void* v, void* o,
-                        float* lse, int b, int sq, int sk, int h, int kh,
-                        float scale, int causal, int n_sm,
+static int launch_wgmma(const ReproLaunch& L, const void* q, const void* k,
+                        const void* v, void* o, float* lse, int b, int sq,
+                        int sk, int h, int kh, float scale, int causal,
                         cudaStream_t stream) {
   using T = WgTile<D, DV>;
+  if (L.block.x != WG_THREADS || L.block.y != 1 || L.block.z != 1 ||
+      L.grid.y != 1 || L.grid.z != 1 || L.smem != T::SMEM)
+    return REPRO_BAD_LAUNCH;
   const EncodeTiled encode = tensor_map_encoder();
   if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
   CUtensorMap tq, tk, tv;
@@ -1060,43 +1058,80 @@ static int launch_wgmma(const void* q, const void* k, const void* v, void* o,
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_wgmma_kernel<D, DV>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int n_bh = b * h;
+  if (err != cudaSuccess) return repro_fail(err);
   const int n_qtiles = (sq + WG_BQ - 1) / WG_BQ;
-  const long long tiles = static_cast<long long>(n_bh) * n_qtiles;
-  const int grid = static_cast<int>(tiles < n_sm ? tiles : n_sm);
-  flash_fwd_wgmma_kernel<D, DV><<<grid, WG_THREADS, T::SMEM, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, n_bh, sq, sk, h, kh,
+  flash_fwd_wgmma_kernel<D, DV><<<L.grid, L.block, L.smem, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, b * h, sq, sk, h, kh,
       n_qtiles, scale, scale * LOG2E, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
-// dtype: 0 = float32, 1 = bfloat16; n_sm: the card's SM count (the bf16
-// kernel's persistent grid). lse: null, or float32 [B, Sq, H] for the
-// log-sum-exp of each row's scaled scores (m + ln l, -inf where l = 0: the
-// residual the backward recomputes P from); out is the same either way.
-// The wrapper checks shapes (Sq >= 1, D <= 192, DV <= 128, H a multiple of
-// KH), types, contiguity and, for bf16 on the Hopper kernel, 16-byte
-// aligned bases.
+// dtype: 0 = float32, 1 = bfloat16; lse: null, or float32 [B, Sq, H] for
+// the log-sum-exp of each row's scaled scores (m + ln l, -inf where l = 0:
+// the residual the backward recomputes P from); out is the same either way.
+// The launch is kernels/flash_attention.py's plan: path 1 is the bf16
+// Hopper kernel at (dm, dvm) = (D, Dv), one of (64, 64), (128, 128) and
+// (192, 128); path 0 the SIMT kernel at the padded widths (dm, dvm). The
+// wrapper checks shapes (Sq >= 1, D <= 192, DV <= 128, H a multiple of
+// KH), types, contiguity and, for the Hopper kernel, 16-byte aligned
+// bases.
 REPRO_EXPORT int flash_attention_launch(const void* q, const void* k,
                                         const void* v, void* o, void* lse,
                                         int b, int sq, int sk, int h, int kh,
                                         int d, int dv, int dtype, int causal,
-                                        float scale, int n_sm, void* stream) {
+                                        float scale, int path, int dm,
+                                        int dvm, REPRO_LAUNCH_PARAMS) {
+  ReproLaunch L;
+  if (!repro_launch_dims(gx, gy, gz, bx, by, bz, smem_bytes, WG_THREADS, &L))
+    return REPRO_BAD_LAUNCH;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
-  if (dtype == 1 && d == 128 && dv == 128)
-    return launch_wgmma<128, 128>(q, k, v, o, l, b, sq, sk, h, kh, scale,
-                                  causal, n_sm, s);
-  if (dtype == 1 && d == 64 && dv == 64)
-    return launch_wgmma<64, 64>(q, k, v, o, l, b, sq, sk, h, kh, scale,
-                                causal, n_sm, s);
-  if (dtype == 1 && d == 192 && dv == 128)
-    return launch_wgmma<192, 128>(q, k, v, o, l, b, sq, sk, h, kh, scale,
-                                  causal, n_sm, s);
+  if (path == 1) {
+    if (dtype != 1 || d != dm || dv != dvm) return REPRO_BAD_LAUNCH;
+    if (d == 128 && dv == 128)
+      return launch_wgmma<128, 128>(L, q, k, v, o, l, b, sq, sk, h, kh, scale,
+                                    causal, s);
+    if (d == 64 && dv == 64)
+      return launch_wgmma<64, 64>(L, q, k, v, o, l, b, sq, sk, h, kh, scale,
+                                  causal, s);
+    if (d == 192 && dv == 128)
+      return launch_wgmma<192, 128>(L, q, k, v, o, l, b, sq, sk, h, kh, scale,
+                                    causal, s);
+    return REPRO_BAD_LAUNCH;
+  }
+  if (path != 0) return REPRO_BAD_LAUNCH;
   if (dtype == 1)
-    return launch_d<__nv_bfloat16>(q, k, v, o, l, b, sq, sk, h, kh, d, dv,
-                                   scale, causal, s);
-  return launch_d<float>(q, k, v, o, l, b, sq, sk, h, kh, d, dv, scale,
-                         causal, s);
+    return launch_simt<__nv_bfloat16>(L, dm, dvm, q, k, v, o, l, b, sq, sk,
+                                      h, kh, d, dv, scale, causal, s);
+  return launch_simt<float>(L, dm, dvm, q, k, v, o, l, b, sq, sk, h, kh, d,
+                            dv, scale, causal, s);
+}
+
+REPRO_EXPORT const void* flash_attention_kernel_of(const char* name) {
+  char buf[64];
+#define REPRO_FLASH_NAMED(T, TN, DM, DVM)                                    \
+  std::snprintf(buf, sizeof buf, "flash_fwd_kernel<%s,%d,%d>", TN, DM, DVM); \
+  if (std::strcmp(buf, name) == 0)                                           \
+    return reinterpret_cast<const void*>(flash_fwd_kernel<T, DM, DVM>);
+#define REPRO_FLASH_TYPE(T, TN)        \
+  REPRO_FLASH_NAMED(T, TN, 32, 32)     \
+  REPRO_FLASH_NAMED(T, TN, 64, 32)     \
+  REPRO_FLASH_NAMED(T, TN, 64, 64)     \
+  REPRO_FLASH_NAMED(T, TN, 128, 32)    \
+  REPRO_FLASH_NAMED(T, TN, 128, 64)    \
+  REPRO_FLASH_NAMED(T, TN, 128, 128)   \
+  REPRO_FLASH_NAMED(T, TN, 192, 32)    \
+  REPRO_FLASH_NAMED(T, TN, 192, 64)    \
+  REPRO_FLASH_NAMED(T, TN, 192, 128)
+  REPRO_FLASH_TYPE(float, "float")
+  REPRO_FLASH_TYPE(__nv_bfloat16, "bf16")
+#undef REPRO_FLASH_TYPE
+#undef REPRO_FLASH_NAMED
+  if (std::strcmp(name, "flash_fwd_wgmma_kernel<64,64>") == 0)
+    return reinterpret_cast<const void*>(flash_fwd_wgmma_kernel<64, 64>);
+  if (std::strcmp(name, "flash_fwd_wgmma_kernel<128,128>") == 0)
+    return reinterpret_cast<const void*>(flash_fwd_wgmma_kernel<128, 128>);
+  if (std::strcmp(name, "flash_fwd_wgmma_kernel<192,128>") == 0)
+    return reinterpret_cast<const void*>(flash_fwd_wgmma_kernel<192, 128>);
+  return nullptr;
 }

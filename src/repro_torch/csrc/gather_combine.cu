@@ -11,7 +11,7 @@
 // float32 or bf16; weights and sums are float32 and the output, of the
 // table's type, is rounded once.
 //
-// Three paths, picked per call by gather_plan:
+// Three paths, picked per call by the plan (kernels/gather_combine.py):
 //
 //   * wide rows (bag_reduce_wide_kernel): a grid that fills the card
 //     (serve_bulk's 262,144 bags) with rows of at least 32 16-byte columns
@@ -148,69 +148,61 @@ bag_reduce_wide_kernel(const E* __restrict__ table,
   }
 }
 
-// The paths a call may take.
-enum GatherPath { kSmallGrid = 0, kRows = 1, kWideRows = 2 };
-
-// aligned: the table and out bases are 16-byte aligned. The small-grid and
-// 16-rows-in-flight rules read float4 columns for either type
-// (bag_rule_vec), so a bf16 call takes the path a float32 one of the same
-// shape takes.
-static int gather_plan(long long n_bags, int f, int vec, int elem_bytes,
-                       bool aligned, int sms) {
-  const int rule_vec = elem_bytes == 2 ? (f % 4 == 0 ? 4 : 1) : vec;
-  if (bag_small_grid(n_bags, f, rule_vec, sms)) return kSmallGrid;
-  const int row_bytes = f * elem_bytes;
-  const int cols = row_bytes / 16;
-  const int tpb = cols / kWideCols;
-  if (!aligned || row_bytes % 16 != 0 ||
-      n_bags * (f / rule_vec) <= kBagDeepMaxThreads ||
-      cols % kWideCols != 0 || tpb < kWideThreads / kWideMaxBags ||
-      tpb > kWideThreads)
-    return kRows;
-  return kWideRows;
-}
-
-template <typename E>
-static int gather_wide_run(const void* table, const void* idx,
-                           const void* w, void* out, long long n_bags, int d,
-                           int cols, cudaStream_t s) {
-  const int tpb = cols / kWideCols;
-  const int bpb = kWideThreads / tpb;
-  const dim3 grid(static_cast<unsigned>((n_bags + bpb - 1) / bpb));
-  bag_reduce_wide_kernel<E><<<grid, bpb * tpb, 0, s>>>(
-      static_cast<const E*>(table), static_cast<const int*>(idx),
-      static_cast<const float*>(w), static_cast<E*>(out), n_bags, d, cols);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// elem_bytes: 4 (float32 table and out) or 2 (bf16); vec: 4 (float32) or 8
-// (bf16) where rows are 16-byte columns on aligned bases, else 1.
+// The launch of kernels/gather_combine.py's plan. elem_bytes: 4 (float32
+// table and out) or 2 (bf16); vec: 4 (float32) or 8 (bf16) where rows are
+// 16-byte columns on aligned bases, else 1; path: BagPath. The wide path
+// takes a 1-d block of whole bags of cols / kWideCols threads each, at most
+// kWideMaxBags bags and kWideThreads threads, on 16-byte aligned bases;
+// anything else is refused.
 REPRO_EXPORT int gather_combine_launch(const void* table, const void* idx,
                                        const void* w, void* out,
                                        long long n_bags, int d, int f,
-                                       int vec, int elem_bytes, int sms,
-                                       void* stream) {
-  const bool aligned = reinterpret_cast<uintptr_t>(table) % 16 == 0 &&
-                       reinterpret_cast<uintptr_t>(out) % 16 == 0;
+                                       int vec, int elem_bytes, int path,
+                                       REPRO_LAUNCH_PARAMS) {
+  ReproLaunch L;
+  if (!repro_launch_dims(gx, gy, gz, bx, by, bz, smem_bytes, 1024, &L))
+    return REPRO_BAD_LAUNCH;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool bf16 = elem_bytes == 2;
-  if (gather_plan(n_bags, f, vec, elem_bytes, aligned, sms) == kWideRows) {
-    const cudaStream_t s = static_cast<cudaStream_t>(stream);
-    const int cols = f * elem_bytes / 16;
-    return bf16 ? gather_wide_run<__nv_bfloat16>(table, idx, w, out, n_bags,
-                                                 d, cols, s)
-                : gather_wide_run<float>(table, idx, w, out, n_bags, d, cols,
-                                         s);
+  if (path == kWide) {
+    const int row_bytes = f * elem_bytes;
+    const int cols = row_bytes / 16;
+    const int tpb = cols / kWideCols;
+    if (row_bytes % 16 != 0 || cols % kWideCols != 0 || tpb < 1 ||
+        bx > kWideThreads || bx % tpb != 0 || bx / tpb > kWideMaxBags ||
+        by != 1 || bz != 1 || gy != 1 || gz != 1 || smem_bytes != 0 ||
+        reinterpret_cast<uintptr_t>(table) % 16 != 0 ||
+        reinterpret_cast<uintptr_t>(out) % 16 != 0)
+      return REPRO_BAD_LAUNCH;
+    if (bf16)
+      bag_reduce_wide_kernel<__nv_bfloat16><<<L.grid, L.block, 0, s>>>(
+          static_cast<const __nv_bfloat16*>(table),
+          static_cast<const int*>(idx), static_cast<const float*>(w),
+          static_cast<__nv_bfloat16*>(out), n_bags, d, cols);
+    else
+      bag_reduce_wide_kernel<float><<<L.grid, L.block, 0, s>>>(
+          static_cast<const float*>(table), static_cast<const int*>(idx),
+          static_cast<const float*>(w), static_cast<float*>(out), n_bags, d,
+          cols);
+    return static_cast<int>(cudaGetLastError());
   }
-  return bf16 ? bag_reduce_launch<true, __nv_bfloat16>(table, idx, w, out,
-                                                       n_bags, d, f, vec, sms,
-                                                       stream)
+  return bf16 ? bag_reduce_launch<true, __nv_bfloat16>(
+                    table, idx, w, out, n_bags, d, f, vec, path, L, s)
               : bag_reduce_launch<true, float>(table, idx, w, out, n_bags, d,
-                                               f, vec, sms, stream);
+                                               f, vec, path, L, s);
 }
 
-// The path of a call (GatherPath), for the card tests and the smoke run's
-// report.
-REPRO_EXPORT int gather_combine_path(long long n_bags, int f, int vec,
-                                     int elem_bytes, int aligned, int sms) {
-  return gather_plan(n_bags, f, vec, elem_bytes, aligned != 0, sms);
+REPRO_EXPORT const void* gather_combine_kernel_of(const char* name) {
+  if (std::strcmp(name, "bag_reduce_wide_kernel<float>") == 0)
+    return reinterpret_cast<const void*>(bag_reduce_wide_kernel<float>);
+  if (std::strcmp(name, "bag_reduce_wide_kernel<bf16>") == 0)
+    return reinterpret_cast<const void*>(
+        bag_reduce_wide_kernel<__nv_bfloat16>);
+  const void* fn =
+      bag_kernel_named<true, float, float4, float>(name, "float", "float4",
+                                                    "float");
+  if (fn == nullptr)
+    fn = bag_kernel_named<true, __nv_bfloat16, Bf16x8, float>(
+        name, "bf16", "bf16x8", "float");
+  return fn;
 }

@@ -9,8 +9,6 @@
 // threads on adjacent words (coalesced). The arithmetic uses the _rn
 // intrinsics so nvcc cannot contract it into an FMA: the result is then
 // bit-identical to the plain PyTorch version (separate mul/add/mul).
-#include <algorithm>
-
 #include "common.cuh"
 
 __global__ void match_keys_kernel(const float* __restrict__ w,
@@ -27,12 +25,16 @@ __global__ void match_keys_kernel(const float* __restrict__ w,
   }
 }
 
+// The launch of kernels/match_keys.py's plan: a 1-d grid-stride grid.
 REPRO_EXPORT int match_keys_launch(const void* w, const void* u,
                                    const void* mask, void* out, long long m,
-                                   int n_sm, void* stream) {
-  const int threads = 256;
-  int blocks = repro_blocks_for(m, threads, n_sm * 8);
-  match_keys_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+                                   REPRO_LAUNCH_PARAMS) {
+  ReproLaunch L;
+  if (!repro_launch_dims(gx, gy, gz, bx, by, bz, smem_bytes, 1024, &L) ||
+      gy != 1 || gz != 1 || by != 1 || bz != 1)
+    return REPRO_BAD_LAUNCH;
+  match_keys_kernel<<<L.grid, L.block, L.smem,
+                      static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(w), static_cast<const float*>(u),
       static_cast<const float*>(mask), static_cast<float*>(out), m);
   return static_cast<int>(cudaGetLastError());
@@ -96,7 +98,7 @@ static __device__ __forceinline__ void round_grid_barrier(unsigned* count,
   __syncthreads();
 }
 
-__global__ void __launch_bounds__(kRoundThreads)
+__global__ void __launch_bounds__(kRoundThreads, 2)
 match_round_kernel(const int* __restrict__ s, const int* __restrict__ r,
                    const float* __restrict__ w, const float* __restrict__ u,
                    const unsigned char* __restrict__ matched,
@@ -162,6 +164,9 @@ match_round_kernel(const int* __restrict__ s, const int* __restrict__ r,
   }
 }
 
+// One cooperative launch of kernels/match_keys.py's round plan: gx blocks
+// of bx threads (a whole number of warps, at most kRoundThreads); a grid
+// the card cannot hold at once is refused by the launch, never cut.
 // `work`: one 64-bit word holding the two barrier words, then at least n
 // zeroed 64-bit words, all zero before the first call; every call leaves
 // the n words zero again and the barrier ready.
@@ -169,18 +174,12 @@ REPRO_EXPORT int match_round_launch(const void* s, const void* r,
                                     const void* w, const void* u,
                                     const void* matched, void* best,
                                     void* work, long long m, int n,
-                                    int n_sm, void* stream) {
-  int per_sm = 0;
-  cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, match_round_kernel, kRoundThreads, 0);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const long long want = std::max<long long>(
-      (m + kRoundThreads * kRoundArcs - 1) / (kRoundThreads * kRoundArcs),
-      (n + kRoundThreads - 1) / kRoundThreads);
-  int blocks = static_cast<int>(std::min<long long>(
-      std::max<long long>(want, 1), static_cast<long long>(
-                                        std::min(per_sm, 2)) * n_sm));
-  if (blocks < 1) blocks = 1;
+                                    REPRO_LAUNCH_PARAMS) {
+  ReproLaunch L;
+  if (!repro_launch_dims(gx, gy, gz, bx, by, bz, smem_bytes, kRoundThreads,
+                         &L) ||
+      gy != 1 || gz != 1 || by != 1 || bz != 1 || bx % 32 != 0)
+    return REPRO_BAD_LAUNCH;
   const int* p_s = static_cast<const int*>(s);
   const int* p_r = static_cast<const int*>(r);
   const float* p_w = static_cast<const float*>(w);
@@ -191,9 +190,21 @@ REPRO_EXPORT int match_round_launch(const void* s, const void* r,
   unsigned long long* p_words = static_cast<unsigned long long*>(work) + 1;
   void* args[] = {&p_s, &p_r, &p_w, &p_u, &p_m, &p_best, &p_words, &p_bar,
                   &m, &n};
-  e = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(match_round_kernel),
-                                  dim3(blocks), dim3(kRoundThreads), args, 0,
-                                  static_cast<cudaStream_t>(stream));
-  if (e != cudaSuccess) return static_cast<int>(e);
+  const cudaError_t e = cudaLaunchCooperativeKernel(
+      reinterpret_cast<void*>(match_round_kernel), L.grid, L.block, args,
+      L.smem, static_cast<cudaStream_t>(stream));
+  if (e != cudaSuccess) return repro_fail(e);
   return static_cast<int>(cudaGetLastError());
+}
+
+REPRO_EXPORT const void* match_keys_kernel_of(const char* name) {
+  return std::strcmp(name, "match_keys_kernel") == 0
+             ? reinterpret_cast<const void*>(match_keys_kernel)
+             : nullptr;
+}
+
+REPRO_EXPORT const void* match_round_kernel_of(const char* name) {
+  return std::strcmp(name, "match_round_kernel") == 0
+             ? reinterpret_cast<const void*>(match_round_kernel)
+             : nullptr;
 }

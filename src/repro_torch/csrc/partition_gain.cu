@@ -87,17 +87,28 @@ __global__ void __launch_bounds__(256) partition_gain_kernel(
 
 }  // namespace
 
+// The launch of kernels/partition_gain.py's plan: `rows` rows a block,
+// `d_chunk` slots of a row staged at once, shared memory rows * d_chunk * 8
+// bytes (refused if the plan's differs).
 REPRO_EXPORT int partition_gain_launch(const void* part, const void* nbr_idx,
                                        const void* nbr_w, void* conn, int n,
                                        int d, int k, int rows, int d_chunk,
-                                       int threads, void* stream) {
-  if (n == 0) return static_cast<int>(cudaGetLastError());
-  const int blocks = (n + rows - 1) / rows;
-  const size_t smem = static_cast<size_t>(rows) * d_chunk * 8;
-  partition_gain_kernel<<<blocks, threads, smem,
+                                       REPRO_LAUNCH_PARAMS) {
+  ReproLaunch L;
+  if (!repro_launch_dims(gx, gy, gz, bx, by, bz, smem_bytes, 256, &L) ||
+      rows < 1 || d_chunk < 1 ||
+      smem_bytes != static_cast<long long>(rows) * d_chunk * 8)
+    return REPRO_BAD_LAUNCH;
+  partition_gain_kernel<<<L.grid, L.block, L.smem,
                           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(part), static_cast<const int*>(nbr_idx),
       static_cast<const float*>(nbr_w), static_cast<float*>(conn), n, d, k,
       rows, d_chunk);
   return static_cast<int>(cudaGetLastError());
+}
+
+REPRO_EXPORT const void* partition_gain_kernel_of(const char* name) {
+  return std::strcmp(name, "partition_gain_kernel") == 0
+             ? reinterpret_cast<const void*>(partition_gain_kernel)
+             : nullptr;
 }

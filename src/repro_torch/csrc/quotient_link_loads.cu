@@ -212,7 +212,7 @@ static __device__ __forceinline__ void link_unit(
 // kSmemW: the block keeps the pairs its lanes evict in its own W in shared
 // memory and adds its nonzero entries into acc at the end.
 template <bool kSmemW>
-__global__ void __launch_bounds__(512) qll_kernel(
+__global__ void __launch_bounds__(512, 2) qll_kernel(
     const int* __restrict__ part, const int* __restrict__ senders,
     const int* __restrict__ receivers, const float* __restrict__ weight,
     long long m, long long per_block, const float* __restrict__ S,
@@ -285,30 +285,28 @@ __global__ void __launch_bounds__(512) qll_kernel(
   for (long long i = z0 + t; i < z1; i += n_threads) W[i] = __ldcg(acc + i);
 }
 
-// One cooperative launch of `blocks` x `threads` (blocks cut to what the
-// card holds at once), with `smem_bytes` of shared memory for each block's
-// W where nonzero. `work` is the workspace: two halves of k*k floats, then
-// their two barrier counters, all zero before the first call; `half` (0 or
-// 1) is this call's, the other is zeroed for the next call.
+// One cooperative launch of kernels/quotient_link_loads.py's plan: gx
+// blocks of bx threads (a whole number of warps, at most 512), with
+// smem_bytes = 4 k^2 of shared memory for each block's W, or 0. A grid the
+// card cannot hold at once is refused by the launch
+// (cudaErrorCooperativeLaunchTooLarge), never cut. `work` is the
+// workspace: two halves of k*k floats, then their two barrier counters,
+// all zero before the first call; `half` (0 or 1) is this call's, the
+// other is zeroed for the next call.
 REPRO_EXPORT int quotient_link_loads_launch(
     const void* part, const void* senders, const void* receivers,
     const void* weight, long long m, const void* subtree, const void* F_l,
-    int n_links, int k, void* W, void* out, void* work, int half, int blocks,
-    int threads, long long smem_bytes, int n_sm, void* stream) {
+    int n_links, int k, void* W, void* out, void* work, int half,
+    REPRO_LAUNCH_PARAMS) {
+  ReproLaunch L;
+  if (!repro_launch_dims(gx, gy, gz, bx, by, bz, smem_bytes, 512, &L) ||
+      gy != 1 || gz != 1 || by != 1 || bz != 1 || bx % 32 != 0 ||
+      (smem_bytes != 0 && smem_bytes != 4LL * k * k))
+    return REPRO_BAD_LAUNCH;
   auto kernel = smem_bytes ? qll_kernel<true> : qll_kernel<false>;
-  cudaError_t e;
-  if (smem_bytes > 48 * 1024) {
-    e = cudaFuncSetAttribute(kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem_bytes));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  int per_sm = 0;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, kernel, threads, static_cast<size_t>(smem_bytes));
-  if (e != cudaSuccess) return static_cast<int>(e);
-  if (blocks > per_sm * n_sm) blocks = per_sm * n_sm;
-  if (blocks < 1) blocks = 1;
+  cudaError_t e = repro_smem_optin(kernel, L.smem);
+  if (e != cudaSuccess) return repro_fail(e);
+  const int blocks = gx;
   long long per_block = (m + blocks - 1) / blocks;
   per_block = (per_block + kSpan - 1) / kSpan * kSpan;
   const long long kk = static_cast<long long>(k) * k;
@@ -329,10 +327,17 @@ REPRO_EXPORT int quotient_link_loads_launch(
   void* args[] = {&p_part, &p_s, &p_r, &p_w, &m, &per_block, &p_S, &p_F,
                   &n_links, &k, &p_W, &p_out, &acc, &count, &other,
                   &other_count};
-  e = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(kernel),
-                                  dim3(blocks), dim3(threads), args,
-                                  static_cast<size_t>(smem_bytes),
+  e = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(kernel), L.grid,
+                                  L.block, args, L.smem,
                                   static_cast<cudaStream_t>(stream));
-  if (e != cudaSuccess) return static_cast<int>(e);
+  if (e != cudaSuccess) return repro_fail(e);
   return static_cast<int>(cudaGetLastError());
+}
+
+REPRO_EXPORT const void* quotient_link_loads_kernel_of(const char* name) {
+  if (std::strcmp(name, "qll_kernel<true>") == 0)
+    return reinterpret_cast<const void*>(qll_kernel<true>);
+  if (std::strcmp(name, "qll_kernel<false>") == 0)
+    return reinterpret_cast<const void*>(qll_kernel<false>);
+  return nullptr;
 }

@@ -25,6 +25,9 @@ through :class:`BagCombine`: the forward above, and a plain PyTorch
 backward, ``d gathered = w[:, :, None] * g[:, None, :]`` and, when the
 weights need one, ``d w = einsum("bdf,bf->bd")``. The reference has no
 backward kernel either (its training differentiates the XLA path).
+
+The launch comes from :func:`plan` (``kernels/plan.py``), with the path
+rule of ``gather_combine.bag_plan``.
 """
 from __future__ import annotations
 
@@ -33,7 +36,8 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.gather_combine import DTYPES
+from repro_torch.kernels import plan as plan_lib
+from repro_torch.kernels.gather_combine import DTYPES, bag_plan
 
 # launches of the CUDA kernel (plain CPU calls do not count)
 launches = 0
@@ -60,13 +64,50 @@ def order_tolerance(gathered: torch.Tensor,
         "bdf,bd->bf", gathered.abs().double(), weights.abs().double())
 
 
-def _vec(gathered: torch.Tensor, out: torch.Tensor) -> int:
-    """Elements per 16-byte column where both tensors' rows are whole
-    16-byte columns on aligned bases (4 float32, 8 bf16), else 1."""
+def _vec(gathered: torch.Tensor) -> int:
+    """Elements per 16-byte column where the rows are whole 16-byte columns
+    on an aligned base (4 float32, 8 bf16), else 1. The output, a fresh
+    ``torch.empty``, is always aligned."""
     per = 16 // DTYPES[gathered.dtype]
-    ok = all(t.shape[-1] % per == 0 and t.data_ptr() % 16 == 0
-             for t in (gathered, out))
-    return per if ok else 1
+    return (per if gathered.shape[-1] % per == 0
+            and gathered.data_ptr() % 16 == 0 else 1)
+
+
+_plans = plan_lib.cache("bag_combine")
+
+
+def plan(b: int, d: int, f: int, dtype: torch.dtype, vec: int,
+         device=None) -> plan_lib.LaunchPlan:
+    """The launch over ``b`` bags of ``d`` rows of ``f`` elements of
+    ``dtype`` (``vec`` from :func:`_vec`) on ``device``'s card, cached by
+    shape: the small grid where the row walk's grid cannot fill the card,
+    else the row walk."""
+    name = "float" if dtype == torch.float32 else "bf16"
+    return _plans.get_or_build((b, d, f, dtype, vec, device), lambda: bag_plan(
+        b, d, f, DTYPES[dtype], name, vec, True, device, gather=False))
+
+
+def example_plans():
+    """The reference's example (``b=512, d=16, f=256``: the row walk with
+    16 rows in flight), then the one-row walk of grids past 65,536 threads
+    (4,096 bags) and one retrieve query's small grid, in float32 and
+    bf16."""
+    return [plan(b, d, 256, dtype, vec)
+            for dtype, vec in ((torch.float32, 4), (torch.bfloat16, 8))
+            for b, d in ((512, 16), (4096, 50), (1, 50))]
+
+
+def launch(p: plan_lib.LaunchPlan, gathered, weights, out,
+           stream=None) -> None:
+    """One launch of ``p`` on the wrapper's checked tensors."""
+    b, d, f = gathered.shape
+    fn = build.entry("bag_combine", [ctypes.c_void_p] * 3 + [
+        ctypes.c_longlong] + [ctypes.c_int] * 5 + build.LAUNCH_ARGTYPES)
+    build.check("bag_combine", fn(
+        build.ptr(gathered), build.ptr(weights), build.ptr(out), b, d, f,
+        p.args["vec"], DTYPES[gathered.dtype], p.args["code"],
+        *p.launch_dims(),
+        build.stream_of(gathered.device) if stream is None else stream))
 
 
 def bag_combine(gathered: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
@@ -120,14 +161,10 @@ def _forward(gathered: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
     build.require(gathered, "bag_combine gathered", gathered.dtype, dev,
                   (b, d, f))
     build.require(weights, "bag_combine weights", gathered.dtype, dev, (b, d))
-    out = torch.empty((b, f), dtype=gathered.dtype, device=dev)
     if b == 0 or f == 0:
-        return out
-    fn = build.entry("bag_combine", [ctypes.c_void_p] * 3 + [
-        ctypes.c_longlong] + [ctypes.c_int] * 5 + [ctypes.c_void_p])
-    build.check("bag_combine", fn(
-        build.ptr(gathered), build.ptr(weights), build.ptr(out), b, d, f,
-        _vec(gathered, out), DTYPES[gathered.dtype], build.sm_count(dev),
-        build.stream_of(dev)))
+        return torch.empty((b, f), dtype=gathered.dtype, device=dev)
+    p = plan(b, d, f, gathered.dtype, _vec(gathered), dev)
+    out = torch.empty((b, f), dtype=gathered.dtype, device=dev)
+    launch(p, gathered, weights, out)
     launches += 1
     return out

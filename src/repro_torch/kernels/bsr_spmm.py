@@ -38,6 +38,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels import plan as plan_lib
 
 # launches of the CUDA kernel (plain CPU calls do not count)
 launches = 0
@@ -170,6 +171,78 @@ def tile(n_block_rows: int, r: int, f: int,
     return WIDE_TILE if wide else NARROW_TILE
 
 
+_plans = plan_lib.cache("bsr_spmm")
+
+
+def plan(n_block_rows: int, r: int, f: int, nnzb: int, n_block_cols: int,
+         vec: bool, device=None) -> plan_lib.LaunchPlan:
+    """The launch over a layout of ``n_block_rows`` block rows and
+    ``nnzb`` blocks of ``r`` x ``r`` times ``x [n_block_cols * r, f]``
+    (``vec``: R and F multiples of 4 on 16-byte aligned bases) on
+    ``device``'s card, cached by shape: a block per (block row, row tile,
+    feature tile) of :func:`tile`."""
+    return _plans.get_or_build(
+        (n_block_rows, r, f, nnzb, n_block_cols, vec, device),
+        lambda: _plan(n_block_rows, r, f, nnzb, n_block_cols, vec,
+                      plan_lib.device_model(device)))
+
+
+def _plan(nbr, r, f, nnzb, nbc, vec, model):
+    bm, bn = tile(nbr, r, f, model.sms)
+    m_tiles = -(-r // bm)
+    s = -(-r // GRAIN)
+
+    def rows_of(x):
+        brow, m0 = divmod(x, m_tiles)
+        return (brow * r + m0 * bm, brow * r + min(m0 * bm + bm, r))
+
+    arg = plan_lib.Arg
+    return plan_lib.LaunchPlan(
+        name="bsr_spmm", entry="bsr_spmm",
+        kernel=f"bsr_spmm_kernel<{bm},{bn},4,4,{int(vec)}>",
+        grid=(nbr * m_tiles, -(-f // bn)), threads=((bm // 4) * (bn // 4),),
+        operands=(arg("row_ptr", (nbr + 1,), "int32"),
+                  arg("block_cols", (nnzb,), "int32"),
+                  arg("occupancy", (nnzb, s, -(-s // 32)), "int32"),
+                  arg("blocks", (nnzb, r, r), "float32"),
+                  arg("x", (nbc * r, f), "float32")),
+        outputs=(arg("out", (nbr * r, f), "float32"),),
+        # rows past R in a block row's last row tile are not written
+        writes=(lambda x, y: [(rows_of(x), (y * bn, y * bn + bn))],),
+        reads=(lambda x, y: [((x // m_tiles, x // m_tiles + 2),)],
+               plan_lib.INDIRECT, plan_lib.INDIRECT, plan_lib.INDIRECT,
+               plan_lib.INDIRECT),
+        masked_edges=((False, True),),
+        vectors=(("x", 4 * f, 0), ("out", 4 * f, 0)) if vec else (),
+        args={"tile": (bm, bn), "wide": int((bm, bn) == WIDE_TILE),
+              "vec": int(vec)})
+
+
+def example_plans():
+    """The reference's example (the 512-node chain graph of 128 x 128
+    blocks, 4 block rows, F = 256), then both tiles at F = 64: 600 block
+    rows (32 x 64, the bulk batch's tile) and the GIN request's 120 (16 x
+    64)."""
+    rows, _, _, nbr = to_bsr(512, np.arange(511), np.arange(1, 512),
+                             np.ones(511, np.float32))
+    return [plan(nbr, 128, 256, int(rows.shape[0]), nbr, True),
+            plan(600, 128, 64, 1_800, 600, True),
+            plan(120, 128, 64, 344, 120, True)]
+
+
+def launch(p: plan_lib.LaunchPlan, row_ptr, block_cols, occupancy, blocks,
+           x, out, stream=None) -> None:
+    """One launch of ``p`` on the wrapper's checked tensors."""
+    fn = build.entry("bsr_spmm", [ctypes.c_void_p] * 6 + [
+        ctypes.c_int] * 5 + build.LAUNCH_ARGTYPES)
+    build.check("bsr_spmm", fn(
+        build.ptr(row_ptr), build.ptr(block_cols), build.ptr(occupancy),
+        build.ptr(blocks), build.ptr(x), build.ptr(out),
+        row_ptr.shape[0] - 1, blocks.shape[1], x.shape[1], p.args["wide"],
+        p.args["vec"], *p.launch_dims(),
+        build.stream_of(x.device) if stream is None else stream))
+
+
 def plain(row_ptr: torch.Tensor, block_cols: torch.Tensor,
           blocks: torch.Tensor, x: torch.Tensor,
           chunk: int = 4096) -> torch.Tensor:
@@ -236,21 +309,16 @@ def bsr_spmm(row_ptr: torch.Tensor, block_cols: torch.Tensor,
     s = -(-r // GRAIN)
     build.require(occupancy, "bsr_spmm occupancy", torch.int32, dev,
                   (nnzb, s, -(-s // 32)))
-    shape = tile(nbr, r, f, build.sm_count(dev))
-    bm, bn = shape
+    bm, bn = tile(nbr, r, f, build.sm_count(dev))
     if -(-f // bn) > _MAX_GRID_Y or nbr * -(-r // bm) >= 2 ** 31:
         raise ValueError(f"bsr_spmm: grid too large for F = {f}, "
                          f"{nbr} block rows of {r}")
-    out = torch.empty(nbr * r, f, dtype=torch.float32, device=dev)
     if nbr == 0 or f == 0:
-        return out
-    vec = int(r % 4 == 0 and f % 4 == 0 and all(
-        t.data_ptr() % 16 == 0 for t in (blocks, x, out)))
-    fn = build.entry("bsr_spmm", [ctypes.c_void_p] * 6 + [
-        ctypes.c_int] * 5 + [ctypes.c_void_p])
-    build.check("bsr_spmm", fn(
-        build.ptr(row_ptr), build.ptr(block_cols), build.ptr(occupancy),
-        build.ptr(blocks), build.ptr(x), build.ptr(out), nbr, r, f,
-        int(shape == WIDE_TILE), vec, build.stream_of(dev)))
+        return torch.empty(nbr * r, f, dtype=torch.float32, device=dev)
+    vec = (r % 4 == 0 and f % 4 == 0
+           and all(t.data_ptr() % 16 == 0 for t in (blocks, x)))
+    p = plan(nbr, r, f, nnzb, x.shape[0] // r, vec, dev)
+    out = torch.empty(nbr * r, f, dtype=torch.float32, device=dev)
+    launch(p, row_ptr, block_cols, occupancy, blocks, x, out)
     launches += 1
     return out

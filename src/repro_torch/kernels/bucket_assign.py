@@ -29,6 +29,8 @@ fixed by n, so two calls give bitwise the same bins; integer weights below
 version's. :func:`prefix_split_host` is the entry of
 ``initial_partition_device``: one pinned host-to-device copy of the
 weights and the boundaries, the launch, and the copy of the bins back.
+Both launches come from plans (:func:`plan`, :func:`split_plan`;
+``kernels/plan.py``).
 """
 from __future__ import annotations
 
@@ -39,6 +41,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels import plan as plan_lib
 
 launches = 0
 # launches of prefix_split (plain CPU calls do not count)
@@ -49,7 +52,12 @@ MAX_BOUNDARIES = 48 * 1024 // 4
 MAX_SPLIT_BOUNDARIES = (48 * 1024 - 256) // 4
 # vertices of one prefix_split tile (1,024 threads x 16): a call over at
 # most this many runs as one block, a larger one as a cooperative launch
-SPLIT_TILE = 1024 * 16
+SPLIT_THREADS = 1024
+SPLIT_ITEMS = 16
+SPLIT_TILE = SPLIT_THREADS * SPLIT_ITEMS
+# the map: 256 threads a block, at most 8 blocks an SM (grid-stride)
+MAP_THREADS = 256
+MAP_BLOCKS_PER_SM = 8
 
 # prefix_split's cooperative workspace by device: two barrier words, zero
 # between calls, then one float per tile
@@ -62,6 +70,115 @@ def plain(cum: torch.Tensor, boundaries: torch.Tensor, k: int) -> torch.Tensor:
     """The same count in plain PyTorch (``[n, k-1]`` comparisons)."""
     count = (cum[:, None] >= boundaries[None, :]).sum(dim=1)
     return count.clamp(0, k - 1).to(torch.int32)
+
+
+_plans = plan_lib.cache("bucket_assign")
+
+
+def plan(n: int, nb: int, device=None) -> plan_lib.LaunchPlan:
+    """The map's launch over ``n`` midpoints and ``nb`` boundaries, cached
+    by shape: a thread a vertex, grid-stride, the boundaries in shared
+    memory."""
+    return _plans.get_or_build(("map", n, nb, device), lambda: _map_plan(
+        n, nb, plan_lib.device_model(device)))
+
+
+def _map_plan(n, nb, model):
+    blocks = max(1, min(-(-n // MAP_THREADS), model.sms * MAP_BLOCKS_PER_SM))
+
+    def verts(clip):
+        return lambda b: plan_lib.strided(b, MAP_THREADS, blocks, n, clip)
+
+    arg = plan_lib.Arg
+    return plan_lib.LaunchPlan(
+        name="bucket_assign", entry="bucket_assign",
+        kernel="bucket_assign_kernel", grid=(blocks,),
+        threads=(MAP_THREADS,), dyn_smem=4 * max(nb, 1),
+        operands=(arg("cum", (n,), "float32"),
+                  arg("boundaries", (nb,), "float32")),
+        outputs=(arg("bin", (n,), "int32"),),
+        writes=(verts(False),),
+        reads=(verts(True), lambda b: [((0, nb),)]),
+        masked_edges=((True,),))
+
+
+def split_plan(n: int, nb: int, device=None) -> plan_lib.LaunchPlan:
+    """``prefix_split``'s launch over ``n`` vertices and ``nb`` boundaries,
+    cached by shape: up to one tile (``SPLIT_TILE`` vertices) one block of
+    as many warps as the vertices need, beyond that one cooperative launch
+    of a block a tile, cut to the blocks the card holds at once."""
+    return _plans.get_or_build(("split", n, nb, device), lambda: _split_plan(
+        n, nb, device))
+
+
+def _split_plan(n, nb, device):
+    model = plan_lib.device_model(device)
+    coop = n > SPLIT_TILE
+    if coop:
+        threads = SPLIT_THREADS
+    else:
+        threads = max(32, -(-(-(-n // SPLIT_ITEMS)) // 32) * 32)
+    smem = threads * SPLIT_ITEMS * 4 + 4 * max(nb, 1)
+    kernel = f"prefix_split_kernel<{'true' if coop else 'false'}>"
+    tile = threads * SPLIT_ITEMS
+    tiles = max(1, -(-n // tile))
+    blocks = 1
+    if coop:
+        per_sm = plan_lib.occupancy("prefix_split", kernel, threads, smem, 1,
+                                    device)
+        blocks = min(tiles, max(per_sm, 1) * model.sms)
+
+    def tiles_of(b, clip):
+        return plan_lib.strided(b, tile, blocks, n, clip)
+
+    arg = plan_lib.Arg
+    phase = 1 if coop else 0
+    return plan_lib.LaunchPlan(
+        name="bucket_assign", entry="prefix_split", kernel=kernel,
+        grid=(blocks,), threads=(threads,), dyn_smem=smem,
+        smem_optin=smem > 48 * 1024, cooperative=coop,
+        operands=(arg("node_weight", (n,), "float32"),
+                  arg("boundaries", (nb,), "float32"),
+                  arg("work", (max(tiles, 256) + 2,), "int32")),
+        outputs=(arg("bin", (n,), "int32"),),
+        writes=(lambda b: [plan_lib.Tile(t, phase)
+                           for t in tiles_of(b, False)],),
+        reads=(lambda b: tiles_of(b, True), lambda b: [((0, nb),)],
+               plan_lib.INDIRECT),
+        masked_edges=((True,),), phases=2 if coop else 1,
+        args={"path": "cooperative" if coop else "one_block"})
+
+
+def example_plans():
+    """The reference's example (``n=4096, k=64``), and ``prefix_split`` as
+    one block (the full cell's coarsest 12,288 vertices) and cooperative
+    past 16,384 vertices (one million)."""
+    return [plan(4096, 63), split_plan(12_288, 511),
+            split_plan(1_000_000, 63)]
+
+
+def launch(p: plan_lib.LaunchPlan, cum, boundaries, out, k: int,
+           stream=None) -> None:
+    """One launch of the map's plan ``p``."""
+    fn = build.entry("bucket_assign", [ctypes.c_void_p] * 3 + [
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_int]
+        + build.LAUNCH_ARGTYPES)
+    build.check("bucket_assign", fn(
+        build.ptr(cum), build.ptr(boundaries), build.ptr(out), cum.shape[0],
+        boundaries.shape[0], k, *p.launch_dims(),
+        build.stream_of(cum.device) if stream is None else stream))
+
+
+def launch_split(p: plan_lib.LaunchPlan, node_weight, boundaries, out, work,
+                 k: int, stream=None) -> None:
+    """One launch of the split's plan ``p``."""
+    fn = build.entry("prefix_split", [ctypes.c_void_p] * 4 + [
+        ctypes.c_longlong] + [ctypes.c_int] * 3 + build.LAUNCH_ARGTYPES)
+    build.check("prefix_split", fn(
+        build.ptr(node_weight), build.ptr(boundaries), build.ptr(out),
+        build.ptr(work), node_weight.shape[0], boundaries.shape[0], k,
+        int(p.cooperative), *p.launch_dims(),
+        build.stream_of(node_weight.device) if stream is None else stream))
 
 
 def bucket_assign(cum: torch.Tensor, boundaries: torch.Tensor,
@@ -82,13 +199,9 @@ def bucket_assign(cum: torch.Tensor, boundaries: torch.Tensor,
                          f"shared-memory tile of {MAX_BOUNDARIES}")
     if k < 1:
         raise ValueError(f"bucket_assign: k must be >= 1, got {k}")
+    p = plan(n, nb, cum.device)
     out = torch.empty(n, dtype=torch.int32, device=cum.device)
-    fn = build.entry("bucket_assign", [ctypes.c_void_p] * 3 + [
-        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p])
-    build.check("bucket_assign", fn(
-        build.ptr(cum), build.ptr(boundaries), build.ptr(out), n, nb, k,
-        build.sm_count(cum.device), build.stream_of(cum.device)))
+    launch(p, cum, boundaries, out, k)
     launches += 1
     return out
 
@@ -137,29 +250,22 @@ def split_kernel(node_weight: torch.Tensor, boundaries: torch.Tensor,
                          f"shared-memory tile of {MAX_SPLIT_BOUNDARIES}")
     if k < 1:
         raise ValueError(f"prefix_split: k must be >= 1, got {k}")
-    out = torch.empty(n, dtype=torch.int32, device=dev)
     if n == 0:
-        return out
-    work = (_split_workspace(dev, -(-n // SPLIT_TILE)) if n > SPLIT_TILE
+        return torch.empty(0, dtype=torch.int32, device=dev)
+    p = split_plan(n, nb, dev)
+    out = torch.empty(n, dtype=torch.int32, device=dev)
+    work = (_split_workspace(dev, -(-n // SPLIT_TILE)) if p.cooperative
             else out)   # the one-block path reads no workspace
-    fn = build.entry("prefix_split", [ctypes.c_void_p] * 4 + [
-        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p])
-    build.check("prefix_split", fn(
-        build.ptr(node_weight), build.ptr(boundaries), build.ptr(out),
-        build.ptr(work), n, nb, k, build.sm_count(dev),
-        build.stream_of(dev)))
+    launch_split(p, node_weight, boundaries, out, work, k)
     split_launches += 1
     return out
 
 
 def split_blocks(n: int, nb: int, dev: torch.device) -> int:
     """The blocks a ``prefix_split`` launch over ``n`` vertices takes on
-    ``dev``'s card: 1 for the one-block path, else the cooperative grid."""
-    fn = build.library().prefix_split_blocks
-    fn.argtypes = [ctypes.c_longlong, ctypes.c_int, ctypes.c_int]
-    fn.restype = ctypes.c_int
-    return int(fn(n, nb, build.sm_count(dev)))
+    ``dev``'s card: 1 for the one-block path, else the cooperative grid
+    (its plan's)."""
+    return split_plan(n, nb, dev).blocks
 
 
 def prefix_split(node_weight: torch.Tensor, boundaries: torch.Tensor,

@@ -192,3 +192,53 @@ def entry(name: str, argtypes) -> ctypes._CFuncPtr:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return fn
+
+
+# ---------------------------------------------------------------------------
+# launch plans: the launch dimensions every launcher takes, and the card's
+# answers about a kernel instance (by the name its source gives it)
+# ---------------------------------------------------------------------------
+
+# grid.x, grid.y, grid.z, block.x, block.y, block.z, dynamic shared memory,
+# then the stream: the tail of every *_launch entry point's signature
+LAUNCH_ARGTYPES = [ctypes.c_int] * 6 + [ctypes.c_longlong, ctypes.c_void_p]
+
+
+def kernel_of(entry: str, kernel: str) -> int:
+    """The address of ``kernel`` (an instance name of ``entry``'s source,
+    as a plan's ``kernel`` gives it); raises if the source has none."""
+    fn = getattr(library(), f"{entry}_kernel_of")
+    fn.argtypes = [ctypes.c_char_p]
+    fn.restype = ctypes.c_void_p
+    ptr_ = fn(kernel.encode())
+    if not ptr_:
+        raise ValueError(f"{entry}: no kernel instance named {kernel!r}")
+    return ptr_
+
+
+def occupancy(entry: str, kernel: str, threads: int, smem: int) -> int:
+    """Blocks of ``kernel`` one SM holds at ``threads`` threads and
+    ``smem`` bytes of dynamic shared memory (the card's occupancy query,
+    the shared-memory opt-in raised first where ``smem`` needs it)."""
+    lib = library()
+    fn = lib.repro_occupancy
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                   ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = ctypes.c_int(0)
+    check(f"{entry} occupancy", fn(kernel_of(entry, kernel), threads, smem,
+                                   ctypes.byref(out)))
+    return int(out.value)
+
+
+def func_attributes(entry: str, kernel: str) -> Dict[str, int]:
+    """``cudaFuncGetAttributes`` of ``kernel``: registers a thread, static
+    shared memory, the most threads a block and the dynamic shared memory
+    the kernel is allowed now."""
+    fn = library().repro_func_attributes
+    fn.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 4)()
+    check(f"{entry} attributes", fn(kernel_of(entry, kernel), out))
+    return {"regs": int(out[0]), "static_smem": int(out[1]),
+            "max_threads": int(out[2]), "max_dyn_smem": int(out[3])}

@@ -46,7 +46,8 @@ call counts on an op-cost recorder by declaration
 the recorder cannot see) and the plain version, whose ops are not
 counted. The wrapper's
 ``q_chunk`` / ``kv_chunk`` are its chunk sizes and do not change the
-kernel's own tiling.
+kernel's own tiling. The launch (kernel, grid, threads, shared memory) comes
+from :func:`plan` (``kernels/plan.py``).
 """
 from __future__ import annotations
 
@@ -57,6 +58,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import build, cost_sites
+from repro_torch.kernels import plan as plan_lib
 from repro_torch.models.common import flash_attention_bwd as plain_bwd
 from repro_torch.models.common import flash_attention_fwd as plain_fwd
 
@@ -68,6 +70,166 @@ MAX_V_HEAD_DIM = 128        # v and the output
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # (D, Dv) pairs the bf16 Hopper (TMA + wgmma) kernel takes
 TMA_HEAD_DIMS = ((64, 64), (128, 128), (192, 128))
+# the SIMT kernel: 64 q rows and 64 keys a tile, 256 threads
+# (__launch_bounds__(256, 2)), transposed tiles of leading dimension 68;
+# its padded widths
+SIMT_BQ, SIMT_BK, SIMT_LD, SIMT_THREADS = 64, 64, 68, 256
+SIMT_DM = (32, 64, 128, 192)
+SIMT_DVM = (32, 64, 128)
+# the Hopper kernel: 128 q rows and 128 keys a tile, 384 threads (a
+# producer warpgroup and two consumers, __launch_bounds__(384, 1))
+WG_BQ, WG_BK, WG_THREADS = 128, 128, 384
+
+_plans = plan_lib.cache("flash_attention")
+
+
+def simt_smem(dm: int) -> int:
+    """The SIMT kernel's dynamic shared memory at padded width ``dm``."""
+    return 4 * (2 * dm * SIMT_LD + SIMT_BK * SIMT_LD + 4 * SIMT_BQ * 2
+                + 2 * SIMT_BQ)
+
+
+def wgmma_smem(d: int, dv: int) -> int:
+    """The Hopper kernel's dynamic shared memory (``WgTile::SMEM``): Q, a
+    ring of K and V stages, their barriers and 1 KB of alignment slack."""
+    stages = 4 if d == 64 else 2
+    panel = WG_BQ * 128
+    return (d // 64 * panel + stages * (d // 64 + dv // 64) * panel
+            + 8 * (2 + 4 * stages) + 1024)
+
+
+def plan(b: int, sq: int, sk: int, h: int, kh: int, d: int, dv: int,
+         dtype: torch.dtype, lse: bool = False,
+         device=None) -> plan_lib.LaunchPlan:
+    """The launch for q ``[b, sq, h, d]``, k ``[b, sk, kh, d]`` and v
+    ``[b, sk, kh, dv]`` of ``dtype`` (with the ``[b, sq, h]`` log-sum-exp
+    where ``lse``) on ``device``'s card, cached by shape: bf16 at a
+    ``TMA_HEAD_DIMS`` pair runs the Hopper kernel on a persistent grid of
+    ``min(tiles, SMs)`` blocks; everything else the SIMT kernel, a block a
+    (batch, head, 64-row q tile)."""
+    return _plans.get_or_build(
+        (b, sq, sk, h, kh, d, dv, dtype, lse, device),
+        lambda: _plan(b, sq, sk, h, kh, d, dv, dtype, lse,
+                      plan_lib.device_model(device)))
+
+
+def _plan(b, sq, sk, h, kh, d, dv, dtype, lse, model):
+    dt = "bfloat16" if dtype == torch.bfloat16 else "float32"
+    n_bh = b * h
+    group = h // kh
+    wg = dtype == torch.bfloat16 and (d, dv) in TMA_HEAD_DIMS
+    bq = WG_BQ if wg else SIMT_BQ
+    n_qtiles = -(-sq // bq)
+    tiles = n_bh * n_qtiles
+
+    def work_tile(i):
+        bb, hh = divmod(i % n_bh, h)
+        return bb, hh, (n_qtiles - 1 - i // n_bh) * bq
+
+    if wg:
+        grid = min(tiles, model.sms)
+        dm, dvm = d, dv
+
+        def tiles_of(c):
+            # snake order: rounds of `grid` tiles, walked back and forth
+            out, r = [], 0
+            while True:
+                i = r * grid + ((grid - 1 - c) if r & 1 else c)
+                if i >= tiles:
+                    return out
+                out.append(work_tile(i))
+                r += 1
+        kernel = f"flash_fwd_wgmma_kernel<{d},{dv}>"
+        threads, smem, min_blocks = WG_THREADS, wgmma_smem(d, dv), 1
+        itemsize = 2
+        tma = (plan_lib.TensorMap("q", dt, (d, h, sq, b),
+                                  (2 * d, 2 * d * h, 2 * d * h * sq),
+                                  (64, 1, WG_BQ, 1), 128),
+               plan_lib.TensorMap("k", dt, (d, kh, sk, b),
+                                  (2 * d, 2 * d * kh, 2 * d * kh * sk),
+                                  (64, 1, WG_BK, 1), 128),
+               plan_lib.TensorMap("v", dt, (dv, kh, sk, b),
+                                  (2 * dv, 2 * dv * kh, 2 * dv * kh * sk),
+                                  (64, 1, WG_BK, 1), 128))
+    else:
+        grid = tiles
+        dm = next(x for x in SIMT_DM if x >= max(d, dv))
+        dvm = next(x for x in SIMT_DVM if x >= dv)
+
+        def tiles_of(x):
+            return [work_tile(x)]
+        kernel = (f"flash_fwd_kernel<{'bf16' if dt == 'bfloat16' else 'float'}"
+                  f",{dm},{dvm}>")
+        threads, smem, min_blocks = SIMT_THREADS, simt_smem(dm), 2
+        itemsize = 4 if dt == "float32" else 2
+        tma = ()
+
+    def o_tiles(x):
+        return [((bb, bb + 1), (q0, q0 + bq), (hh, hh + 1), (0, dv))
+                for bb, hh, q0 in tiles_of(x)]
+
+    def lse_tiles(x):
+        return [((bb, bb + 1), (q0, q0 + bq), (hh, hh + 1))
+                for bb, hh, q0 in tiles_of(x)]
+
+    def q_reads(x):
+        return [((bb, bb + 1), (q0, min(sq, q0 + bq)), (hh, hh + 1), (0, d))
+                for bb, hh, q0 in tiles_of(x)]
+
+    def kv_reads(width):
+        return lambda x: [((bb, bb + 1), (0, sk), (hh // group,
+                                                  hh // group + 1),
+                           (0, width)) for bb, hh, _ in tiles_of(x)]
+
+    arg = plan_lib.Arg
+    outputs = (arg("out", (b, sq, h, dv), dt),)
+    writes = (o_tiles,)
+    masked = ((False, True, False, False),)
+    if lse:
+        outputs += (arg("lse", (b, sq, h), "float32"),)
+        writes += (lse_tiles,)
+        masked += ((False, True, False),)
+    return plan_lib.LaunchPlan(
+        name="flash_attention", entry="flash_attention", kernel=kernel,
+        grid=(grid,), threads=(threads,), dyn_smem=smem,
+        smem_optin=smem > 48 * 1024, min_blocks_per_sm=min_blocks,
+        operands=(arg("q", (b, sq, h, d), dt), arg("k", (b, sk, kh, d), dt),
+                  arg("v", (b, sk, kh, dv), dt)),
+        outputs=outputs, writes=writes,
+        reads=(q_reads, kv_reads(d), kv_reads(dv)), masked_edges=masked,
+        tma=tma, vectors=(("q", itemsize * d * h, 0),) if wg else (),
+        args={"path": "wgmma" if wg else "simt", "code": int(wg),
+              "dm": dm, "dvm": dvm})
+
+
+def example_plans():
+    """The reference's example (``b=1, sq=sk=256, h=2, kh=1, d=128``, in
+    float32: the SIMT kernel), then the Hopper kernel at (64, 64), (128,
+    128) and (192, 128), and float32 with the log-sum-exp."""
+    return [plan(1, 256, 256, 2, 1, 128, 128, torch.float32),
+            plan(1, 256, 256, 2, 1, 64, 64, torch.bfloat16),
+            plan(1, 256, 256, 2, 1, 128, 128, torch.bfloat16),
+            plan(1, 256, 256, 2, 1, 192, 128, torch.bfloat16, lse=True),
+            plan(1, 200, 200, 4, 2, 40, 24, torch.float32, lse=True)]
+
+
+def launch(p: plan_lib.LaunchPlan, q, k, v, out, lse, causal: bool,
+           stream=None) -> None:
+    """One launch of ``p`` on the wrapper's checked tensors (``lse`` None
+    or the ``[B, Sq, H]`` buffer)."""
+    b, sq, h, d = q.shape
+    _, sk, kh, _ = k.shape
+    fn = build.entry("flash_attention", [ctypes.c_void_p] * 5
+                     + [ctypes.c_int] * 9
+                     + [ctypes.c_float] + [ctypes.c_int] * 3
+                     + build.LAUNCH_ARGTYPES)
+    build.check("flash_attention", fn(
+        build.ptr(q), build.ptr(k), build.ptr(v), build.ptr(out),
+        None if lse is None else build.ptr(lse), b, sq, sk, h, kh, d,
+        v.shape[-1], _DTYPES[q.dtype], int(bool(causal)),
+        float(1.0 / np.sqrt(d)), p.args["code"], p.args["dm"], p.args["dvm"],
+        *p.launch_dims(),
+        build.stream_of(q.device) if stream is None else stream))
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -115,19 +277,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                  f"bases only)")
     cost_sites.declare_attention((b, sq, h, d), (b, sk, kh, d), dv,
                                  q.element_size(), q_chunk, kv_chunk, False)
+    p = (plan(b, sq, sk, h, kh, d, dv, q.dtype, return_lse, dev)
+         if b and sq else None)
     out = torch.empty((b, sq, h, dv), dtype=q.dtype, device=dev)
     lse = (torch.empty((b, sq, h), dtype=torch.float32, device=dev)
            if return_lse else None)
-    if b == 0 or sq == 0:
+    if p is None:
         return (out, lse) if return_lse else out
-    fn = build.entry("flash_attention", [ctypes.c_void_p] * 5
-                     + [ctypes.c_int] * 9
-                     + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-    build.check("flash_attention", fn(
-        build.ptr(q), build.ptr(k), build.ptr(v), build.ptr(out),
-        None if lse is None else build.ptr(lse), b, sq, sk, h, kh, d, dv,
-        _DTYPES[q.dtype], int(bool(causal)), float(1.0 / np.sqrt(d)),
-        build.sm_count(dev), build.stream_of(dev)))
+    launch(p, q, k, v, out, lse, causal)
     launches += 1
     return (out, lse) if return_lse else out
 

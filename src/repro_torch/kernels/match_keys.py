@@ -18,7 +18,8 @@ calls: the mask, the keys and both segment maxima of the round in one
 cooperative launch, the key never written, each sender's winner found by a
 64-bit ``atomicMax`` of ``(key bits << 32) | arc id`` (positive float bits
 order as unsigned integers), so it equals :func:`match_round_plain`, the
-reference's sequence, bit for bit.
+reference's sequence, bit for bit. Both launches come from plans
+(:func:`plan`, :func:`round_plan`; ``kernels/plan.py``).
 """
 from __future__ import annotations
 
@@ -28,11 +29,21 @@ from typing import Dict
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels import plan as plan_lib
 
 # launches of the CUDA kernels (plain CPU calls do not count): the map,
 # and the fused round
 launches = 0
 round_launches = 0
+
+# the map: 256 threads a block, at most 8 blocks an SM (grid-stride)
+MAP_THREADS = 256
+MAP_BLOCKS_PER_SM = 8
+# the round: 512 threads (__launch_bounds__(512, 2)), 4 arcs a lane in
+# flight, at most 2 blocks an SM (a cooperative launch)
+ROUND_THREADS = 512
+ROUND_ARCS = 4
+ROUND_BLOCKS_PER_SM = 2
 
 # the fused round's workspace by device: one 64-bit word of barrier
 # counters, then one word per vertex, zero between calls
@@ -43,6 +54,98 @@ def plain(w: torch.Tensor, u: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """The same function in plain PyTorch (the CPU path)."""
     return torch.where(mask > 0, w * (1.0 + 0.01 * u),
                        torch.full_like(w, -1.0))
+
+
+_plans = plan_lib.cache("match_keys")
+
+
+def plan(m: int, device=None) -> plan_lib.LaunchPlan:
+    """The map's launch over ``m`` arcs, cached by shape: a thread an arc,
+    grid-stride, at most ``MAP_BLOCKS_PER_SM`` blocks an SM."""
+    return _plans.get_or_build(("map", m, device), lambda: _map_plan(
+        m, plan_lib.device_model(device)))
+
+
+def _map_plan(m, model):
+    blocks = max(1, min(-(-m // MAP_THREADS), model.sms * MAP_BLOCKS_PER_SM))
+
+    def arcs(clip):
+        return lambda b: plan_lib.strided(b, MAP_THREADS, blocks, m, clip)
+
+    arg = plan_lib.Arg
+    return plan_lib.LaunchPlan(
+        name="match_keys", entry="match_keys", kernel="match_keys_kernel",
+        grid=(blocks,), threads=(MAP_THREADS,),
+        operands=(arg("w", (m,), "float32"), arg("u", (m,), "float32"),
+                  arg("mask", (m,), "float32")),
+        outputs=(arg("key", (m,), "float32"),),
+        writes=(arcs(False),), reads=(arcs(True),) * 3,
+        masked_edges=((True,),))
+
+
+def round_plan(m: int, n: int, device=None) -> plan_lib.LaunchPlan:
+    """The fused round's cooperative launch over ``m`` arcs and ``n``
+    vertices, cached by shape: enough blocks for 4 arcs a lane or a
+    thread a vertex, at most ``ROUND_BLOCKS_PER_SM`` an SM and no more
+    than the card holds at once."""
+    return _plans.get_or_build(("round", m, n, device), lambda: _round_plan(
+        m, n, device))
+
+
+def _round_plan(m, n, device):
+    model = plan_lib.device_model(device)
+    per_sm = plan_lib.occupancy("match_round", "match_round_kernel",
+                                ROUND_THREADS, 0, ROUND_BLOCKS_PER_SM, device)
+    span = ROUND_THREADS * ROUND_ARCS
+    want = max(-(-m // span), -(-n // ROUND_THREADS), 1)
+    blocks = max(1, min(want, min(per_sm, ROUND_BLOCKS_PER_SM) * model.sms))
+
+    def arcs(b):
+        return plan_lib.strided(b, span, blocks, m, clip=True)
+
+    arg = plan_lib.Arg
+    return plan_lib.LaunchPlan(
+        name="match_keys", entry="match_round", kernel="match_round_kernel",
+        grid=(blocks,), threads=(ROUND_THREADS,), cooperative=True,
+        min_blocks_per_sm=ROUND_BLOCKS_PER_SM,
+        operands=(arg("s", (m,), "int32"), arg("r", (m,), "int32"),
+                  arg("w", (m,), "float32"), arg("u", (m,), "float32"),
+                  arg("matched", (n,), "bool"),
+                  arg("work", (max(n, 1024) + 1,), "int64")),
+        outputs=(arg("best", (n,), "int32"),),
+        # the vertices' words turn into best_arc after the grid barrier
+        writes=(lambda b: [plan_lib.Tile(t, 1) for t in plan_lib.strided(
+            b, ROUND_THREADS, blocks, n)],),
+        reads=(arcs, arcs, arcs, arcs, plan_lib.INDIRECT, plan_lib.INDIRECT),
+        masked_edges=((True,),), phases=2, args={"path": "round"})
+
+
+def example_plans():
+    """The reference's example (``m=100_000``), and the fused round at the
+    full cell's finest level (1,548,288 arcs, 262,144 vertices)."""
+    return [plan(100_000), round_plan(1_548_288, 262_144)]
+
+
+def launch(p: plan_lib.LaunchPlan, w, u, mask, out, stream=None) -> None:
+    """One launch of the map's plan ``p``."""
+    fn = build.entry("match_keys", [ctypes.c_void_p] * 4 + [
+        ctypes.c_longlong] + build.LAUNCH_ARGTYPES)
+    build.check("match_keys", fn(
+        build.ptr(w), build.ptr(u), build.ptr(mask), build.ptr(out),
+        w.shape[0], *p.launch_dims(),
+        build.stream_of(w.device) if stream is None else stream))
+
+
+def launch_round(p: plan_lib.LaunchPlan, s, r, w, u, matched, best, words,
+                 stream=None) -> None:
+    """One launch of the round's plan ``p``."""
+    fn = build.entry("match_round", [ctypes.c_void_p] * 7 + [
+        ctypes.c_longlong, ctypes.c_int] + build.LAUNCH_ARGTYPES)
+    build.check("match_round", fn(
+        build.ptr(s), build.ptr(r), build.ptr(w), build.ptr(u),
+        build.ptr(matched), build.ptr(best), build.ptr(words), w.shape[0],
+        matched.shape[0], *p.launch_dims(),
+        build.stream_of(w.device) if stream is None else stream))
 
 
 def match_keys(w: torch.Tensor, u: torch.Tensor,
@@ -57,12 +160,9 @@ def match_keys(w: torch.Tensor, u: torch.Tensor,
     m = w.shape[0]
     for t, what in ((w, "w"), (u, "u"), (mask, "mask")):
         build.require(t, f"match_keys {what}", torch.float32, w.device, (m,))
+    p = plan(m, w.device)
     out = torch.empty_like(w)
-    fn = build.entry("match_keys", [ctypes.c_void_p] * 4 + [
-        ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
-    build.check("match_keys", fn(build.ptr(w), build.ptr(u), build.ptr(mask),
-                                 build.ptr(out), m, build.sm_count(w.device),
-                                 build.stream_of(w.device)))
+    launch(p, w, u, mask, out)
     launches += 1
     return out
 
@@ -120,15 +220,11 @@ def match_round(s: torch.Tensor, r: torch.Tensor, w: torch.Tensor,
     build.require(w, "match_round w", torch.float32, dev, (m,))
     build.require(u, "match_round u", torch.float32, dev, (m,))
     build.require(matched, "match_round matched", torch.bool, dev, (n,))
-    best = torch.empty(n, dtype=torch.int32, device=dev)
     if n == 0:
-        return best
+        return torch.empty(0, dtype=torch.int32, device=dev)
+    p = round_plan(m, n, dev)
+    best = torch.empty(n, dtype=torch.int32, device=dev)
     words = _word_buffer(dev, n)
-    fn = build.entry("match_round", [ctypes.c_void_p] * 7 + [
-        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
-    build.check("match_round", fn(
-        build.ptr(s), build.ptr(r), build.ptr(w), build.ptr(u),
-        build.ptr(matched), build.ptr(best), build.ptr(words), m, n,
-        build.sm_count(dev), build.stream_of(dev)))
+    launch_round(p, s, r, w, u, matched, best, words)
     round_launches += 1
     return best

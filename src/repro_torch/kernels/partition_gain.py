@@ -13,6 +13,7 @@ their neighbours' bins in shared memory with coalesced loads, then one
 thread per (row, bin) sums the row's matching slots in slot order from +0,
 so every entry is the in-order float32 sum, bitwise; conn is written once,
 coalesced. Bound: ``n*D*8 + n*4 + n*k*4`` bytes over device memory.
+The launch comes from :func:`plan` (``kernels/plan.py``).
 """
 from __future__ import annotations
 
@@ -22,6 +23,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels import plan as plan_lib
 
 launches = 0
 MAX_ROWS = 64                 # rows of a tile
@@ -63,6 +65,59 @@ def plain(part: torch.Tensor, nbr_idx: torch.Tensor, nbr_w: torch.Tensor,
     return conn.view(n, k + 1)[:, :k]
 
 
+_plans = plan_lib.cache("partition_gain")
+
+
+def plan(n: int, d: int, k: int, device=None) -> plan_lib.LaunchPlan:
+    """The launch over ``n`` rows of ``d`` slots and ``k`` bins on
+    ``device``'s card (the H100's limits without one), cached by shape."""
+    return _plans.get_or_build((n, d, k, device), lambda: _plan(
+        n, d, k, plan_lib.device_model(device)))
+
+
+def _plan(n: int, d: int, k: int,
+          model: plan_lib.DeviceModel) -> plan_lib.LaunchPlan:
+    t = tile(n, d, k, model.sms)
+    rows = t.rows
+
+    def tile_rows(b):
+        return (b * rows, min(n, (b + 1) * rows))
+
+    return plan_lib.LaunchPlan(
+        name="partition_gain", entry="partition_gain",
+        kernel="partition_gain_kernel", grid=(-(-n // rows),),
+        threads=(t.threads,), dyn_smem=8 * rows * t.d_chunk,
+        operands=(plan_lib.Arg("part", (n,), "int32"),
+                  plan_lib.Arg("nbr_idx", (n, d), "int32"),
+                  plan_lib.Arg("nbr_w", (n, d), "float32")),
+        outputs=(plan_lib.Arg("conn", (n, k), "float32"),),
+        writes=(lambda b: [((b * rows, (b + 1) * rows), (0, k))],),
+        reads=(plan_lib.INDIRECT,
+               lambda b: [(tile_rows(b), (0, d))],
+               lambda b: [(tile_rows(b), (0, d))]),
+        masked_edges=((True, False),),
+        args={"rows": rows, "d_chunk": t.d_chunk})
+
+
+def example_plans():
+    """The reference's example (``n=1000, d=8, k=8``), and the serve
+    pool's one-row blocks."""
+    return [plan(1000, 8, 8), plan(48, 6, 4)]
+
+
+def launch(p: plan_lib.LaunchPlan, part, nbr_idx, nbr_w, conn,
+           stream=None) -> None:
+    """One launch of ``p`` on the wrapper's checked tensors."""
+    n, d = nbr_idx.shape
+    fn = build.entry("partition_gain", [ctypes.c_void_p] * 4
+                     + [ctypes.c_int] * 5 + build.LAUNCH_ARGTYPES)
+    build.check("partition_gain", fn(
+        build.ptr(part), build.ptr(nbr_idx), build.ptr(nbr_w),
+        build.ptr(conn), n, d, conn.shape[1], p.args["rows"],
+        p.args["d_chunk"], *p.launch_dims(),
+        build.stream_of(part.device) if stream is None else stream))
+
+
 def partition_gain(part: torch.Tensor, nbr_idx: torch.Tensor,
                    nbr_w: torch.Tensor, k: int) -> torch.Tensor:
     """conn ``[n, k]`` float32 from ``part`` int32 ``[n]`` and the ELL
@@ -79,12 +134,10 @@ def partition_gain(part: torch.Tensor, nbr_idx: torch.Tensor,
     build.require(part, "partition_gain part", torch.int32, dev, (n,))
     build.require(nbr_idx, "partition_gain nbr_idx", torch.int32, dev, (n, d))
     build.require(nbr_w, "partition_gain nbr_w", torch.float32, dev, (n, d))
+    if n == 0:
+        return torch.empty(0, k, dtype=torch.float32, device=dev)
+    p = plan(n, d, k, dev)
     conn = torch.empty(n, k, dtype=torch.float32, device=dev)
-    t = tile(n, d, k, build.sm_count(dev))
-    fn = build.entry("partition_gain", [ctypes.c_void_p] * 4 + [
-        ctypes.c_int] * 6 + [ctypes.c_void_p])
-    build.check("partition_gain", fn(
-        build.ptr(part), build.ptr(nbr_idx), build.ptr(nbr_w), build.ptr(conn),
-        n, d, k, t.rows, t.d_chunk, t.threads, build.stream_of(dev)))
+    launch(p, part, nbr_idx, nbr_w, conn)
     launches += 1
     return conn

@@ -20,7 +20,9 @@ kernel runs on the current stream only. It is bound by the 12 B per arc it
 streams (~5.9 us at m = 1.5M arcs on an H100). Float atomics vary the
 summation order, so it matches the plain version to allclose (rtol 1e-4,
 atol 1e-3), not bitwise. Call it with ``F_l = ones`` where raw comm is
-needed.
+needed. The launch comes from :func:`plan` (``kernels/plan.py``): its
+grid is :func:`qll_path`'s, cut to the blocks the card holds at once, and
+the launcher refuses a grid past that rather than cutting it.
 """
 from __future__ import annotations
 
@@ -31,12 +33,14 @@ from typing import Dict, NamedTuple, Tuple
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels import plan as plan_lib
 
 launches = 0
 # launches by (arcs m, vertices n, bins k, links L), reset with the count
 launch_shapes: collections.Counter = collections.Counter()
 
-# blocks of THREADS threads; arc lists up to SINGLE_BLOCK_ARCS run as one
+# blocks of THREADS threads (__launch_bounds__(512, 2): two blocks an SM
+# are guaranteed the registers); arc lists up to SINGLE_BLOCK_ARCS run as one
 # block (measured crossover, PERF.md section 6), longer ones on a grid with
 # at least ARCS_PER_BLOCK arcs a block and at most BLOCKS_PER_SM per SM (the
 # launch is cooperative: every block resident at once)
@@ -69,6 +73,88 @@ def qll_path(m: int, k: int, n_sm: int) -> QllPath:
               max(1, min(-(-m // ARCS_PER_BLOCK), n_sm * BLOCKS_PER_SM)))
     smem = 4 * k * k
     return QllPath(blocks, THREADS, smem if smem <= SMEM_W_BYTES else 0)
+
+
+_plans = plan_lib.cache("quotient_link_loads")
+_SPAN = 128                   # arcs a warp step (32 lanes x 4 in flight)
+
+
+def plan(m: int, n: int, k: int, n_links: int,
+         device=None) -> plan_lib.LaunchPlan:
+    """The cooperative launch over ``m`` arcs of ``n`` vertices, ``k``
+    bins and ``n_links`` links on ``device``'s card (the H100's limits
+    without one), cached by shape."""
+    return _plans.get_or_build((m, n, k, n_links, device), lambda: _plan(
+        m, n, k, n_links, device))
+
+
+def _plan(m, n, k, n_links, device, blocks=None):
+    model = plan_lib.device_model(device)
+    path = qll_path(m, k, model.sms)
+    kernel = "qll_kernel<true>" if path.smem else "qll_kernel<false>"
+    if blocks is None:
+        per_sm = plan_lib.occupancy("quotient_link_loads", kernel,
+                                    path.threads, path.smem, BLOCKS_PER_SM,
+                                    device)
+        blocks = max(1, min(path.blocks, per_sm * model.sms))
+    per_block = -(-(-(-m // blocks)) // _SPAN) * _SPAN
+    kk = k * k
+
+    def arcs(b):
+        lo = min(m, b * per_block)
+        return [((lo, min(m, lo + per_block)),)]
+
+    def whole(*shape):
+        return lambda b: [tuple((0, s) for s in shape)]
+
+    return plan_lib.LaunchPlan(
+        name="quotient_link_loads", entry="quotient_link_loads",
+        kernel=kernel, grid=(blocks,), threads=(path.threads,),
+        dyn_smem=path.smem, smem_optin=path.smem > 48 * 1024,
+        cooperative=True, min_blocks_per_sm=BLOCKS_PER_SM,
+        operands=(plan_lib.Arg("part", (n,), "int32"),
+                  plan_lib.Arg("senders", (m,), "int32"),
+                  plan_lib.Arg("receivers", (m,), "int32"),
+                  plan_lib.Arg("weight", (m,), "float32"),
+                  plan_lib.Arg("subtree", (n_links, k), "float32"),
+                  plan_lib.Arg("F_l", (n_links,), "float32"),
+                  plan_lib.Arg("work", (2 * kk + 2,), "float32")),
+        outputs=(plan_lib.Arg("W", (kk,), "float32"),
+                 plan_lib.Arg("out", (n_links,), "float32")),
+        # W: a slice a block after the barrier; out: zeroed by block 0
+        # before it, then the links' sums added atomically
+        writes=(lambda b: [plan_lib.Tile(
+                    ((kk * b // blocks, kk * (b + 1) // blocks),), 1)],
+                lambda b: [plan_lib.Tile(((0, n_links),), 0)] if b == 0
+                else []),
+        reads=(plan_lib.INDIRECT, arcs, arcs, arcs,
+               whole(n_links, k), whole(n_links), plan_lib.INDIRECT),
+        masked_edges=((False,), (False,)),
+        atomic_outputs=(1,), phases=2,
+        args={"path": "smem_w" if path.smem else "global_w",
+              "per_block": per_block})
+
+
+def example_plans():
+    """The reference's example (``m=2048, k=16, L=20``: one block), then W
+    in shared memory on a grid (k = 64) and in device memory (k = 512)."""
+    return [plan(2048, 1000, 16, 20), plan(122_656, 30_000, 64, 126),
+            plan(1_548_288, 262_144, 512, 584)]
+
+
+def launch(p: plan_lib.LaunchPlan, part, senders, receivers, weight, subtree,
+           F_l, W, out, work, half, stream=None) -> None:
+    """One launch of ``p`` on the wrapper's checked tensors."""
+    fn = build.entry("quotient_link_loads", [ctypes.c_void_p] * 4 + [
+        ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int] + build.LAUNCH_ARGTYPES)
+    build.check("quotient_link_loads", fn(
+        build.ptr(part), build.ptr(senders), build.ptr(receivers),
+        build.ptr(weight), senders.shape[0], build.ptr(subtree),
+        build.ptr(F_l), subtree.shape[0], subtree.shape[1], build.ptr(W),
+        build.ptr(out), build.ptr(work), half, *p.launch_dims(),
+        build.stream_of(part.device) if stream is None else stream))
 
 
 def _workspace(dev: torch.device, k: int) -> Tuple[torch.Tensor, int]:
@@ -157,21 +243,12 @@ def loads_and_quotient(part: torch.Tensor, senders: torch.Tensor,
                   (n_links, k))
     build.require(F_l, "quotient_link_loads F_l", torch.float32, dev,
                   (n_links,))
-    sms = build.sm_count(dev)
-    path = qll_path(m, k, sms)
+    p = plan(m, int(part.shape[0]), k, n_links, dev)
     W = torch.empty(k * k, dtype=torch.float32, device=dev)
     out = torch.empty(n_links, dtype=torch.float32, device=dev)
     work, half = _workspace(dev, k)
-    fn = build.entry("quotient_link_loads", [ctypes.c_void_p] * 4 + [
-        ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
-        ctypes.c_int, ctypes.c_void_p])
-    build.check("quotient_link_loads", fn(
-        build.ptr(part), build.ptr(senders), build.ptr(receivers),
-        build.ptr(weight), m, build.ptr(subtree), build.ptr(F_l), n_links, k,
-        build.ptr(W), build.ptr(out), build.ptr(work), half, path.blocks,
-        path.threads, path.smem, sms, build.stream_of(dev)))
+    launch(p, part, senders, receivers, weight, subtree, F_l, W, out, work,
+           half)
     launches += 1
     launch_shapes[(m, int(part.shape[0]), k, n_links)] += 1
     return out, W.view(k, k)

@@ -355,7 +355,8 @@ def main(argv: Optional[List[str]] = None) -> None:
                          "$REPRO_PLACEMENT_CACHE or "
                          "results/placement_cache_torch; '' disables)")
     ap.add_argument("--lint", action="store_true",
-                    help="after the run, lint every traced traffic matrix "
+                    help="after the run, verify the kernel launch plans and "
+                         "lint every traced traffic matrix "
                          "(repro_torch.analysis); error findings fail the "
                          "run")
     ap.add_argument("--mapping-grid", action="store_true",
@@ -462,15 +463,10 @@ def main(argv: Optional[List[str]] = None) -> None:
 
 def _lint_gate(session: placement.PlacementSession) -> None:
     """``--lint``: session-wide static analysis; errors fail the run. The
-    traffic lint of every traced matrix (``session.verify()``); the
-    reference's kernel-plan half waits for the port's kernel verifier and
-    is reported as one ``info`` finding, not skipped silently."""
+    registered kernel launch plans and the traffic lint of every traced
+    matrix (``session.verify()``)."""
     from repro_torch import analysis
     findings = session.verify()
-    findings.append(analysis.Finding(
-        "kernel-plan-pending", "info", "kernels",
-        "the static kernel-plan verifier is not ported yet (ROADMAP Queue "
-        "1, item 2): only the traffic matrices were linted"))
     print(analysis.format_findings(findings), flush=True)
     errors = analysis.at_least(findings, "error")
     if errors:

@@ -728,18 +728,19 @@ class PlacementSession:
 
     # -- verify: the static-analysis hook ---------------------------------
 
-    def verify(self, *, kernels: bool = False, traffic: bool = True):
-        """Static analysis over what this session touched: the traffic
-        matrix of every cached :class:`CellRecord` (square, finite,
-        non-negative, zero diagonal, symmetric). Returns the Finding list.
-        The reference's Pallas kernel-plan verifier (``kernels=True``) has
-        no counterpart yet (ROADMAP Queue 1, item 2)."""
+    def verify(self, *, kernels: bool = True, traffic: bool = True):
+        """Static analysis over everything this session touches
+        (``repro_torch.analysis``): the registered CUDA launch plans
+        (bounds, coverage, write-race, shared-memory, co-residency and TMA
+        proofs, ``analysis.kernels.verify_all``) and the traffic matrix of
+        every cached :class:`CellRecord` (square, finite, non-negative,
+        zero diagonal, symmetric). Returns the Finding list; ``--lint`` on
+        the launchers gates on error severity."""
+        from repro_torch.analysis import kernels as akernels
         from repro_torch.analysis import shard_lint
-        if kernels:
-            raise NotImplementedError(
-                "verify(kernels=True): the kernel-plan verifier is not "
-                "ported (ROADMAP Queue 1, item 2)")
         findings = []
+        if kernels:
+            findings.extend(akernels.verify_all())
         if traffic:
             for rec in self._mem.values():
                 findings.extend(shard_lint.lint_traffic(

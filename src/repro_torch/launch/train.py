@@ -70,8 +70,10 @@ there are local ones raises the reference's error (``launch/mesh.py``).
 and is refused on several: the trainer runs on one device, and the
 multi-device trainer that would map its step (``PlacementSession.
 map_step``) is not ported, nor is the reference's ``--map-restarts``
-with it. ``--lint`` is refused: it runs the Pallas kernel verifier,
-which is not ported (ROADMAP Queue 1, item 2).
+with it. ``--lint`` runs the static analysis first, as the reference's
+does: the kernel launch plans (``PlacementSession.verify()``) and this
+arch's sharding specs and traced upcasts (``shard_lint.lint_cell`` at
+``--profile``); an error finding aborts the run.
 """
 from __future__ import annotations
 
@@ -95,9 +97,8 @@ def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         description="LM, recsys and GNN (EquiformerV2 too) training on "
                     "the port.",
-        epilog="Refused: --lint (the kernel verifier is not ported) and "
-               "--topology-aware on several devices (the multi-device "
-               "trainer is not ported).")
+        epilog="Refused: --topology-aware on several devices (the "
+               "multi-device trainer is not ported).")
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--device", default=None,
@@ -151,7 +152,9 @@ def _parser() -> argparse.ArgumentParser:
                     help="machine-model preset (core.machine registry) "
                          "whose mesh the run is laid out on")
     ap.add_argument("--lint", action="store_true",
-                    help="refused: the kernel verifier is not ported")
+                    help="verify the kernel launch plans and lint this "
+                         "arch's sharding at --profile first; error "
+                         "findings abort")
     return ap
 
 
@@ -228,14 +231,13 @@ def layout(args, family: str, n_dev: int):
     """(machine, mesh axes, rules) of a run on ``n_dev`` local devices:
     the ``--machine`` model's mesh (refused, with the reference's error,
     when it has more devices than there are), else a 1-d ``data`` mesh;
-    the rules of ``--profile`` on its axes. ``--lint`` is refused here."""
+    the rules of ``--profile`` on its axes. ``--lint`` runs its gate
+    here, before anything is built (:func:`_lint_gate`)."""
     from repro_torch.core import machine as machine_lib
     from repro_torch.launch import mesh as mesh_lib
     from repro_torch.launch.steps import rules_for
     if args.lint:
-        raise SystemExit("--lint runs the kernel verifier and the sharding "
-                         "lint; the kernel verifier is not ported (ROADMAP "
-                         "Queue 1, item 2)")
+        _lint_gate(args.arch, args.profile)
     machine = machine_lib.resolve(args.machine)
     if machine is not None:
         shape, axes = machine.mesh_spec()
@@ -246,6 +248,22 @@ def layout(args, family: str, n_dev: int):
     else:
         axes = ("data",)
     return machine, axes, rules_for(family, axes, profile=args.profile)
+
+
+def _lint_gate(arch_name: str, profile: str) -> None:
+    """``--lint``: the kernel registry (``PlacementSession.verify()``) and
+    this cell's sharding specs and traced upcasts
+    (``shard_lint.lint_cell``); error findings abort."""
+    from repro_torch import analysis
+    from repro_torch.analysis import shard_lint
+    from repro_torch.launch.placement import PlacementSession
+    findings = PlacementSession(cache_dir="", device="cpu").verify()
+    findings.extend(shard_lint.lint_cell(arch_name, profile=profile))
+    print(analysis.format_findings(findings), flush=True)
+    errors = analysis.at_least(findings, "error")
+    if errors:
+        raise SystemExit(f"--lint: {len(errors)} error-severity "
+                         "finding(s)")
 
 
 @dataclasses.dataclass

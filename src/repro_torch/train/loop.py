@@ -21,10 +21,16 @@ each step; an injected ``leaf_death`` raises
 loss trajectory. :func:`run_supervised` is the restart supervisor: it
 degrades the machine model, restores the newest checkpoint and resumes on
 a batch stream replayed from that step, stitching the attempts' losses
-into one trajectory equal to an uninterrupted run's. One card has no mesh,
-so neither ``run`` nor the supervisor takes a ``mesh`` / ``state_specs``
-/ ``mesh_fn``: the restore is the plain one and the death shrinks only
-the machine model (``n_alive``).
+into one trajectory equal to an uninterrupted run's.
+
+The loop never builds the mesh it runs on: ``run(..., mesh=...,
+state_specs=...)`` takes it from the caller and, with both, resumes
+through the elastic ``ckpt.restore_sharded``, the state placed as DTensors
+on that (possibly shrunken) mesh. The supervisor rebuilds the mesh over
+the survivors with ``mesh_fn(n_alive)`` (default :func:`_default_mesh`, a
+1-d ``data`` mesh over ``min(n_alive, world size)`` ranks of the current
+process group, or no mesh without one: one card and plain tensors, where
+a death shrinks only the machine model).
 """
 from __future__ import annotations
 
@@ -75,17 +81,29 @@ class InjectedFailure(RuntimeError):
     pass
 
 
+def _spec_tree_for(state: Any, state_specs: Any):
+    """``True`` means fully replicated: every leaf gets a ``None`` spec
+    (elastic restore onto whatever mesh survives)."""
+    return None if state_specs is True else state_specs
+
+
 def run(step_fn: Callable, params: Any, opt_state: Any,
         batches: Iterator[Dict[str, Any]], cfg: LoopConfig,
-        step_offset: int = 0,
-        injector: Optional[FaultInjector] = None) -> tuple:
-    """Returns (params, opt_state, LoopResult).
+        step_offset: int = 0, mesh: Any = None,
+        injector: Optional[FaultInjector] = None,
+        state_specs: Any = None) -> tuple:
+    """Returns (params, opt_state, LoopResult). ``mesh`` (optional) is the
+    caller-built ``DeviceMesh`` the run is placed on; the loop never builds
+    one.
 
     ``injector`` fires seeded fault events by step index: a ``leaf_death``
     raises :class:`DeviceFailure` (partial ``losses`` and ``start_step``
     attached so a supervisor can stitch the trajectory), a ``straggler``
-    is counted into ``straggler_steps``. A ``PrefetchIterator`` given as
-    ``batches`` is closed on the way out."""
+    is counted into ``straggler_steps``. ``state_specs`` (with ``mesh``)
+    routes the restore through ``ckpt.restore_sharded``, so the resumed
+    state is placed on the *current*, possibly shrunken, mesh; ``True``
+    means fully replicated. A ``PrefetchIterator`` given as ``batches`` is
+    closed on the way out."""
     if cfg.grad_compress and cfg.embed_sparse:
         raise ValueError("grad_compress and embed_sparse are mutually "
                          "exclusive (different step signatures)")
@@ -105,21 +123,26 @@ def run(step_fn: Callable, params: Any, opt_state: Any,
             return (params, opt_state, estate)
         return (params, opt_state)
 
+    def _restore(like, latest):
+        if state_specs is not None and mesh is not None:
+            return ckpt.restore_sharded(cfg.ckpt_dir, like,
+                                        _spec_tree_for(like, state_specs),
+                                        mesh, latest)[0]
+        return ckpt.restore(cfg.ckpt_dir, like, latest)[0]
+
     try:
         if cfg.ckpt_dir and cfg.resume:
             latest = ckpt.latest_step(cfg.ckpt_dir, gc_tmp=True)
             if latest is not None:
                 try:
-                    restored, _ = ckpt.restore(cfg.ckpt_dir, state_tuple(),
-                                               latest)
+                    restored = _restore(state_tuple(), latest)
                 except ValueError:
                     if not (cfg.grad_compress or cfg.embed_sparse):
                         raise
                     # the checkpoint predates the extra loop state
                     # (residual / embed accumulators): restore (params,
                     # opt_state) and restart that state from zeros
-                    restored, _ = ckpt.restore(cfg.ckpt_dir,
-                                               (params, opt_state), latest)
+                    restored = _restore((params, opt_state), latest)
                     restored = restored + ((cstate,) if cfg.grad_compress
                                            else (estate,))
                 if cfg.grad_compress:
@@ -197,23 +220,42 @@ class SupervisedResult:
     final: LoopResult
 
 
+def _default_mesh(n_alive: int):
+    """1-d ``data`` mesh over the first ``min(n_alive, world size)`` ranks
+    of the current process group (the reference clamps to the local
+    devices), or None without a process group: the single-host stand-in
+    for the placement session rebuilding a real mesh over the
+    survivors."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import mesh as mesh_lib
+    if not dist.is_available() or not dist.is_initialized():
+        return None
+    n = max(1, min(int(n_alive), mesh_lib.world_size()))
+    return mesh_lib.make_mapped_mesh((n,), ("data",), devices=range(n))
+
+
 def run_supervised(step_fn: Callable, params: Any, opt_state: Any,
                    batches_factory: Union[Callable[[int], Iterator],
                                           Iterator],
                    cfg: LoopConfig, plan: Any = None, *,
-                   machine: Any = None, max_restarts: int = 4,
+                   machine: Any = None,
+                   mesh_fn: Optional[Callable] = None,
+                   state_specs: Any = True, max_restarts: int = 4,
                    injector: Optional[FaultInjector] = None) -> tuple:
     """Drive :func:`run` to completion across injected device failures.
 
     On each :class:`DeviceFailure` the supervisor (1) degrades the machine
     spec (the dead leaf masked, so the next placement never sees a
-    zero-capacity bin) and shrinks ``n_alive``, (2) lets ``run`` restore
-    the newest complete checkpoint, with the compression residual or the
-    embedding accumulators where the loop owns them, and (3) replays the
-    batch stream from that step (``batches_factory(start_step)``). The
-    injector is shared across attempts, so an already-fired death is not
-    replayed after the resume. (The reference also rebuilds its mesh over
-    the survivors; one card has none.)
+    zero-capacity bin) and shrinks ``n_alive``, (2) rebuilds the mesh over
+    the survivors (``mesh_fn(n_alive)``, default :func:`_default_mesh`),
+    (3) lets ``run`` restore the newest complete checkpoint, through the
+    elastic ``restore_sharded`` where there is a mesh, with the
+    compression residual or the embedding accumulators where the loop
+    owns them, and (4) replays the batch stream from that step
+    (``batches_factory(start_step)``). The injector is shared across
+    attempts, so an already-fired death is not replayed after the
+    resume.
 
     ``batches_factory`` is ``start_step -> iterator`` (a bare iterator is
     accepted for streams that are only consumed forward: continuity then
@@ -232,6 +274,8 @@ def run_supervised(step_fn: Callable, params: Any, opt_state: Any,
         machine = machine_lib.resolve(machine)
     n_alive = (machine.n_alive if machine is not None
                else max(torch.cuda.device_count(), 1))
+    if mesh_fn is None:
+        mesh_fn = _default_mesh
     if callable(batches_factory):
         factory = batches_factory
     else:
@@ -248,10 +292,11 @@ def run_supervised(step_fn: Callable, params: Any, opt_state: Any,
         start = 0
         if cfg.ckpt_dir:
             start = ckpt.latest_step(cfg.ckpt_dir, gc_tmp=True) or 0
+        mesh = mesh_fn(n_alive)
         try:
             params, opt_state, res = run(
                 step_fn, params, opt_state, factory(start), cfg,
-                injector=injector)
+                mesh=mesh, injector=injector, state_specs=state_specs)
             stitched.extend(res.losses)
             break
         except DeviceFailure as exc:

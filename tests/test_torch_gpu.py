@@ -513,15 +513,9 @@ BAG_SHAPES += BAG_SMALL_SHAPES
 
 
 def _bag_small_grid(b, f, vec, sms):
-    """The bag launchers' own choice of the small-grid path
-    (``csrc/bag_reduce.cuh``)."""
-    import ctypes
-
-    from repro_torch.kernels import build
-    fn = build.library().bag_reduce_small_grid
-    fn.argtypes = [ctypes.c_longlong] + [ctypes.c_int] * 3
-    fn.restype = ctypes.c_int
-    return bool(fn(b, f, vec, sms))
+    """The bag launches' choice of the small-grid path: their plans' rule
+    (``kernels/gather_combine.py``), which the launchers take as given."""
+    return gather_combine.small_grid(b, f, vec, sms)
 
 
 @pytest.mark.parametrize("b,f,vec,sms,small", [
@@ -1864,7 +1858,8 @@ def test_decode_cells_trace_under_the_cards_torch(cuda, arch):
                     axes=("data", "model"),
                     overrides={"n_layers": 2, "batch": 2, "seq": 16})
     assert rec.n_collectives > 0 and rec.traffic.shape == (8, 8)
-    assert s.verify() == []
+    assert s.verify(kernels=False) == []
+    assert [f for f in s.verify() if f.severity != "info"] == []
 
 
 
@@ -1918,3 +1913,36 @@ def test_dryrun_counts_under_the_cards_torch(cuda):
     card.outputs(out)
     for k in ("flops", "bytes", "bytes_tight", "transcendentals"):
         assert card.totals[k] == pytest.approx(one.hlo_cal[k], rel=1e-9), k
+
+
+def test_restore_sharded_on_the_card_is_bitwise(cuda, tmp_path):
+    """The elastic restore through a one-rank NCCL group: every leaf a
+    DTensor on the card's mesh (``train.loop._default_mesh``, clamped to
+    the world), bitwise the plain restore."""
+    import torch.distributed as dist
+
+    from repro_torch.ckpt import checkpoint as ckpt
+    from repro_torch.dist import sharding
+    from repro_torch.train import loop
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(0)
+    state = {"w": torch.randn(64, 32, generator=gen, device=cuda),
+             "b": torch.randn(32, generator=gen, device=cuda).bfloat16()}
+    ckpt.save(str(tmp_path / "c"), 3, state)
+    plain, _ = ckpt.restore(str(tmp_path / "c"), state)
+    torch.cuda.set_device(cuda.index or 0)
+    dist.init_process_group("nccl", rank=0, world_size=1,
+                            store=dist.FileStore(str(tmp_path / "s"), 1))
+    try:
+        mesh = loop._default_mesh(8)
+        assert mesh.device_type == "cuda" and mesh.size() == 1
+        placed, step = ckpt.restore_sharded(
+            str(tmp_path / "c"), state,
+            {"w": sharding.Spec("data", None), "b": None}, mesh)
+        assert step == 3
+        for k in state:
+            assert placed[k].device_mesh is mesh
+            assert placed[k].device.type == "cuda"
+            assert torch.equal(placed[k].full_tensor(), plain[k])
+    finally:
+        dist.destroy_process_group()

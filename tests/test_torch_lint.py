@@ -205,7 +205,7 @@ def test_cli_runs_a_topology_aware_cell_on_the_cpu(tmp_path, capsys):
     """``--device cpu``: one searched cell, its ``[OK]`` and ``[MAP]``
     lines, the reference-named JSON with the mapping report, non-empty
     ``hlo_cost`` and ``memory_analysis``, and the lint gate's findings,
-    the kernel-plan half reported as pending."""
+    the kernel launch plans' among them."""
     out = tmp_path / "out"
     dryrun.main(["--arch", "qwen2-1.5b", "--shape", "train_4k",
                  "--machine", "gpu-superpod", "--topology-aware",
@@ -214,7 +214,8 @@ def test_cli_runs_a_topology_aware_cell_on_the_cpu(tmp_path, capsys):
     text = capsys.readouterr().out
     assert "[OK]   qwen2-1.5b/train_4k/gpu-superpod" in text
     assert "[MAP]  qwen2-1.5b/train_4k/2d" in text
-    assert "kernel-plan-pending" in text and "0 error(s)" in text
+    assert "kernel-plan-pending" not in text and "0 error(s)" in text
+    assert "kernels/flash_attention" in text
     r = json.loads((out / "qwen2-1.5b__train_4k__gpu-superpod.json")
                    .read_text())
     assert r["status"] == "ok" and r["mapping"]["makespan_ratio"] <= 1.0

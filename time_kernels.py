@@ -81,6 +81,7 @@ def qll_paths(state):
         s, r, w = s_all[:m], r_all[:m], w_all[:m]
         for name, value in consts.items():
             setattr(qll, name, value)
+        qll._plans.clear()          # the plans read the patched constants
         try:
             path = qll.qll_path(m, k, sms)
             got = qll.quotient_link_loads(part, s, r, w, S, F, k)
@@ -92,6 +93,7 @@ def qll_paths(state):
         finally:
             (qll.SINGLE_BLOCK_ARCS, qll.ARCS_PER_BLOCK,
              qll.BLOCKS_PER_SM) = saved
+            qll._plans.clear()
         chip_smoke.emit("qll_paths", m=m, k=k, input=kind,
                         path=path._asdict(), us=ms * 1e3, matches_plain=ok,
                         **consts)
