@@ -5,14 +5,16 @@ claim, over the port's bench twins. Twin of ``benchmarks/run.py``.
     REPRO_BENCH_DEVICE=cpu REPRO_BENCH_TINY=1 PYTHONPATH=src \\
         python -m benchmarks.torch_run --only placement
 
-Prints ``bench,name,us_per_call,derived...`` CSV rows under one header.
-The reference's ``run.py`` also appends the roofline table of its
-dry-run artifacts; the port has no dry-run (it needs the device mesh,
-ROADMAP Queue 1), so this one stops at the suites.
+Prints ``bench,name,us_per_call,derived...`` CSV rows under one header,
+then, as the reference's ``run.py`` does, the roofline table of the
+dry-run records when ``results/dryrun_torch`` holds any
+(``benchmarks/torch_roofline.py``; ``python -m repro_torch.launch.dryrun``
+writes them).
 """
 from __future__ import annotations
 
 import argparse
+import os
 import time
 
 
@@ -51,6 +53,11 @@ def main(argv=None) -> None:
         t = time.time()
         fn()
         print(f"# {name} done in {time.time() - t:.1f}s", flush=True)
+    from benchmarks import torch_roofline
+    if os.path.isdir(torch_roofline.RESULTS) and os.listdir(
+            torch_roofline.RESULTS):
+        print()
+        torch_roofline.main()
     print(f"# total {time.time() - t0:.1f}s")
 
 

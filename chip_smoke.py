@@ -10,7 +10,8 @@ continuous-batching server, DeepSeek-V2-Lite's MoE + MLA prefill and
 absorbed decode, the mesh-mapping search, the paper's C1
 comparison against the total-cut baselines, its remaining claims (C2, C3,
 C4, the section 3.1 variants, scaling), Qwen2-1.5B training,
-DeepSeek-V2-Lite training at full width (its depth cut), the twins of
+DeepSeek-V2-Lite training at full width (its depth cut), the trainer
+and the one-shot server on a process group's mesh, the twins of
 the placement bench, the serving bench and the 100M-LM example, and the
 placement session's trace -> search -> retrace loop over Qwen2-1.5B's
 sharded train step, the dry-run's roofline terms over those traces,
@@ -278,6 +279,26 @@ non-zero:
            the total-cut partition with its refinement off, is reported
            against the band. The rows come from the port's bench twin
            (``benchmarks/torch_bench_makespan_vs_cut.py: c1_row``).
+  ranks    the trainer's and the one-shot server's path on a process
+           group's mesh (``ranks_runs``), qwen2-1.5b FULL: a one-rank NCCL
+           world (``launch.mesh.init_world``, forced, on a ``FileStore``)
+           against the same runs with no process group. (a) The train
+           CLI's ``build`` and ``loop.run``, 3 steps of 1 x 2,048 (bf16,
+           28 layers, remat) on the mesh, parameters and AdamW state real
+           DTensors, launch counts set to 0 just before each loop:
+           losses, grad norms, final parameters and optimizer state
+           bitwise those of the run without a group, and the same
+           ``flash_attention`` launches, above 0 (the kernel ran on the
+           local shards); (b) that mesh run had ``--topology-aware``: at
+           world size 1 no mapping, the identity mesh, and ``build``
+           printed the lines the run without a group printed; (c) the
+           one-shot server (``launch.serve._setup`` / ``oneshot``), batch
+           4, prompt 64, 32 new tokens, greedy and at 0.8: the mesh's
+           tokens equal those without a group. Seconds a step and a
+           decode step for both. It runs in a child process started at
+           c1's start (``start_ranks_child``): c1 is host-bound with the
+           card mostly idle, so the child's work, mostly host dispatch,
+           runs beside it; this phase waits for the child.
   claims   the paper's remaining claims through the port's bench twins at
            their full tier, launch counts set to 0 just before it: C2
            (``torch_bench_spmspv``: every BFS round's link loads from
@@ -454,7 +475,7 @@ round as ``match_round`` and the initial split runs as ``prefix_split``,
 with 0 and ``on_path_as``; ``recsys`` for the bag kernels,
 ``gnn`` for ``bsr_spmm``, which also launches on ``gnn_train``, ``lm`` for
 ``flash_attention``, which also
-launches on ``train``, ``train_mla`` and ``lm100m``; ``serve_chaos``,
+launches on ``train``, ``train_mla``, ``lm100m`` and ``ranks``; ``serve_chaos``,
 ``train_recsys``, ``placement``, ``place``, ``dryrun`` and ``serving_bench``
 are paths too), its
 launches
@@ -959,7 +980,7 @@ KERNEL_INFO = {
     "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:115",
                         ("lm", "train", "lm_mla", "train_mla",
-                         "lm100m", "dryrun")),
+                         "lm100m", "dryrun", "ranks")),
 }
 
 
@@ -4571,6 +4592,7 @@ def check_gain_calls(seen):
 
 def phase_c1(state):
     from benchmarks.torch_bench_makespan_vs_cut import CASES, c1_row
+    start_ranks_child(state)    # the ranks phase, beside c1's host work
     from repro_torch.core import baselines
     from repro_torch.core.machine import MachineSpec
     from repro_torch.graph.generators import grid3d
@@ -4818,11 +4840,14 @@ def _leaf_names(params):
 def _recording_step(step, record):
     """``step`` with each call's wall seconds, loss, grad norm and lr (read
     on the host, so each step ends synchronised) appended to ``record``."""
+    from repro_torch.train import loop
+
     def timed(params, opt, *rest):
         t0 = time.perf_counter()
         out = step(params, opt, *rest)
         m = out[-1]
-        loss, gn, lr = float(m["loss"]), float(m["grad_norm"]), float(m["lr"])
+        loss, gn, lr = (loop._scalar(m[k]) for k in ("loss", "grad_norm",
+                                                     "lr"))
         record.append(dict(s=time.perf_counter() - t0, loss=loss,
                            grad_norm=gn, lr=lr))
         return out
@@ -5651,6 +5676,204 @@ def phase_train_mla(state):
     if failed:
         raise AssertionError(f"train_mla checks failed: {failed}")
     _require_launched(counts, "train_mla")
+
+
+# the ranks phase: the train CLI's mesh path and the one-shot server's on a
+# one-rank world (NCCL on the card) against the same runs with no process
+# group; qwen2-1.5b FULL, the trainer at 1 x 2,048 (bf16, 28 layers, remat)
+RANKS_TRAIN = ["--steps", "3", "--batch", "1", "--seq", "2048"]
+RANKS_SERVE = ["--oneshot", "--batch", "4", "--prompt-len", "64",
+               "--gen-len", "32"]
+RANKS_TEMPERATURES = (0.0, 0.8)
+RANKS_TIMEOUT_S = 300
+
+
+def _ranks_train(base, extra, train):
+    """One train CLI run (``launch.train.build``, then ``loop.run`` as
+    ``train()`` calls it): the final params and AdamW state, each step's
+    record, the lines ``build`` printed, the launch counts (from 0 just
+    before the loop), the mapping report and the mesh's order."""
+    import io
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import train as tlaunch
+    from repro_torch.train import loop
+    args = tlaunch._parser().parse_args(base + train + extra)
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        s = tlaunch.build(args)
+    rec = []
+    ops.reset_launch_counts()
+    params, opt, _ = loop.run(_recording_step(s.step, rec), s.params, s.opt,
+                              s.batches(0), s.lcfg, mesh=s.mesh,
+                              state_specs=s.state_specs)
+    return dict(params=params, opt=opt, rec=rec, printed=printed.getvalue(),
+                launches=ops.launch_counts(), mapping=s.mapping,
+                order=None if s.mesh is None
+                else mesh_lib.device_order_of(s.mesh).tolist(),
+                mesh_type=None if s.mesh is None else s.mesh.device_type)
+
+
+def _ranks_serve(base, serve):
+    """The one-shot server (``launch.serve._setup`` and ``oneshot``) at each
+    of RANKS_TEMPERATURES: {temperature: (tokens, seconds a decode
+    step)}."""
+    from repro_torch.launch import serve as tserve
+    args = tserve._parser().parse_args(base + serve)
+    cfg, dev, params = tserve._setup(args)
+    out = {}
+    for t in RANKS_TEMPERATURES:
+        toks, sec, n = tserve.oneshot(params, cfg, dev, args.batch,
+                                      args.prompt_len, args.gen_len, t,
+                                      args.seed, args.rules, args.mesh)
+        out[t] = (toks, sec / n)
+    return out
+
+
+def ranks_runs(device: str, smoke: bool, tmp: str, train=RANKS_TRAIN,
+               serve=RANKS_SERVE) -> dict:
+    """The trainer's and the one-shot server's mesh path on a one-rank
+    world against the same runs with no process group (NCCL on a CUDA
+    ``device``, gloo on the CPU; the world from ``launch.mesh.init_world``
+    with a ``FileStore`` under ``tmp``). Gates: (a) the train CLI's steps
+    (``train``, by default ``RANKS_TRAIN``) on the mesh, its parameters
+    and AdamW state real DTensors, against the same steps without a
+    group: losses, grad norms, final parameters and optimizer state
+    bitwise, and the same ``flash_attention`` launch count (on the card,
+    above 0: the kernel ran on the shards); (b) its ``--topology-aware``
+    is a no-op at world size 1 (no mapping, the identity mesh) and
+    ``build`` prints the lines the run without a group prints; (c) the
+    one-shot server's tokens (``serve``) on the mesh equal those without
+    a group, greedy and at 0.8. Returns {"checks", "record"}."""
+    import os
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch import tree
+    from repro_torch.launch import mesh as mesh_lib
+    base = ["--arch", LM_ARCH, "--device", device] + (
+        ["--smoke"] if smoke else [])
+
+    def local(t):
+        return t.to_local() if isinstance(t, DTensor) else t
+
+    def bitwise(a, b):
+        la, lb = tree.leaves(a), tree.leaves(b)
+        return len(la) == len(lb) and all(
+            torch.equal(local(x), y) for x, y in zip(la, lb))
+
+    t0 = time.perf_counter()
+    plain = _ranks_train(base, [], train)
+    plain_serve = _ranks_serve(base, serve)
+    plain_s = time.perf_counter() - t0
+    mesh_lib.init_world(torch.device(device), force=True,
+                        store=dist.FileStore(os.path.join(tmp, "store"), 1))
+    try:
+        t0 = time.perf_counter()
+        mesh = _ranks_train(base, ["--topology-aware"], train)
+        leaves = tree.leaves(mesh["params"])
+        checks = {
+            "a_params_are_dtensors": all(isinstance(x, DTensor)
+                                         for x in leaves),
+            "a_mesh_device_type": mesh["mesh_type"] == torch.device(
+                device).type,
+            "a_losses_bitwise": [r["loss"] for r in mesh["rec"]]
+            == [r["loss"] for r in plain["rec"]],
+            "a_grad_norms_bitwise": [r["grad_norm"] for r in mesh["rec"]]
+            == [r["grad_norm"] for r in plain["rec"]],
+            "a_params_bitwise": bitwise(mesh["params"], plain["params"]),
+            "a_opt_state_bitwise": bitwise(mesh["opt"], plain["opt"]),
+            "a_flash_launches_equal": mesh["launches"]["flash_attention"]
+            == plain["launches"]["flash_attention"],
+            "b_no_mapping_identity_mesh": (mesh["mapping"] is None
+                                           and mesh["order"] == [0]),
+            "b_prints_as_without_a_group": mesh["printed"]
+            == plain["printed"],
+        }
+        if device == "cuda":
+            checks["a_flash_launched_on_shards"] = (
+                mesh["launches"]["flash_attention"] > 0)
+        launches = mesh["launches"]
+        steps = dict(plain=[r["s"] for r in plain["rec"]],
+                     mesh=[r["s"] for r in mesh["rec"]])
+        losses = [r["loss"] for r in mesh["rec"]]
+        del mesh, plain, leaves
+        mesh_serve = _ranks_serve(base, serve)
+        mesh_s = time.perf_counter() - t0
+    finally:
+        dist.destroy_process_group()
+    for t in RANKS_TEMPERATURES:
+        checks[f"c_tokens_equal_at_{t}"] = bool(np.array_equal(
+            mesh_serve[t][0], plain_serve[t][0]))
+    record = dict(
+        step_s=steps, losses=losses, launches=launches,
+        decode_step_s={str(t): dict(plain=plain_serve[t][1],
+                                    mesh=mesh_serve[t][1])
+                       for t in RANKS_TEMPERATURES},
+        plain_s=plain_s, mesh_s=mesh_s)
+    return {"checks": checks, "record": record}
+
+
+def ranks_child(path: str) -> None:
+    """``ranks_runs`` at full width on the card, its result written to
+    ``path`` as JSON: the body of the child process ``start_ranks_child``
+    starts."""
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        out = ranks_runs("cuda", smoke=False, tmp=tmp)
+    with open(path, "w") as f:
+        json.dump(out, f)
+
+
+def start_ranks_child(state):
+    """``ranks_child`` in a process of its own (its own CUDA context and
+    one-rank NCCL world), started at c1's start: c1 is host-bound with
+    the card mostly idle (its coarsening), and the child's ~35-50 s,
+    mostly host work too (DTensor's dispatch), runs beside it on other
+    cores. ``phase_ranks``, right after c1, waits for it; the card's
+    memory is free again before the training phases."""
+    import os
+    import tempfile
+    out_dir = tempfile.mkdtemp(prefix="ranks_")
+    log = open(os.path.join(out_dir, "ranks.log"), "w")
+    path = os.path.join(out_dir, "ranks.json")
+    code = (f"import sys; sys.path[:0] = [{str(ROOT / 'src')!r}, "
+            f"{str(ROOT)!r}]; import chip_smoke as cs; "
+            f"cs.ranks_child({path!r})")
+    child = subprocess.Popen([sys.executable, "-c", code], stdout=log,
+                             stderr=subprocess.STDOUT)
+    state["ranks_child"] = (child, path, log, time.perf_counter())
+
+
+def phase_ranks(state):
+    """qwen2-1.5b FULL through the train CLI's and the one-shot server's
+    mesh path on a one-rank NCCL world, against the same runs with no
+    process group (``ranks_runs``: gates (a)-(c), in the child
+    ``start_ranks_child`` started; this phase waits for it); launch counts
+    of the mesh run's training loop, counted in the child."""
+    import os
+    child, path, log, t0 = state["ranks_child"]
+    rc = child.wait(timeout=RANKS_TIMEOUT_S)
+    child_s = time.perf_counter() - t0
+    stop_child(state, "ranks_child")
+    if rc != 0:
+        with open(os.path.join(os.path.dirname(path), "ranks.log")) as f:
+            tail = f.read()[-4000:]
+        raise AssertionError(f"ranks: the child exited {rc}:\n{tail}")
+    with open(path) as f:
+        out = json.load(f)
+    state["launches"]["ranks"] = out["record"]["launches"]
+    emit("ranks", arch=LM_ARCH, train=RANKS_TRAIN, serve=RANKS_SERVE,
+         temperatures=list(RANKS_TEMPERATURES), checks=out["checks"],
+         child_s=child_s, beside="c1", nvidia_smi=state["smi"],
+         **out["record"])
+    bad = [k for k, v in out["checks"].items() if not v]
+    if bad:
+        raise AssertionError(f"ranks: {bad}")
 
 
 def phase_placement(state):
@@ -6876,7 +7099,13 @@ def start_analysis_cli(state):
 
 def stop_analysis_cli(state):
     """Kill the analysis child if it still runs and close its log."""
-    got = state.pop("analysis_cli", None)
+    stop_child(state, "analysis_cli")
+
+
+def stop_child(state, key):
+    """Kill the child ``state[key]`` holds if it still runs, and close its
+    log."""
+    got = state.pop(key, None)
     if got is not None:
         child, _, log, _ = got
         if child.poll() is None:
@@ -7069,7 +7298,7 @@ PHASES = (phase_env, phase_build, phase_kernels, phase_kernels_recsys,
           phase_gnn, phase_gnn_train, phase_equiformer, phase_kernels_lm,
           phase_lm,
           phase_lm_mla, phase_mapping,
-          phase_c1,
+          phase_c1, phase_ranks,
           phase_claims, phase_train, phase_train_mla, phase_train_recsys,
           phase_placement, phase_place, phase_dryrun, phase_serving_bench,
           phase_lm100m, phase_kernel_plans)
@@ -7175,7 +7404,9 @@ def main() -> int:
             seconds[phase.__name__[len("phase_"):]] = (time.perf_counter()
                                                        - t0)
     finally:
-        stop_analysis_cli(state)    # a phase failed before kernel_plans
+        # a phase failed before kernel_plans (or ranks) waited for its child
+        stop_analysis_cli(state)
+        stop_child(state, "ranks_child")
     emit("timing", seconds=seconds, total=time.perf_counter() - t_all,
          nvidia_smi=state["smi"])
     print(json.dumps(kernels_line(state)), flush=True)

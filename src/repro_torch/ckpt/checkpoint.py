@@ -16,6 +16,14 @@ records ``bfloat16``. Writes go to ``<root>/.tmp_<step>`` and are renamed
 into place, so a crash mid-save never leaves a partial ``step_*``
 directory (``latest_step`` counts only those). ``AsyncSaver`` copies the
 tree to the host on the caller's thread and writes on another.
+
+Under a process group every rank calls ``save`` (a DTensor's
+``full_tensor()`` is a collective, so every rank takes part in each
+gather), and rank 0 alone writes the step directory: the ranks never race
+on one ``.tmp_<step>``. ``latest_step`` first waits for every rank at a
+barrier, so a rank reads the directory only after rank 0's writes before
+it have ended, and rank 0 alone sweeps stale ``.tmp_`` directories and
+prunes.
 """
 from __future__ import annotations
 
@@ -59,11 +67,28 @@ def _describe(state: Any) -> str:
     return repr(tree.unflatten(state, ["*"] * len(tree.leaves(state))))
 
 
+def _rank() -> int:
+    import torch.distributed as dist
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def _barrier() -> None:
+    import torch.distributed as dist
+    if dist.is_initialized() and dist.get_world_size() > 1:
+        dist.barrier()
+
+
 def save(root: str, step: int, state: Any) -> str:
-    """Synchronous atomic save. Returns the final directory."""
+    """Synchronous atomic save. Returns the final directory. Under a
+    process group every rank gathers its DTensors and rank 0 alone
+    writes."""
+    final = os.path.join(root, f"step_{step:09d}")
+    if _rank() != 0:
+        for leaf in tree.leaves(state):
+            _host(leaf)
+        return final
     flat = tree.flatten(state)
     tmp = os.path.join(root, f".tmp_{step}")
-    final = os.path.join(root, f"step_{step:09d}")
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
     os.makedirs(tmp, exist_ok=True)
@@ -90,9 +115,14 @@ class AsyncSaver:
         self._thread: Optional[threading.Thread] = None
 
     def save(self, root: str, step: int, state: Any) -> None:
+        """Snapshot ``state`` to the host on the caller's thread (every rank
+        of a process group gathers) and write it on another (rank 0
+        alone)."""
         self.join()
         host = tree.map_(lambda t: _host(t).to("cpu", copy=True),
                          state)                        # snapshot on caller
+        if _rank() != 0:
+            return
         self._thread = threading.Thread(target=save, args=(root, step, host),
                                         daemon=True)
         self._thread.start()
@@ -106,15 +136,17 @@ class AsyncSaver:
 def latest_step(root: str, gc_tmp: bool = False) -> Optional[int]:
     """Newest COMPLETE checkpoint step, or None. ``.tmp_<step>`` dirs (a
     crash mid-save leaves one) are never counted; with ``gc_tmp`` they are
-    also swept, which is safe exactly when no save is in flight (the
-    restore at loop start)."""
+    also swept (by rank 0), which is safe exactly when no save is in
+    flight (the restore at loop start). Under a process group every rank
+    must call it: it starts with a barrier."""
+    _barrier()
     if not os.path.isdir(root):
         return None
     steps = []
     for d in os.listdir(root):
         if d.startswith("step_"):
             steps.append(int(d.split("_")[1]))
-        elif gc_tmp and d.startswith(".tmp_"):
+        elif gc_tmp and d.startswith(".tmp_") and _rank() == 0:
             shutil.rmtree(os.path.join(root, d), ignore_errors=True)
     return max(steps) if steps else None
 
@@ -168,8 +200,9 @@ def restore_sharded(root: str, like: Any, spec_tree: Any, mesh,
 
 
 def prune(root: str, keep: int = 3) -> None:
-    """Delete all but the newest ``keep`` checkpoints."""
-    if not os.path.isdir(root):
+    """Delete all but the newest ``keep`` checkpoints (rank 0 alone under a
+    process group)."""
+    if _rank() != 0 or not os.path.isdir(root):
         return
     steps = sorted(int(d.split("_")[1]) for d in os.listdir(root)
                    if d.startswith("step_"))

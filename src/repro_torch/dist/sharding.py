@@ -292,6 +292,29 @@ def placements(mesh, spec: Optional[Sequence]) -> Tuple:
     return tuple(out)
 
 
+def distribute_tree(tree: Any, specs: Any, mesh, *,
+                    src_data_rank: Optional[int] = 0) -> Any:
+    """The tensors of ``tree`` as real DTensors on ``mesh`` (a
+    ``DeviceMesh`` of the current process group), placed by their specs
+    (:func:`sanitize_tree` -> :func:`placements` -> ``distribute_tensor``;
+    a ``None`` spec replicates): rank 0's values, or with
+    ``src_data_rank=None`` each rank's own, which moves nothing (for data
+    every rank holds alike). Anything else (a Python scalar) passes
+    through. Every rank must call it with the same tree."""
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch import tree as tree_lib
+    out = []
+    for x, spec in spec_leaves(tree, specs):
+        if not isinstance(x, torch.Tensor):
+            out.append(x)
+            continue
+        spec = sanitize_spec(x.shape, spec or (), mesh)
+        out.append(distribute_tensor(x, mesh, placements(mesh, spec),
+                                     src_data_rank=src_data_rank))
+    return tree_lib.unflatten(tree, out)
+
+
 def local_shape(shape: Sequence[int], spec: Optional[Sequence],
                 mesh) -> Tuple[int, ...]:
     """The shape of one device's shard of a ``shape`` tensor under a
@@ -436,7 +459,8 @@ class _VocabParallelEmbed(torch.autograd.Function):
     device looking up the ids that fall in its vocab slice (zeros
     elsewhere), the rows left partial over the vocab dims' mesh dims for
     the next redistribution to sum; the backward adds each row's gradient
-    into its device's slice and reduces it to the table's placements. The
+    into its device's slice (the accumulating ``index_put_`` of a plain
+    lookup's backward) and reduces it to the table's placements. The
     vocab-parallel lookup GSPMD lowers a gather of a vocab-sharded table
     to. With ``weights`` (shaped like the ids) the rows are summed over the
     ids' last dim with those weights (an embedding bag) before they leave
@@ -492,9 +516,12 @@ class _VocabParallelEmbed(torch.autograd.Function):
         if bag:
             g_loc = g_loc.unsqueeze(-2)
         d = g_loc.shape[-1]
-        grad = g_loc.new_zeros((rows, d)).index_add_(
-            0, local_ids.reshape(-1),
-            (g_loc * scale[..., None].to(g_loc.dtype)).reshape(-1, d))
+        # the accumulating index_put_ that autograd runs for a plain
+        # table[ids], so that a one-device mesh is bitwise the plain path
+        grad = g_loc.new_zeros((rows, d)).index_put_(
+            (local_ids.reshape(-1),),
+            (g_loc * scale[..., None].to(g_loc.dtype)).reshape(-1, d),
+            accumulate=True)
         grad_pl = [Shard(0) if i in vocab
                    else Partial() if isinstance(p, Shard) else Replicate()
                    for i, p in enumerate(i_pl)]

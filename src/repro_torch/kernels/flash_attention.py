@@ -40,7 +40,10 @@ device. :func:`attention` goes through it where a gradient is wanted.
 The plain version is the chunked twin of ``_flash_fwd_impl``
 (``models.common.flash_attention_fwd``); CPU tensors run it, and so do
 ``meta`` tensors (the placement session's trace), for which it returns
-outputs of the right shapes and computes nothing. On every device a
+outputs of the right shapes and computes nothing. Real DTensors (a
+process group's mesh) run the kernel, or on CPU shards the plain
+version, on each device's local shards, redistributed first as the meta
+trace records (``models.common.attention_on_shards``). On every device a
 call counts on an op-cost recorder by declaration
 (``kernels/cost_sites.attention_cost``), the same for the kernel (a launch
 the recorder cannot see) and the plain version, whose ops are not
@@ -59,6 +62,8 @@ import torch
 
 from repro_torch.kernels import build, cost_sites
 from repro_torch.kernels import plan as plan_lib
+from repro_torch.dist.sharding import _is_dtensor
+from repro_torch.models.common import attention_on_shards
 from repro_torch.models.common import flash_attention_bwd as plain_bwd
 from repro_torch.models.common import flash_attention_fwd as plain_fwd
 
@@ -238,9 +243,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """``[B, Sq, H, D]`` x ``[B, Sk, KH, D]`` x ``[B, Sk, KH, Dv]`` ->
     ``[B, Sq, H, Dv]`` in q's dtype, and with ``return_lse`` also the
     float32 ``[B, Sq, H]`` log-sum-exp, as ``(out, lse)``: the plain
-    version for CPU tensors, the CUDA kernel for CUDA tensors."""
+    version for CPU tensors, the CUDA kernel for CUDA tensors, and for
+    real DTensors either of them on each device's local shards
+    (``models.common.attention_on_shards``)."""
     global launches
     dev = q.device
+    if _is_dtensor(q) and dev.type != "meta":
+        return attention_on_shards(
+            lambda a, b, c: flash_attention(a, b, c, causal, q_chunk,
+                                            kv_chunk, return_lse),
+            q, k, v, causal)
     if dev.type in ("cpu", "meta"):
         out, lse = plain_fwd(q, k, v, causal=causal, q_chunk=q_chunk,
                              kv_chunk=kv_chunk)
@@ -324,7 +336,13 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """The model's attention: through :class:`FlashAttention` where autograd
     records (grad mode on and an input that requires grad), else the
     forward alone without ``lse`` (prefill and serving under
-    ``torch.no_grad``)."""
+    ``torch.no_grad``). Real DTensors take that path on each device's
+    local shards (``models.common.attention_on_shards``), so the kernel
+    launches on CUDA shards and the plain backward runs on them too."""
+    if _is_dtensor(q) and q.device.type != "meta":
+        return attention_on_shards(
+            lambda a, b, c: attention(a, b, c, causal, q_chunk, kv_chunk),
+            q, k, v, causal)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         return FlashAttention.apply(q, k, v, causal, q_chunk, kv_chunk,

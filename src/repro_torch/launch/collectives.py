@@ -93,6 +93,31 @@ def _group_dims(mesh) -> Dict[str, Tuple[int, ...]]:
     return {mesh.get_group(i).group_name: (i,) for i in range(mesh.ndim)}
 
 
+def _dims_of(mesh, group: str) -> Optional[Tuple[int, ...]]:
+    """The mesh dim a process group (by name) spans: one of ``mesh``'s own
+    dims' groups, or a group of ranks one of its dims spans. DTensor's
+    caches take meshes of one rank grid and one set of names for one, so
+    a DTensor built on a mesh made earlier with the same layout (a run
+    that builds its mesh twice, each time with new process groups) may
+    name that mesh's group."""
+    dims = _group_dims(mesh).get(group)
+    if dims is not None:
+        return dims
+    from torch.distributed.distributed_c10d import _resolve_process_group
+    import torch.distributed as dist
+    try:
+        ranks = sorted(dist.get_process_group_ranks(
+            _resolve_process_group(group)))
+    except (KeyError, ValueError, RuntimeError):
+        return None
+    grid = np.asarray(mesh.mesh.tolist(), dtype=np.int64)
+    for i in range(mesh.ndim):
+        rows = np.moveaxis(grid, i, -1).reshape(-1, mesh.shape[i])
+        if any(sorted(r) == ranks for r in rows.tolist()):
+            return (i,)
+    return None
+
+
 def groups_of(mesh, group) -> np.ndarray:
     """The ``[G, S]`` groups of ranks a collective over ``group`` spans:
     the slices of the mesh's rank grid along the mesh dim (or dims) of
@@ -106,7 +131,7 @@ def groups_of(mesh, group) -> np.ndarray:
     elif group in names:
         dims = (names.index(group),)
     else:
-        dims = _group_dims(mesh).get(group)
+        dims = _dims_of(mesh, group)
         if dims is None:
             raise KeyError(f"process group {group!r} spans no dim of the "
                            f"mesh {names}")
@@ -159,7 +184,7 @@ class CollectiveRecorder(TorchDispatchMode):
         group = [a for a in args if isinstance(a, str)][-1]
         if group not in self._groups:
             self._groups[group] = self._logical[groups_of(self.mesh, group)]
-        dims = self._dims.get(group, ())
+        dims = self._dims.get(group) or _dims_of(self.mesh, group) or ()
         self.records.append({
             "op": op, "bytes": int(out.numel()) * out.element_size(),
             "dtype": str(out.dtype).replace("torch.", ""),

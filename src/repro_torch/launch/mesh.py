@@ -14,10 +14,14 @@ A ``DeviceMesh`` needs a process group of at least its size.
 devices (512 host devices made by ``XLA_FLAGS``): a ``fake`` process group
 of ``n`` ranks, this process being rank 0, whose collectives move nothing.
 The placement session traces a cell's step on it with meta-tensor
-DTensors (``launch/placement.py``); it is the only place the port calls
-``init_process_group``. It refuses to start while another process group
-is up, and always destroys its own on exit, so a test process that runs
-many cells never leaks a world into the next.
+DTensors (``launch/placement.py``). It refuses to start while another
+process group is up, and always destroys its own on exit, so a test
+process that runs many cells never leaks a world into the next.
+
+:func:`init_world` starts the real one: the world ``torchrun`` describes
+(NCCL on the cards, one rank a card; gloo on the CPU), on which the
+trainer and the one-shot server lay their runs out as DTensors. These two
+are the only places the port calls ``init_process_group``.
 """
 from __future__ import annotations
 
@@ -52,6 +56,69 @@ def fake_world(n: int) -> Iterator[int]:
 def world_size() -> int:
     """Ranks of the current process group (1 without one)."""
     return dist.get_world_size() if dist.is_initialized() else 1
+
+
+def rank() -> int:
+    """This process's rank in the current process group (0 without one)."""
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def say(*parts) -> None:
+    """Print a line from rank 0 alone (every line without a process
+    group)."""
+    if rank() == 0:
+        print(*parts, flush=True)
+
+
+def from_rank0(obj):
+    """``obj`` as rank 0 holds it, on every rank of the current process
+    group (``broadcast_object_list``); itself without a group or on one
+    rank."""
+    if world_size() <= 1:
+        return obj
+    box = [obj]
+    dist.broadcast_object_list(box, src=0)
+    return box[0]
+
+
+def init_world(device: torch.device, *, force: bool = False,
+               store=None) -> torch.device:
+    """Start the process group that torchrun's environment describes
+    (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR`` /
+    ``MASTER_PORT``) and return this rank's device: ``cuda:LOCAL_RANK``
+    under NCCL for a CUDA ``device``, the CPU under gloo for a CPU one.
+    With ``WORLD_SIZE`` unset or 1 no group is started and ``device`` is
+    returned as it is, unless ``force`` asks for one (a one-rank world,
+    rank 0, on ``store`` when given). Where the caller has started a group
+    already, none is started and ``device`` is returned once it is of the
+    group's device type. Raises when ``device`` is neither CUDA nor the
+    CPU, or not of a running group's type: a rank never moves to another
+    device type on its own."""
+    import os
+    if dist.is_initialized():
+        if device.type != _device_type():
+            raise ValueError(f"a {dist.get_backend()} process group runs on "
+                             f"{_device_type()} devices, not on {device}")
+        return device
+    n = int(os.environ.get("WORLD_SIZE", "1"))
+    if n <= 1 and not force:
+        return device
+    if device.type == "cuda":
+        local = int(os.environ.get("LOCAL_RANK", "0"))
+        device = torch.device("cuda", local)
+        torch.cuda.set_device(device)
+        backend = "nccl"
+    elif device.type == "cpu":
+        backend = "gloo"
+    else:
+        raise ValueError(f"init_world: no backend for device {device}")
+    if n <= 1:
+        dist.init_process_group(backend, rank=0, world_size=1, store=store
+                                or dist.HashStore())
+    else:
+        dist.init_process_group(backend, device_id=(
+            device if backend == "nccl" else None))
+    return device
 
 
 def _device_type() -> str:
@@ -107,11 +174,10 @@ def production_machine(multi_pod: bool = False) -> MachineSpec:
 
 
 def local_device_count() -> int:
-    """The devices a process can place on: the world's ranks when a process
-    group is up, else the visible CUDA devices (at least 1)."""
-    if dist.is_initialized():
-        return world_size()
-    return max(torch.cuda.device_count(), 1)
+    """The devices a run can place on (the reference's
+    ``len(jax.devices())``): the world's ranks when a process group is up,
+    one rank each, else 1, the process's own device."""
+    return world_size()
 
 
 def serving_mesh_spec(n_devices: Optional[int] = None

@@ -324,6 +324,22 @@ def meta_dtensors(tree_: Any, specs: Any, mesh) -> Any:
     return tree_lib.unflatten(tree_, out)
 
 
+def meta_like(x: Any) -> Any:
+    """A ``meta`` copy of ``x``: a DTensor keeps its mesh, placements and
+    global shape and stride on a ``meta`` local shard; a plain tensor
+    becomes an empty ``meta`` tensor like it; anything else (a Python
+    scalar) is itself."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(x, DTensor):
+        local = torch.empty(x.to_local().shape, dtype=x.dtype, device="meta")
+        return DTensor.from_local(local, x.device_mesh, x.placements,
+                                  run_check=False, shape=x.shape,
+                                  stride=x.stride())
+    if isinstance(x, torch.Tensor):
+        return torch.empty_like(x, device="meta")
+    return x
+
+
 @contextlib.contextmanager
 def _quiet():
     """DTensor warns about every sequential multi-axis redistribution (the
@@ -758,14 +774,25 @@ class PlacementSession:
         on it or plain tensors), search the logical -> physical order
         over ``machine`` (else the tree guessed from the mesh shape), and
         return the mapped mesh with the report. The trainer's
-        ``searched_mesh`` and serve's ``--topology-aware`` wrap this."""
+        ``searched_mesh`` and serve's ``--topology-aware`` wrap this.
+
+        The trace runs on meta copies of the arguments (:func:`meta_like`:
+        the same shapes, dtypes and placements, no storage), as the
+        reference compiles its step without running it: a real probe
+        would compute a whole step, and a decode step would write its
+        cache. Every rank of a process group traces and searches the same
+        step, and all of them take rank 0's result, so every rank builds
+        the same mapped mesh: on cards the search's float ties break
+        either way (``quotient_link_loads``' atomics)."""
+        from repro_torch import tree as tree_lib
         mesh_shape = tuple(mesh.shape)
         n_dev = int(np.prod(mesh_shape))
         spec = machine_lib.resolve(machine) or self.machine
         if spec is not None and spec.n_devices != n_dev:
             raise ValueError(f"machine {spec.name!r} has "
                              f"{spec.n_devices} devices, mesh has {n_dev}")
-        rec, trace_s, _ = trace_step(step, step_args, mesh)
+        rec, trace_s, _ = trace_step(
+            step, tree_lib.map_(meta_like, tuple(step_args)), mesh)
         coll = parse_collectives(rec.records, n_dev, traffic=True)
         self.n_compiles += 1
         topo = (spec.topology() if spec is not None
@@ -782,6 +809,7 @@ class PlacementSession:
                 best, axis_perm=tuple(range(len(mesh_shape))),
                 axis_orders=(0,) * len(mesh_shape),
                 device_to_bin=ident, bottleneck=identity_side["makespan"])
+        best = mesh_lib.from_rank0(best)
         searched_side = _side_metrics(coll["traffic"], topo,
                                       best.device_to_bin, depths,
                                       self.device)

@@ -70,8 +70,14 @@ def make_traced_train_step(loss_fn, opt_cfg: adamw.AdamWConfig,
     with a truthy ``grad_compress`` step(params, opt_state, compress_state,
     batch) -> (params, opt_state, compress_state, metrics), the settled
     gradients through ``dist.compress.roundtrip`` first (``True``: one
-    scale a tensor; an int: the block size). On plain tensors it is that
-    step exactly."""
+    scale a tensor; an int: the block size). It is the trainer's step on a
+    mesh, its arguments real DTensors, and the placement trace's, on meta
+    DTensors. The step runs under ``implicit_replication``: plain operands
+    (the rope tables, the step count, the learning rate) meet DTensors as
+    replicated, as they do in the trace (``placement.trace_step``). On
+    plain tensors it is that step exactly."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
     def grads_of(params, batch):
         loss, aux, grads = loss_and_grads(loss_fn, params, batch)
         return loss, aux, tree.map_(_settle, grads, params)
@@ -80,19 +86,21 @@ def make_traced_train_step(loss_fn, opt_cfg: adamw.AdamWConfig,
         block = None if grad_compress is True else int(grad_compress)
 
         def step(params, opt_state, compress_state, batch):
-            loss, aux, grads = grads_of(params, batch)
-            grads, compress_state = compress.roundtrip(grads, compress_state,
-                                                       block=block)
-            params, opt_state, om = adamw.update(grads, opt_state, params,
-                                                 opt_cfg)
+            with implicit_replication():
+                loss, aux, grads = grads_of(params, batch)
+                grads, compress_state = compress.roundtrip(
+                    grads, compress_state, block=block)
+                params, opt_state, om = adamw.update(grads, opt_state,
+                                                     params, opt_cfg)
             return params, opt_state, compress_state, {"loss": loss, **aux,
                                                        **om}
         return step
 
     def step(params, opt_state, batch):
-        loss, aux, grads = grads_of(params, batch)
-        params, opt_state, om = adamw.update(grads, opt_state, params,
-                                             opt_cfg)
+        with implicit_replication():
+            loss, aux, grads = grads_of(params, batch)
+            params, opt_state, om = adamw.update(grads, opt_state, params,
+                                                 opt_cfg)
         return params, opt_state, {"loss": loss, **aux, **om}
     return step
 

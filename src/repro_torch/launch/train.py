@@ -65,15 +65,34 @@ its step, and the stitched loss trajectory is the uninterrupted one.
 ``launch.steps.rules_for``), whose rules the LM's loss takes; on plain
 tensors they constrain nothing. ``--machine`` names the machine model
 whose mesh the run is laid out on: a machine with more devices than
-there are local ones raises the reference's error (``launch/mesh.py``).
-``--topology-aware`` is a no-op on one device, as the reference's is,
-and is refused on several: the trainer runs on one device, and the
-multi-device trainer that would map its step (``PlacementSession.
-map_step``) is not ported, nor is the reference's ``--map-restarts``
-with it. ``--lint`` runs the static analysis first, as the reference's
-does: the kernel launch plans (``PlacementSession.verify()``) and this
-arch's sharding specs and traced upcasts (``shard_lint.lint_cell`` at
+there are ranks raises the reference's error (``launch/mesh.py``).
+``--lint`` runs the static analysis first, as the reference's does: the
+kernel launch plans (``PlacementSession.verify()``) and this arch's
+sharding specs and traced upcasts (``shard_lint.lint_cell`` at
 ``--profile``); an error finding aborts the run.
+
+Several ranks: under ``torchrun`` (``WORLD_SIZE`` > 1) the run starts the
+world's process group (``launch/mesh.init_world``: NCCL with one card a
+rank, ``cuda:LOCAL_RANK``; gloo with ``--device cpu``) and lays itself out
+on a ``DeviceMesh`` of it, the ``--machine`` model's or a 1-d ``data``
+mesh over the ranks, as the reference lays its run out on the local
+devices. The parameters, the AdamW moments and each batch are DTensors
+placed by the profile's rules (``dist.sharding.distribute_tree``) and the
+step is ``launch.steps.make_traced_train_step``, each gradient settled on
+its parameter's placements. ``--topology-aware`` then traces the step on
+the identity mesh, searches the logical -> physical order over the
+machine model with ``--map-restarts`` restarts (:func:`searched_mesh`,
+``PlacementSession.map_step``; rank 0's order on every rank) and trains
+on the mapped mesh; with one rank it is a no-op, as the reference's is.
+Under ``--fault-plan`` the supervisor keeps the launcher's mesh. Every
+rank computes, checkpoints are written once (by rank 0) and the lines are
+printed by rank 0. On several ranks the LM family runs under every
+profile; the recsys and GNN families are refused (ROADMAP, the next
+slice), and so are ``--grad-compress``, ``--embed-shard`` and
+``--prefetch``.
+
+    torchrun --nproc-per-node 4 -m repro_torch.launch.train \
+        --arch qwen2-1.5b --smoke --device cpu [--topology-aware]
 """
 from __future__ import annotations
 
@@ -97,8 +116,10 @@ def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         description="LM, recsys and GNN (EquiformerV2 too) training on "
                     "the port.",
-        epilog="Refused: --topology-aware on several devices (the "
-               "multi-device trainer is not ported).")
+        epilog="Several ranks (torchrun): the LM family under every "
+               "profile, --topology-aware included. Refused there: the "
+               "recsys and GNN families, --grad-compress, --embed-shard "
+               "and --prefetch (ROADMAP, the next slice).")
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--device", default=None,
@@ -147,7 +168,9 @@ def _parser() -> argparse.ArgumentParser:
                     help="LM sharding profile: 2d | fsdp | sp | expert")
     ap.add_argument("--topology-aware", action="store_true",
                     help="search the logical -> physical device order of "
-                         "the mesh (a no-op on one device)")
+                         "the mesh (a no-op on one rank)")
+    ap.add_argument("--map-restarts", type=int, default=32,
+                    help="random restarts appended to the mapping search")
     ap.add_argument("--machine", default=None,
                     help="machine-model preset (core.machine registry) "
                          "whose mesh the run is laid out on")
@@ -228,13 +251,12 @@ def embed_traffic_report(stats, plan, table, cfg, batch: int,
 
 
 def layout(args, family: str, n_dev: int):
-    """(machine, mesh axes, rules) of a run on ``n_dev`` local devices:
-    the ``--machine`` model's mesh (refused, with the reference's error,
-    when it has more devices than there are), else a 1-d ``data`` mesh;
-    the rules of ``--profile`` on its axes. ``--lint`` runs its gate
-    here, before anything is built (:func:`_lint_gate`)."""
+    """(machine, mesh axes, rules) of a run on ``n_dev`` ranks: the
+    ``--machine`` model's mesh (refused, with the reference's error, when
+    it has more devices than there are), else a 1-d ``data`` mesh; the
+    rules of ``--profile`` on its axes. ``--lint`` runs its gate here,
+    before anything is built (:func:`_lint_gate`)."""
     from repro_torch.core import machine as machine_lib
-    from repro_torch.launch import mesh as mesh_lib
     from repro_torch.launch.steps import rules_for
     if args.lint:
         _lint_gate(args.arch, args.profile)
@@ -259,11 +281,41 @@ def _lint_gate(arch_name: str, profile: str) -> None:
     from repro_torch.launch.placement import PlacementSession
     findings = PlacementSession(cache_dir="", device="cpu").verify()
     findings.extend(shard_lint.lint_cell(arch_name, profile=profile))
-    print(analysis.format_findings(findings), flush=True)
+    mesh_lib.say(analysis.format_findings(findings))
     errors = analysis.at_least(findings, "error")
     if errors:
         raise SystemExit(f"--lint: {len(errors)} error-severity "
                          "finding(s)")
+
+
+def searched_mesh(step, step_args, mesh, scan_lengths, map_restarts=32,
+                  session=None, machine=None):
+    """Thin wrapper over ``PlacementSession.map_step``: trace ``step`` once
+    on ``mesh``, search the logical -> physical order over the machine
+    model (``machine``, else the tree guessed from the mesh shape) and
+    return (mapped mesh, PlacementReport)."""
+    from repro_torch.launch.placement import PlacementSession
+    session = session or PlacementSession(map_restarts=map_restarts)
+    return session.map_step(step, step_args, mesh, scan_lengths,
+                            tag="train-step", machine=machine)
+
+
+def _refuse_on_ranks(args, family: str) -> None:
+    """What a process group's mesh does not run yet: raises SystemExit
+    naming ROADMAP."""
+    why = None
+    if family != "lm":
+        why = f"the {family} family"
+    elif args.grad_compress or args.grad_compress_block:
+        why = "--grad-compress"
+    elif args.embed_shard:
+        why = "--embed-shard"
+    elif args.prefetch:
+        why = "--prefetch"
+    if why:
+        raise SystemExit(f"{why} on a process group's mesh is not ported "
+                         f"(ROADMAP, Queue 1: the other families on several "
+                         f"ranks); run it on one device")
 
 
 @dataclasses.dataclass
@@ -272,7 +324,10 @@ class TrainSetup:
     optimizer state, the step, the loop config and a replayable batch
     stream (``batches(start)``: from step ``start``, on the device,
     prefetched when asked); ``embed`` holds the shard plan, ``row_perm``,
-    the hot-row cache and its baseline, and their seconds."""
+    the hot-row cache and its baseline, and their seconds. On a process
+    group ``mesh`` is the (mapped) mesh the run is laid out on,
+    ``state_specs`` the spec tree of ``(params, opt)`` a resume places
+    them by, and ``mapping`` the ``--topology-aware`` report."""
     arch: Any
     cfg: Any
     device: torch.device
@@ -284,11 +339,18 @@ class TrainSetup:
     loss_fn: Callable
     embed: Optional[Dict[str, Any]] = None
     rules: Any = None
+    mesh: Any = None
+    machine: Any = None
+    state_specs: Any = None
+    mapping: Any = None
 
 
 def build(args) -> TrainSetup:
     """Build the model, optimizer, step, loop config and batch stream from
-    parsed arguments (printing what the reference CLI prints)."""
+    parsed arguments (printing what the reference CLI prints). Under
+    ``torchrun`` it starts the world's process group and lays the run out
+    on its mesh (see the module docstring)."""
+    import torch.distributed as dist
     arch = configs.get(args.arch)
     cfg = arch.smoke_config() if args.smoke else arch.make_config(
         next(iter(arch.shapes)))
@@ -302,9 +364,12 @@ def build(args) -> TrainSetup:
             f"(src/repro/launch/train.py:57-70). Train a GNN at full width "
             f"on the grid's batches through train.steps.make_train_step "
             f"and train.loop.run")
-    dev = resolve_device(args.device)
-    n_dev = mesh_lib.local_device_count() if dev.type == "cuda" else 1
-    _, _, rules = layout(args, arch.family, n_dev)
+    dev = mesh_lib.init_world(resolve_device(args.device))
+    on_mesh = dist.is_initialized()
+    if on_mesh:
+        _refuse_on_ranks(args, arch.family)
+    n_dev = mesh_lib.world_size()
+    machine, axes, rules = layout(args, arch.family, n_dev)
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     if arch.family == "lm":
@@ -317,8 +382,8 @@ def build(args) -> TrainSetup:
         from repro_torch.models import gnn as mdl
     params = mdl.init(cfg, gen, device=dev)
     n_params = sum(int(np.prod(x.shape)) for x in tree.leaves(params))
-    print(f"arch={arch.name} params={n_params / 1e6:.1f}M "
-          f"devices={n_dev} ({dev})", flush=True)
+    mesh_lib.say(f"arch={arch.name} params={n_params / 1e6:.1f}M "
+         f"devices={n_dev} ({dev})")
     grad_compress = args.grad_compress_block or args.grad_compress
     ocfg = optimizer_config(args.lr, args.steps)
     ecfg = False
@@ -374,19 +439,27 @@ def build(args) -> TrainSetup:
             if arch.family == "lm":
                 return mdl.loss_fn(p, b, cfg, rules=rules)
             return mdl.loss_fn(p, b, cfg)
-        opt = adamw.init(params, ocfg)
-        step = make_train_step(loss_fn, ocfg, grad_compress=grad_compress)
+        if not on_mesh:
+            opt = adamw.init(params, ocfg)
+            step = make_train_step(loss_fn, ocfg,
+                                   grad_compress=grad_compress)
     lcfg = loop.LoopConfig(total_steps=args.steps,
                            ckpt_every=args.ckpt_every,
                            ckpt_dir=args.ckpt_dir,
                            grad_compress=grad_compress,
                            embed_sparse=ecfg)
+    mesh = state_specs = mapping = None
+    if on_mesh:
+        mesh, params, opt, step, state_specs, mapping = _lay_out(
+            args, cfg, mdl, rules, machine, params, ocfg, loss_fn, dev)
 
     def on_device(b):
         out = to_device(b, dev)
         if arch.family == "gnn" and getattr(cfg, "kind", None) == "gin":
             from repro_torch.models.gnn import gin_layouts
             out.update(gin_layouts(b, device=dev))
+        if mesh is not None:
+            out = _place_batch(out, rules, mesh)
         return out
 
     def batches(start: int = 0) -> Iterator:
@@ -399,18 +472,73 @@ def build(args) -> TrainSetup:
                                     consume=on_device)
         return (on_device(b) for b in host)
 
-    if args.topology_aware and n_dev > 1:
-        raise SystemExit("--topology-aware on several local devices needs "
-                         "the multi-device trainer, which is not ported; "
-                         "on one device it is a no-op")
     return TrainSetup(arch=arch, cfg=cfg, device=dev, params=params,
                       opt=opt, step=step, lcfg=lcfg, batches=batches,
-                      loss_fn=loss_fn, embed=embed_info, rules=rules)
+                      loss_fn=loss_fn, embed=embed_info, rules=rules,
+                      mesh=mesh, machine=machine, state_specs=state_specs,
+                      mapping=mapping)
+
+
+def _place_batch(batch, rules, mesh):
+    """An LM batch as DTensors on ``mesh``, sharded on the ``batch`` axis:
+    every rank holds the same host batch (the stream is seeded), so each
+    keeps its own shard and nothing moves."""
+    from repro_torch.dist import sharding
+    return sharding.distribute_tree(
+        batch, {k: rules.spec("batch", None) for k in batch}, mesh,
+        src_data_rank=None)
+
+
+def _lay_out(args, cfg, mdl, rules, machine, params, ocfg, loss_fn, dev):
+    """The run on the process group's mesh: (mesh, params, opt, step,
+    state specs, mapping report or None). The ``--machine`` model's mesh
+    or a 1-d ``data`` mesh over the ranks; the parameters placed by
+    ``mdl.param_specs`` under the rules, the AdamW moments like them
+    (``adamw.state_specs``); with ``--topology-aware`` on several ranks the
+    step is traced on the identity mesh, mapped (:func:`searched_mesh`)
+    and the state placed again on the mapped mesh."""
+    import logging
+
+    from repro_torch.dist import sharding
+    from repro_torch.launch.placement import PlacementSession
+    from repro_torch.launch.steps import make_traced_train_step
+    # DTensor warns at each sequential multi-axis redistribution
+    logging.getLogger("torch.distributed.tensor").setLevel(logging.ERROR)
+    session = PlacementSession(cache_dir="", map_restarts=args.map_restarts,
+                               device=dev)
+    mesh = (mesh_lib.make_machine_mesh(machine) if machine is not None
+            else session.local_mesh())
+    if mesh.size() != mesh_lib.world_size():
+        raise SystemExit(f"--machine {machine.name}: a mesh of "
+                         f"{mesh.size()} devices on a world of "
+                         f"{mesh_lib.world_size()} ranks")
+    pspec = mdl.param_specs(cfg, rules)
+    state_specs = (pspec, adamw.state_specs(pspec))
+    step = make_traced_train_step(loss_fn, ocfg)
+
+    def place(m):
+        p = sharding.distribute_tree(params, pspec, m)
+        return p, adamw.init(p, ocfg)
+    placed, opt = place(mesh)
+    rep = None
+    if args.topology_aware and mesh.size() > 1:
+        host = pipeline.lm_batches(cfg.vocab, args.batch, args.seq)
+        probe = (placed, opt, _place_batch(to_device(next(host), dev),
+                                           rules, mesh))
+        mesh, rep = searched_mesh(step, probe, mesh, [cfg.n_layers],
+                                  session=session, machine=machine)
+        mesh_lib.say(f"topology-aware mapping: identity makespan "
+             f"{rep.identity['makespan']:.3e} -> searched "
+             f"{rep.searched['makespan']:.3e} ({rep.n_candidates} "
+             f"candidates)")
+        placed, opt = place(mesh)
+    return mesh, placed, opt, step, state_specs, rep
 
 
 def train(args) -> tuple:
     """Build from parsed arguments and run: ``loop.run``, or
-    ``loop.run_supervised`` under ``--fault-plan``. Returns (params,
+    ``loop.run_supervised`` under ``--fault-plan`` (on a process group
+    keeping the launcher's mesh, as the reference does). Returns (params,
     opt_state, LoopResult or SupervisedResult, the batch stream of the
     last attempt)."""
     s = build(args)
@@ -421,34 +549,44 @@ def train(args) -> tuple:
         def factory(start):
             streams.append(s.batches(start))
             return streams[-1]
+        mesh_fn = None if s.mesh is None else (lambda n_alive: s.mesh)
         params, opt, sup = loop.run_supervised(
             s.step, s.params, s.opt, factory, s.lcfg,
-            parse_fault_plan(args.fault_plan),
+            parse_fault_plan(args.fault_plan), machine=s.machine,
+            mesh_fn=mesh_fn, state_specs=s.state_specs or True,
             max_restarts=args.max_restarts)
         return params, opt, sup, streams[-1]
     stream = s.batches(0)
-    params, opt, result = loop.run(s.step, s.params, s.opt, stream, s.lcfg)
+    params, opt, result = loop.run(s.step, s.params, s.opt, stream, s.lcfg,
+                                   mesh=s.mesh, state_specs=s.state_specs)
     return params, opt, result, stream
 
 
 def main(argv=None) -> None:
+    import torch.distributed as dist
     args = _parser().parse_args(argv)
-    _, _, result, stream = train(args)
+    try:
+        _report(args, *train(args)[2:])
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _report(args, result, stream) -> None:
+    """The run's closing lines, the reference's (from rank 0)."""
     if args.fault_plan:
         for rec in result.recoveries:
-            print(f"[TRAIN] recovery: device {rec['device']} died at step "
-                  f"{rec['step']}; resumed from checkpoint "
-                  f"{rec['resumed_from']} on {rec['n_alive']} leaves",
-                  flush=True)
-        print(f"steps={result.steps_run} attempts={result.attempts} "
-              f"recoveries={len(result.recoveries)} "
-              f"loss {result.losses[0]:.4f} -> {result.losses[-1]:.4f}",
-              flush=True)
+            mesh_lib.say(f"[TRAIN] recovery: device {rec['device']} died at step "
+                 f"{rec['step']}; resumed from checkpoint "
+                 f"{rec['resumed_from']} on {rec['n_alive']} leaves")
+        mesh_lib.say(f"steps={result.steps_run} attempts={result.attempts} "
+             f"recoveries={len(result.recoveries)} "
+             f"loss {result.losses[0]:.4f} -> {result.losses[-1]:.4f}")
     else:
-        print(f"steps={result.steps_run} resumed_from={result.resumed_from} "
-              f"loss {result.losses[0]:.4f} -> {result.losses[-1]:.4f} "
-              f"({result.seconds:.1f}s, "
-              f"stragglers={result.straggler_steps})", flush=True)
+        mesh_lib.say(f"steps={result.steps_run} resumed_from={result.resumed_from} "
+             f"loss {result.losses[0]:.4f} -> {result.losses[-1]:.4f} "
+             f"({result.seconds:.1f}s, "
+             f"stragglers={result.straggler_steps})")
     if getattr(stream, "is_prefetcher", False):
         st = stream.stats()
         print(f"prefetch: depth={st['depth']} produced={st['produced']} "

@@ -12,9 +12,18 @@ lse)``: plain PyTorch on either device (the reference's backward is pure
 JAX, not a TPU kernel). The model reaches both through
 ``kernels.ops.flash_attention``, whose ``torch.autograd.Function`` runs the
 kernel's forward on CUDA tensors and this backward.
+
+On a process group's mesh the attention and the token loss are kernel
+sites on real DTensors: :func:`attention_on_shards` and
+:func:`token_nll` place their operands as the meta trace does
+(:func:`_attn_layout`, :func:`_nll_layout`), run the kernel or the plain
+version on each device's local shards, and wrap the results as DTensors,
+differentiably; a vocab-sharded loss reduces its row statistics over the
+vocab's devices (:class:`_VocabParallelNLL`).
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import numpy as np
@@ -61,10 +70,26 @@ def rope_tables(angles: torch.Tensor, dtype: torch.dtype):
 
 def rotate(x: torch.Tensor, cos: torch.Tensor,
            sin: torch.Tensor) -> torch.Tensor:
-    """x: [..., S, H, D] rotated by the tables of :func:`rope_tables`."""
+    """x: [..., S, H, D] rotated by the (plain) tables of
+    :func:`rope_tables`. A DTensor whose sequence and head dims are whole
+    on each device is rotated on its local shard (the same ops, without
+    DTensor's dispatch around each of its nine)."""
+    if _is_dtensor(x) and _rotates_locally(x):
+        return _from_local(rotate(x.to_local(), cos, sin), x.device_mesh,
+                           x.placements, x.shape)
     d = x.shape[-1]
     x1, x2 = x[..., : d // 2], x[..., d // 2:]
     return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+
+
+def _rotates_locally(x: torch.Tensor) -> bool:
+    """x's placements shard neither its sequence (dim -3) nor its last dim,
+    and none is partial."""
+    from torch.distributed.tensor import Shard
+    nd = x.dim()
+    return not any(p.is_partial() or (isinstance(p, Shard) and p.dim % nd
+                                      in (nd - 3, nd - 1))
+                   for p in x.placements)
 
 
 def apply_rope(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
@@ -123,6 +148,72 @@ def _attn_layout(q: torch.Tensor, k: torch.Tensor):
     gp = [Partial() if isinstance(a, Replicate) and isinstance(b, Shard)
           else a for a, b in zip(kp, qp)]
     return qp, kp, gp
+
+
+def _from_local(t: torch.Tensor, mesh, placements, shape) -> torch.Tensor:
+    """Local shard ``t`` as a DTensor of global ``shape`` on
+    ``placements``."""
+    from torch.distributed.tensor import DTensor
+    return DTensor.from_local(t, mesh, placements, run_check=False,
+                              shape=torch.Size(shape),
+                              stride=_contiguous_stride(shape))
+
+
+def _mesh_index(mesh, dims) -> int:
+    """This rank's shard index over mesh dims ``dims``, nested in mesh-dim
+    order (DTensor's order)."""
+    coord = mesh.get_coordinate()
+    index = 0
+    for i in dims:
+        index = index * mesh.size(i) + coord[i]
+    return index
+
+
+def attention_on_shards(fn, q: torch.Tensor, k: torch.Tensor,
+                        v: torch.Tensor, causal: bool):
+    """An attention forward of real DTensors q, k and v run on their local
+    shards: q, k and v are redistributed to :func:`_attn_layout`'s
+    placements (the layout the meta trace records), ``fn(q_l, k_l, v_l)``
+    (the kernel on CUDA shards, the plain version on CPU ones; the output
+    ``out_l`` or ``(out_l, lse_l)``) runs on the local tensors, and its
+    results are wrapped as DTensors on q's placements. The way through
+    is differentiable: the local backward's k and v gradients are each
+    device's share of a sum (``Partial``) where q is sharded and k is
+    whole. Where q's heads are sharded on a mesh dim whose k heads are
+    whole, a device's k and v are cut to the KV heads its query heads
+    read (GQA: head ``h`` reads ``h // G``). A causal query sharded on the
+    sequence would need a position offset the kernel does not take, and
+    raises."""
+    from torch.distributed.tensor import Shard
+    mesh = q.device_mesh
+    qp, kp, gp = _attn_layout(q, k)
+    if causal and any(isinstance(p, Shard) and p.dim % 4 == 1 for p in qp):
+        raise ValueError("causal attention on a sequence-sharded query "
+                         "needs a query position offset, which neither the "
+                         "kernel nor its plain version takes")
+    b, sq, h, _ = q.shape
+    kh, dv = k.shape[2], v.shape[-1]
+    q_heads = [i for i, p in enumerate(qp)
+               if isinstance(p, Shard) and p.dim % 4 == 2]
+    k_heads = [i for i, p in enumerate(kp)
+               if isinstance(p, Shard) and p.dim % 4 == 2]
+    if k_heads and k_heads != q_heads:
+        raise ValueError(f"k heads sharded on mesh dims {k_heads}, q heads "
+                         f"on {q_heads}")
+    ql = _placed(q, qp).to_local().contiguous()
+    kl = _placed(k, kp).to_local(grad_placements=gp)
+    vl = _placed(v, kp).to_local(grad_placements=gp)
+    if q_heads and not k_heads:
+        h_l = h // math.prod(mesh.size(i) for i in q_heads)
+        first = _mesh_index(mesh, q_heads) * h_l
+        lo, hi = first * kh // h, (first + h_l - 1) * kh // h + 1
+        kl, vl = kl[:, :, lo:hi], vl[:, :, lo:hi]
+    res = fn(ql, kl.contiguous(), vl.contiguous())
+    out = _from_local(res[0] if isinstance(res, tuple) else res, mesh, qp,
+                      (b, sq, h, dv))
+    if not isinstance(res, tuple):
+        return out
+    return out, _from_local(res[1], mesh, qp, (b, sq, h))
 
 
 def _local_dims(x: torch.Tensor, placements=None):
@@ -215,12 +306,18 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     On ``meta`` tensors (the placement session's DTensor trace) it returns
     empty outputs and computes nothing, as XLA's lowering on host devices
     computes nothing; DTensor inputs are first redistributed as the plain
-    path needs them (:func:`_meta_fwd`). On every device the call counts
+    path needs them (:func:`_meta_fwd`). Real DTensors are redistributed
+    the same way and computed on each device's local shards
+    (:func:`attention_on_shards`). On every device the call counts
     on an op-cost recorder by declaration, as the kernel it stands for
     (``kernels/cost_sites.py``), and its ops are not counted.
     """
     if q.device.type == "meta":
         return _meta_fwd(q, k, v, q_chunk, kv_chunk)
+    if _is_dtensor(q):
+        return attention_on_shards(
+            lambda a, b, c: flash_attention_fwd(a, b, c, causal, q_chunk,
+                                                kv_chunk), q, k, v, causal)
     declare_attention(tuple(q.shape), tuple(k.shape), v.shape[-1],
                       q.element_size(), q_chunk, kv_chunk, False)
     with opaque():
@@ -447,6 +544,7 @@ class _TokenNLL(torch.autograd.Function):
     same operations autograd would run: ``g * exp(x - lse)``, then ``-g``
     added at the gold column.
 
+    Real DTensor logits reach it as local shards (:func:`token_nll`).
     On ``meta`` tensors (the placement session's DTensor trace) both
     directions return empty results and compute nothing: the loop's row
     slices and its gold gather over a vocab-sharded DTensor cannot be
@@ -496,12 +594,96 @@ class _TokenNLL(torch.autograd.Function):
             return grad.reshape(logits.shape), None
 
 
+class _VocabParallelNLL(torch.autograd.Function):
+    """:class:`_TokenNLL` of one device's vocab slice ``x [N, V_l]``
+    (columns ``[off, off + V_l)`` of the vocab) of logits whose vocab is
+    sharded over the mesh dims ``vocab``: the row max, the sum of
+    exponentials and the gold logit are each reduced over those dims'
+    process groups (the three per-token reductions the meta trace
+    records), so every device holds each row's whole log-sum-exp; the
+    backward forms the device's own slice of the gradient from it, with
+    no collective."""
+
+    @staticmethod
+    def forward(ctx, x, lab, mesh, vocab):
+        import torch.distributed as dist
+
+        def reduce(t, op):
+            for i in vocab:
+                dist.all_reduce(t, op=op, group=mesh.get_group(i))
+            return t
+        n, v_l = x.shape
+        off = _mesh_index(mesh, vocab) * v_l
+        local = lab.long() - off
+        hit = (local >= 0) & (local < v_l)
+        local = local.clamp(0, v_l - 1)[:, None]
+        f32 = torch.float32
+        m = torch.empty(n, dtype=f32, device=x.device)
+        for r in range(0, n, CE_ROWS):
+            m[r:r + CE_ROWS] = x[r:r + CE_ROWS].to(f32).amax(dim=-1)
+        m = reduce(m, dist.ReduceOp.MAX)
+        s = torch.empty_like(m)
+        gold = torch.empty_like(m)
+        for r in range(0, n, CE_ROWS):
+            xf = x[r:r + CE_ROWS].to(f32)
+            s[r:r + CE_ROWS] = torch.exp(xf - m[r:r + CE_ROWS, None]).sum(-1)
+            gold[r:r + CE_ROWS] = torch.take_along_dim(
+                xf, local[r:r + CE_ROWS], dim=-1)[:, 0]
+        s = reduce(s, dist.ReduceOp.SUM)
+        gold = reduce(torch.where(hit, gold, 0.0), dist.ReduceOp.SUM)
+        lse = m + torch.log(s)
+        ctx.save_for_backward(x, local, hit, lse)
+        return lse - gold
+
+    @staticmethod
+    def backward(ctx, g):
+        x, local, hit, lse = ctx.saved_tensors
+        declare_token_nll(tuple(x.shape), x.element_size(), True)
+        with opaque():
+            g = g.reshape(-1, 1).to(torch.float32)
+            gold = torch.where(hit[:, None], -g, 0.0)
+            grad = torch.empty_like(x)
+            for r in range(0, x.shape[0], CE_ROWS):
+                rows = slice(r, r + CE_ROWS)
+                gx = g[rows] * torch.exp(x[rows].to(torch.float32)
+                                         - lse[rows, None])
+                gx.scatter_add_(-1, local[rows], gold[rows])
+                grad[rows] = gx.to(grad.dtype)
+        return grad, None, None, None
+
+
+def token_nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Per-token ``logsumexp(x) - x[label]`` in float32 (``_TokenNLL``).
+    Real DTensor logits are first placed as :func:`_nll_layout` says (the
+    labels on the rows' placements), the loss is taken on the local shards
+    (over a sharded vocab by :class:`_VocabParallelNLL`), and the per-token
+    result is a DTensor on the rows' placements; the way through is
+    differentiable. Plain and ``meta`` tensors go to ``_TokenNLL`` as they
+    are."""
+    if not _is_dtensor(logits) or logits.device.type == "meta":
+        return _TokenNLL.apply(logits, labels)
+    from repro_torch.dist.sharding import _as_dtensor
+    mesh = logits.device_mesh
+    lp, rows, vocab = _nll_layout(logits)
+    x = _placed(logits, lp).to_local()
+    lab = _placed(_as_dtensor(labels, mesh), rows).to_local()
+    if vocab:
+        declare_token_nll(tuple(x.shape), x.element_size(), False)
+        with opaque():
+            nll = _VocabParallelNLL.apply(
+                x.reshape(-1, x.shape[-1]), lab.reshape(-1), mesh, vocab)
+        nll = nll.reshape(lab.shape)
+    else:
+        nll = _TokenNLL.apply(x, lab)
+    return _from_local(nll, mesh, rows, labels.shape)
+
+
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Mean CE over (masked) tokens; logits [.., V], labels [..] int. The
     reference's float32 ``logsumexp - gold`` per token, taken over row
     chunks (``_TokenNLL``) so the float32 logits are never whole."""
-    nll = _TokenNLL.apply(logits, labels)
+    nll = token_nll(logits, labels)
     if mask is None:
         return nll.mean()
     mask = mask.to(torch.float32)

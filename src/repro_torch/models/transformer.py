@@ -48,8 +48,13 @@ reference's spec trees in that layout, and the functions take the
 reference's ``rules`` (``dist.sharding.Rules``) with its constraint sites
 (``rules.shard``): the attention output, the embedding, the logits and
 the MoE buffers. Their default, ``sharding.NO_MESH``, resolves every name
-to nothing, and ``rules.shard`` returns a plain tensor itself, so only a
-DTensor trace on a mesh (``launch/placement.py``) sees them act.
+to nothing, and ``rules.shard`` returns a plain tensor itself, so only
+DTensors on a mesh see them act: the placement session's meta trace
+(``launch/placement.py``), and the trainer's and the one-shot server's
+real runs on a process group (``launch/train.py``, ``launch/serve.py``).
+On real DTensors the decode attention runs on each device's shards
+(:func:`_decode_attn_on_shards`) and writes the cache on the rank that
+holds the position (:func:`_write_pos`).
 """
 from __future__ import annotations
 
@@ -66,8 +71,9 @@ from repro_torch.dist.sharding import (NO_MESH, Rules, Spec, _is_dtensor,
                                        merge_last, placed_like, split_dim,
                                        split_last, whole_local)
 from repro_torch.kernels import ops
-from repro_torch.models.common import (cross_entropy, rms_norm, rope_freqs,
-                                      rope_tables, rotate, swiglu)
+from repro_torch.models.common import (_placed, cross_entropy, rms_norm,
+                                      rope_freqs, rope_tables, rotate,
+                                      swiglu)
 
 Params = Dict[str, Any]
 Attend = Callable[..., torch.Tensor]
@@ -770,16 +776,110 @@ def decode_attn(q: torch.Tensor, k_cache: torch.Tensor,
     reference's masked softmax (``_decode_attn_gqa``): scores and the
     exponentials' sum in f32, the exponentials rounded to the cache's type
     for the value product, which is summed in f32. Written as two batched
-    products over (batch, KV head) so a step launches few kernels."""
-    h, kh, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    products over (batch, KV head) so a step launches few kernels. DTensor
+    caches run it on their local shards (:func:`_decode_attn_on_shards`)."""
+    if _is_dtensor(k_cache):
+        return _decode_attn_on_shards(q, k_cache, v_cache, mask, cfg)
+    return _decode_attn_local(q, k_cache, v_cache, mask, cfg.head_dim)
+
+
+def _decode_attn_local(q, k_cache, v_cache, mask, dh: int,
+                       reduce=None) -> torch.Tensor:
+    """:func:`decode_attn` on plain tensors, or on one device's shards with
+    ``reduce(t, op)`` summing (``op`` "sum") or maxing ("max") a partial
+    result over the devices that hold the other slices of the sequence."""
+    b, _, h, d = q.shape
+    kh = k_cache.shape[2]
     f32 = torch.float32
-    qh = split_dim(q[:, 0], 1, kh, h // kh).to(f32)
+    qh = q[:, 0].reshape(b, kh, h // kh, d).to(f32)
     s = qh @ k_cache.to(f32).permute(0, 2, 3, 1) / float(np.sqrt(dh))
     s = torch.where(mask, s, -torch.inf)                  # [B, kh, g, max_s]
-    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    m = s.amax(dim=-1, keepdim=True)
+    e = torch.exp(s - (m if reduce is None else reduce(m, "max")))
     num = e.to(v_cache.dtype).to(f32) @ v_cache.to(f32).transpose(1, 2)
-    o = (num / e.sum(dim=-1, keepdim=True)).to(q.dtype)   # [B, kh, g, dh]
-    return merge_dims(merge_dims(o, 1), 1)[:, None]
+    den = e.sum(dim=-1, keepdim=True)
+    if reduce is not None:
+        num, den = reduce(num, "sum"), reduce(den, "sum")
+    o = (num / den).to(q.dtype)                           # [B, kh, g, dh]
+    return o.reshape(b, 1, h * d)
+
+
+def _decode_attn_on_shards(q, k_cache, v_cache, mask, cfg):
+    """:func:`decode_attn` of DTensor caches, on each device's shards: q
+    (a few rows) is placed as the caches are (batch and KV heads sharded
+    alike, whole where the caches shard the sequence), each device scores
+    its own slice of the sequence, and where the sequence is sharded
+    (``kv_seq``) the row max, the value products and the exponentials' sum
+    are reduced over those devices (``Partial`` redistributions, which
+    the placement trace records). With no sequence shard it is the plain
+    function on the local tensors; the output is placed like q."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    from repro_torch.dist.sharding import _as_dtensor
+    from repro_torch.models.common import _from_local, _mesh_index
+    mesh = k_cache.device_mesh
+    dims = [p.dim % 4 if isinstance(p, Shard) else None
+            for p in k_cache.placements]
+    if (tuple(v_cache.placements) != tuple(k_cache.placements)
+            or any(p.is_partial() for p in k_cache.placements)
+            or 3 in dims):
+        raise ValueError(f"decode caches placed {k_cache.placements} and "
+                         f"{v_cache.placements}")
+    seq = [i for i, d in enumerate(dims) if d == 1]
+    batch = [i for i, d in enumerate(dims) if d == 0]
+    qp = [Shard(d) if d in (0, 2) else Replicate() for d in dims]
+    ql = _placed(_as_dtensor(q, mesh), qp).to_local()
+    kl, vl = k_cache.to_local(), v_cache.to_local()
+    first = _mesh_index(mesh, seq) * kl.shape[1]
+    ml = mask[..., first:first + kl.shape[1]]
+    if ml.shape[0] > 1 and batch:
+        b0 = _mesh_index(mesh, batch) * kl.shape[0]
+        ml = ml[b0:b0 + kl.shape[0]]
+    scale = [mesh.size(i) if d in (0, 2) else 1 for i, d in enumerate(dims)]
+
+    def reduce(t, op):
+        if not seq:
+            return t
+        shape = list(t.shape)                 # [B, kh, g, x]
+        for i, d in enumerate(dims):
+            if d in (0, 2):
+                shape[0 if d == 0 else 1] *= scale[i]
+        part = [Partial(op) if i in seq else Shard(0) if d == 0
+                else Shard(1) if d == 2 else Replicate()
+                for i, d in enumerate(dims)]
+        whole = [Replicate() if i in seq else p for i, p in enumerate(part)]
+        return _from_local(t, mesh, part, shape).redistribute(
+            mesh, whole).to_local()
+    o = _decode_attn_local(ql, kl, vl, ml, cfg.head_dim, reduce)
+    b, _, h, d = q.shape
+    return _from_local(o, mesh, qp, (b, 1, h * d))
+
+
+def _write_pos(cache: torch.Tensor, pos: int,
+               value: torch.Tensor) -> None:
+    """``cache[:, pos] = value`` in place, for a layer's cache [B, max_s,
+    ...] and this token's rows [B, ...]. A DTensor cache whose sequence is
+    sharded (``kv_seq``) is written on its local shard by the rank that
+    holds position ``pos`` alone, the value placed first as the cache's
+    other dims are (DTensor's own ``setitem`` writes at ``pos`` of every
+    rank's shard)."""
+    if not _is_dtensor(cache):
+        cache[:, pos] = value
+        return
+    from torch.distributed.tensor import Replicate, Shard
+    from repro_torch.models.common import _mesh_index
+    mesh = cache.device_mesh
+    nd = cache.dim()
+    seq = [i for i, p in enumerate(cache.placements)
+           if isinstance(p, Shard) and p.dim % nd == 1]
+    want = [Replicate() if i in seq else p if not isinstance(p, Shard)
+            else Shard(p.dim % nd - (p.dim % nd > 1))
+            for i, p in enumerate(cache.placements)]
+    row = value.redistribute(mesh, want).to_local()    # on every rank
+    local = cache.to_local()
+    first = _mesh_index(mesh, seq) * local.shape[1]
+    if first <= pos < first + local.shape[1]:
+        local[:, pos - first] = row
 
 
 def _decode_attn_gqa(p: Params, x: torch.Tensor, k_cache: torch.Tensor,
@@ -793,8 +893,8 @@ def _decode_attn_gqa(p: Params, x: torch.Tensor, k_cache: torch.Tensor,
     q, kk, v = _qkv(p, x, cfg)
     q = _rotate_partial(split_last(q, h, dh), tables, cfg.rope_fraction)
     kk = _rotate_partial(split_last(kk, kh, dh), tables, cfg.rope_fraction)
-    k_cache[:, pos] = kk[:, 0]
-    v_cache[:, pos] = split_last(v, kh, dh)[:, 0]
+    _write_pos(k_cache, pos, kk[:, 0])
+    _write_pos(v_cache, pos, split_last(v, kh, dh)[:, 0])
     return decode_attn(q, k_cache, v_cache, mask[None, None, None, :],
                        cfg) @ p["w_o"]
 
@@ -819,9 +919,9 @@ def _decode_attn_mla(p: Params, x: torch.Tensor, c_cache: torch.Tensor,
     # absorb W_uk: q_eff[b, h, r] so scores dot against c_kv directly
     q_eff = torch.einsum("bhn,rhn->bhr", q[..., :dn],
                          split_last(p["w_uk"], h, dn))
-    c_cache[:, pos] = rms_norm(x @ p["w_dkv"], p["kv_norm"])[:, 0]
-    kr_cache[:, pos] = rotate((x @ p["w_kr"])[:, :, None, :],
-                              *tables)[:, 0, 0]
+    _write_pos(c_cache, pos, rms_norm(x @ p["w_dkv"], p["kv_norm"])[:, 0])
+    _write_pos(kr_cache, pos, rotate((x @ p["w_kr"])[:, :, None, :],
+                                     *tables)[:, 0, 0])
     s = (q_eff.to(f32) @ c_cache.to(f32).transpose(1, 2)
          + q_rope.to(f32) @ kr_cache.to(f32).transpose(1, 2)) \
         * (1.0 / np.sqrt(dn + dr))

@@ -26,7 +26,10 @@ into one trajectory equal to an uninterrupted run's.
 The loop never builds the mesh it runs on: ``run(..., mesh=...,
 state_specs=...)`` takes it from the caller and, with both, resumes
 through the elastic ``ckpt.restore_sharded``, the state placed as DTensors
-on that (possibly shrunken) mesh. The supervisor rebuilds the mesh over
+on that (possibly shrunken) mesh. On a process group every rank runs the
+loop: each reads the loss (a DTensor's whole value) and takes part in
+every checkpoint's gathers, and rank 0 writes (``ckpt``); the caller logs
+from one rank. The supervisor rebuilds the mesh over
 the survivors with ``mesh_fn(n_alive)`` (default :func:`_default_mesh`, a
 1-d ``data`` mesh over ``min(n_alive, world size)`` ranks of the current
 process group, or no mesh without one: one card and plain tensors, where
@@ -85,6 +88,13 @@ def _spec_tree_for(state: Any, state_specs: Any):
     """``True`` means fully replicated: every leaf gets a ``None`` spec
     (elastic restore onto whatever mesh survives)."""
     return None if state_specs is True else state_specs
+
+
+def _scalar(t) -> float:
+    """A 0-d metric as a Python float on every rank: a DTensor's whole
+    value (``full_tensor()``, a collective every rank takes part in)."""
+    from repro_torch.dist.sharding import _is_dtensor
+    return float(t.full_tensor() if _is_dtensor(t) else t)
 
 
 def run(step_fn: Callable, params: Any, opt_state: Any,
@@ -180,7 +190,7 @@ def run(step_fn: Callable, params: Any, opt_state: Any,
                     params, opt_state, estate, batch)
             else:
                 params, opt_state, metrics = step_fn(params, opt_state, batch)
-            loss = float(metrics["loss"])
+            loss = _scalar(metrics["loss"])
             dt = time.time() - t0
             ewma = dt if ewma is None else 0.9 * ewma + 0.1 * dt
             if dt > cfg.straggler_factor * ewma and step > start + 3:
@@ -265,15 +275,14 @@ def run_supervised(step_fn: Callable, params: Any, opt_state: Any,
 
     Returns ``(params, opt_state, SupervisedResult)``.
     """
-    import torch
-
     from repro_torch.core import machine as machine_lib
+    from repro_torch.launch import mesh as mesh_lib
     if injector is None:
         injector = FaultInjector(plan_from(plan))
     if machine is not None:
         machine = machine_lib.resolve(machine)
     n_alive = (machine.n_alive if machine is not None
-               else max(torch.cuda.device_count(), 1))
+               else mesh_lib.local_device_count())
     if mesh_fn is None:
         mesh_fn = _default_mesh
     if callable(batches_factory):

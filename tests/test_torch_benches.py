@@ -338,3 +338,29 @@ def test_torch_train_lm_100m_runs_on_the_cpu(tmp_path):
     first, last = out.stdout.split("loss: ")[1].split()[0:3:2]
     assert np.isfinite([float(first), float(last)]).all()
     assert (tmp_path / "ck" / "step_000000002").is_dir()
+
+
+def test_torch_roofline_prints_the_references_table(tmp_path, monkeypatch,
+                                                    capsys):
+    """The roofline twin and the reference's ``benchmarks/roofline.py``
+    print the same table from the same records: the port's dry-run of
+    qwen2-1.5b/train_4k on the 16 x 16 production mesh at a tiny override
+    and the skipped long_500k cell."""
+    from benchmarks import roofline, torch_roofline
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.placement import PlacementSession
+    out = tmp_path / "dryrun_torch"
+    session = PlacementSession(cache_dir="", device="cpu")
+    dryrun.run_cell("qwen2-1.5b", "train_4k", False, out_dir=str(out),
+                    overrides={"n_layers": 1, "batch": 16, "seq": 16},
+                    session=session, device="cpu")
+    dryrun.run_cell("qwen2-1.5b", "long_500k", False, out_dir=str(out))
+    monkeypatch.setattr(roofline, "RESULTS", str(out))
+    roofline.main()
+    want = capsys.readouterr().out
+    torch_roofline.main(str(out))
+    got = capsys.readouterr().out
+    assert got == want
+    assert "# Roofline (1 baselined cells)" in got
+    assert "| qwen2-1.5b | train_4k | " in got
+    assert "| qwen2-1.5b | long_500k | N/A (skip" in got

@@ -1946,3 +1946,16 @@ def test_restore_sharded_on_the_card_is_bitwise(cuda, tmp_path):
             assert torch.equal(placed[k].full_tensor(), plain[k])
     finally:
         dist.destroy_process_group()
+
+
+def test_ranks_one_rank_nccl_world_is_bitwise(cuda, tmp_path):
+    """The smoke's ``ranks`` gates at SMOKE on a one-rank NCCL world
+    (``chip_smoke.ranks_runs``): the train CLI's 3 steps at 1 x 2,048 on
+    the mesh, with real DTensors, bitwise the run without a process group
+    (losses, grad norms, parameters, AdamW state) with the same
+    ``flash_attention`` launches, above 0; ``--topology-aware`` a no-op;
+    the one-shot server's tokens the same, greedy and at 0.8."""
+    from chip_smoke import ranks_runs
+    out = ranks_runs("cuda", smoke=True, tmp=str(tmp_path))
+    assert all(out["checks"].values()), out["checks"]
+    assert out["record"]["launches"]["flash_attention"] > 0

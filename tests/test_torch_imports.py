@@ -1,7 +1,8 @@
 """The port stands alone: no module under ``src/repro_torch/``, not
 ``chip_smoke.py`` and not the port's benchmark twins, examples and
 scripts (``benchmarks/torch_bench_*.py``, their ``torch_common.py`` and
-``torch_run.py``, ``examples/torch_*.py``, ``scripts/torch_*.py``) imports
+``torch_run.py`` and ``torch_roofline.py``, ``examples/torch_*.py``,
+``scripts/torch_*.py``) imports
 ``jax`` or the reference package ``repro`` (the card's machine has no
 JAX), checked on the source's syntax tree."""
 import ast
@@ -13,7 +14,8 @@ ROOT = Path(__file__).resolve().parent.parent
 SOURCES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "time_kernels.py", ROOT / "trace_gap.py",
     ROOT / "benchmarks" / "torch_common.py",
-    ROOT / "benchmarks" / "torch_run.py"] + sorted(
+    ROOT / "benchmarks" / "torch_run.py",
+    ROOT / "benchmarks" / "torch_roofline.py"] + sorted(
     (ROOT / "benchmarks").glob("torch_bench_*.py")) + sorted(
     (ROOT / "examples").glob("torch_*.py")) + sorted(
     (ROOT / "scripts").glob("torch_*.py"))
@@ -67,6 +69,7 @@ def test_port_sources_exist():
                  "src/repro_torch/models/equiformer.py",
                  "src/repro_torch/configs/equiformer_v2.py",
                  "benchmarks/torch_bench_placement.py",
+                 "benchmarks/torch_roofline.py",
                  "benchmarks/torch_bench_serving.py",
                  "benchmarks/torch_run.py",
                  "examples/torch_train_lm_100m.py",

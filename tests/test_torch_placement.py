@@ -343,9 +343,8 @@ def test_train_cli_flags():
          "1", "--profile", "sp", "--topology-aware"])
     setup = tlaunch.build(args)
     assert setup.rules.table["seq"] == ()           # one 'data' axis
-    with pytest.raises(SystemExit):                 # no multi-device trainer
-        tlaunch._parser().parse_args(["--arch", "qwen2-1.5b",
-                                      "--map-restarts", "4"])
+    assert tlaunch._parser().parse_args(        # the mapping's restarts
+        ["--arch", "qwen2-1.5b", "--map-restarts", "4"]).map_restarts == 4
     with pytest.raises(ValueError, match=r"needs 512 devices, got 1"):
         tlaunch.build(tlaunch._parser().parse_args(
             ["--arch", "qwen2-1.5b", "--smoke", "--device", "cpu",

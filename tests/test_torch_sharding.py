@@ -497,7 +497,9 @@ def test_spec_leaves_walk_the_port_trees():
 
 def test_only_fake_world_starts_a_process_group():
     """No module of the port, and not ``chip_smoke.py``, calls
-    ``init_process_group`` but ``launch/mesh.py``'s ``fake_world``."""
+    ``init_process_group`` but ``launch/mesh.py``'s ``fake_world`` and
+    ``init_world`` (the world ``torchrun`` describes, or a forced one-rank
+    world)."""
     import ast
     from pathlib import Path
     root = Path(__file__).resolve().parent.parent
@@ -515,4 +517,5 @@ def test_only_fake_world_starts_a_process_group():
                     node.func, "attr", getattr(node.func, "id", None))
                     == "init_process_group"):
                 calls.append((path.name, owner.get(node, "")))
-    assert sorted(set(calls)) == [("mesh.py", "fake_world")]
+    assert sorted(set(calls)) == [("mesh.py", "fake_world"),
+                                  ("mesh.py", "init_world")]
